@@ -1,0 +1,163 @@
+// Flash-decode attention over the head-major paged KV pool.
+//
+// Replaces paddle_tpu/ops/pallas/decode.py::flash_decode_attention (the
+// Pallas kernel _decode_kernel): one decode step of grouped-query
+// attention. For slot b and kv-head h, the G query rows attend over the
+// logical positions 0..pos[b], read through pages[b, :] from the pool
+// [Hkv, M, Dh]; scores are divided by sqrt(Dh), one exact softmax
+// (max / exp / sum / divide), then p @ V. Output fp32 [B, Hkv, G, Dh].
+//
+// What bounds it on the H100: bytes. Each (slot, head) reads its
+// (pos+1) K and V rows once and does 4*G*Dh flops per row — about one
+// flop per byte for G=1 bf16, far below the ~295 flop/byte ridge.
+//
+// What the design does about it:
+// - one CTA per (slot, kv-head); the G query rows share every K/V row
+//   the CTA streams, so the pool is read once per step, not G times;
+// - the walk stops at pos[b] (the TPU kernel streams all P pages and
+//   masks; positions past pos[b] carry exactly zero weight after the
+//   -1e30 mask, so stopping early computes the same function and moves
+//   only the bytes the slot needs);
+// - the [G, T] score row lives in shared memory (G*T*4 bytes: 4 KB at
+//   G=1, T=1024), as the TPU kernel kept it in VMEM, so the exact
+//   softmax needs no second pass over K;
+// - the page vector is staged in shared memory once per CTA.
+// Left for later: splitting one slot's positions across CTAs (B*Hkv is
+// 96 CTAs on 132 SMs at the slice's shape) and 16-byte vector loads.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxG = 8;        // query rows per kv-head (GQA group)
+constexpr int kMaxDPL = 8;      // head-dim elements per lane (Dh <= 256)
+
+template <typename Elt>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
+                        const Elt* __restrict__ v,
+                        const int* __restrict__ pages,
+                        const int* __restrict__ pos,
+                        float* __restrict__ out, int Hkv, int G, int Dh,
+                        int M, int P, int bs, float scale) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x / Hkv;
+  const int h = blockIdx.x % Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ngroups = max(1, kThreads / Dh);  // PV: position groups
+  float* q_s = smem;                          // [G, Dh]
+  float* s_s = q_s + G * Dh;                  // [G, T] scores -> probs
+  float* red_s = s_s + G * P * bs;            // [ngroups, G, Dh]
+  int* pg_s = reinterpret_cast<int*>(red_s + ngroups * G * Dh);  // [P]
+
+  // positions past pos[b] get exactly zero weight: never read them
+  const int T = min(pos[b] + 1, P * bs);
+  const Elt* qb = q + (size_t)blockIdx.x * G * Dh;
+  for (int i = tid; i < G * Dh; i += kThreads) q_s[i] = pk::to_f32(qb[i]);
+  for (int i = tid; i < P; i += kThreads) pg_s[i] = pages[(size_t)b * P + i];
+  __syncthreads();
+
+  const Elt* kh = k + (size_t)h * M * Dh;
+  const Elt* vh = v + (size_t)h * M * Dh;
+  const int dpl = Dh / 32;
+
+  // scores: one warp per position, the lanes split the head dim
+  for (int t = warp; t < T; t += kWarps) {
+    const Elt* kr = kh + ((size_t)pg_s[t / bs] * bs + t % bs) * Dh;
+    float kreg[kMaxDPL];
+#pragma unroll
+    for (int i = 0; i < kMaxDPL; ++i)
+      kreg[i] = i < dpl ? pk::to_f32(kr[lane + 32 * i]) : 0.f;
+    for (int g = 0; g < G; ++g) {
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxDPL; ++i)
+        if (i < dpl) acc += q_s[g * Dh + lane + 32 * i] * kreg[i];
+      acc = pk::warp_sum(acc);
+      if (lane == 0) s_s[g * T + t] = acc / scale;
+    }
+  }
+  __syncthreads();
+
+  // one exact softmax per query row (warp per row)
+  for (int g = warp; g < G; g += kWarps) {
+    float* sr = s_s + g * T;
+    float m = -INFINITY;
+    for (int t = lane; t < T; t += 32) m = fmaxf(m, sr[t]);
+    m = pk::warp_max(m);
+    float sum = 0.f;
+    for (int t = lane; t < T; t += 32) {
+      const float e = expf(sr[t] - m);
+      sr[t] = e;
+      sum += e;
+    }
+    sum = pk::warp_sum(sum);
+    for (int t = lane; t < T; t += 32) sr[t] = sr[t] / sum;
+  }
+  __syncthreads();
+
+  // p @ V: thread (group, d) sums positions t = group (mod ngroups),
+  // then the groups' partial sums are added in a fixed order
+  for (int w = tid; w < ngroups * Dh; w += kThreads) {
+    const int grp = w / Dh, d = w % Dh;
+    float acc[kMaxG];
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
+    for (int t = grp; t < T; t += ngroups) {
+      const float vv =
+          pk::to_f32(vh[((size_t)pg_s[t / bs] * bs + t % bs) * Dh + d]);
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        if (g < G) acc[g] += s_s[g * T + t] * vv;
+    }
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g)
+      if (g < G) red_s[(grp * G + g) * Dh + d] = acc[g];
+  }
+  __syncthreads();
+  float* ob = out + (size_t)blockIdx.x * G * Dh;
+  for (int i = tid; i < G * Dh; i += kThreads) {
+    const int g = i / Dh, d = i % Dh;
+    float s = 0.f;
+    for (int grp = 0; grp < ngroups; ++grp) s += red_s[(grp * G + g) * Dh + d];
+    ob[i] = s;
+  }
+}
+
+template <typename Elt>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* pages, const void* pos, void* out, int B,
+                   int Hkv, int G, int Dh, int M, int P, int bs,
+                   float scale, int smem, cudaStream_t stream) {
+  auto kernel = decode_attention_kernel<Elt>;
+  cudaError_t err = pk::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * Hkv, kThreads, smem, stream>>>(
+      static_cast<const Elt*>(q), static_cast<const Elt*>(k),
+      static_cast<const Elt*>(v), static_cast<const int*>(pages),
+      static_cast<const int*>(pos), static_cast<float*>(out), Hkv, G, Dh,
+      M, P, bs, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int pk_decode_attention(const void* q, const void* k,
+                                   const void* v, const void* pages,
+                                   const void* pos, void* out, int B,
+                                   int Hkv, int G, int Dh, int M, int P,
+                                   int bs, float scale, int dtype, int smem,
+                                   void* stream) {
+  if (B * Hkv == 0) return cudaSuccess;
+  if (G < 1 || G > kMaxG || Dh % 32 || Dh > 32 * kMaxDPL)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == pk::kBF16)
+    return launch<__nv_bfloat16>(q, k, v, pages, pos, out, B, Hkv, G, Dh,
+                                 M, P, bs, scale, smem, s);
+  if (dtype == pk::kF32)
+    return launch<float>(q, k, v, pages, pos, out, B, Hkv, G, Dh, M, P, bs,
+                         scale, smem, s);
+  return cudaErrorInvalidValue;
+}

@@ -1,0 +1,254 @@
+"""Decode-step kernels (counterpart of ``paddle_tpu/ops/pallas/decode.py``).
+
+- :func:`flash_decode_attention` — one decode step's attention straight
+  off the head-major paged pool (``csrc/decode_attention.cu``);
+- :func:`fused_sample` — greedy / top-k / temperature sampling with no
+  sort (``csrc/fused_sample.cu``).
+
+Each public function is a wrapper around a hand-written Hopper kernel:
+a CUDA tensor launches the kernel (or raises on what the kernel does
+not take), a CPU tensor runs the plain PyTorch version beside it
+(``*_plain``), which the CPU tests hold against the Pallas kernels in
+interpret mode. There is no other path. Each wrapper counts its kernel
+launches in ``<wrapper>.launches``.
+
+Quantized (int8/int4) pools are the next slice: the wrappers raise
+``NotImplementedError`` for any ``kv_dtype`` other than ``"none"``.
+"""
+
+import math
+
+import torch
+
+from paddle_tpu_torch.ops.kernels import _build
+
+NEG_INF = -1e30
+MASK32 = 0xFFFFFFFF
+
+_DECODE_THREADS = 128          # csrc/decode_attention.cu: kThreads
+_DECODE_MAX_G = 8              # csrc/decode_attention.cu: kMaxG
+
+
+def _no_quant(kv_dtype):
+    if kv_dtype not in (None, "none"):
+        raise NotImplementedError(
+            f"kv_dtype={kv_dtype!r}: quantized KV pools are not ported "
+            f"yet (model-dtype pools only)")
+
+
+def _softmax_exact(s: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax``'s chain written out: max, exp, sum, divide."""
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# flash-decode attention
+# ---------------------------------------------------------------------------
+
+
+def flash_decode_attention_plain(q, k, v, pages, pos, *, block_size: int):
+    """Plain version: gather the slots' logical K/V views through the
+    page table, divide the scores by sqrt(Dh), mask positions past
+    ``pos[b]`` to -1e30, one exact softmax, ``p @ V``.
+
+    q [B, Hkv, G, Dh], k/v [Hkv, M, Dh], pages [B, P] int32, pos [B]
+    int32 -> fp32 [B, Hkv, G, Dh]."""
+    B, Hkv, G, Dh = q.shape
+    bs = int(block_size)
+    T = pages.shape[1] * bs
+    offs = torch.arange(bs, device=q.device)
+    gidx = (pages.long()[:, :, None] * bs + offs).reshape(B, T)
+    kt = k[:, gidx].float()                         # [Hkv, B, T, Dh]
+    vt = v[:, gidx].float()
+    s = torch.einsum("bkgd,kbtd->bkgt", q.float(), kt) / math.sqrt(Dh)
+    attend = (torch.arange(T, device=q.device)[None, :]
+              <= pos.long()[:, None])               # [B, T]
+    s = torch.where(attend[:, None, None, :], s, NEG_INF)
+    return torch.einsum("bkgt,kbtd->bkgd", _softmax_exact(s), vt)
+
+
+def decode_smem_bytes(G: int, Dh: int, P: int, block_size: int) -> int:
+    """Shared memory of one (slot, kv-head) CTA: q rows, the [G, T]
+    score row, the p@V partial sums and the page vector."""
+    groups = max(1, _DECODE_THREADS // Dh)
+    return 4 * (G * Dh + G * P * int(block_size) + groups * G * Dh + P)
+
+
+def flash_decode_attention(q, k, v, pages, pos, *, block_size: int,
+                           kv_dtype: str = "none"):
+    """One decode step of grouped-query attention over the paged pool.
+
+    q [B, Hkv, G, Dh] (model dtype), k/v the pool [Hkv, M, Dh] in the
+    same dtype, pages [B, P] int32 physical block ids, pos [B] int32 ->
+    fp32 [B, Hkv, G, Dh]. The caller writes the step's new k/v into the
+    pool first: position ``pos[b]`` attends to itself. Positions past
+    ``P * block_size`` do not exist; a larger ``pos`` sees all of them.
+    """
+    _no_quant(kv_dtype)
+    if _build.on_cpu(q, "flash_decode_attention"):
+        return flash_decode_attention_plain(q, k, v, pages, pos,
+                                            block_size=block_size)
+    B, Hkv, G, Dh = q.shape
+    bs = int(block_size)
+    dev = q.device
+    _build.require(q, "q", device=dev, dtype=tuple(_build.DTYPE_CODES),
+                   ndim=4)
+    _build.require(k, "k", device=dev, dtype=q.dtype, ndim=3)
+    M = k.shape[1]
+    _build.require(k, "k", device=dev, shape=(Hkv, M, Dh))
+    _build.require(v, "v", device=dev, dtype=q.dtype, shape=(Hkv, M, Dh))
+    _build.require(pages, "pages", device=dev, dtype=torch.int32, ndim=2)
+    P = pages.shape[1]
+    _build.require(pages, "pages", device=dev, shape=(B, P))
+    _build.require(pos, "pos", device=dev, dtype=torch.int32, shape=(B,))
+    if Dh % 32 or Dh > 256 or not 1 <= G <= _DECODE_MAX_G:
+        raise ValueError(f"flash_decode_attention: needs head_dim a "
+                         f"multiple of 32 up to 256 and 1 <= G <= "
+                         f"{_DECODE_MAX_G}; got Dh={Dh}, G={G}")
+    smem = decode_smem_bytes(G, Dh, P, bs)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"flash_decode_attention: the exact [G, T] "
+                         f"score row needs {smem} bytes of shared memory, "
+                         f"over the {_build.SMEM_LIMIT}-byte limit")
+    out = torch.empty((B, Hkv, G, Dh), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().pk_decode_attention(
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(pages),
+            _build.ptr(pos), _build.ptr(out), B, Hkv, G, Dh, M, P, bs,
+            math.sqrt(Dh), _build.DTYPE_CODES[q.dtype], smem,
+            _build.stream(dev))
+    _build.check(err, "flash_decode_attention")
+    flash_decode_attention.launches += 1
+    return out
+
+
+flash_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused sampling epilogue
+# ---------------------------------------------------------------------------
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``a * c mod 2**32`` for int64 ``a`` holding uint32 values, split
+    in 16-bit halves so no intermediate leaves int64's range."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def sortable_key(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the order-preserving uint32 image, held in int64 (torch's
+    uint32 lacks most arithmetic on the CPU): positive floats get the
+    sign bit set, negative floats flip every bit."""
+    u = x.float().contiguous().view(torch.int32).long() & MASK32
+    return u ^ (((u >> 31) * 0x7FFFFFFF) | 0x80000000)
+
+
+def kth_key(keys: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The k-th largest key per row (k >= 1) by the 32-step binary search
+    on the threshold: count(keys >= t) is monotone, so keeping
+    count(>= lo) >= k pins lo to the exact k-th value. keys [B, V],
+    k [B] -> [B]."""
+    lo = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
+    hi = torch.full_like(lo, MASK32)
+    for _ in range(32):
+        d = hi - lo
+        mid = lo + (d >> 1) + (d & 1)
+        take = (keys >= mid[:, None]).sum(dim=-1) >= k
+        lo = torch.where(take, mid, lo)
+        hi = torch.where(take, hi, (mid - 1) & MASK32)
+    return lo
+
+
+def hash_uniform(seed: int, rows: torch.Tensor, V: int) -> torch.Tensor:
+    """Counter-based uniforms in (0, 1) for (seed, row, lane): the
+    splitmix-style hash of ``paddle_tpu``'s ``_hash_uniform``, in uint32
+    wraparound, bitwise the same values. rows [B] -> [B, V] fp32."""
+    lane = torch.arange(V, dtype=torch.int64, device=rows.device)
+    h = ((int(seed) & MASK32)
+         + _mul32(rows.long()[:, None], 0x9E3779B9)
+         + _mul32(lane[None, :] + 1, 0x85EBCA6B)) & MASK32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    h = h ^ (h >> 16)
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def _first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """First-index argmax over the last axis, as max + where + min."""
+    V = x.shape[-1]
+    iota = torch.arange(V, device=x.device)
+    m = x.amax(dim=-1, keepdim=True)
+    return torch.where(x == m, iota, V).amin(dim=-1)
+
+
+def top_k_keep(logits: torch.Tensor, top_k: torch.Tensor) -> torch.Tensor:
+    """The kept-lane mask of the top-k filter: [B, V] bool, ties at the
+    k-th value kept; k <= 0 keeps everything."""
+    V = logits.shape[-1]
+    k = top_k.long().clamp(0, V)
+    keys = sortable_key(logits)
+    kstar = kth_key(keys, k.clamp(min=1))
+    return (k[:, None] <= 0) | (keys >= kstar[:, None])
+
+
+def fused_sample_plain(logits, seed, temperature, top_k):
+    """Plain version of the sampling epilogue: logits [B, V] fp32, int
+    ``seed``, temperature [B], top_k [B] -> ids [B] int32."""
+    B, V = logits.shape
+    x = logits.float()
+    greedy = _first_argmax(x)
+    z = torch.where(top_k_keep(x, top_k), x, -math.inf)
+    t = temperature.float()
+    z = z / torch.where(t > 0, t, 1.0)[:, None]
+    rows = torch.arange(B, device=x.device)
+    g = -torch.log(-torch.log(hash_uniform(seed, rows, V)))
+    # a uniform that rounds to 1.0 gives g = +inf; on a filtered lane
+    # (z = -inf) that is NaN, which must never win the draw (the JAX
+    # kernel's max propagates it and returns the out-of-range id V)
+    score = z + g
+    sampled = _first_argmax(torch.where(score.isnan(), -math.inf, score))
+    return torch.where(t > 0, sampled, greedy).to(torch.int32)
+
+
+def fused_sample(logits, seed, temperature, top_k):
+    """Sampling epilogue: logits [B, V] fp32, int32 ``seed``, per-row
+    temperature [B] fp32 (<= 0 is greedy) and top_k [B] int32 (<= 0 or
+    >= V disables the filter) -> sampled ids [B] int32.
+
+    Greedy rows are the first-index argmax and the kept top-k set is
+    exact; the categorical draw is a Gumbel-max over hashed uniforms,
+    bitwise ``paddle_tpu``'s ``fused_sample`` stream. One departure: a
+    uniform that rounds to exactly 1.0 on a filtered lane makes that
+    lane's score NaN, which never wins here, where the JAX kernel
+    returns the out-of-range id V."""
+    if _build.on_cpu(logits, "fused_sample"):
+        return fused_sample_plain(logits, seed, temperature, top_k)
+    dev = logits.device
+    _build.require(logits, "logits", device=dev, dtype=torch.float32,
+                   ndim=2)
+    B, V = logits.shape
+    _build.require(temperature, "temperature", device=dev,
+                   dtype=torch.float32, shape=(B,))
+    _build.require(top_k, "top_k", device=dev, dtype=torch.int32,
+                   shape=(B,))
+    # int32 semantics of the seed: the kernel reads its uint32 image
+    seed = int(seed) & MASK32
+    seed = seed - (1 << 32) if seed >= (1 << 31) else seed
+    out = torch.empty((B,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().pk_fused_sample(
+            _build.ptr(logits), _build.ptr(temperature), _build.ptr(top_k),
+            _build.ptr(out), B, V, seed, _build.stream(dev))
+    _build.check(err, "fused_sample")
+    fused_sample.launches += 1
+    return out
+
+
+fused_sample.launches = 0

@@ -1,0 +1,68 @@
+"""Token sampling and the paged engine's step functions (counterpart of
+``paddle_tpu/serving/sampling.py``)."""
+
+import math
+from typing import Optional
+
+import torch
+
+from paddle_tpu_torch.ops.kernels import decode as kdecode
+
+
+def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
+                  temperature: torch.Tensor,
+                  top_k: torch.Tensor) -> torch.Tensor:
+    """Plain sampler (``paddle_tpu``'s ``sample_tokens``): logits [B, V]
+    fp32, per-row temperature [B] (<= 0 is greedy) and top_k [B] (<= 0
+    disables the filter) -> ids [B] int32. Greedy rows are the
+    first-index argmax; the top-k threshold is the k-th value of a
+    descending sort, ties kept; the draw is Gumbel-max over
+    ``generator``'s uniforms, so it matches ``jax.random.categorical``
+    in distribution, not per id."""
+    V = logits.shape[-1]
+    logits = logits.float()
+    greedy = torch.argmax(logits, dim=-1)
+    k = top_k.long().clamp(0, V)
+    srt = torch.sort(logits, dim=-1, descending=True).values
+    kth = srt.gather(-1, (k - 1).clamp(min=0)[:, None])
+    keep = (k[:, None] <= 0) | (logits >= kth)
+    z = torch.where(keep, logits, -math.inf)
+    t = temperature.float()
+    z = z / torch.where(t > 0, t, 1.0)[:, None]
+    u = torch.rand(z.shape, generator=generator, device=z.device)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    sampled = torch.argmax(z - torch.log(-torch.log(u)), dim=-1)
+    return torch.where(t > 0, sampled, greedy).to(torch.int32)
+
+
+def paged_step_fns(cfg, block_size: int):
+    """(prefill_fn, decode_fn) of the paged engine:
+
+    prefill_fn(params, pool, tokens [1, C], length, pages [P],
+               temperature [1], top_k [1], seed) -> (token [1], pool)
+    decode_fn(params, pool, tokens [B], pos [B], active [B] bool,
+              pages [B, P], temperature [B], top_k [B], seed)
+              -> (tokens [B] int32, pool)
+
+    Both tails sample with the ``fused_sample`` kernel wrapper, so only
+    int32 ids leave the device. ``paddle_tpu``'s prefill tail samples
+    with ``sample_tokens`` and ``jax.random`` instead, a stream that
+    cannot be reproduced here: greedy rows are identical either way,
+    sampled first tokens match in distribution. The pool is updated in
+    place and returned."""
+    from paddle_tpu_torch.models import transformer
+
+    def prefill_fn(params, pool, tokens, length, pages, temperature,
+                   top_k, seed):
+        logits, pool = transformer.prefill_into_blocks(
+            params, pool, tokens, length, pages, cfg, block_size=block_size)
+        return kdecode.fused_sample(logits, seed, temperature, top_k), pool
+
+    def decode_fn(params, pool, tokens, pos, active, pages, temperature,
+                  top_k, seed):
+        logits, pool = transformer.decode_step_paged(
+            params, pool, tokens, pos, active, pages, cfg,
+            block_size=block_size)
+        return kdecode.fused_sample(logits, seed, temperature, top_k), pool
+
+    return prefill_fn, decode_fn
