@@ -3,27 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives ``paddle_tpu_torch``'s serving path on the first CUDA card and
-exits non-zero on any failure (there is no CPU path). In order it:
+Drives ``paddle_tpu_torch``'s serving and training paths on the first
+CUDA card and exits non-zero on any failure (there is no CPU path). In
+order it:
 
 1. prints the environment (torch, CUDA, capability, nvcc, Triton,
    CUTLASS headers, the card's name and power limit);
-2. builds the four Hopper kernels from ``paddle_tpu_torch/ops/kernels/
-   csrc`` with nvcc and prints the build time;
+2. builds the six Hopper kernels from ``paddle_tpu_torch/ops/kernels/
+   csrc`` with nvcc (one process per source, in parallel) and prints the
+   build time;
 3. holds each kernel against its plain PyTorch version on the card, at
-   the serving slice's shapes and at one GQA shape (G=4, Dh=128), and
-   times kernel, plain version and a PyTorch library call that computes
-   the same function (a yardstick only: the port never calls it),
-   beside the least time the card could take (bytes over 3.35 TB/s or
-   FLOPs over the peak for the input type, whichever is larger);
-4. holds the whole step functions on the card against the CPU on a
+   its slice's shapes and at one GQA shape, and times kernel, plain
+   version and a PyTorch library call that computes the same function
+   (a yardstick only: the port never calls it), beside the least time
+   the card could take (bytes over 3.35 TB/s or FLOPs over the peak for
+   the input type, whichever is larger);
+4. holds the serving step functions on the card against the CPU on a
    small fp32 model;
-5. serves 16 seeded requests with a GPT-2-small-width engine (random
-   weights from a seed) and reads each kernel's launch count for that
-   run — every count must be > 0;
-6. checks that a prefix-cache hit gives the same greedy tokens as the
+5. holds a small fp32 LM's training on the card against the CPU (one
+   step's loss and gradients, then five Adam steps' losses), and runs
+   the same three steps twice on the card: losses and weights must be
+   bitwise equal (the attention backward uses no atomics);
+6. serves 16 seeded requests with a GPT-2-small-width engine (random
+   weights from a seed) and reads each serving kernel's launch count
+   for that run — every count must be > 0;
+7. checks that a prefix-cache hit gives the same greedy tokens as the
    same prompt served cold in a fresh engine;
-7. prints the card line, a ``{"kernels": [...]}`` line and, last, the
+8. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
+   1024 tokens, Adam at 1e-4, one seeded batch: the repo's
+   ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
+   timed steps, and reads each attention kernel's launch count for the
+   timed steps — 12 layers x 10 steps each;
+9. prints the card line, a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, ...}`` line.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 products are full
@@ -251,6 +262,122 @@ def check_span_write(torch, timer, kp, dev, rng, Hkv, Dh, timed):
     return err, times
 
 
+def check_flash(torch, timer, ka, dev, B, T, H, Hkv, D, dtype, causal,
+                timed):
+    """Kernels 5 and 6 (flash attention forward and backward) against
+    their plain versions at one shape, through the same GQA expansion
+    and [B*H, T, D] layout as ``flash_attention``. Returns the errors
+    {fwd: (out, lse), bwd: (dq, dk, dv)} as max abs and, for bf16, in
+    bf16 ulps; and the times at the slice's shape."""
+    g = torch.Generator(device=dev).manual_seed(T + H)
+
+    def rand(heads):
+        return torch.randn(B, T, heads, D, generator=g, device=dev).to(dtype)
+
+    def rows(x):
+        return (ka.expand_kv_heads(x, H).transpose(1, 2)
+                .reshape(B * H, T, D).contiguous())
+
+    q, k, v, do = rows(rand(H)), rows(rand(Hkv)), rows(rand(Hkv)), rows(
+        rand(H))
+    kw = dict(sm_scale=D ** -0.5, causal=causal)
+    out, lse = ka.flash_attention_fwd(q, k, v, **kw)
+    grads = ka.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want_out, want_lse = ka.flash_attention_fwd_plain(q, k, v, **kw)
+    want = ka.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+
+    def abs_err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    errs = {"fwd": (abs_err(out, want_out), abs_err(lse, want_lse)),
+            "bwd": tuple(abs_err(a, b) for a, b in zip(grads, want))}
+    ulps = None
+    if dtype == torch.bfloat16:
+        ulps = {"fwd": ka.bf16_ulps(out, want_out),
+                "bwd": max(ka.bf16_ulps(a, b)
+                           for a, b in zip(grads, want))}
+    if not timed:
+        return errs, ulps, None
+    e = q.element_size()
+    n = q.numel()
+    pairs = (T * (T + 1) // 2 if causal else T * T) * B * H
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4, do4 = (t.view(B, H, T, D) for t in (q, k, v, do))
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    o_lib = sdpa(qs, ks, vs, is_causal=causal)
+    times = {
+        "fwd": {
+            "ms": timer.ms(lambda: ka.flash_attention_fwd(q, k, v, **kw)),
+            "plain_ms": timer.ms(lambda: ka.flash_attention_fwd_plain(
+                q, k, v, **kw)),
+            "library_ms": timer.ms(lambda: sdpa(q4, k4, v4,
+                                                is_causal=causal))},
+        "bwd": {
+            "ms": timer.ms(lambda: ka.flash_attention_bwd(
+                q, k, v, out, lse, do, **kw)),
+            "plain_ms": timer.ms(lambda: ka.flash_attention_bwd_plain(
+                q, k, v, out, lse, do, **kw)),
+            "library_ms": timer.ms(lambda: torch.autograd.grad(
+                o_lib, (qs, ks, vs), do4, retain_graph=True))},
+    }
+    dname = str(dtype).replace("torch.", "")
+    # forward: q, k, v read, out written, lse written; q.k and p.v
+    times["fwd"]["bound_ms"], times["fwd"]["bound_by"] = bound(
+        4 * n * e + lse.numel() * 4, 4 * D * pairs, dname)
+    # backward: q, k, v, out, do, lse read, dq, dk, dv written; five
+    # products (q.k, do.v, p^T do, ds k, ds^T q)
+    times["bwd"]["bound_ms"], times["bwd"]["bound_by"] = bound(
+        8 * n * e + lse.numel() * 4, 10 * D * pairs, dname)
+    return errs, ulps, times
+
+
+FLASH_FP32_TOL = 1e-4        # fp32 out, lse and grads: sums in another order
+FLASH_BF16_ULPS = 2          # bf16 out and grads: one rounding each side
+FLASH_LSE_TOL = 1e-4         # lse is fp32 for either input type
+
+
+def flash_phase(torch, ka):
+    """Kernels 5 and 6 at the training slice's shape (B=8, T=1024,
+    H=12, D=64, bf16, causal; timed), a GQA wide-head shape (H=32,
+    Hkv=8, D=128, T=2048, bf16, causal) and an uneven non-causal fp32
+    shape (B=2, T=1000, H=12, D=64). Tolerances: fp32 out, lse and
+    gradients within 1e-4 absolute (fp32 sums in another order); bf16
+    out and gradients within 2 bf16 ulps (both versions accumulate in
+    fp32 and round once, so a sum near a rounding boundary may round
+    the other way), lse within 1e-4."""
+    dev = torch.device("cuda:0")
+    timer = Timer(torch)
+    bf16, f32 = torch.bfloat16, torch.float32
+    slice_err, slice_ulps, times = check_flash(
+        torch, timer, ka, dev, 8, 1024, 12, 12, 64, bf16, True, True)
+    gqa_err, gqa_ulps, _ = check_flash(torch, timer, ka, dev, 1, 2048, 32,
+                                       8, 128, bf16, True, False)
+    f32_err, _, _ = check_flash(torch, timer, ka, dev, 2, 1000, 12, 12, 64,
+                                f32, False, False)
+    rows = {}
+    for name, part in (("flash_attention_fwd", "fwd"),
+                       ("flash_attention_bwd", "bwd")):
+        extra = {"bf16_ulps": slice_ulps[part],
+                 "gqa_max_abs_err": max(gqa_err[part]),
+                 "gqa_bf16_ulps": gqa_ulps[part],
+                 "fp32_max_abs_err": max(f32_err[part])}
+        print(f"kernel {name}: max_abs_err={max(slice_err[part])!r} "
+              + " ".join(f"{k}={v!r}" for k, v in extra.items())
+              + f" tol=({FLASH_FP32_TOL!r} fp32, {FLASH_BF16_ULPS} bf16 "
+              f"ulps) "
+              + " ".join(f"{'kernel_ms' if k == 'ms' else k}={v!r}"
+                         for k, v in times[part].items()))
+        lse_ok = part == "bwd" or (slice_err[part][1] <= FLASH_LSE_TOL
+                                   and gqa_err[part][1] <= FLASH_LSE_TOL)
+        if not (lse_ok and max(f32_err[part]) <= FLASH_FP32_TOL
+                and slice_ulps[part] <= FLASH_BF16_ULPS
+                and gqa_ulps[part] <= FLASH_BF16_ULPS):
+            fail(f"{name} disagrees with its plain version")
+        rows[name] = (max(slice_err[part]), extra, times[part])
+    return rows
+
+
 def kernel_phase(torch, kd, kp):
     """Each kernel against its plain version at the slice's shapes
     (GPT-2 small: Hkv=12, G=1, Dh=64, bf16; the prefill both cold and
@@ -282,7 +409,8 @@ def kernel_phase(torch, kd, kp):
         if not (err <= tol and (gqa_err is None or gqa_err <= tol)):
             fail(f"{name} disagrees with its plain version: "
                  f"{err}, {gqa_err} > {tol}")
-    return rows
+    return {name: (err, {"gqa_max_abs_err": gqa_err}, times)
+            for name, (err, gqa_err, _, times) in rows.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -335,6 +463,65 @@ def step_parity(torch, tt):
           f"tol=1e-4")
     if not (err <= 1e-4 and pool_err <= 1e-4):
         fail("step functions on the card disagree with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# training on the card against the CPU, small fp32 model
+# ---------------------------------------------------------------------------
+
+
+def _train_run(torch, tt, topt, cfg, batches, device):
+    """Adam (lr 1e-3) steps from seeded weights, one batch per step:
+    (losses, first step's gradients on the CPU, final params)."""
+    params = tt.init_train_params(cfg, torch.Generator().manual_seed(5),
+                                  device)
+    adam = topt.Adam(learning_rate=1e-3)
+    state = adam.tree_init_state(params)
+    losses, first = [], None
+    for i, toks in enumerate(batches):
+        toks = torch.from_numpy(toks).to(device)
+        loss = tt.lm_loss(params, toks, toks.roll(-1, 1), cfg)
+        loss.backward()
+        grads = topt.take_grads(params)
+        if first is None:
+            first = {n: g.cpu() for n, g in topt.tree_leaves(grads)}
+        params, state = adam.tree_update(i, grads, params, state)
+        losses.append(loss.item())
+    return losses, first, params
+
+
+def train_parity(torch, tt, topt):
+    """The step_parity model with flash attention, T=96 (one full and
+    one ragged 64-row tile): card vs CPU within 1e-4 (fp32 throughout,
+    sums in other orders through two layers, the vocab head and up to
+    five Adam steps), then the same three steps twice on the card,
+    bitwise."""
+    cfg = tt.TransformerConfig(vocab=256, d_model=128, n_heads=4,
+                               n_kv_heads=2, n_layers=2, d_ff=256,
+                               max_len=128, dtype="float32")
+    rng = np.random.RandomState(8)
+    batches = [rng.randint(0, 256, (2, 96)).astype(np.int32)
+               for _ in range(5)]
+    cpu = _train_run(torch, tt, topt, cfg, batches, "cpu")
+    gpu = _train_run(torch, tt, topt, cfg, batches, "cuda")
+    loss_err = max(abs(a - b) for a, b in zip(cpu[0], gpu[0]))
+    grad_err = max((cpu[1][n] - gpu[1][n]).abs().max().item()
+                   for n in cpu[1])
+    runs = [_train_run(torch, tt, topt, cfg, batches[:3], "cuda")
+            for _ in range(2)]
+    same_loss = runs[0][0] == runs[1][0]
+    same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        topt.tree_leaves(runs[0][2]), topt.tree_leaves(runs[1][2])))
+    print(f"train parity: 5 Adam steps card vs CPU, fp32, losses "
+          f"{gpu[0]!r}, loss max_abs_err={loss_err!r} step-1 grads "
+          f"max_abs_err={grad_err!r} tol=1e-4; 3 steps twice on the card: "
+          f"losses bitwise={same_loss} params bitwise={same_params}")
+    if not all(np.isfinite(gpu[0])):
+        fail("non-finite training loss on the card")
+    if not (loss_err <= 1e-4 and grad_err <= 1e-4):
+        fail("training on the card disagrees with the CPU")
+    if not (same_loss and same_params):
+        fail("two identical training runs on the card differ")
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +599,7 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev):
                  f"{max_new} tokens, ids in [{ids.min()}, {ids.max()}]")
     if not eng.pool.idle:
         fail("blocks still held after the engine drained")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in SERVING_KERNELS if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     if reqs[1].prefix_hit_tokens != 256:
@@ -434,6 +621,67 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev):
 
 
 # ---------------------------------------------------------------------------
+# training phase
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, WARMUP, TIMED = 8, 1024, 2, 10
+
+
+def train_phase(torch, tt, topt, kernels, costs, place, cfg, dev):
+    """``benchmarks/transformer_bench.py``'s ``_run_variant`` on the
+    port: bf16, flash attention, dropout 0, Adam(1e-4), one batch from
+    RandomState(0) with targets rolled by one; 2 warm-up and 10 timed
+    steps, each ended by ``torch.cuda.synchronize()``."""
+    params = tt.init_train_params(cfg, torch.Generator().manual_seed(0), dev)
+    adam = topt.Adam(learning_rate=1e-4)
+    state = adam.tree_init_state(params)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(dev)
+    targets = tokens.roll(-1, 1)
+
+    def step(i):
+        nonlocal params, state
+        loss = tt.lm_loss(params, tokens, targets, cfg)
+        loss.backward()
+        params, state = adam.tree_update(i, topt.take_grads(params), params,
+                                         state)
+        torch.cuda.synchronize()
+        return loss.item()
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(i) for i in range(WARMUP)]
+    kernels.reset_launches()                 # counts of the timed steps
+    times = []
+    for i in range(WARMUP, WARMUP + TIMED):
+        t0 = time.perf_counter()
+        losses.append(step(i))
+        times.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    p50 = float(np.median(times))
+    flops = costs.train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    doc = {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps_timed": TIMED,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * TIMED / sum(times),
+           "step_ms_p50": p50 * 1e3, "step_ms_min": min(times) * 1e3,
+           "step_ms_max": max(times) * 1e3, "step_flops": flops,
+           "train_mfu": costs.mfu(flops, p50, place.peak_flops(dev)),
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    print("train: " + json.dumps(doc))
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    for name in TRAINING_KERNELS:
+        if launches[name] != cfg.n_layers * TIMED:
+            fail(f"{name} launched {launches[name]} times in {TIMED} "
+                 f"steps, expected {cfg.n_layers * TIMED}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 SOURCES = {
@@ -445,7 +693,14 @@ SOURCES = {
                             "paddle_tpu/ops/pallas/prefill.py:314"),
     "paged_span_write": ("span_write.cu",
                          "paddle_tpu/ops/pallas/prefill.py:442"),
+    "flash_attention_fwd": ("flash_attn_fwd.cu",
+                            "paddle_tpu/ops/pallas/attention.py:351"),
+    "flash_attention_bwd": ("flash_attn_bwd.cu",
+                            "paddle_tpu/ops/pallas/attention.py:268"),
 }
+SERVING_KERNELS = ("flash_decode_attention", "fused_sample",
+                   "flash_chunk_prefill", "paged_span_write")
+TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 
 
 def main():
@@ -456,9 +711,13 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     if importlib.util.find_spec("paddle_tpu_torch") is None:
         fail("paddle_tpu_torch is not beside chip_smoke.py")
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.core import place
     from paddle_tpu_torch.models import transformer as tt
+    from paddle_tpu_torch.observe import costs
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import attention as ka
     from paddle_tpu_torch.ops.kernels import decode as kd
     from paddle_tpu_torch.ops.kernels import prefill as kp
     from paddle_tpu_torch.serving import PagedDecodeEngine
@@ -482,19 +741,24 @@ def main():
     print(f"build: nvcc_s={info['seconds']!r} load_s="
           f"{time.perf_counter() - t0!r} dir={info['dir']}")
 
-    rows = kernel_phase(torch, kd, kp)
+    dev = torch.device("cuda:0")
+    rows = {**kernel_phase(torch, kd, kp), **flash_phase(torch, ka)}
     step_parity(torch, tt)
-    launches = engine_phase(torch, tt, kernels, PagedDecodeEngine,
-                            gpt2_small(tt), torch.device("cuda:0"))
+    train_parity(torch, tt, topt)
+    served = engine_phase(torch, tt, kernels, PagedDecodeEngine,
+                          gpt2_small(tt), dev)
+    trained = train_phase(torch, tt, topt, kernels, costs, place,
+                          gpt2_small(tt), dev)
+    launches = {**{k: served[k] for k in SERVING_KERNELS},
+                **{k: trained[k] for k in TRAINING_KERNELS}}
 
     out = []
     for name, (src, replaces) in SOURCES.items():
-        err, gqa_err, _, times = rows[name]
+        err, extra, times = rows[name]
         out.append({"name": name, "route": "cuda",
                     "source": f"paddle_tpu_torch/ops/kernels/csrc/{src}",
                     "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": err, "gqa_max_abs_err": gqa_err,
-                    **times})
+                    "max_abs_err": err, **extra, **times})
     print(card)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, serving path (counterpart of
-``paddle_tpu/models/transformer.py``).
+"""Decoder-only transformer LM, serving and training paths (counterpart
+of ``paddle_tpu/models/transformer.py``).
 
 Parameters are a dict of tensors with the blocks stacked on a leading
 layer axis, as in the JAX package, and every weight keeps the JAX
@@ -17,6 +17,17 @@ PLACE (the JAX functions return a new pool; these return the one they
 were given). Attention and the pool's span writes go through the kernel
 wrappers of ``ops/kernels``; the dense projections stay ``torch.matmul``
 as they stayed XLA matmuls in the JAX package.
+
+Training keeps the JAX package's layout instead: an fp32 tree whose
+leaves require grad (:func:`init_train_params`,
+:func:`train_params_from_numpy`), and :func:`forward` / :func:`lm_loss`
+cast each matmul weight to ``cfg.dtype`` at use, as the JAX forward
+does (a no-op on the serving dict, whose weights are already in
+``cfg.dtype``). Without ``lengths``, attention runs
+:func:`ops.kernels.attention.flash_attention`, whose forward and
+backward are the flash kernels; with ``lengths`` (which the flash
+kernels do not take, in the JAX package either) the plain
+:func:`parallel.ring.full_attention`.
 """
 
 import dataclasses
@@ -28,18 +39,21 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core import dtypes, place
+from paddle_tpu_torch.ops import loss as ops_loss
 from paddle_tpu_torch.ops import norm
+from paddle_tpu_torch.ops.kernels import attention as kattention
 from paddle_tpu_torch.ops.kernels import decode as kdecode
 from paddle_tpu_torch.ops.kernels import prefill as kprefill
+from paddle_tpu_torch.parallel import ring
 
 MATMUL_WEIGHTS = ("qkv", "attn_out", "mlp_in", "mlp_out")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The fields of ``paddle_tpu``'s config that the serving slice reads.
-    Experts, ring attention and remat are not ported: setting them
-    raises ``NotImplementedError``."""
+    """The fields of ``paddle_tpu``'s config that the serving and
+    training slices read. Experts, ring attention and remat are not
+    ported: setting them raises ``NotImplementedError``."""
     vocab: int
     d_model: int = 512
     n_heads: int = 8
@@ -48,6 +62,7 @@ class TransformerConfig:
     d_ff: int = 2048
     max_len: int = 2048
     dtype: object = torch.bfloat16
+    dropout: float = 0.0               # residual/embedding dropout rate
     use_rope: bool = False             # rotary q/k instead of learned
     rope_theta: float = 10000.0        # absolute positions
     use_ring_attention: bool = False
@@ -89,14 +104,20 @@ def _place(tree: Dict, cfg: TransformerConfig, device) -> Dict:
     return out
 
 
-def init_params(cfg: TransformerConfig,
-                generator: Optional[torch.Generator] = None,
-                device=None) -> Dict:
-    """Random parameters with ``paddle_tpu``'s shapes and scales
-    (normal draws from ``generator``, made on the CPU so a seed gives the
-    same values on any device). Runs on the card unless ``device`` says
-    otherwise."""
-    device = place.resolve_device(device)
+def _trainable(tree: Dict, device) -> Dict:
+    """An fp32 copy of a parameter dict on ``device``, every leaf a
+    leaf tensor that requires grad."""
+    def leaf(t):
+        return t.to(device=device, dtype=torch.float32).contiguous() \
+            .requires_grad_(True)
+
+    out = {k: leaf(v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = {k: leaf(v) for k, v in tree["blocks"].items()}
+    return out
+
+
+def _draw(cfg: TransformerConfig, generator) -> Dict:
+    """fp32 CPU parameters with ``paddle_tpu``'s shapes and scales."""
     D, F_, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab
     kvd = cfg.kv_heads * cfg.head_dim
     s = 1.0 / math.sqrt(D)
@@ -123,23 +144,61 @@ def init_params(cfg: TransformerConfig,
         "ln_f": torch.ones((D,)),
         "ln_f_b": torch.zeros((D,)),
     }
-    return _place(tree, cfg, device)
+    return tree
+
+
+def init_params(cfg: TransformerConfig,
+                generator: Optional[torch.Generator] = None,
+                device=None) -> Dict:
+    """Random serving parameters with ``paddle_tpu``'s shapes and scales
+    (normal draws from ``generator``, made on the CPU so a seed gives the
+    same values on any device), matmul weights in ``cfg.dtype``. Runs on
+    the card unless ``device`` says otherwise."""
+    return _place(_draw(cfg, generator), cfg, place.resolve_device(device))
+
+
+def init_train_params(cfg: TransformerConfig,
+                      generator: Optional[torch.Generator] = None,
+                      device=None) -> Dict:
+    """The same draws as :func:`init_params` as a training tree: every
+    leaf fp32 and requiring grad (the optimizer's master weights)."""
+    return _trainable(_draw(cfg, generator), place.resolve_device(device))
+
+
+def _from_numpy(tree: Dict) -> Dict:
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+    flat = {k: t(v) for k, v in tree.items() if k != "blocks"}
+    flat["blocks"] = {k: t(v) for k, v in tree["blocks"].items()}
+    return flat
 
 
 def params_from_numpy(tree: Dict, cfg: TransformerConfig,
                       device=None) -> Dict:
     """``paddle_tpu``'s parameter tree, already converted to numpy
     (``jax.tree_util.tree_map(np.asarray, params)``), as the port's
-    tensors — same names, shapes and orientation. Runs on the card
-    unless ``device`` says otherwise."""
-    device = place.resolve_device(device)
+    serving tensors — same names, shapes and orientation. Runs on the
+    card unless ``device`` says otherwise."""
+    return _place(_from_numpy(tree), cfg, place.resolve_device(device))
 
-    def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32).copy())
 
-    flat = {k: t(v) for k, v in tree.items() if k != "blocks"}
-    flat["blocks"] = {k: t(v) for k, v in tree["blocks"].items()}
-    return _place(flat, cfg, device)
+def train_params_from_numpy(tree: Dict, device=None) -> Dict:
+    """``paddle_tpu``'s parameter tree as numpy, as a training tree
+    (fp32 leaves requiring grad). Runs on the card unless ``device``
+    says otherwise."""
+    return _trainable(_from_numpy(tree), place.resolve_device(device))
+
+
+def params_to_numpy(tree: Dict) -> Dict:
+    """A parameter tree (either kind) as fp32 numpy arrays, the layout
+    ``paddle_tpu`` loads."""
+    def a(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    out = {k: a(v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = {k: a(v) for k, v in tree["blocks"].items()}
+    return out
 
 
 def init_block_pool(cfg: TransformerConfig, num_blocks: int,
@@ -179,15 +238,28 @@ def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
-def _rope_rows(x: torch.Tensor, tables) -> torch.Tensor:
-    """Rotary embedding, one token per row: x [B, H, Dh] with per-row
-    tables [B, Dh/2] (pairing halves)."""
-    cos, sin = tables
-    cos, sin = cos[:, None, :], sin[:, None, :]
+def _rotate(x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> torch.Tensor:
+    """Pairing-halves rotation of x's last axis in fp32, cast back:
+    (x1, x2) -> (x1 cos - x2 sin, x1 sin + x2 cos)."""
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def _rope(x: torch.Tensor, tables) -> torch.Tensor:
+    """Rotary embedding over the head dim of x [B, T, H, Dh] with tables
+    [T, Dh/2]."""
+    cos, sin = tables
+    return _rotate(x, cos[None, :, None, :], sin[None, :, None, :])
+
+
+def _rope_rows(x: torch.Tensor, tables) -> torch.Tensor:
+    """Rotary embedding, one token per row: x [B, H, Dh] with per-row
+    tables [B, Dh/2]."""
+    cos, sin = tables
+    return _rotate(x, cos[:, None, :], sin[:, None, :])
 
 
 def _embed_rows(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
@@ -201,8 +273,91 @@ def _vocab_logits(x: torch.Tensor, params) -> torch.Tensor:
 
 
 def _mlp(h2, w, li):
-    ff = F.gelu(h2 @ w["mlp_in"][li], approximate="tanh")
-    return ff @ w["mlp_out"][li]
+    """The dense FFN of layer ``li``, weights cast to the activations'
+    dtype at use (a no-op on the serving dict)."""
+    ff = F.gelu(h2 @ w["mlp_in"][li].to(h2.dtype), approximate="tanh")
+    return ff @ w["mlp_out"][li].to(ff.dtype)
+
+
+def _dropout(h: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate
+    (uniform draws from ``generator``, which must live on ``h``'s
+    device) and scale the kept ones by 1 / (1 - rate)."""
+    if rate <= 0.0:
+        return h
+    keep = torch.rand(h.shape, generator=generator, device=h.device) \
+        < 1.0 - rate
+    return torch.where(keep, h / (1.0 - rate), 0.0).to(h.dtype)
+
+
+def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
+            lengths: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """tokens [B, T] int -> logits [B, T, vocab] fp32: the JAX forward
+    with ``head="all"``. ``lengths`` [B] masks keys at or past each
+    row's length (plain attention then, as in the JAX package);
+    ``generator`` enables inverted dropout at ``cfg.dropout`` on the
+    embedding and both residual branches of every block, drawn on the
+    tokens' device — omit it for a deterministic forward. The
+    prefill/decode heads (``head="last"``/``"gather"``) and
+    ``return_kv`` are not ported."""
+    if not 0.0 <= cfg.dropout < 1.0:
+        raise ValueError(f"cfg.dropout must be in [0, 1), got {cfg.dropout}")
+    rate = cfg.dropout if generator is not None else 0.0
+    B, T = tokens.shape
+    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    kvd = Hkv * Dh
+    dt = cfg.dtype
+    x = F.embedding(tokens.long(), params["embed"]).to(dt)
+    if not cfg.use_rope:
+        x = x + params["pos"][:T].to(dt)[None]
+    x = _dropout(x, rate, generator)
+    rope_tabs = (_rope_tables(torch.arange(T, device=tokens.device), Dh,
+                              cfg.rope_theta) if cfg.use_rope else None)
+    # one unbind per stacked leaf: its backward stacks the layers'
+    # gradients once instead of adding L full-size zero tensors
+    w = {k: t.unbind(0) for k, t in params["blocks"].items()}
+    for li in range(cfg.n_layers):
+        h = norm.layer_norm(x, w["ln1"][li], w["ln1_b"][li])
+        qkv = h @ w["qkv"][li].to(h.dtype)
+        q, k, v = torch.split(qkv, [H * Dh, kvd, kvd], dim=-1)
+        q = q.reshape(B, T, H, Dh)
+        k = k.reshape(B, T, Hkv, Dh)
+        v = v.reshape(B, T, Hkv, Dh)
+        if cfg.use_rope:
+            q, k = _rope(q, rope_tabs), _rope(k, rope_tabs)
+        if lengths is None:
+            attn = kattention.flash_attention(q, k, v, causal=True)
+        else:
+            attn = ring.full_attention(q, k, v, causal=True, lengths=lengths)
+        attn = attn.reshape(B, T, cfg.d_model)
+        x = x + _dropout(attn @ w["attn_out"][li].to(attn.dtype), rate,
+                         generator)
+        h2 = norm.layer_norm(x, w["ln2"][li], w["ln2_b"][li])
+        x = x + _dropout(_mlp(h2, w, li), rate, generator)
+    x = norm.layer_norm(x, params["ln_f"], params["ln_f_b"])
+    return _vocab_logits(x, params)
+
+
+def lm_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: TransformerConfig, *,
+            lengths: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy over the valid positions (all of
+    them, or those before each row's ``lengths``): a 0-d fp32 tensor.
+    The JAX loss adds the MoE load-balance term, which is 0 for the
+    dense configs the port runs."""
+    logits = forward(params, tokens, cfg, lengths=lengths,
+                     generator=generator)
+    tok_ce = ops_loss.softmax_cross_entropy(logits, targets)
+    if lengths is not None:
+        T = tokens.shape[1]
+        mask = (torch.arange(T, device=tok_ce.device)[None, :]
+                < lengths.to(tok_ce.device)[:, None]).float()
+    else:
+        mask = torch.ones_like(tok_ce)
+    return (tok_ce * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def decode_step_paged(params, pool, tokens: torch.Tensor,

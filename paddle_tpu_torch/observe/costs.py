@@ -28,6 +28,18 @@ def decode_step_flops(cfg, positions: Iterable[int]) -> float:
     return float(2 * matmul_params(cfg) * len(positions) + attn)
 
 
+def train_step_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step on ``batch`` x ``seq`` tokens:
+    6 x weights touched per token (2 forward, 4 backward), plus causal
+    attention: each query sees ``pos + 1`` keys, T(T+1)/2 pairs per
+    sequence, and each pair costs 4 Dh FLOPs forward (q.k and p.v) and
+    8 Dh backward (four products), per head and layer."""
+    tokens = batch * seq
+    pairs = batch * seq * (seq + 1) // 2
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * pairs
+    return float(6 * matmul_params(cfg) * tokens + attn)
+
+
 def mfu(flops: Optional[float], seconds: float,
         peak_flops: Optional[float]) -> Optional[float]:
     """Model-FLOPs utilisation of one step; None when an input is

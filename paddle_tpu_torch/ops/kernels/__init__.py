@@ -2,16 +2,19 @@
 
 CUDA C++ sources live in ``csrc/``; ``_build`` compiles them with nvcc
 at first use and binds them with ctypes. ``KERNELS`` lists every kernel
-wrapper of the serving path, each with its ``launches`` counter.
+wrapper of the serving and training paths, each with its ``launches``
+counter.
 """
 
+from paddle_tpu_torch.ops.kernels.attention import (flash_attention_bwd,
+                                                    flash_attention_fwd)
 from paddle_tpu_torch.ops.kernels.decode import (flash_decode_attention,
                                                  fused_sample)
 from paddle_tpu_torch.ops.kernels.prefill import (flash_chunk_prefill,
                                                   paged_span_write)
 
 KERNELS = (flash_decode_attention, fused_sample, flash_chunk_prefill,
-           paged_span_write)
+           paged_span_write, flash_attention_fwd, flash_attention_bwd)
 
 
 def reset_launches():

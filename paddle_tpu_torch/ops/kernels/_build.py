@@ -27,8 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("decode_attention.cu", "fused_sample.cu", "chunk_prefill.cu",
-           "span_write.cu")
-HEADERS = ("common.cuh",)
+           "span_write.cu", "flash_attn_fwd.cu", "flash_attn_bwd.cu")
+HEADERS = ("common.cuh", "flash_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -57,6 +57,12 @@ SIGNATURES = {
     # pool_k, pool_v, span_k, span_v, pages, valid, LH, pc, M, bs,
     # row_bytes, stream
     "pk_span_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, lse, BH, T, D, scale, causal, dtype, stream
+    "pk_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, do, lse, delta, dq, dk, dv, BH, T, D, scale, causal, dtype,
+    # stream
+    "pk_flash_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _F, _I, _I, _P],
 }
 
 

@@ -11,13 +11,20 @@ Tolerances: attention outputs agree to 1e-4 absolute (fp32 accumulation
 in both, summed in another order over up to 640 positions of O(1)
 values); the span write and the sampler's ids are exact (no arithmetic
 to round; the sampler's hash is integer and its float steps are the
-same IEEE operations in both).
+same IEEE operations in both). Flash attention, forward and backward:
+fp32 outputs, lse and gradients to 1e-4 absolute (fp32 sums in another
+order over up to 300 keys); bf16 outputs and gradients within two bf16
+ulps of the plain version's (both accumulate in fp32 and round once,
+so a sum that lands near a rounding boundary may round the other way;
+the ulp is taken at max(|plain|, 2**-6) so values near 0 are held to
+2**-13 absolute), lse (fp32) to 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.kernels import attention as kattention
 from paddle_tpu_torch.ops.kernels import decode as kdecode
 from paddle_tpu_torch.ops.kernels import prefill as kprefill
 
@@ -151,3 +158,76 @@ def test_gpu_engine_runs_every_kernel(cuda):
         assert counts["paged_span_write"] > 0
     assert outs[0][1] == 0 and outs[1][1] == 64
     assert outs[0][0] == outs[1][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,D", [(64, 64), (300, 64), (129, 128)])
+def test_gpu_flash_attention_matches_plain(cuda, dtype, causal, T, D):
+    rng = np.random.RandomState(5)
+    q, k, v, do = (_gpu(rng.randn(6, T, D).astype(np.float32), cuda, dtype)
+                   for _ in range(4))
+    scale = D ** -0.5
+    before = (kattention.flash_attention_fwd.launches,
+              kattention.flash_attention_bwd.launches)
+    out, lse = kattention.flash_attention_fwd(q, k, v, sm_scale=scale,
+                                              causal=causal)
+    grads = kattention.flash_attention_bwd(q, k, v, out, lse, do,
+                                           sm_scale=scale, causal=causal)
+    want_out, want_lse = kattention.flash_attention_fwd_plain(
+        q, k, v, sm_scale=scale, causal=causal)
+    want = kattention.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, sm_scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    assert (kattention.flash_attention_fwd.launches,
+            kattention.flash_attention_bwd.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    for got, ref in zip((out,) + grads, (want_out,) + want):
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            assert (got - ref).abs().max().item() <= 1e-4
+        else:
+            assert kattention.bf16_ulps(got, ref) <= 2
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_refuses_what_it_cannot_take(cuda):
+    """A CUDA tensor the kernels cannot take raises; it never runs the
+    plain version instead."""
+    x = torch.zeros(2, 16, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim 48"):
+        kattention.flash_attention_fwd(x, x, x, sm_scale=1.0, causal=True)
+    with pytest.raises(ValueError, match="head dim 48"):
+        kattention.flash_attention_bwd(x, x, x, x, x[..., 0], x,
+                                       sm_scale=1.0, causal=True)
+    y = torch.zeros(2, 16, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        kattention.flash_attention_fwd(y, y, y, sm_scale=1.0, causal=True)
+
+
+@pytest.mark.gpu
+def test_gpu_train_step_runs_both_attention_kernels(cuda):
+    """One bf16 training step of a small LM on the card: a finite loss,
+    one launch of each attention kernel per layer."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import transformer
+    cfg = transformer.TransformerConfig(
+        vocab=512, d_model=128, n_heads=2, n_kv_heads=1, n_layers=2,
+        d_ff=256, max_len=128)
+    params = transformer.init_train_params(
+        cfg, torch.Generator().manual_seed(0), "cuda")
+    adam = optimizer.Adam(learning_rate=1e-3)
+    state = adam.tree_init_state(params)
+    toks = _gpu(np.random.RandomState(6).randint(0, 512, (2, 100)), cuda)
+    before = (kattention.flash_attention_fwd.launches,
+              kattention.flash_attention_bwd.launches)
+    loss = transformer.lm_loss(params, toks, toks.roll(-1, 1), cfg)
+    loss.backward()
+    adam.tree_update(0, optimizer.take_grads(params), params, state)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss).item()
+    assert (kattention.flash_attention_fwd.launches,
+            kattention.flash_attention_bwd.launches) == (before[0] + 2,
+                                                         before[1] + 2)

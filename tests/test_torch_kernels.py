@@ -261,7 +261,8 @@ class TestWrappers:
                              torch.zeros(2, dtype=torch.int32))
         assert kernels.launch_counts() == {
             "flash_decode_attention": 0, "fused_sample": 0,
-            "flash_chunk_prefill": 0, "paged_span_write": 0}
+            "flash_chunk_prefill": 0, "paged_span_write": 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
     @pytest.mark.parametrize("kvd", ["int8", "int4"])
     def test_quantized_pools_raise(self, kvd):
