@@ -12,23 +12,33 @@ order it:
 2. builds the six Hopper kernels from ``paddle_tpu_torch/ops/kernels/
    csrc`` with nvcc (one process per source, in parallel) and prints the
    build time;
-3. holds each kernel against its plain PyTorch version on the card, at
-   its slice's shapes and at one GQA shape, and times kernel, plain
-   version and a PyTorch library call that computes the same function
-   (a yardstick only: the port never calls it), beside the least time
-   the card could take (bytes over 3.35 TB/s or FLOPs over the peak for
+3. holds each kernel, and the int8 and int4 branches of kernels 1, 3
+   and 4, against its plain PyTorch version on the card, at its slice's
+   shapes and at one GQA shape, and times kernel, plain version and a
+   PyTorch library call that computes the same function (a yardstick
+   only: the port never calls it; SDPA over gathered, dequantized K/V
+   for a quantized pool), beside the least time the card could take
+   (the bytes stored and moved over 3.35 TB/s or FLOPs over the peak for
    the input type, whichever is larger);
 4. holds the serving step functions on the card against the CPU on a
-   small fp32 model;
+   small fp32 model, with an fp32 pool and again with an int8 pool and
+   int8 weights;
 5. holds a small fp32 LM's training on the card against the CPU (one
    step's loss and gradients, then five Adam steps' losses), and runs
    the same three steps twice on the card: losses and weights must be
    bitwise equal (the attention backward uses no atomics);
 6. serves 16 seeded requests with a GPT-2-small-width engine (random
    weights from a seed) and reads each serving kernel's launch count
-   for that run — every count must be > 0;
-7. checks that a prefix-cache hit gives the same greedy tokens as the
-   same prompt served cold in a fresh engine;
+   for that run — every count must be > 0 — and checks that a
+   prefix-cache hit gives the same greedy tokens as the same prompt
+   served cold in a fresh engine;
+7. does the same twice more over quantized pools: (b) an int4 pool
+   with the bf16 weights, and (a) an int8 pool with
+   ``quantize_lm_params`` int8 weights of the same seed-0 fp32 draws
+   (the bf16 weights freed first, so its peak memory holds the int8
+   tree alone); each run must launch every quantized branch of its
+   storage. Between the two, decode logits off int8 and int4 pools must
+   lie within ``kv_rel_l2_budget`` of the bf16 pool's on one prompt;
 8. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
@@ -107,43 +117,71 @@ def bound(nbytes: float, flops: float, dtype_name: str):
 # ---------------------------------------------------------------------------
 
 
-def check_decode(torch, timer, kd, dev, rng, Hkv, G, Dh, timed):
+def quant_pool(torch, q8, shape, kvd, dev):
+    """bf16 rows [..., M, Dh] drawn on the card, stored as ``kvd``
+    ("none": the bf16 rows; "int8"/"int4": codes and fp32 row scales
+    from ``ops/q8.quantize_kv``). Returns (values, scales or None)."""
+    x = torch.randn(*shape, device=dev).to(torch.bfloat16)
+    if kvd == "none":
+        return x, None
+    return q8.quantize_kv(x, kvd)
+
+
+def stored_row_bytes(kvd: str, Dh: int) -> int:
+    """Bytes one pool row occupies: bf16 values, or int8 / packed int4
+    codes plus the row's fp32 scale."""
+    return {"none": 2 * Dh, "int8": Dh + 4, "int4": Dh // 2 + 4}[kvd]
+
+
+def widened(q8, x, scale, kvd, dtype):
+    """Gathered pool rows as the library call's operand: dequantized
+    through ``ops/q8.dequantize_kv`` and cast to the query dtype."""
+    return x if kvd == "none" else q8.dequantize_kv(x, scale, kvd).to(dtype)
+
+
+def check_decode(torch, timer, kd, q8, dev, rng, Hkv, G, Dh, timed,
+                 kvd="none"):
     B, bs, P, nblocks = 8, 16, 64, 512
     dt = torch.bfloat16
     q = torch.randn(B, Hkv, G, Dh, device=dev).to(dt)
-    k = torch.randn(Hkv, nblocks * bs, Dh, device=dev).to(dt)
-    v = torch.randn(Hkv, nblocks * bs, Dh, device=dev).to(dt)
+    k, ks = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev)
+    v, vs = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev)
+    kw = dict(block_size=bs, kv_dtype=kvd)
+    if kvd != "none":
+        kw.update(k_scale=ks, v_scale=vs)
     pages = torch.from_numpy(np.stack(
         [rng.permutation(nblocks)[:P] for _ in range(B)]).astype(np.int32)
     ).to(dev)
     pos_np = rng.randint(32, 765, B).astype(np.int32)
     pos = torch.from_numpy(pos_np).to(dev)
     args = (q, k, v, pages, pos)
-    got = kd.flash_decode_attention(*args, block_size=bs)
-    want = kd.flash_decode_attention_plain(*args, block_size=bs)
+    got = kd.flash_decode_attention(*args, **kw)
+    want = kd.flash_decode_attention_plain(*args, **kw)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not timed:
         return err, None
     rows = int((pos_np + 1).sum())
-    nbytes = (q.numel() * 2 + rows * Hkv * Dh * 2 * 2 + pages.numel() * 4
-              + B * 4 + got.numel() * 4)
+    nbytes = (q.numel() * 2 + rows * Hkv * stored_row_bytes(kvd, Dh) * 2
+              + pages.numel() * 4 + B * 4 + got.numel() * 4)
     flops = rows * Hkv * G * Dh * 2 * 2
-    # library yardstick: SDPA over K/V already gathered per slot
+    # library yardstick: SDPA over K/V already gathered per slot (and
+    # dequantized, for a quantized pool)
     T = P * bs
     gidx = (pages.long()[:, :, None] * bs
             + torch.arange(bs, device=dev)).reshape(B, T)
-    kt = k[:, gidx].permute(1, 0, 2, 3).repeat_interleave(G, dim=1)
-    vt = v[:, gidx].permute(1, 0, 2, 3).repeat_interleave(G, dim=1)
+    kt = widened(q8, k[:, gidx], None if ks is None else ks[:, gidx], kvd, dt)
+    vt = widened(q8, v[:, gidx], None if vs is None else vs[:, gidx], kvd, dt)
+    kt = kt.permute(1, 0, 2, 3).repeat_interleave(G, dim=1)
+    vt = vt.permute(1, 0, 2, 3).repeat_interleave(G, dim=1)
     qh = q.reshape(B, Hkv * G, 1, Dh)
     mask = (torch.arange(T, device=dev)[None, :]
             <= pos[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times = {
-        "ms": timer.ms(lambda: kd.flash_decode_attention(*args,
-                                                         block_size=bs)),
+        "ms": timer.ms(lambda: kd.flash_decode_attention(*args, **kw)),
         "plain_ms": timer.ms(lambda: kd.flash_decode_attention_plain(
-            *args, block_size=bs)),
+            *args, **kw)),
         "library_ms": timer.ms(lambda: sdpa(qh, kt, vt, attn_mask=mask)),
     }
     times["bound_ms"], times["bound_by"] = bound(nbytes, flops, "bfloat16")
@@ -177,32 +215,41 @@ def check_sample(torch, timer, kd, dev, rng):
     return err, times
 
 
-def check_prefill(torch, timer, kp, dev, rng, Hkv, G, Dh, P_ctx, timed):
+def check_prefill(torch, timer, kp, q8, dev, rng, Hkv, G, Dh, P_ctx, timed,
+                  kvd="none"):
     C, bs, nblocks = 256, 16, 512
     dt = torch.bfloat16
     q = torch.randn(C, Hkv, G, Dh, device=dev).to(dt)
     kck = torch.randn(C, Hkv, Dh, device=dev).to(dt)
     vck = torch.randn(C, Hkv, Dh, device=dev).to(dt)
-    k = torch.randn(Hkv, nblocks * bs, Dh, device=dev).to(dt)
-    v = torch.randn(Hkv, nblocks * bs, Dh, device=dev).to(dt)
+    k, ks = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev)
+    v, vs = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev)
+    kw = dict(block_size=bs, kv_dtype=kvd)
+    if kvd != "none":
+        kw.update(k_scale=ks, v_scale=vs)
     pages = torch.from_numpy(
         rng.permutation(nblocks)[:P_ctx].astype(np.int32)).to(dev)
     args = (q, kck, vck, k, v, pages)
-    got = kp.flash_chunk_prefill(*args, block_size=bs)
-    want = kp.flash_chunk_prefill_plain(*args, block_size=bs)
+    got = kp.flash_chunk_prefill(*args, **kw)
+    want = kp.flash_chunk_prefill_plain(*args, **kw)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not timed:
         return err, None
     S = P_ctx * bs
-    nbytes = (q.numel() * 2 + 2 * kck.numel() * 2 + 2 * S * Hkv * Dh * 2
-              + P_ctx * 4 + got.numel() * 4)
+    nbytes = (q.numel() * 2 + 2 * kck.numel() * 2
+              + 2 * S * Hkv * stored_row_bytes(kvd, Dh) + P_ctx * 4
+              + got.numel() * 4)
     visible = C * S + C * (C + 1) // 2          # (row, column) pairs seen
     flops = visible * Hkv * G * Dh * 2 * 2
     gidx = (pages.long()[:, None] * bs
             + torch.arange(bs, device=dev)).reshape(S)
-    kall = torch.cat([k[:, gidx], kck.transpose(0, 1)], 1)
-    vall = torch.cat([v[:, gidx], vck.transpose(0, 1)], 1)
+    kctx = widened(q8, k[:, gidx], None if ks is None else ks[:, gidx], kvd,
+                   dt)
+    vctx = widened(q8, v[:, gidx], None if vs is None else vs[:, gidx], kvd,
+                   dt)
+    kall = torch.cat([kctx, kck.transpose(0, 1)], 1)
+    vall = torch.cat([vctx, vck.transpose(0, 1)], 1)
     kall = kall.repeat_interleave(G, dim=0)[None]
     vall = vall.repeat_interleave(G, dim=0)[None]
     qh = q.reshape(C, Hkv * G, Dh).transpose(0, 1)[None]
@@ -211,10 +258,9 @@ def check_prefill(torch, timer, kp, dev, rng, Hkv, G, Dh, P_ctx, timed):
                                  device=dev).tril()], 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times = {
-        "ms": timer.ms(lambda: kp.flash_chunk_prefill(*args,
-                                                      block_size=bs)),
+        "ms": timer.ms(lambda: kp.flash_chunk_prefill(*args, **kw)),
         "plain_ms": timer.ms(lambda: kp.flash_chunk_prefill_plain(
-            *args, block_size=bs)),
+            *args, **kw)),
         "library_ms": timer.ms(lambda: sdpa(qh, kall, vall,
                                             attn_mask=mask)),
     }
@@ -222,40 +268,50 @@ def check_prefill(torch, timer, kp, dev, rng, Hkv, G, Dh, P_ctx, timed):
     return err, times
 
 
-def check_span_write(torch, timer, kp, dev, rng, Hkv, Dh, timed):
+def check_span_write(torch, timer, kp, q8, dev, rng, Hkv, Dh, timed,
+                     kvd="none"):
+    """Max abs difference of every array (exact: 0 expected); bf16 rows,
+    or int8 / int4 codes with their fp32 scale tables."""
     L, bs, pc, nblocks, n_valid = 12, 16, 16, 512, 200
-    dt = torch.bfloat16
-    pool = {n: torch.randn(L, Hkv, nblocks * bs, Dh, device=dev).to(dt)
-            for n in ("k", "v")}
-    spans = {n: torch.randn(L, Hkv, pc * bs, Dh, device=dev).to(dt)
-             for n in ("k", "v")}
+    names = kp.span_names(kvd)
+    pool, spans = {}, {}
+    for n in ("k", "v"):
+        pool[n], ps = quant_pool(torch, q8, (L, Hkv, nblocks * bs, Dh), kvd,
+                                 dev)
+        spans[n], ss = quant_pool(torch, q8, (L, Hkv, pc * bs, Dh), kvd, dev)
+        if kvd != "none":
+            pool[n + "_scale"], spans[n + "_scale"] = ps, ss
     pages = torch.from_numpy(
         rng.permutation(nblocks)[:pc].astype(np.int32)).to(dev)
     valid = torch.arange(pc * bs, device=dev) < n_valid
+    kw = dict(block_size=bs, kv_dtype=kvd)
     ref = {n: t.clone() for n, t in pool.items()}
-    kp.paged_span_write(pool, spans, pages, valid, block_size=bs)
-    kp.paged_span_write_plain(ref, spans, pages, valid, block_size=bs)
+    kp.paged_span_write(pool, spans, pages, valid, **kw)
+    kp.paged_span_write_plain(ref, spans, pages, valid, **kw)
     torch.cuda.synchronize()
     err = max((pool[n].float() - ref[n].float()).abs().max().item()
-              for n in ("k", "v"))
+              for n in names)
     if not timed:
         return err, None
-    nbytes = 2 * 2 * n_valid * L * Hkv * Dh * 2 + pc * 4 + pc * bs
+    row_bytes = {n: pool[n][0, 0, 0].numel() * pool[n].element_size()
+                 for n in names}
+    nbytes = (2 * n_valid * L * Hkv * sum(row_bytes.values()) + pc * 4
+              + pc * bs)
     rows = (pages.long()[:, None] * bs
             + torch.arange(bs, device=dev)).reshape(-1)[:n_valid]
-    flat = {n: pool[n].view(L * Hkv, nblocks * bs, Dh) for n in pool}
-    src = {n: spans[n].reshape(L * Hkv, pc * bs, Dh)[:, :n_valid]
-           .contiguous() for n in spans}
+    flat = {n: pool[n].view(L * Hkv, nblocks * bs, -1) for n in names}
+    src = {n: spans[n].reshape(L * Hkv, pc * bs, -1)[:, :n_valid]
+           .contiguous() for n in names}
 
     def library():
-        for n in ("k", "v"):
+        for n in names:
             flat[n].index_copy_(1, rows, src[n])
 
     times = {
         "ms": timer.ms(lambda: kp.paged_span_write(pool, spans, pages,
-                                                   valid, block_size=bs)),
+                                                   valid, **kw)),
         "plain_ms": timer.ms(lambda: kp.paged_span_write_plain(
-            pool, spans, pages, valid, block_size=bs)),
+            pool, spans, pages, valid, **kw)),
         "library_ms": timer.ms(library),
     }
     times["bound_ms"], times["bound_by"] = bound(nbytes, 0.0, "bfloat16")
@@ -378,28 +434,42 @@ def flash_phase(torch, ka):
     return rows
 
 
-def kernel_phase(torch, kd, kp):
-    """Each kernel against its plain version at the slice's shapes
-    (GPT-2 small: Hkv=12, G=1, Dh=64, bf16; the prefill both cold and
-    with 512 context positions) and at a GQA shape (G=4, Dh=128), with
-    its tolerance; timed at the slice's shapes. The sampler has no head
-    layout, so it has no GQA shape."""
+def kernel_phase(torch, kd, kp, q8):
+    """Each kernel and each quantized branch against its plain version
+    at the slice's shapes (GPT-2 small: Hkv=12, G=1, Dh=64, bf16
+    queries; the prefill both cold and with 512 context positions; int8
+    and int4 pools for kernels 1, 3 and 4) and at a GQA shape (G=4,
+    Dh=128), with its tolerance; timed at the slice's shapes. The
+    sampler has no head layout, so it has no GQA shape."""
     dev = torch.device("cuda:0")
     timer = Timer(torch)
-    rng = np.random.RandomState(0)
     rows = {}
-    e1, t1 = check_decode(torch, timer, kd, dev, rng, 12, 1, 64, True)
-    e1g, _ = check_decode(torch, timer, kd, dev, rng, 4, 4, 128, False)
-    rows["flash_decode_attention"] = (e1, e1g, 1e-4, t1)
-    e2, t2 = check_sample(torch, timer, kd, dev, rng)
-    rows["fused_sample"] = (e2, None, 0.0, t2)
-    e3, t3 = check_prefill(torch, timer, kp, dev, rng, 12, 1, 64, 32, True)
-    e3c, _ = check_prefill(torch, timer, kp, dev, rng, 12, 1, 64, 0, False)
-    e3g, _ = check_prefill(torch, timer, kp, dev, rng, 4, 4, 128, 32, False)
-    rows["flash_chunk_prefill"] = (max(e3, e3c), e3g, 1e-4, t3)
-    e4, t4 = check_span_write(torch, timer, kp, dev, rng, 12, 64, True)
-    e4g, _ = check_span_write(torch, timer, kp, dev, rng, 4, 128, False)
-    rows["paged_span_write"] = (e4, e4g, 0.0, t4)
+    for kvd in ("none", "int8", "int4"):
+        # the same pages and positions for every storage
+        rng = np.random.RandomState(0)
+        sfx = "" if kvd == "none" else f".{kvd}"
+        e1, t1 = check_decode(torch, timer, kd, q8, dev, rng, 12, 1, 64,
+                              True, kvd)
+        e1g, _ = check_decode(torch, timer, kd, q8, dev, rng, 4, 4, 128,
+                              False, kvd)
+        rows["flash_decode_attention" + sfx] = (e1, e1g, 1e-4, t1)
+        if kvd == "none":
+            e2, t2 = check_sample(torch, timer, kd, dev, rng)
+            rows["fused_sample"] = (e2, None, 0.0, t2)
+        e3, t3 = check_prefill(torch, timer, kp, q8, dev, rng, 12, 1, 64, 32,
+                               True, kvd)
+        if kvd == "none":
+            e3c, _ = check_prefill(torch, timer, kp, q8, dev, rng, 12, 1, 64,
+                                   0, False)
+            e3 = max(e3, e3c)
+        e3g, _ = check_prefill(torch, timer, kp, q8, dev, rng, 4, 4, 128, 32,
+                               False, kvd)
+        rows["flash_chunk_prefill" + sfx] = (e3, e3g, 1e-4, t3)
+        e4, t4 = check_span_write(torch, timer, kp, q8, dev, rng, 12, 64,
+                                  True, kvd)
+        e4g, _ = check_span_write(torch, timer, kp, q8, dev, rng, 4, 128,
+                                  False, kvd)
+        rows["paged_span_write" + sfx] = (e4, e4g, 0.0, t4)
     for name, (err, gqa_err, tol, times) in rows.items():
         shown = {("kernel_ms" if k == "ms" else k): v
                  for k, v in times.items()}
@@ -463,6 +533,81 @@ def step_parity(torch, tt):
           f"tol=1e-4")
     if not (err <= 1e-4 and pool_err <= 1e-4):
         fail("step functions on the card disagree with the CPU")
+
+
+def pools_close(torch, q8, a, b, kvd):
+    """(max code difference, share of equal codes, max relative scale
+    difference) of two quantized pools; int4 compared nibble by
+    nibble."""
+    dmax, equal, srel = 0, 1.0, 0.0
+    for n in ("k", "v"):
+        x, y = a[n].cpu(), b[n].cpu()
+        if kvd == "int4":
+            x, y = q8.unpack_int4(x), q8.unpack_int4(y)
+        d = (x.int() - y.int()).abs()
+        dmax = max(dmax, int(d.max()))
+        equal = min(equal, float((d == 0).float().mean()))
+        sa, sb = a[n + "_scale"].cpu(), b[n + "_scale"].cpu()
+        rel = ((sa - sb).abs() / sb.abs().clamp_min(1e-30)).max().item()
+        srel = max(srel, rel)
+    return dmax, equal, srel
+
+
+def step_parity_quant(torch, tt, tlm, q8):
+    """The step_parity walk with an int8 pool and int8 weights
+    (``quantize_lm_params`` of the seed-5 fp32 draws), card vs CPU:
+    logits within 1e-4 (fp32, sums in another order); pool codes within
+    1 and equal on >= 99.9 % of elements (a projection an ulp off can
+    cross a rounding boundary); scales within 1e-5 relative (a scale is
+    a row's absmax over 127, and the k/v rows themselves differ by fp32
+    sums of 128 products taken in another order: ~1e-6 relative, 8e-7
+    observed on an H100)."""
+    cfg = tt.TransformerConfig(vocab=256, d_model=128, n_heads=4,
+                               n_kv_heads=2, n_layers=2, d_ff=256,
+                               max_len=128, dtype="float32")
+    bs, nb = 16, 16
+    fp32 = tt.init_train_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    params = {d: tlm.quantize_lm_params(fp32, device=d)
+              for d in ("cpu", "cuda")}
+    pools = {d: tt.init_block_pool(cfg, nb, bs, kv_dtype="int8", device=d)
+             for d in ("cpu", "cuda")}
+    rng = np.random.RandomState(7)
+    prompt = rng.randint(0, 256, 40).astype(np.int32)
+    pages = np.asarray([3, 9, 4, 0], np.int32)       # 0: unmapped tail
+    logits = {}
+    for d in ("cpu", "cuda"):
+        out = []
+        for off, c in ((0, 32), (32, 8)):
+            bucket = 32 if c > 16 else 16
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :c] = prompt[off:off + c]
+            pv = pages[:off // bs + bucket // bs]
+            lg, _ = tt.prefill_into_blocks(
+                params[d], pools[d], torch.from_numpy(padded).to(d), c,
+                torch.from_numpy(pv.copy()).to(d), cfg, block_size=bs)
+            out.append(lg.cpu())
+        tok = torch.tensor([int(out[-1].argmax()), 5], dtype=torch.int32)
+        lg, _ = tt.decode_step_paged(
+            params[d], pools[d], tok.to(d),
+            torch.tensor([40, 3], dtype=torch.int32).to(d),
+            torch.tensor([True, False]).to(d),
+            torch.from_numpy(np.stack([pages, pages])).to(d), cfg,
+            block_size=bs)
+        out.append(lg.cpu())
+        logits[d] = out
+    err = 0.0
+    for a, b in zip(logits["cpu"], logits["cuda"]):
+        if not torch.isfinite(b).all():
+            fail("non-finite logits on the card (int8 pool, int8 weights)")
+        err = max(err, (a - b).abs().max().item())
+    dmax, equal, srel = pools_close(torch, q8, pools["cuda"], pools["cpu"],
+                                    "int8")
+    print(f"steps int8: prefill(2 chunks)+decode on the card vs the CPU, "
+          f"fp32, int8 pool and int8 weights, logits max_abs_err={err!r} "
+          f"tol=1e-4; pool codes max_diff={dmax} equal_share={equal!r} "
+          f"(tol 1, 0.999); scales max_rel_err={srel!r} tol=1e-5")
+    if not (err <= 1e-4 and dmax <= 1 and equal >= 0.999 and srel <= 1e-5):
+        fail("quantized step functions on the card disagree with the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -559,10 +704,15 @@ def submit(eng, prompt, max_new, temp):
                       top_k=50 if temp > 0 else 0)
 
 
-def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev):
-    params = tt.init_params(cfg, torch.Generator().manual_seed(0), dev)
-    eng = PagedDecodeEngine.from_params(params, cfg, device=dev,
-                                        **ENGINE_KW)
+def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
+                 kv_dtype, label, branch):
+    """Serve the 16-request trace with ``params`` over a ``kv_dtype``
+    pool; print the ``<label>:`` line; check every request, the launch
+    of each serving kernel of the ``branch`` ("" for the model-dtype
+    pool, ".int8"/".int4") and that the prefix hit equals the cold run
+    in a fresh engine. Returns the run's launch counts."""
+    kw = dict(ENGINE_KW, kv_dtype=kv_dtype)
+    eng = PagedDecodeEngine.from_params(params, cfg, device=dev, **kw)
     # first calls (cuBLAS handles, allocator) stay out of the timing
     warm = submit(eng, np.arange(40) % cfg.vocab, 4, 0.0)
     eng.run_until_idle()
@@ -580,44 +730,90 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev):
     launches = kernels.launch_counts()
     tokens = sum(len(r.tokens) for r in reqs)
     ttft = np.asarray([r.ttft_s for r in reqs])
+    health = eng.health()
     doc = {"requests": len(reqs), "generated_tokens": tokens,
            "wall_s": wall, "tokens_per_s": tokens / wall,
            "ttft_p50_s": float(np.percentile(ttft, 50)),
            "ttft_p99_s": float(np.percentile(ttft, 99)),
            "decode_mfu": eng.decode_mfu(),
-           "decode_steps": eng.health()["decode_steps"],
+           "decode_steps": health["decode_steps"],
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "kv_dtype": health["kv_dtype"],
+           "kv_bytes_per_token": health["kv_bytes_per_token"],
            "pool_bytes": eng.pool_bytes,
            "prefix_hit_tokens": reqs[1].prefix_hit_tokens,
            "launches": launches}
-    print("engine: " + json.dumps(doc))
+    print(f"{label}: " + json.dumps(doc))
     for r, (p, max_new, _) in zip(reqs, reqs_in):
         ids = np.asarray(r.tokens)
         if (r.status != "done" or len(ids) != max_new
                 or ids.min() < 0 or ids.max() >= cfg.vocab):
-            fail(f"request {r.rid}: status {r.status}, {len(ids)} of "
-                 f"{max_new} tokens, ids in [{ids.min()}, {ids.max()}]")
+            fail(f"{label} request {r.rid}: status {r.status}, {len(ids)} "
+                 f"of {max_new} tokens, ids in [{ids.min()}, {ids.max()}]")
     if not eng.pool.idle:
-        fail("blocks still held after the engine drained")
-    missing = [k for k in SERVING_KERNELS if launches[k] <= 0]
+        fail(f"{label}: blocks still held after the engine drained")
+    path = [k + (branch if k != "fused_sample" else "")
+            for k in SERVING_KERNELS]
+    missing = [k for k in path if launches[k] <= 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"{label}: kernels never launched on the main path: {missing}")
     if reqs[1].prefix_hit_tokens != 256:
-        fail(f"the shared-prefix request hit {reqs[1].prefix_hit_tokens} "
-             f"tokens, expected 256")
+        fail(f"{label}: the shared-prefix request hit "
+             f"{reqs[1].prefix_hit_tokens} tokens, expected 256")
     # the hit replays a cold prefill: same greedy tokens in a fresh engine
-    cold_eng = PagedDecodeEngine.from_params(params, cfg, device=dev,
-                                             **ENGINE_KW)
+    cold_eng = PagedDecodeEngine.from_params(params, cfg, device=dev, **kw)
     cold = submit(cold_eng, *reqs_in[1])
     cold_eng.run_until_idle()
     same = cold.tokens == reqs[1].tokens
-    print(f"check: prefix-hit request (hit {reqs[1].prefix_hit_tokens} "
-          f"tokens) vs the same prompt cold in a fresh engine (hit "
-          f"{cold.prefix_hit_tokens}): {len(cold.tokens)} greedy tokens, "
-          f"identical={same}")
+    print(f"check {label}: prefix-hit request (hit "
+          f"{reqs[1].prefix_hit_tokens} tokens) vs the same prompt cold in "
+          f"a fresh engine (hit {cold.prefix_hit_tokens}): "
+          f"{len(cold.tokens)} greedy tokens, identical={same}")
     if not same:
-        fail("prefix hit and cold prefill gave different greedy tokens")
+        fail(f"{label}: prefix hit and cold prefill gave different greedy "
+             f"tokens")
     return launches
+
+
+def quant_logits_phase(torch, tt, cfg, params, dev):
+    """Decode logits off int8 and int4 pools against the bf16 pool at
+    the slice's widths, on one 300-token prompt (chunks of 256 and 44,
+    then one decode step, the same bf16 weights): the global relative L2
+    distance must stay under ``kv_rel_l2_budget``."""
+    bs = ENGINE_KW["block_size"]
+    rng = np.random.RandomState(11)
+    prompt = rng.randint(0, cfg.vocab, 300).astype(np.int32)
+    pages = np.arange(1, 21, dtype=np.int32)         # 20 pages of 16
+    logits = {}
+    for kvd in (None, "int8", "int4"):
+        pool = tt.init_block_pool(cfg, 24, bs, kv_dtype=kvd, device=dev)
+        for off, c in ((0, 256), (256, 44)):
+            padded = np.zeros((1, 256 if c > 64 else 64), np.int32)
+            padded[0, :c] = prompt[off:off + c]
+            pv = pages[:off // bs + padded.shape[1] // bs]
+            lg, _ = tt.prefill_into_blocks(
+                params, pool, torch.from_numpy(padded).to(dev), c,
+                torch.from_numpy(pv.copy()).to(dev), cfg, block_size=bs)
+        tok = lg.argmax(-1).to(torch.int32)
+        lg, _ = tt.decode_step_paged(
+            params, pool, tok, torch.tensor([300], dtype=torch.int32,
+                                            device=dev),
+            torch.ones(1, dtype=torch.bool, device=dev),
+            torch.from_numpy(pages[None].copy()).to(dev), cfg,
+            block_size=bs)
+        logits[kvd] = lg.float()
+    out = {}
+    for kvd in ("int8", "int4"):
+        rel = ((logits[kvd] - logits[None]).norm()
+               / logits[None].norm()).item()
+        budget = tt.kv_rel_l2_budget(cfg, kvd)
+        out[kvd] = (rel, budget)
+        print(f"check quant logits {kvd}: decode logits off the {kvd} pool "
+              f"vs the bf16 pool, rel_l2={rel!r} budget={budget!r}")
+        if not (np.isfinite(rel) and 0 < rel < budget):
+            fail(f"{kvd} pool logits outside kv_rel_l2_budget: {rel} vs "
+                 f"{budget}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -700,6 +896,11 @@ SOURCES = {
 }
 SERVING_KERNELS = ("flash_decode_attention", "fused_sample",
                    "flash_chunk_prefill", "paged_span_write")
+# the quantized branches of kernels 1, 3 and 4, each its own entry: the
+# same source, the TPU kernel's kv_dtype="int8"/"int4" path
+QUANT_BRANCHES = tuple(f"{k}.{kvd}" for kvd in ("int8", "int4")
+                       for k in SERVING_KERNELS if k != "fused_sample")
+SOURCES.update({b: SOURCES[b.split(".")[0]] for b in QUANT_BRANCHES})
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 
 
@@ -713,9 +914,10 @@ def main():
         fail("paddle_tpu_torch is not beside chip_smoke.py")
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.io import lm_serving as tlm
     from paddle_tpu_torch.models import transformer as tt
     from paddle_tpu_torch.observe import costs
-    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops import kernels, q8
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import attention as ka
     from paddle_tpu_torch.ops.kernels import decode as kd
@@ -742,14 +944,30 @@ def main():
           f"{time.perf_counter() - t0!r} dir={info['dir']}")
 
     dev = torch.device("cuda:0")
-    rows = {**kernel_phase(torch, kd, kp), **flash_phase(torch, ka)}
+    rows = {**kernel_phase(torch, kd, kp, q8), **flash_phase(torch, ka)}
     step_parity(torch, tt)
+    step_parity_quant(torch, tt, tlm, q8)
     train_parity(torch, tt, topt)
-    served = engine_phase(torch, tt, kernels, PagedDecodeEngine,
-                          gpt2_small(tt), dev)
-    trained = train_phase(torch, tt, topt, kernels, costs, place,
-                          gpt2_small(tt), dev)
+    cfg = gpt2_small(tt)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    served = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
+                          params, None, "engine", "")
+    # (b) int4 pool, bf16 weights
+    served4 = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
+                           params, "int4", "engine_int4", ".int4")
+    quant_logits_phase(torch, tt, cfg, params, dev)
+    del params                  # (a)'s peak memory holds its weights only
+    # (a) int8 pool, int8 weights from the same seed-0 fp32 draws
+    fp32 = tt.init_train_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    w8 = tlm.quantize_lm_params(fp32, device=dev)
+    del fp32
+    served8 = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
+                           w8, "int8", "engine_int8", ".int8")
+    del w8
+    trained = train_phase(torch, tt, topt, kernels, costs, place, cfg, dev)
     launches = {**{k: served[k] for k in SERVING_KERNELS},
+                **{k: served8[k] for k in QUANT_BRANCHES if "int8" in k},
+                **{k: served4[k] for k in QUANT_BRANCHES if "int4" in k},
                 **{k: trained[k] for k in TRAINING_KERNELS}}
 
     out = []

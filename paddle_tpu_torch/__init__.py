@@ -5,6 +5,8 @@ exists, so a reader can put the two side by side:
 
 - ``core/``            device placement, dtype names, length buckets
 - ``ops/norm.py``, ``ops/loss.py``  layer norm, softmax cross-entropy
+- ``ops/q8.py``        int8 weights and int8/int4 KV rows for serving
+- ``io/lm_serving.py`` ``quantize_lm_params``: the int8-weight tree
 - ``ops/kernels/``     the hand-written Hopper kernels (CUDA C++ under
                        ``csrc/``) that replace ``paddle_tpu/ops/pallas/``,
                        each beside its plain PyTorch version

@@ -14,7 +14,19 @@ fp32.
 The paged pool is head-major, ``[L, Hkv, M, Dh]`` per k/v with
 ``M = num_blocks * block_size``, and the step functions update it IN
 PLACE (the JAX functions return a new pool; these return the one they
-were given). Attention and the pool's span writes go through the kernel
+were given). A quantized pool (``kv_dtype`` "int8"/"int4") stores int8
+codes (int4: two per byte) with one fp32 scale per (layer, head,
+position) beside them.
+
+The serving steps also take the int8-weight tree of
+``io/lm_serving.quantize_lm_params``: each matmul weight is a
+{"q8", "scale"} node, dequantized one layer at a time where it is used,
+``(q8.float() * scale)`` in fp32, then cast to ``cfg.dtype`` for the
+matmul, as ``paddle_tpu``'s decode step does inside its layer scan.
+``paddle_tpu``'s prefill dequantizes the whole tree to fp32 first; the
+dequant is elementwise and rounds once, so either order gives the same
+bf16 operands bit for bit, and the port dequantizes per layer in both
+steps. Attention and the pool's span writes go through the kernel
 wrappers of ``ops/kernels``; the dense projections stay ``torch.matmul``
 as they stayed XLA matmuls in the JAX package.
 
@@ -41,6 +53,7 @@ import torch.nn.functional as F
 from paddle_tpu_torch.core import dtypes, place
 from paddle_tpu_torch.ops import loss as ops_loss
 from paddle_tpu_torch.ops import norm
+from paddle_tpu_torch.ops import q8
 from paddle_tpu_torch.ops.kernels import attention as kattention
 from paddle_tpu_torch.ops.kernels import decode as kdecode
 from paddle_tpu_torch.ops.kernels import prefill as kprefill
@@ -94,8 +107,11 @@ class TransformerConfig:
 
 def _place(tree: Dict, cfg: TransformerConfig, device) -> Dict:
     """Move a parameter dict to ``device``: matmul weights in
-    ``cfg.dtype``, everything else fp32."""
+    ``cfg.dtype``, everything else fp32; an int8 {"q8", "scale"} node
+    moves as it is."""
     def leaf(name, t):
+        if q8.is_quantized_weight(t):
+            return {k: v.to(device).contiguous() for k, v in t.items()}
         dt = cfg.dtype if name in MATMUL_WEIGHTS else torch.float32
         return t.to(device=device, dtype=dt).contiguous()
 
@@ -167,6 +183,11 @@ def init_train_params(cfg: TransformerConfig,
 
 def _from_numpy(tree: Dict) -> Dict:
     def t(a):
+        if q8.is_quantized_weight(a):      # int8 codes, fp32 scales
+            return {"q8": torch.from_numpy(np.asarray(a["q8"], np.int8)
+                                           .copy()),
+                    "scale": torch.from_numpy(np.asarray(a["scale"],
+                                                         np.float32).copy())}
         return torch.from_numpy(np.asarray(a, np.float32).copy())
 
     flat = {k: t(v) for k, v in tree.items() if k != "blocks"}
@@ -178,8 +199,10 @@ def params_from_numpy(tree: Dict, cfg: TransformerConfig,
                       device=None) -> Dict:
     """``paddle_tpu``'s parameter tree, already converted to numpy
     (``jax.tree_util.tree_map(np.asarray, params)``), as the port's
-    serving tensors — same names, shapes and orientation. Runs on the
-    card unless ``device`` says otherwise."""
+    serving tensors — same names, shapes and orientation. A tree from
+    ``paddle_tpu``'s ``quantize_lm_params`` keeps its {"q8", "scale"}
+    nodes, bytes and scales exactly. Runs on the card unless ``device``
+    says otherwise."""
     return _place(_from_numpy(tree), cfg, place.resolve_device(device))
 
 
@@ -204,27 +227,99 @@ def params_to_numpy(tree: Dict) -> Dict:
 def init_block_pool(cfg: TransformerConfig, num_blocks: int,
                     block_size: int, kv_dtype: Optional[str] = None,
                     device=None) -> Dict[str, torch.Tensor]:
-    """Paged KV pool, head-major: {"k", "v"} each
-    [L, kv_heads, num_blocks * block_size, Dh] in the model dtype, zeroed.
+    """Paged KV pool, head-major, zeroed: {"k", "v"} each
+    [L, kv_heads, num_blocks * block_size, Dh] in the model dtype.
     Block ``i`` owns positions ``[i*block_size, (i+1)*block_size)`` of
-    the flat position axis. Quantized pools are the next slice."""
-    kdecode._no_quant(kv_dtype)
+    the flat position axis.
+
+    ``kv_dtype`` "int8" stores k/v as int8 codes with fp32 scale tables
+    ``k_scale``/``v_scale`` [L, kv_heads, M], one per (layer, head,
+    position); "int4" packs two codes per byte ([..., Dh // 2], the same
+    scale tables). The page table indexes values and scales alike."""
     device = place.resolve_device(device)
-    shape = (cfg.n_layers, cfg.kv_heads, int(num_blocks) * int(block_size),
-             cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    M = int(num_blocks) * int(block_size)
+    if kv_dtype in (None, "none"):
+        shape = (cfg.n_layers, cfg.kv_heads, M, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    if kv_dtype not in q8.KV_DTYPES:
+        raise ValueError(f"kv_dtype {kv_dtype!r}: one of "
+                         f"{(None,) + q8.KV_DTYPES}")
+    Dh = cfg.head_dim
+    if kv_dtype == "int4":
+        if Dh % 2:
+            raise ValueError(f"int4 KV packs nibble pairs: head_dim {Dh} "
+                             f"must be even")
+        Dh //= 2
+    shape = (cfg.n_layers, cfg.kv_heads, M, Dh)
+    sshape = (cfg.n_layers, cfg.kv_heads, M)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device)}
+
+
+def pool_kv_dtype(pool, cfg: TransformerConfig) -> str:
+    """The storage a pool carries: ``"none"`` (model dtype), ``"int8"``
+    or ``"int4"``, read from its arrays."""
+    if "k_scale" not in pool:
+        return "none"
+    return ("int4" if pool["k"].shape[-1] == cfg.head_dim // 2
+            and cfg.head_dim > 1 else "int8")
+
+
+def kv_pool_bytes_per_token(cfg: TransformerConfig,
+                            kv_dtype: Optional[str] = None) -> int:
+    """Pool bytes one resident token costs across all layers: k and v
+    rows plus, for a quantized pool, their two fp32 scales per head."""
+    Hkv, Dh = cfg.kv_heads, cfg.head_dim
+    if kv_dtype in (None, "none"):
+        per = 2 * Hkv * Dh * torch.empty((), dtype=cfg.dtype).element_size()
+    elif kv_dtype == "int8":
+        per = 2 * Hkv * Dh + 2 * Hkv * 4
+    elif kv_dtype == "int4":
+        per = 2 * Hkv * (Dh // 2) + 2 * Hkv * 4
+    else:
+        raise ValueError(f"kv_dtype {kv_dtype!r}")
+    return cfg.n_layers * per
+
+
+def kv_rel_l2_budget(cfg: TransformerConfig, kv_dtype: str) -> float:
+    """Global relative L2 budget of decode logits off a quantized pool
+    against the unquantized pool, ``paddle_tpu``'s: symmetric rounding
+    adds at most ``0.5 / qmax`` relative noise per element, each layer
+    reads quantized K and V (2L injections that add in quadrature), so
+    the logits see about ``sqrt(2L) * 0.5 / qmax``; the budget is twice
+    that, capped at 0.5 — a wrong scale lands at O(1)."""
+    half_step = 0.5 / q8.KV_QMAX[kv_dtype]
+    return min(0.5, 2.0 * math.sqrt(2 * cfg.n_layers) * half_step)
 
 
 def pool_from_numpy(pool: Dict, cfg: TransformerConfig,
                     device=None) -> Dict[str, torch.Tensor]:
-    """A ``paddle_tpu`` pool ({"k", "v"} as numpy) as the port's pool."""
-    if set(pool) != {"k", "v"}:
-        raise NotImplementedError("quantized KV pools are not ported yet")
+    """A ``paddle_tpu`` pool as numpy ({"k", "v"}, plus the scale tables
+    of a quantized pool) as the port's pool: model-dtype values cast to
+    ``cfg.dtype``, int8 codes and fp32 scales carried across exactly."""
     device = place.resolve_device(device)
-    return {n: torch.from_numpy(np.asarray(pool[n], np.float32).copy())
-            .to(device=device, dtype=cfg.dtype).contiguous()
-            for n in ("k", "v")}
+    if set(pool) == {"k", "v"}:
+        return {n: torch.from_numpy(np.asarray(pool[n], np.float32).copy())
+                .to(device=device, dtype=cfg.dtype).contiguous()
+                for n in ("k", "v")}
+    if set(pool) != {"k", "v", "k_scale", "v_scale"}:
+        raise ValueError(f"pool arrays {sorted(pool)}: expected k, v and, "
+                         f"for a quantized pool, k_scale and v_scale")
+    want = {"k": np.int8, "v": np.int8, "k_scale": np.float32,
+            "v_scale": np.float32}
+    out = {}
+    for n, dt in want.items():
+        a = np.asarray(pool[n])
+        if a.dtype != dt:
+            raise ValueError(f"pool[{n!r}] is {a.dtype}, expected "
+                             f"{np.dtype(dt)}")
+        out[n] = torch.from_numpy(a.copy()).to(device).contiguous()
+    return out
 
 
 def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
@@ -262,21 +357,52 @@ def _rope_rows(x: torch.Tensor, tables) -> torch.Tensor:
     return _rotate(x, cos[:, None, :], sin[:, None, :])
 
 
+def _blocks_quantized(params) -> bool:
+    """True for the int8-weight tree of ``quantize_lm_params``: the
+    block matmul weights ride as {"q8", "scale"} nodes."""
+    return any(q8.is_quantized_weight(n) for n in params["blocks"].values())
+
+
+def _layer_weights(w: Dict, li: int, dtype) -> Dict[str, torch.Tensor]:
+    """Layer ``li`` of the stacked block weights. A {"q8", "scale"}
+    node dequantizes here, for this layer alone: ``q8 * scale`` in fp32,
+    then cast to ``dtype`` for the matmul (a weight already in ``dtype``
+    is taken as it is)."""
+    out = {}
+    for name, n in w.items():
+        if q8.is_quantized_weight(n):
+            out[name] = q8.dequantize_weight(
+                {"q8": n["q8"][li], "scale": n["scale"][li]}).to(dtype)
+        else:
+            out[name] = n[li]
+    return out
+
+
 def _embed_rows(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Token-embedding gather, cast to the model dtype."""
-    return params["embed"][tokens.long()].to(cfg.dtype)
+    """Token-embedding gather, cast to the model dtype. An int8
+    embedding gathers int8 rows and their row scales and dequantizes
+    only those rows."""
+    emb = params["embed"]
+    idx = tokens.long()
+    if q8.is_quantized_weight(emb):
+        return (emb["q8"][idx].float() * emb["scale"][idx]).to(cfg.dtype)
+    return emb[idx].to(cfg.dtype)
 
 
 def _vocab_logits(x: torch.Tensor, params) -> torch.Tensor:
-    """Tied vocab head in fp32: [N, D] -> [N, V]."""
-    return x.float() @ params["embed"].float().T
+    """Tied vocab head in fp32: [N, D] -> [N, V]; an int8 embedding is
+    dequantized to fp32 first."""
+    emb = params["embed"]
+    emb32 = (q8.dequantize_weight(emb) if q8.is_quantized_weight(emb)
+             else emb.float())
+    return x.float() @ emb32.T
 
 
-def _mlp(h2, w, li):
-    """The dense FFN of layer ``li``, weights cast to the activations'
-    dtype at use (a no-op on the serving dict)."""
-    ff = F.gelu(h2 @ w["mlp_in"][li].to(h2.dtype), approximate="tanh")
-    return ff @ w["mlp_out"][li].to(ff.dtype)
+def _mlp(h2, w_in, w_out):
+    """The dense FFN, weights cast to the activations' dtype at use (a
+    no-op on the serving dict)."""
+    ff = F.gelu(h2 @ w_in.to(h2.dtype), approximate="tanh")
+    return ff @ w_out.to(ff.dtype)
 
 
 def _dropout(h: torch.Tensor, rate: float,
@@ -335,7 +461,8 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         x = x + _dropout(attn @ w["attn_out"][li].to(attn.dtype), rate,
                          generator)
         h2 = norm.layer_norm(x, w["ln2"][li], w["ln2_b"][li])
-        x = x + _dropout(_mlp(h2, w, li), rate, generator)
+        x = x + _dropout(_mlp(h2, w["mlp_in"][li], w["mlp_out"][li]), rate,
+                         generator)
     x = norm.layer_norm(x, params["ln_f"], params["ln_f_b"])
     return _vocab_logits(x, params)
 
@@ -360,6 +487,14 @@ def lm_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
     return (tok_ce * mask).sum() / mask.sum().clamp_min(1.0)
 
 
+def _pool_layer(pool, li: int, kvq: str):
+    """Layer ``li``'s views of the pool arrays and the kernels' keyword
+    arguments for them: (k, v, {"k_scale", "v_scale", "kv_dtype"})."""
+    scales = ({"k_scale": pool["k_scale"][li], "v_scale": pool["v_scale"][li]}
+              if kvq != "none" else {})
+    return pool["k"][li], pool["v"][li], dict(scales, kv_dtype=kvq)
+
+
 def decode_step_paged(params, pool, tokens: torch.Tensor,
                       pos: torch.Tensor, active: torch.Tensor,
                       pages: torch.Tensor, cfg: TransformerConfig, *,
@@ -370,13 +505,20 @@ def decode_step_paged(params, pool, tokens: torch.Tensor,
     ``pages[b, pos[b] // bs] * bs + pos[b] % bs`` (in place), then every
     row attends through ``flash_decode_attention``. Inactive rows write
     nothing — the JAX scatter drops them with ``mode="drop"``; here only
-    the active rows are indexed at all."""
+    the active rows are indexed at all.
+
+    A quantized pool gets each active row's new k/v quantized at write
+    time (``ops/q8.quantize_kv`` on the model-dtype values after RoPE,
+    one scale per (row, head)); values and scales are written for the
+    active rows only, and attention reads through the kernel's
+    quantized branch. ``params`` may be the int8-weight tree (module
+    docstring)."""
     B = tokens.shape[0]
     P = pages.shape[1]
     bs = int(block_size)
     H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     kvd, G = Hkv * Dh, H // Hkv
-    w = params["blocks"]
+    kvq = pool_kv_dtype(pool, cfg)
     x = _embed_rows(params, tokens, cfg)
     if not cfg.use_rope:
         x = x + params["pos"][pos.long()].to(cfg.dtype)
@@ -389,21 +531,32 @@ def decode_step_paged(params, pool, tokens: torch.Tensor,
     act = active.nonzero()[:, 0]
     widx = wrow[act]
     for li in range(cfg.n_layers):
-        kc, vc = pool["k"][li], pool["v"][li]        # [Hkv, M, Dh] views
-        h = norm.layer_norm(x, w["ln1"][li], w["ln1_b"][li])
-        qkv = h @ w["qkv"][li]
+        w = _layer_weights(params["blocks"], li, cfg.dtype)
+        kc, vc, kvkw = _pool_layer(pool, li, kvq)     # [Hkv, M, ...] views
+        h = norm.layer_norm(x, w["ln1"], w["ln1_b"])
+        qkv = h @ w["qkv"]
         q, k, v = torch.split(qkv, [H * Dh, kvd, kvd], dim=-1)
         if cfg.use_rope:
             q = _rope_rows(q.reshape(B, H, Dh), rope_tabs).reshape(B, H * Dh)
             k = _rope_rows(k.reshape(B, Hkv, Dh), rope_tabs).reshape(B, kvd)
-        kc[:, widx] = k.reshape(B, Hkv, Dh)[act].transpose(0, 1).to(kc.dtype)
-        vc[:, widx] = v.reshape(B, Hkv, Dh)[act].transpose(0, 1).to(vc.dtype)
+        k_new = k.reshape(B, Hkv, Dh)[act]
+        v_new = v.reshape(B, Hkv, Dh)[act]
+        if kvq != "none":
+            kq, ks = q8.quantize_kv(k_new, kvq)
+            vq, vs = q8.quantize_kv(v_new, kvq)
+            kc[:, widx] = kq.transpose(0, 1)
+            vc[:, widx] = vq.transpose(0, 1)
+            kvkw["k_scale"][:, widx] = ks.transpose(0, 1)
+            kvkw["v_scale"][:, widx] = vs.transpose(0, 1)
+        else:
+            kc[:, widx] = k_new.transpose(0, 1).to(kc.dtype)
+            vc[:, widx] = v_new.transpose(0, 1).to(vc.dtype)
         attn = kdecode.flash_decode_attention(
             q.reshape(B, Hkv, G, Dh).contiguous(), kc, vc, pages, pos,
-            block_size=bs)
-        x = x + attn.reshape(B, cfg.d_model).to(cfg.dtype) @ w["attn_out"][li]
-        h2 = norm.layer_norm(x, w["ln2"][li], w["ln2_b"][li])
-        x = x + _mlp(h2, w, li)
+            block_size=bs, **kvkw)
+        x = x + attn.reshape(B, cfg.d_model).to(cfg.dtype) @ w["attn_out"]
+        h2 = norm.layer_norm(x, w["ln2"], w["ln2_b"])
+        x = x + _mlp(h2, w["mlp_in"], w["mlp_out"])
     x = norm.layer_norm(x, params["ln_f"], params["ln_f_b"])
     return _vocab_logits(x, params), pool
 
@@ -421,7 +574,13 @@ def prefill_into_blocks(params, pool, tokens: torch.Tensor, length: int,
     causal); after the layers, ``paged_span_write`` lands the chunk's
     K/V in its pages in place, valid rows only — padded rows map to
     unallocated page-table entries (0) and must never be written.
-    Returns (logits at the last valid position [1, vocab] fp32, pool)."""
+    Returns (logits at the last valid position [1, vocab] fp32, pool).
+
+    A quantized pool: in-chunk attention uses the chunk's exact
+    model-dtype K/V and only what lands in the pool is rounded — the
+    spans are quantized after the layers, per (layer, token, head), and
+    one span write covers values and scales. ``params`` may be the
+    int8-weight tree (module docstring)."""
     if tokens.shape[0] != 1:
         raise ValueError(f"prefill_into_blocks takes one request "
                          f"([1, C] tokens), got {tuple(tokens.shape)}")
@@ -435,8 +594,8 @@ def prefill_into_blocks(params, pool, tokens: torch.Tensor, length: int,
                          f"own span ({pc} pages for C={C})")
     H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     kvd, G = Hkv * Dh, H // Hkv
+    kvq = pool_kv_dtype(pool, cfg)
     dev = tokens.device
-    w = params["blocks"]
     length = int(length)
     gpos = S + torch.arange(C, device=dev)
     x = _embed_rows(params, tokens[0], cfg)
@@ -447,12 +606,17 @@ def prefill_into_blocks(params, pool, tokens: torch.Tensor, length: int,
     rope_tabs = (_rope_tables(gpos, Dh, cfg.rope_theta) if cfg.use_rope
                  else None)
     ctx_pages = pages[:P - pc]
-    span_shape = (cfg.n_layers, Hkv, pc * bs, Dh)
-    spans = {n: torch.zeros(span_shape, dtype=pool[n].dtype, device=dev)
+    # the chunk's K/V in the pool's value dtype, or in the model dtype
+    # until they are quantized after the layers
+    span_dtype = cfg.dtype if kvq != "none" else pool["k"].dtype
+    spans = {n: torch.zeros((cfg.n_layers, Hkv, pc * bs, Dh),
+                            dtype=span_dtype, device=dev)
              for n in ("k", "v")}
     for li in range(cfg.n_layers):
-        h = norm.layer_norm(x, w["ln1"][li], w["ln1_b"][li])
-        qkv = h @ w["qkv"][li]
+        w = _layer_weights(params["blocks"], li, cfg.dtype)
+        kc, vc, kvkw = _pool_layer(pool, li, kvq)
+        h = norm.layer_norm(x, w["ln1"], w["ln1_b"])
+        qkv = h @ w["qkv"]
         q, k, v = torch.split(qkv, [H * Dh, kvd, kvd], dim=-1)
         if cfg.use_rope:
             q = _rope_rows(q.reshape(C, H, Dh), rope_tabs).reshape(C, H * Dh)
@@ -460,16 +624,19 @@ def prefill_into_blocks(params, pool, tokens: torch.Tensor, length: int,
         kck = k.reshape(C, Hkv, Dh).contiguous()
         vck = v.reshape(C, Hkv, Dh).contiguous()
         attn = kprefill.flash_chunk_prefill(
-            q.reshape(C, Hkv, G, Dh).contiguous(), kck, vck,
-            pool["k"][li], pool["v"][li], ctx_pages, block_size=bs)
+            q.reshape(C, Hkv, G, Dh).contiguous(), kck, vck, kc, vc,
+            ctx_pages, block_size=bs, **kvkw)
         spans["k"][li, :, :C] = kck.transpose(0, 1)
         spans["v"][li, :, :C] = vck.transpose(0, 1)
-        x = x + attn.reshape(C, cfg.d_model).to(cfg.dtype) @ w["attn_out"][li]
-        h2 = norm.layer_norm(x, w["ln2"][li], w["ln2_b"][li])
-        x = x + _mlp(h2, w, li)
+        x = x + attn.reshape(C, cfg.d_model).to(cfg.dtype) @ w["attn_out"]
+        h2 = norm.layer_norm(x, w["ln2"], w["ln2_b"])
+        x = x + _mlp(h2, w["mlp_in"], w["mlp_out"])
+    if kvq != "none":
+        spans["k"], spans["k_scale"] = q8.quantize_kv(spans["k"], kvq)
+        spans["v"], spans["v_scale"] = q8.quantize_kv(spans["v"], kvq)
     valid = torch.arange(pc * bs, device=dev) < length
     kprefill.paged_span_write(pool, spans, pages[P - pc:].contiguous(),
-                              valid, block_size=bs)
+                              valid, block_size=bs, kv_dtype=kvq)
     # only the last valid position feeds the vocab head
     last = max(length - 1, 0)
     x = norm.layer_norm(x[last:last + 1], params["ln_f"], params["ln_f_b"])

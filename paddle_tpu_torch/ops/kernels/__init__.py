@@ -3,7 +3,8 @@
 CUDA C++ sources live in ``csrc/``; ``_build`` compiles them with nvcc
 at first use and binds them with ctypes. ``KERNELS`` lists every kernel
 wrapper of the serving and training paths, each with its ``launches``
-counter.
+counter: an int, or for the three wrappers whose kernel is templated on
+the KV pool's storage a dict with one count per storage.
 """
 
 from paddle_tpu_torch.ops.kernels.attention import (flash_attention_bwd,
@@ -18,11 +19,24 @@ KERNELS = (flash_decode_attention, fused_sample, flash_chunk_prefill,
 
 
 def reset_launches():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0."""
     for fn in KERNELS:
-        fn.launches = 0
+        if isinstance(fn.launches, dict):
+            fn.launches = dict.fromkeys(fn.launches, 0)
+        else:
+            fn.launches = 0
 
 
 def launch_counts() -> dict:
-    """``{kernel name: launches}`` of every kernel wrapper."""
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    """``{kernel name: launches}`` of every kernel and branch: a
+    templated wrapper's model-dtype branch under its own name, its
+    quantized ones as ``<name>.int8`` and ``<name>.int4``."""
+    out = {}
+    for fn in KERNELS:
+        if isinstance(fn.launches, dict):
+            for kv, n in fn.launches.items():
+                out[fn.__name__ if kv == "none"
+                    else f"{fn.__name__}.{kv}"] = n
+        else:
+            out[fn.__name__] = fn.launches
+    return out

@@ -37,6 +37,8 @@ SMEM_LIMIT = 232448          # bytes one block may use on Hopper (227 KB)
 
 # dtype codes of the C interface (csrc/common.cuh: pk::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# KV pool storage codes (csrc/common.cuh: pk::KvStore)
+KV_CODES = {"none": 0, "int8": 1, "int4": 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,19 +46,20 @@ _F = ctypes.c_float
 # argtypes of every C entry point: pointers and the stream as void*,
 # so ctypes never truncates a 64-bit address to an int
 SIGNATURES = {
-    # q, k, v, pages, pos, out, B, Hkv, G, Dh, M, P, bs, scale, dtype,
-    # smem_bytes, stream
-    "pk_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _I, _I, _P],
+    # q, k, v, k_scale, v_scale, pages, pos, out, B, Hkv, G, Dh, M, P,
+    # bs, scale, dtype, kv, smem_bytes, stream
+    "pk_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # logits, temperature, top_k, out, B, V, seed, stream
     "pk_fused_sample": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # q, k_chunk, v_chunk, k, v, pages, out, C, Hkv, G, Dh, M, P_ctx, bs,
-    # rows_per_cta, scale, dtype, smem_bytes, stream
-    "pk_chunk_prefill": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _F, _I, _I, _P],
-    # pool_k, pool_v, span_k, span_v, pages, valid, LH, pc, M, bs,
-    # row_bytes, stream
-    "pk_span_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k_chunk, v_chunk, k, v, k_scale, v_scale, pages, out, C, Hkv, G,
+    # Dh, M, P_ctx, bs, rows_per_cta, scale, dtype, kv, smem_bytes, stream
+    "pk_chunk_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # pool x4, span x4, row_bytes x4, n, pages, valid, LH, pc, M, bs,
+    # stream
+    "pk_span_write": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, lse, BH, T, D, scale, causal, dtype, stream
     "pk_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, do, lse, delta, dq, dk, dv, BH, T, D, scale, causal, dtype,
@@ -172,8 +175,9 @@ def check(err: int, kernel: str):
         raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address (None: a null pointer)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:
@@ -196,6 +200,22 @@ def require(t: torch.Tensor, what: str, *, device: torch.device,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: must be contiguous")
+
+
+def kv_store(kv_dtype, kernel: str) -> str:
+    """A pool's ``kv_dtype`` as a key of ``KV_CODES`` (None is
+    ``"none"``); raises ValueError for one the kernels do not take."""
+    kv = "none" if kv_dtype is None else kv_dtype
+    if kv not in KV_CODES:
+        raise ValueError(f"{kernel}: kv_dtype {kv_dtype!r}, expected one "
+                         f"of {tuple(KV_CODES)}")
+    return kv
+
+
+def new_launch_counts() -> dict:
+    """Per-branch launch counts of a wrapper whose kernel is templated
+    on the pool storage: one count per ``KV_CODES`` key."""
+    return {kv: 0 for kv in KV_CODES}
 
 
 def on_cpu(t: torch.Tensor, kernel: str) -> bool:

@@ -9,6 +9,13 @@
 // divided by sqrt(Dh), -1e30 masks the rest, one exact softmax, p @ V.
 // Output fp32 [C, Hkv, G, Dh].
 //
+// A quantized pool (the TPU kernel's kv_dtype "int8"/"int4") holds int8
+// codes [Hkv, M, Dh] or nibble-packed [Hkv, M, Dh/2] with fp32 scales
+// k_scale/v_scale [Hkv, M]: each context element is widened as
+// dequantize_kv does (float(code) * scale, one fp32 rounding) when its
+// tile is staged. The chunk's own K/V stay in the model dtype, exact: only
+// what lands in the pool is rounded.
+//
 // What bounds it on the H100: bytes, at the slice's shapes. A chunk of
 // C=256 rows over S=512 context rows reads ~2.4 MB (context K/V, the
 // chunk's q/k/v) and writes 0.8 MB of fp32 output, against ~0.5 GFLOP:
@@ -24,7 +31,8 @@
 // value rows are read once per CTA. A CTA stops at the last column its
 // rows can see (S + its last chunk row), so causally hidden columns
 // cost nothing. P_ctx = 0 (a cold chunk) is the same kernel with no
-// context loop.
+// context loop; it reads no pool, so it always runs the model-dtype
+// instantiation. A quantized context streams at its stored width.
 // Left for later: tensor-core (wgmma) products, TMA tile loads, and an
 // online softmax that drops the O(rows * (S + C)) score buffer.
 #include "common.cuh"
@@ -36,23 +44,34 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;          // key/value rows staged per step
 constexpr int kMaxOut = 16;        // (row, d) outputs per thread
 
-template <typename Elt>
-__device__ __forceinline__ const Elt* key_row(
-    const Elt* pool_h, const Elt* chunk, const int* pages, int t, int S,
-    int bs, int h, int Hkv, int Dh) {
-  if (t < S) return pool_h + ((size_t)pages[t / bs] * bs + t % bs) * Dh;
-  return chunk + ((size_t)(t - S) * Hkv + h) * Dh;
+// logical column t of K or V widened to fp32: context positions t < S
+// come from the pool through the page table, the rest from the chunk
+template <typename Elt, int KV>
+__device__ __forceinline__ float kv_elem(
+    const typename pk::Stored<Elt, KV>::T* pool_h, const float* scale_h,
+    const Elt* chunk, const int* pages, int t, int d, int S, int bs, int h,
+    int Hkv, int Dh) {
+  if (t < S) {
+    const size_t row = (size_t)pages[t / bs] * bs + t % bs;
+    return pk::widen<KV>(pool_h + row * pk::row_len<KV>(Dh), d,
+                         KV == pk::kModel ? 1.f : scale_h[row]);
+  }
+  return pk::to_f32(chunk[((size_t)(t - S) * Hkv + h) * Dh + d]);
 }
 
-template <typename Elt>
+template <typename Elt, int KV>
 __global__ void __launch_bounds__(kThreads)
 chunk_prefill_kernel(const Elt* __restrict__ q,
                      const Elt* __restrict__ k_chunk,
                      const Elt* __restrict__ v_chunk,
-                     const Elt* __restrict__ k, const Elt* __restrict__ v,
+                     const typename pk::Stored<Elt, KV>::T* __restrict__ k,
+                     const typename pk::Stored<Elt, KV>::T* __restrict__ v,
+                     const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale,
                      const int* __restrict__ pages, float* __restrict__ out,
                      int C, int Hkv, int G, int Dh, int M, int S, int bs,
                      int rows, float scale) {
+  using St = typename pk::Stored<Elt, KV>::T;
   extern __shared__ float smem[];
   const int h = blockIdx.x;
   const int r0 = blockIdx.y * rows;              // first (c*G + g) row
@@ -71,8 +90,10 @@ chunk_prefill_kernel(const Elt* __restrict__ q,
     const int c = r / G, g = r % G;
     q_s[i] = pk::to_f32(q[(((size_t)c * Hkv + h) * G + g) * Dh + i % Dh]);
   }
-  const Elt* kh = k + (size_t)h * M * Dh;
-  const Elt* vh = v + (size_t)h * M * Dh;
+  const St* kh = k + (size_t)h * M * pk::row_len<KV>(Dh);
+  const St* vh = v + (size_t)h * M * pk::row_len<KV>(Dh);
+  const float* ksh = KV == pk::kModel ? nullptr : k_scale + (size_t)h * M;
+  const float* vsh = KV == pk::kModel ? nullptr : v_scale + (size_t)h * M;
 
   // scores, one staged key tile at a time
   for (int t0 = 0; t0 < ncols; t0 += kTile) {
@@ -80,8 +101,8 @@ chunk_prefill_kernel(const Elt* __restrict__ q,
     __syncthreads();                             // kv_s free to refill
     for (int i = tid; i < nt * Dh; i += kThreads) {
       const int j = i / Dh, d = i % Dh;
-      kv_s[j * ld + d] = pk::to_f32(
-          key_row(kh, k_chunk, pages, t0 + j, S, bs, h, Hkv, Dh)[d]);
+      kv_s[j * ld + d] = kv_elem<Elt, KV>(kh, ksh, k_chunk, pages, t0 + j,
+                                          d, S, bs, h, Hkv, Dh);
     }
     __syncthreads();
     for (int p = tid; p < nrows * kTile; p += kThreads) {
@@ -121,8 +142,8 @@ chunk_prefill_kernel(const Elt* __restrict__ q,
     __syncthreads();
     for (int i = tid; i < nt * Dh; i += kThreads) {
       const int j = i / Dh, d = i % Dh;
-      kv_s[j * ld + d] = pk::to_f32(
-          key_row(vh, v_chunk, pages, t0 + j, S, bs, h, Hkv, Dh)[d]);
+      kv_s[j * ld + d] = kv_elem<Elt, KV>(vh, vsh, v_chunk, pages, t0 + j,
+                                          d, S, bs, h, Hkv, Dh);
     }
     __syncthreads();
 #pragma unroll
@@ -146,43 +167,71 @@ chunk_prefill_kernel(const Elt* __restrict__ q,
   }
 }
 
-template <typename Elt>
+template <typename Elt, int KV>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* k, const void* v, const void* pages,
-                   void* out, int C, int Hkv, int G, int Dh, int M,
-                   int P_ctx, int bs, int rows, float scale, int smem,
-                   cudaStream_t stream) {
-  auto kernel = chunk_prefill_kernel<Elt>;
+                   const void* k, const void* v, const void* k_scale,
+                   const void* v_scale, const void* pages, void* out, int C,
+                   int Hkv, int G, int Dh, int M, int P_ctx, int bs,
+                   int rows, float scale, int smem, cudaStream_t stream) {
+  using St = typename pk::Stored<Elt, KV>::T;
+  auto kernel = chunk_prefill_kernel<Elt, KV>;
   cudaError_t err = pk::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(Hkv, (C * G + rows - 1) / rows);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const Elt*>(q), static_cast<const Elt*>(kc),
-      static_cast<const Elt*>(vc), static_cast<const Elt*>(k),
-      static_cast<const Elt*>(v), static_cast<const int*>(pages),
+      static_cast<const Elt*>(vc), static_cast<const St*>(k),
+      static_cast<const St*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(pages),
       static_cast<float*>(out), C, Hkv, G, Dh, M, P_ctx * bs, bs, rows,
       scale);
   return cudaGetLastError();
+}
+
+template <typename Elt>
+cudaError_t launch_kv(int kv, const void* q, const void* kc, const void* vc,
+                      const void* k, const void* v, const void* k_scale,
+                      const void* v_scale, const void* pages, void* out,
+                      int C, int Hkv, int G, int Dh, int M, int P_ctx,
+                      int bs, int rows, float scale, int smem,
+                      cudaStream_t s) {
+  // a cold chunk reads no pool: the model-dtype instantiation serves it
+  if (kv == pk::kModel || P_ctx == 0)
+    return launch<Elt, pk::kModel>(q, kc, vc, k, v, k_scale, v_scale,
+                                   pages, out, C, Hkv, G, Dh, M, P_ctx, bs,
+                                   rows, scale, smem, s);
+  if (kv == pk::kInt8)
+    return launch<Elt, pk::kInt8>(q, kc, vc, k, v, k_scale, v_scale, pages,
+                                  out, C, Hkv, G, Dh, M, P_ctx, bs, rows,
+                                  scale, smem, s);
+  if (kv == pk::kInt4)
+    return launch<Elt, pk::kInt4>(q, kc, vc, k, v, k_scale, v_scale, pages,
+                                  out, C, Hkv, G, Dh, M, P_ctx, bs, rows,
+                                  scale, smem, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int pk_chunk_prefill(const void* q, const void* k_chunk,
                                 const void* v_chunk, const void* k,
-                                const void* v, const void* pages, void* out,
-                                int C, int Hkv, int G, int Dh, int M,
-                                int P_ctx, int bs, int rows, float scale,
-                                int dtype, int smem, void* stream) {
+                                const void* v, const void* k_scale,
+                                const void* v_scale, const void* pages,
+                                void* out, int C, int Hkv, int G, int Dh,
+                                int M, int P_ctx, int bs, int rows,
+                                float scale, int dtype, int kv, int smem,
+                                void* stream) {
   if (C * Hkv * G == 0) return cudaSuccess;
   if (rows < 1 || rows * Dh > kMaxOut * kThreads)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == pk::kBF16)
-    return launch<__nv_bfloat16>(q, k_chunk, v_chunk, k, v, pages, out, C,
-                                 Hkv, G, Dh, M, P_ctx, bs, rows, scale,
-                                 smem, s);
+    return launch_kv<__nv_bfloat16>(kv, q, k_chunk, v_chunk, k, v, k_scale,
+                                    v_scale, pages, out, C, Hkv, G, Dh, M,
+                                    P_ctx, bs, rows, scale, smem, s);
   if (dtype == pk::kF32)
-    return launch<float>(q, k_chunk, v_chunk, k, v, pages, out, C, Hkv, G,
-                         Dh, M, P_ctx, bs, rows, scale, smem, s);
+    return launch_kv<float>(kv, q, k_chunk, v_chunk, k, v, k_scale,
+                            v_scale, pages, out, C, Hkv, G, Dh, M, P_ctx,
+                            bs, rows, scale, smem, s);
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,18 @@
-// Masked in-place write of one prefill chunk's K/V spans into its pages.
+// Masked in-place write of one prefill chunk's spans into its pages.
 //
 // Replaces paddle_tpu/ops/pallas/prefill.py::paged_span_write (the
-// Pallas kernel _span_write_kernel). For layer-head lh and chunk page j,
-// row i of the span [L*Hkv, pc*bs, Dh] lands at pool row
-// pages[j]*bs + i of [L*Hkv, M, Dh] when valid[j*bs + i] is set; a row
-// with valid = 0 is never written and keeps the pool's old bytes.
-// Padded chunk rows map to page-table entries that are 0, so writing
-// them would corrupt page 0, which may belong to another request.
+// Pallas kernel _span_write_kernel), which writes any set of named pool
+// arrays in one pallas_call. Here one launch writes up to four arrays
+// (k and v; for a quantized pool also the fp32 scale tables k_scale and
+// v_scale), each with its own row width: a pool array is
+// [L*Hkv, M, row] and its span [L*Hkv, pc*bs, row], where a row is Dh
+// model-dtype elements, Dh int8 codes, Dh/2 packed int4 bytes or one
+// fp32 scale (the 3-D scale tables are arrays of 4-byte rows). For
+// layer-head lh and chunk page j, span row i lands at pool row
+// pages[j]*bs + i when valid[j*bs + i] is set; a row with valid = 0 is
+// never written and keeps the pool's old bytes. Padded chunk rows map to
+// page-table entries that are 0, so writing them would corrupt page 0,
+// which may belong to another request. The copy is byte-exact.
 //
 // What bounds it on the H100: bytes — a pure copy, each valid row read
 // once and written once, no arithmetic.
@@ -14,59 +20,85 @@
 // What the design does about it: the pool is updated in place (the TPU
 // kernel aliases its output to the pool for the same reason: no
 // pool-sized copy); one CTA per (layer-head, chunk page) copies its
-// bs-row span with 16-byte vector accesses where the row width allows
-// (4-byte otherwise), neighbouring threads on neighbouring addresses;
-// K and V ride the same launch.
+// bs-row span of every array, neighbouring threads on neighbouring
+// addresses, with 16-byte accesses where an array's row width allows,
+// 4-byte ones otherwise (the scale rows) and single bytes for rows that
+// are no multiple of 4.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMaxArrays = 4;
+
+struct Arrays {
+  uint8_t* pool[kMaxArrays];
+  const uint8_t* span[kMaxArrays];
+  int row_bytes[kMaxArrays];
+  int n;
+};
 
 template <typename Vec>
-__global__ void __launch_bounds__(kThreads)
-span_write_kernel(Vec* __restrict__ pool_k, Vec* __restrict__ pool_v,
-                  const Vec* __restrict__ span_k,
-                  const Vec* __restrict__ span_v,
-                  const int* __restrict__ pages,
-                  const uint8_t* __restrict__ valid, int span_len, int M,
-                  int bs, int row_vecs) {
-  const int lh = blockIdx.x, j = blockIdx.y;
-  const size_t dst0 = ((size_t)lh * M + (size_t)pages[j] * bs) * row_vecs;
-  const size_t src0 = ((size_t)lh * span_len + (size_t)j * bs) * row_vecs;
-  for (int i = threadIdx.x; i < bs * row_vecs; i += kThreads) {
-    if (!valid[j * bs + i / row_vecs]) continue;
-    pool_k[dst0 + i] = span_k[src0 + i];
-    pool_v[dst0 + i] = span_v[src0 + i];
-  }
+__device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src,
+                                          const uint8_t* valid, int bs,
+                                          int row_bytes) {
+  const int row_vecs = row_bytes / static_cast<int>(sizeof(Vec));
+  Vec* d = reinterpret_cast<Vec*>(dst);
+  const Vec* s = reinterpret_cast<const Vec*>(src);
+  for (int i = threadIdx.x; i < bs * row_vecs; i += kThreads)
+    if (valid[i / row_vecs]) d[i] = s[i];
 }
 
-template <typename Vec>
-cudaError_t launch(void* pk_, void* pv, const void* sk, const void* sv,
-                   const void* pages, const void* valid, int LH, int pc,
-                   int M, int bs, int row_bytes, cudaStream_t stream) {
-  span_write_kernel<Vec><<<dim3(LH, pc), kThreads, 0, stream>>>(
-      static_cast<Vec*>(pk_), static_cast<Vec*>(pv),
-      static_cast<const Vec*>(sk), static_cast<const Vec*>(sv),
-      static_cast<const int*>(pages), static_cast<const uint8_t*>(valid),
-      pc * bs, M, bs, row_bytes / static_cast<int>(sizeof(Vec)));
-  return cudaGetLastError();
+__global__ void __launch_bounds__(kThreads)
+span_write_kernel(Arrays a, const int* __restrict__ pages,
+                  const uint8_t* __restrict__ valid, int span_len, int M,
+                  int bs) {
+  const int lh = blockIdx.x, j = blockIdx.y;
+  const uint8_t* vj = valid + (size_t)j * bs;
+  // unrolled: constant indices keep the array table in parameter space
+#pragma unroll
+  for (int n = 0; n < kMaxArrays; ++n) {
+    if (n >= a.n) break;
+    const int rb = a.row_bytes[n];
+    uint8_t* dst = a.pool[n] + ((size_t)lh * M + (size_t)pages[j] * bs) * rb;
+    const uint8_t* src =
+        a.span[n] + ((size_t)lh * span_len + (size_t)j * bs) * rb;
+    if (rb % 16 == 0)
+      copy_rows<uint4>(dst, src, vj, bs, rb);
+    else if (rb % 4 == 0)
+      copy_rows<uint32_t>(dst, src, vj, bs, rb);
+    else
+      copy_rows<uint8_t>(dst, src, vj, bs, rb);
+  }
 }
 
 }  // namespace
 
-extern "C" int pk_span_write(void* pool_k, void* pool_v, const void* span_k,
-                             const void* span_v, const void* pages,
+// pools/spans: n pointers each (16-byte aligned: the wrapper checks);
+// row_bytes: n row widths
+extern "C" int pk_span_write(void* pool0, void* pool1, void* pool2,
+                             void* pool3, const void* span0,
+                             const void* span1, const void* span2,
+                             const void* span3, int rb0, int rb1, int rb2,
+                             int rb3, int n, const void* pages,
                              const void* valid, int LH, int pc, int M,
-                             int bs, int row_bytes, void* stream) {
+                             int bs, void* stream) {
+  if (n < 1 || n > kMaxArrays) return cudaErrorInvalidValue;
   if (LH * pc == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the wrapper guarantees 16-byte aligned base pointers
-  if (row_bytes % 16 == 0)
-    return launch<uint4>(pool_k, pool_v, span_k, span_v, pages, valid, LH,
-                         pc, M, bs, row_bytes, s);
-  if (row_bytes % 4 == 0)
-    return launch<uint32_t>(pool_k, pool_v, span_k, span_v, pages, valid,
-                            LH, pc, M, bs, row_bytes, s);
-  return cudaErrorInvalidValue;
+  Arrays a;
+  void* pools[kMaxArrays] = {pool0, pool1, pool2, pool3};
+  const void* spans[kMaxArrays] = {span0, span1, span2, span3};
+  const int rbs[kMaxArrays] = {rb0, rb1, rb2, rb3};
+  for (int i = 0; i < kMaxArrays; ++i) {
+    a.pool[i] = static_cast<uint8_t*>(pools[i]);
+    a.span[i] = static_cast<const uint8_t*>(spans[i]);
+    a.row_bytes[i] = rbs[i];
+    if (i < n && rbs[i] < 1) return cudaErrorInvalidValue;
+  }
+  a.n = n;
+  span_write_kernel<<<dim3(LH, pc), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const int*>(pages), static_cast<const uint8_t*>(valid),
+      pc * bs, M, bs);
+  return cudaGetLastError();
 }

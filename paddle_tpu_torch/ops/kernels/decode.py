@@ -10,16 +10,16 @@ a CUDA tensor launches the kernel (or raises on what the kernel does
 not take), a CPU tensor runs the plain PyTorch version beside it
 (``*_plain``), which the CPU tests hold against the Pallas kernels in
 interpret mode. There is no other path. Each wrapper counts its kernel
-launches in ``<wrapper>.launches``.
-
-Quantized (int8/int4) pools are the next slice: the wrappers raise
-``NotImplementedError`` for any ``kv_dtype`` other than ``"none"``.
+launches in ``<wrapper>.launches``; ``flash_decode_attention`` counts
+them per pool storage (``{"none", "int8", "int4"}``), one kernel
+instantiation each.
 """
 
 import math
 
 import torch
 
+from paddle_tpu_torch.ops import q8
 from paddle_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30
@@ -29,11 +29,42 @@ _DECODE_THREADS = 128          # csrc/decode_attention.cu: kThreads
 _DECODE_MAX_G = 8              # csrc/decode_attention.cu: kMaxG
 
 
-def _no_quant(kv_dtype):
-    if kv_dtype not in (None, "none"):
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: quantized KV pools are not ported "
-            f"yet (model-dtype pools only)")
+def gather_rows(x, scale, idx, kv_dtype: str) -> torch.Tensor:
+    """Pool rows ``x[:, idx]`` as fp32: model-dtype rows cast, quantized
+    ones through ``ops/q8.dequantize_kv`` with their scales
+    ``scale[:, idx]``."""
+    if kv_dtype == "none":
+        return x[:, idx].float()
+    return q8.dequantize_kv(x[:, idx], scale[:, idx], kv_dtype)
+
+
+def check_scales(kv: str, k_scale, v_scale, kernel: str):
+    """A quantized pool needs both scale tables, a model-dtype one
+    neither."""
+    if (kv != "none") != (k_scale is not None and v_scale is not None):
+        raise ValueError(f"{kernel}: kv_dtype {kv!r} takes k_scale and "
+                         f"v_scale exactly when it is quantized")
+
+
+def require_pool(k, v, k_scale, v_scale, kv: str, dtype, Hkv: int, Dh: int,
+                 dev, kernel: str):
+    """Validate a per-layer pool view [Hkv, M, Dh-stored] (+ fp32 scale
+    tables [Hkv, M] when quantized); returns M."""
+    if kv != "none":
+        dtype = torch.int8
+        if Dh % 2:
+            raise ValueError(f"{kernel}: int4 needs an even head dim, got "
+                             f"{Dh}")
+    _build.require(k, "k", device=dev, dtype=dtype, ndim=3)
+    M = k.shape[1]
+    shape = (Hkv, M, Dh // 2 if kv == "int4" else Dh)
+    _build.require(k, "k", device=dev, shape=shape)
+    _build.require(v, "v", device=dev, dtype=dtype, shape=shape)
+    if kv != "none":
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            _build.require(t, name, device=dev, dtype=torch.float32,
+                           shape=(Hkv, M))
+    return M
 
 
 def _softmax_exact(s: torch.Tensor) -> torch.Tensor:
@@ -48,20 +79,26 @@ def _softmax_exact(s: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def flash_decode_attention_plain(q, k, v, pages, pos, *, block_size: int):
+def flash_decode_attention_plain(q, k, v, pages, pos, *, block_size: int,
+                                 k_scale=None, v_scale=None,
+                                 kv_dtype: str = "none"):
     """Plain version: gather the slots' logical K/V views through the
-    page table, divide the scores by sqrt(Dh), mask positions past
+    page table (widened through ``dequantize_kv`` for a quantized
+    pool), divide the scores by sqrt(Dh), mask positions past
     ``pos[b]`` to -1e30, one exact softmax, ``p @ V``.
 
-    q [B, Hkv, G, Dh], k/v [Hkv, M, Dh], pages [B, P] int32, pos [B]
-    int32 -> fp32 [B, Hkv, G, Dh]."""
+    q [B, Hkv, G, Dh], k/v [Hkv, M, Dh-stored], k_scale/v_scale
+    [Hkv, M] or None, pages [B, P] int32, pos [B] int32 -> fp32
+    [B, Hkv, G, Dh]."""
+    kv = _build.kv_store(kv_dtype, "flash_decode_attention")
+    check_scales(kv, k_scale, v_scale, "flash_decode_attention")
     B, Hkv, G, Dh = q.shape
     bs = int(block_size)
     T = pages.shape[1] * bs
     offs = torch.arange(bs, device=q.device)
     gidx = (pages.long()[:, :, None] * bs + offs).reshape(B, T)
-    kt = k[:, gidx].float()                         # [Hkv, B, T, Dh]
-    vt = v[:, gidx].float()
+    kt = gather_rows(k, k_scale, gidx, kv)          # [Hkv, B, T, Dh]
+    vt = gather_rows(v, v_scale, gidx, kv)
     s = torch.einsum("bkgd,kbtd->bkgt", q.float(), kt) / math.sqrt(Dh)
     attend = (torch.arange(T, device=q.device)[None, :]
               <= pos.long()[:, None])               # [B, T]
@@ -69,14 +106,19 @@ def flash_decode_attention_plain(q, k, v, pages, pos, *, block_size: int):
     return torch.einsum("bkgt,kbtd->bkgd", _softmax_exact(s), vt)
 
 
-def decode_smem_bytes(G: int, Dh: int, P: int, block_size: int) -> int:
+def decode_smem_bytes(G: int, Dh: int, P: int, block_size: int,
+                      kv_dtype: str = "none") -> int:
     """Shared memory of one (slot, kv-head) CTA: q rows, the [G, T]
-    score row, the p@V partial sums and the page vector."""
+    score row, the p@V partial sums, the page vector and, for a
+    quantized pool, the T positions' V scales."""
     groups = max(1, _DECODE_THREADS // Dh)
-    return 4 * (G * Dh + G * P * int(block_size) + groups * G * Dh + P)
+    T = P * int(block_size)
+    scales = T if _build.kv_store(kv_dtype, "decode") != "none" else 0
+    return 4 * (G * Dh + G * T + groups * G * Dh + P + scales)
 
 
 def flash_decode_attention(q, k, v, pages, pos, *, block_size: int,
+                           k_scale=None, v_scale=None,
                            kv_dtype: str = "none"):
     """One decode step of grouped-query attention over the paged pool.
 
@@ -85,20 +127,26 @@ def flash_decode_attention(q, k, v, pages, pos, *, block_size: int,
     fp32 [B, Hkv, G, Dh]. The caller writes the step's new k/v into the
     pool first: position ``pos[b]`` attends to itself. Positions past
     ``P * block_size`` do not exist; a larger ``pos`` sees all of them.
+
+    A quantized pool (``kv_dtype`` "int8" or "int4") passes int8 codes
+    k/v [Hkv, M, Dh] (int4: nibble-packed [Hkv, M, Dh/2]) and their
+    fp32 row scales ``k_scale``/``v_scale`` [Hkv, M]; the kernel widens
+    each element as ``ops/q8.dequantize_kv`` does. Any other
+    ``kv_dtype`` raises ValueError.
     """
-    _no_quant(kv_dtype)
+    kv = _build.kv_store(kv_dtype, "flash_decode_attention")
+    check_scales(kv, k_scale, v_scale, "flash_decode_attention")
     if _build.on_cpu(q, "flash_decode_attention"):
-        return flash_decode_attention_plain(q, k, v, pages, pos,
-                                            block_size=block_size)
+        return flash_decode_attention_plain(
+            q, k, v, pages, pos, block_size=block_size, k_scale=k_scale,
+            v_scale=v_scale, kv_dtype=kv)
     B, Hkv, G, Dh = q.shape
     bs = int(block_size)
     dev = q.device
     _build.require(q, "q", device=dev, dtype=tuple(_build.DTYPE_CODES),
                    ndim=4)
-    _build.require(k, "k", device=dev, dtype=q.dtype, ndim=3)
-    M = k.shape[1]
-    _build.require(k, "k", device=dev, shape=(Hkv, M, Dh))
-    _build.require(v, "v", device=dev, dtype=q.dtype, shape=(Hkv, M, Dh))
+    M = require_pool(k, v, k_scale, v_scale, kv, q.dtype, Hkv, Dh, dev,
+                     "flash_decode_attention")
     _build.require(pages, "pages", device=dev, dtype=torch.int32, ndim=2)
     P = pages.shape[1]
     _build.require(pages, "pages", device=dev, shape=(B, P))
@@ -107,7 +155,7 @@ def flash_decode_attention(q, k, v, pages, pos, *, block_size: int,
         raise ValueError(f"flash_decode_attention: needs head_dim a "
                          f"multiple of 32 up to 256 and 1 <= G <= "
                          f"{_DECODE_MAX_G}; got Dh={Dh}, G={G}")
-    smem = decode_smem_bytes(G, Dh, P, bs)
+    smem = decode_smem_bytes(G, Dh, P, bs, kv)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"flash_decode_attention: the exact [G, T] "
                          f"score row needs {smem} bytes of shared memory, "
@@ -115,16 +163,17 @@ def flash_decode_attention(q, k, v, pages, pos, *, block_size: int,
     out = torch.empty((B, Hkv, G, Dh), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().pk_decode_attention(
-            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(pages),
-            _build.ptr(pos), _build.ptr(out), B, Hkv, G, Dh, M, P, bs,
-            math.sqrt(Dh), _build.DTYPE_CODES[q.dtype], smem,
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(k_scale),
+            _build.ptr(v_scale), _build.ptr(pages), _build.ptr(pos),
+            _build.ptr(out), B, Hkv, G, Dh, M, P, bs, math.sqrt(Dh),
+            _build.DTYPE_CODES[q.dtype], _build.KV_CODES[kv], smem,
             _build.stream(dev))
     _build.check(err, "flash_decode_attention")
-    flash_decode_attention.launches += 1
+    flash_decode_attention.launches[kv] += 1
     return out
 
 
-flash_decode_attention.launches = 0
+flash_decode_attention.launches = _build.new_launch_counts()
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@
 
 Wrappers as in ``ops/kernels/decode.py``: a CUDA tensor launches the
 hand-written kernel or raises, a CPU tensor runs the ``*_plain``
-version, and ``<wrapper>.launches`` counts kernel launches. Quantized
-pools raise ``NotImplementedError``.
+version, and ``<wrapper>.launches`` counts kernel launches per pool
+storage (``{"none", "int8", "int4"}``). A cold chunk reads no pool and
+counts as ``"none"`` whatever the pool's storage: it runs the
+model-dtype instantiation.
 """
 
 import math
@@ -18,8 +20,9 @@ from typing import Dict
 import torch
 
 from paddle_tpu_torch.ops.kernels import _build
-from paddle_tpu_torch.ops.kernels.decode import (NEG_INF, _no_quant,
-                                                 _softmax_exact)
+from paddle_tpu_torch.ops.kernels.decode import (NEG_INF, _softmax_exact,
+                                                 check_scales, gather_rows,
+                                                 require_pool)
 
 _PREFILL_THREADS = 256         # csrc/chunk_prefill.cu: kThreads
 _PREFILL_TILE = 32             # csrc/chunk_prefill.cu: kTile
@@ -33,21 +36,26 @@ _PREFILL_ROWS = 16             # query rows per CTA, halved to fit smem
 
 
 def flash_chunk_prefill_plain(q, k_chunk, v_chunk, k, v, pages, *,
-                              block_size: int):
-    """Plain version: gather the context through ``pages``, append the
-    chunk's own K/V, context fully visible and chunk causal, scores
-    divided by sqrt(Dh), -1e30 mask, one exact softmax, ``p @ V``.
+                              block_size: int, k_scale=None, v_scale=None,
+                              kv_dtype: str = "none"):
+    """Plain version: gather the context through ``pages`` (widened
+    through ``dequantize_kv`` for a quantized pool), append the chunk's
+    own K/V, context fully visible and chunk causal, scores divided by
+    sqrt(Dh), -1e30 mask, one exact softmax, ``p @ V``.
 
-    q [C, Hkv, G, Dh], k_chunk/v_chunk [C, Hkv, Dh], k/v [Hkv, M, Dh],
-    pages [P_ctx] int32 -> fp32 [C, Hkv, G, Dh]."""
+    q [C, Hkv, G, Dh], k_chunk/v_chunk [C, Hkv, Dh], k/v
+    [Hkv, M, Dh-stored], k_scale/v_scale [Hkv, M] or None, pages [P_ctx]
+    int32 -> fp32 [C, Hkv, G, Dh]."""
+    kv = _build.kv_store(kv_dtype, "flash_chunk_prefill")
+    check_scales(kv, k_scale, v_scale, "flash_chunk_prefill")
     C, Hkv, G, Dh = q.shape
     bs = int(block_size)
     S = pages.shape[0] * bs
     offs = torch.arange(bs, device=q.device)
     gidx = (pages.long()[:, None] * bs + offs).reshape(S)
-    kall = torch.cat([k[:, gidx].float(),
+    kall = torch.cat([gather_rows(k, k_scale, gidx, kv),
                       k_chunk.float().transpose(0, 1)], dim=1)
-    vall = torch.cat([v[:, gidx].float(),
+    vall = torch.cat([gather_rows(v, v_scale, gidx, kv),
                       v_chunk.float().transpose(0, 1)], dim=1)
     s = torch.einsum("ckgd,ktd->ckgt", q.float(), kall) / math.sqrt(Dh)
     attend = torch.cat(
@@ -78,18 +86,24 @@ def prefill_rows_per_cta(C: int, G: int, Dh: int, S: int):
 
 
 def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
-                        block_size: int, kv_dtype: str = "none"):
+                        block_size: int, k_scale=None, v_scale=None,
+                        kv_dtype: str = "none"):
     """One prefill chunk's attention against its pool-resident context.
 
     q [C, Hkv, G, Dh] and k_chunk/v_chunk [C, Hkv, Dh] (the chunk's own
-    fresh K/V) in the model dtype; k/v the pool [Hkv, M, Dh] in the same
-    dtype; pages [P_ctx] int32, the context's pages (context length
-    S = P_ctx * block_size; P_ctx = 0 is a cold chunk) -> fp32
-    [C, Hkv, G, Dh]."""
-    _no_quant(kv_dtype)
+    fresh K/V, exact) in the model dtype; k/v the pool [Hkv, M, Dh] in
+    the same dtype, or for ``kv_dtype`` "int8"/"int4" int8 codes
+    [Hkv, M, Dh] / nibble-packed [Hkv, M, Dh/2] with fp32 row scales
+    ``k_scale``/``v_scale`` [Hkv, M]; pages [P_ctx] int32, the
+    context's pages (context length S = P_ctx * block_size; P_ctx = 0
+    is a cold chunk) -> fp32 [C, Hkv, G, Dh]. Any other ``kv_dtype``
+    raises ValueError."""
+    kv = _build.kv_store(kv_dtype, "flash_chunk_prefill")
+    check_scales(kv, k_scale, v_scale, "flash_chunk_prefill")
     if _build.on_cpu(q, "flash_chunk_prefill"):
-        return flash_chunk_prefill_plain(q, k_chunk, v_chunk, k, v, pages,
-                                         block_size=block_size)
+        return flash_chunk_prefill_plain(
+            q, k_chunk, v_chunk, k, v, pages, block_size=block_size,
+            k_scale=k_scale, v_scale=v_scale, kv_dtype=kv)
     C, Hkv, G, Dh = q.shape
     bs = int(block_size)
     dev = q.device
@@ -99,10 +113,8 @@ def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
                    shape=(C, Hkv, Dh))
     _build.require(v_chunk, "v_chunk", device=dev, dtype=q.dtype,
                    shape=(C, Hkv, Dh))
-    _build.require(k, "k", device=dev, dtype=q.dtype, ndim=3)
-    M = k.shape[1]
-    _build.require(k, "k", device=dev, shape=(Hkv, M, Dh))
-    _build.require(v, "v", device=dev, dtype=q.dtype, shape=(Hkv, M, Dh))
+    M = require_pool(k, v, k_scale, v_scale, kv, q.dtype, Hkv, Dh, dev,
+                     "flash_chunk_prefill")
     _build.require(pages, "pages", device=dev, dtype=torch.int32, ndim=1)
     P_ctx = pages.shape[0]
     rows, smem = prefill_rows_per_cta(C, G, Dh, P_ctx * bs)
@@ -110,15 +122,18 @@ def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
     with torch.cuda.device(dev):
         err = _build.library().pk_chunk_prefill(
             _build.ptr(q), _build.ptr(k_chunk), _build.ptr(v_chunk),
-            _build.ptr(k), _build.ptr(v), _build.ptr(pages), _build.ptr(out),
+            _build.ptr(k), _build.ptr(v), _build.ptr(k_scale),
+            _build.ptr(v_scale), _build.ptr(pages), _build.ptr(out),
             C, Hkv, G, Dh, M, P_ctx, bs, rows, math.sqrt(Dh),
-            _build.DTYPE_CODES[q.dtype], smem, _build.stream(dev))
+            _build.DTYPE_CODES[q.dtype], _build.KV_CODES[kv], smem,
+            _build.stream(dev))
     _build.check(err, "flash_chunk_prefill")
-    flash_chunk_prefill.launches += 1
+    # a cold chunk runs the model-dtype instantiation (csrc: launch_kv)
+    flash_chunk_prefill.launches[kv if P_ctx else "none"] += 1
     return out
 
 
-flash_chunk_prefill.launches = 0
+flash_chunk_prefill.launches = _build.new_launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -126,67 +141,92 @@ flash_chunk_prefill.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _span_names(spans: Dict[str, torch.Tensor]):
-    if set(spans) != {"k", "v"}:
-        raise NotImplementedError(
-            f"paged_span_write: arrays {sorted(spans)}; quantized pools "
-            f"(scale tables) are not ported yet — only {{'k', 'v'}}")
+def span_names(kv_dtype) -> tuple:
+    """The pool arrays one span write covers: k and v, plus the scale
+    tables for a quantized pool."""
+    if _build.kv_store(kv_dtype, "paged_span_write") == "none":
+        return ("k", "v")
+    return ("k", "v", "k_scale", "v_scale")
 
 
-def paged_span_write_plain(pool, spans, pages, valid, *, block_size: int):
-    """Plain version: indexed assignment of the valid rows only."""
-    _span_names(spans)
+def _check_names(spans, kv_dtype) -> tuple:
+    names = span_names(kv_dtype)
+    if set(spans) != set(names):
+        raise ValueError(f"paged_span_write: arrays {sorted(spans)}, "
+                         f"expected {sorted(names)} for kv_dtype "
+                         f"{kv_dtype!r}")
+    return names
+
+
+def paged_span_write_plain(pool, spans, pages, valid, *, block_size: int,
+                           kv_dtype: str = "none"):
+    """Plain version: indexed assignment of the valid rows only, array
+    by array."""
+    names = _check_names(spans, kv_dtype)
     bs = int(block_size)
     offs = torch.arange(bs, device=pages.device)
     rows = (pages.long()[:, None] * bs + offs).reshape(-1)
     keep = valid.nonzero()[:, 0]
-    for name in ("k", "v"):
+    for name in names:
         pool[name][:, :, rows[keep]] = spans[name][:, :, keep]
     return pool
 
 
 def paged_span_write(pool: Dict[str, torch.Tensor],
                      spans: Dict[str, torch.Tensor], pages, valid, *,
-                     block_size: int) -> Dict[str, torch.Tensor]:
+                     block_size: int,
+                     kv_dtype: str = "none") -> Dict[str, torch.Tensor]:
     """Write one chunk's spans into its pool pages, masked per row, IN
     PLACE (``paddle_tpu``'s version returns new arrays; this one writes
-    the pool it is given and returns it).
+    the pool it is given and returns it), every array in one launch.
 
-    ``pool`` {"k", "v"} [L, Hkv, M, Dh]; ``spans`` {"k", "v"}
-    [L, Hkv, pc*bs, Dh] in the pool dtype; ``pages`` [pc] int32 the
-    chunk's pages; ``valid`` [pc*bs] bool — rows with False keep the
-    pool's old bytes."""
-    _span_names(spans)
-    pk, pv, sk, sv = pool["k"], pool["v"], spans["k"], spans["v"]
-    if _build.on_cpu(pk, "paged_span_write"):
+    ``pool`` {"k", "v"} [L, Hkv, M, Dh] in the model dtype, or for
+    ``kv_dtype`` "int8"/"int4" also {"k_scale", "v_scale"} [L, Hkv, M]
+    fp32 beside int8 values [L, Hkv, M, Dh] / [L, Hkv, M, Dh/2];
+    ``spans`` the same names [L, Hkv, pc*bs, ...] in the same dtypes;
+    ``pages`` [pc] int32 the chunk's pages; ``valid`` [pc*bs] bool —
+    rows with False keep the pool's old bytes."""
+    kv = _build.kv_store(kv_dtype, "paged_span_write")
+    names = _check_names(spans, kv)
+    if _build.on_cpu(pool["k"], "paged_span_write"):
         return paged_span_write_plain(pool, spans, pages, valid,
-                                      block_size=block_size)
+                                      block_size=block_size, kv_dtype=kv)
     bs = int(block_size)
-    dev = pk.device
-    _build.require(pk, "pool['k']", device=dev, ndim=4)
-    L, Hkv, M, Dh = pk.shape
-    _build.require(pv, "pool['v']", device=dev, dtype=pk.dtype,
-                   shape=pk.shape)
+    dev = pool["k"].device
+    _build.require(pool["k"], "pool['k']", device=dev, ndim=4)
+    L, Hkv, M, _ = pool["k"].shape
     _build.require(pages, "pages", device=dev, dtype=torch.int32, ndim=1)
     pc = pages.shape[0]
-    for name, t in (("spans['k']", sk), ("spans['v']", sv)):
-        _build.require(t, name, device=dev, dtype=pk.dtype,
-                       shape=(L, Hkv, pc * bs, Dh))
     _build.require(valid, "valid", device=dev, dtype=torch.bool,
                    shape=(pc * bs,))
-    row_bytes = Dh * pk.element_size()
-    if row_bytes % 4 or any(t.data_ptr() % 16 for t in (pk, pv, sk, sv)):
-        raise ValueError(f"paged_span_write: needs 4-byte multiple rows "
-                         f"({row_bytes} bytes) and 16-byte aligned "
-                         f"buffers")
+    value_dtype = torch.int8 if kv != "none" else pool["k"].dtype
+    row_bytes = []
+    for name in names:
+        dt = torch.float32 if name.endswith("_scale") else value_dtype
+        p, t = pool[name], spans[name]
+        _build.require(p, f"pool[{name!r}]", device=dev, dtype=dt)
+        if tuple(p.shape[:3]) != (L, Hkv, M) or p.dim() > 4:
+            raise ValueError(f"paged_span_write: pool[{name!r}] shape "
+                             f"{tuple(p.shape)}, expected ({L}, {Hkv}, "
+                             f"{M}[, row])")
+        _build.require(t, f"spans[{name!r}]", device=dev, dtype=dt,
+                       shape=(L, Hkv, pc * bs) + tuple(p.shape[3:]))
+        if p.data_ptr() % 16 or t.data_ptr() % 16:
+            raise ValueError(f"paged_span_write: {name!r} buffers must be "
+                             f"16-byte aligned")
+        row_bytes.append(math.prod(p.shape[3:]) * p.element_size())
+    n = len(names)
+    pad = 4 - n
+    pools = [pool[nm] for nm in names] + [None] * pad
+    srcs = [spans[nm] for nm in names] + [None] * pad
     with torch.cuda.device(dev):
         err = _build.library().pk_span_write(
-            _build.ptr(pk), _build.ptr(pv), _build.ptr(sk), _build.ptr(sv),
-            _build.ptr(pages), _build.ptr(valid), L * Hkv, pc, M, bs,
-            row_bytes, _build.stream(dev))
+            *[_build.ptr(t) for t in pools], *[_build.ptr(t) for t in srcs],
+            *(row_bytes + [0] * pad), n, _build.ptr(pages),
+            _build.ptr(valid), L * Hkv, pc, M, bs, _build.stream(dev))
     _build.check(err, "paged_span_write")
-    paged_span_write.launches += 1
+    paged_span_write.launches[kv] += 1
     return pool
 
 
-paged_span_write.launches = 0
+paged_span_write.launches = _build.new_launch_counts()

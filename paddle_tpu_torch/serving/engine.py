@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core import place, ragged
+from paddle_tpu_torch.models import transformer
 from paddle_tpu_torch.observe import costs as _costs
 from paddle_tpu_torch.observe import metrics as _metrics
 from paddle_tpu_torch.serving import blocks as _blocks
@@ -306,6 +307,15 @@ class DecodeEngine:
         return self.metrics.render_prometheus()
 
 
+def _params_device(params) -> torch.device:
+    """The device of a parameter tree, read from its first tensor leaf
+    (a quantized weight is a {"q8", "scale"} dict)."""
+    node = params["embed"]
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return node.device
+
+
 def default_chunk_buckets(chunk_tokens: int) -> tuple:
     """Power-of-two chunk buckets up to ``chunk_tokens`` (always
     included): a prompt's tail chunk pads to the smallest covering
@@ -361,9 +371,11 @@ class PagedDecodeEngine(DecodeEngine):
                               else batch * self.pages_per_slot)
         self.chunk_tokens = chunk_tokens
         self.pool = _blocks.BlockPool(self.num_blocks, bs)
-        L, Hkv, _, Dh = cache["k"].shape
-        self.kv_bytes_per_token = int(L * 2 * Hkv * Dh
-                                      * cache["k"].element_size())
+        # the pool's storage ("none" = model dtype; "int8"/"int4" carry
+        # fp32 scale tables beside the codes), read from its arrays
+        self.kv_dtype = transformer.pool_kv_dtype(cache, cfg)
+        self.kv_bytes_per_token = transformer.kv_pool_bytes_per_token(
+            cfg, self.kv_dtype)
         self.pool_bytes = self.kv_bytes_per_token * self.num_blocks * bs
         B = self.batch
         # page table uploaded on change; unallocated entries stay 0 and
@@ -403,7 +415,8 @@ class PagedDecodeEngine(DecodeEngine):
             "waited on one prefill chunk", buckets=_LATENCY_BUCKETS)
         self._m_kv_bytes = reg.gauge(
             "engine_kv_bytes_per_token", "pool bytes one resident token "
-            "costs across all layers (k + v)")
+            "costs across all layers (k + v, and their scales in a "
+            "quantized pool)")
         self._m_kv_bytes.set(self.kv_bytes_per_token)
 
     # -- construction ------------------------------------------------------
@@ -413,16 +426,20 @@ class PagedDecodeEngine(DecodeEngine):
                     num_blocks: Optional[int] = None,
                     chunk_tokens: int = 64, seed: Optional[int] = None,
                     kv_dtype: Optional[str] = None, device=None):
-        """Engine over live ``params`` (from ``transformer.init_params``
-        or ``params_from_numpy``) with a fresh pool of ``num_blocks``
-        blocks (default: ``batch`` full-length slots). Runs on the card
-        unless ``device="cpu"``; ``params`` must already live there."""
-        from paddle_tpu_torch.models import transformer
+        """Engine over live ``params`` (from ``transformer.init_params``,
+        ``params_from_numpy`` or the int8-weight
+        ``io/lm_serving.quantize_lm_params``) with a fresh pool of
+        ``num_blocks`` blocks (default: ``batch`` full-length slots) in
+        the storage ``kv_dtype`` names (None: the model dtype; "int8" or
+        "int4": quantized, see ``transformer.init_block_pool``). Runs on
+        the card unless ``device="cpu"``; ``params`` must already live
+        there."""
         from paddle_tpu_torch.serving import sampling
         device = place.resolve_device(device)
-        if params["embed"].device != device:
-            raise ValueError(f"params live on {params['embed'].device}, "
-                             f"the engine runs on {device}")
+        where = _params_device(params)
+        if where != device:
+            raise ValueError(f"params live on {where}, the engine runs on "
+                             f"{device}")
         if cache_len > cfg.max_len:
             raise ValueError(f"cache_len {cache_len} exceeds cfg.max_len "
                              f"{cfg.max_len}")
@@ -677,6 +694,7 @@ class PagedDecodeEngine(DecodeEngine):
                     "blocks_cached": self.pool.cached_free_count,
                     "prefix_cache_entries": self.pool.cached_count,
                     "chunk_tokens": self.chunk_tokens,
+                    "kv_dtype": self.kv_dtype,
                     "kv_bytes_per_token": self.kv_bytes_per_token,
                     "pool_bytes": self.pool_bytes})
         return doc

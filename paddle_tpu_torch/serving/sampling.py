@@ -49,7 +49,11 @@ def paged_step_fns(cfg, block_size: int):
     with ``sample_tokens`` and ``jax.random`` instead, a stream that
     cannot be reproduced here: greedy rows are identical either way,
     sampled first tokens match in distribution. The pool is updated in
-    place and returned."""
+    place and returned. ``params`` may be the int8-weight tree of
+    ``io/lm_serving.quantize_lm_params`` and the pool a quantized one:
+    both steps take them as they are (``paddle_tpu``'s ``_prefill_live``
+    and ``_decode_live``; the per-layer dequant is in
+    ``models/transformer.py``)."""
     from paddle_tpu_torch.models import transformer
 
     def prefill_fn(params, pool, tokens, length, pages, temperature,

@@ -17,13 +17,17 @@ order over up to 300 keys); bf16 outputs and gradients within two bf16
 ulps of the plain version's (both accumulate in fp32 and round once,
 so a sum that lands near a rounding boundary may round the other way;
 the ulp is taken at max(|plain|, 2**-6) so values near 0 are held to
-2**-13 absolute), lse (fp32) to 1e-4.
+2**-13 absolute), lse (fp32) to 1e-4. The quantized branches (int8 and
+int4 pools) are held to the same 1e-4 as the model-dtype ones: both
+sides widen each code with one fp32 multiply by its row scale, so only
+the order of the sums differs; the four-array span write byte for byte.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import q8
 from paddle_tpu_torch.ops.kernels import attention as kattention
 from paddle_tpu_torch.ops.kernels import decode as kdecode
 from paddle_tpu_torch.ops.kernels import prefill as kprefill
@@ -106,6 +110,126 @@ def test_gpu_span_write_matches_plain(cuda, dtype):
     torch.cuda.synchronize()
     for n in ("k", "v"):
         assert torch.equal(pool[n], want[n])
+
+
+def _quant(rng, shape, kvd, dev):
+    """Random rows quantized on the card: (codes, scales)."""
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    return q8.quantize_kv(x * (1.0 + 2.0 * torch.rand(shape[:-1] + (1,),
+                                                      device=dev)), kvd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvd", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Dh", [(1, 32), (4, 128)])
+def test_gpu_quant_decode_attention_matches_plain(cuda, kvd, dtype, G, Dh):
+    rng = np.random.RandomState(7)
+    B, Hkv, P, bs, nblocks = 5, 3, 9, 16, 40
+    q = _gpu(rng.randn(B, Hkv, G, Dh), cuda, dtype)
+    k, ks = _quant(rng, (Hkv, nblocks * bs, Dh), kvd, cuda)
+    v, vs = _quant(rng, (Hkv, nblocks * bs, Dh), kvd, cuda)
+    pages = _gpu(np.stack([rng.permutation(nblocks)[:P] for _ in range(B)])
+                 .astype(np.int32), cuda)
+    pos = _gpu(np.asarray([0, 17, 77, 130, P * bs - 1], np.int32), cuda)
+    kw = dict(block_size=bs, k_scale=ks, v_scale=vs, kv_dtype=kvd)
+    before = kdecode.flash_decode_attention.launches[kvd]
+    got = kdecode.flash_decode_attention(q, k, v, pages, pos, **kw)
+    want = kdecode.flash_decode_attention_plain(q, k, v, pages, pos, **kw)
+    torch.cuda.synchronize()
+    assert kdecode.flash_decode_attention.launches[kvd] == before + 1
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvd", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Dh", [(1, 32), (2, 128)])
+def test_gpu_quant_chunk_prefill_matches_plain(cuda, kvd, dtype, G, Dh):
+    rng = np.random.RandomState(8)
+    C, Hkv, bs, P_ctx = 37, 3, 16, 5
+    q = _gpu(rng.randn(C, Hkv, G, Dh), cuda, dtype)
+    kck = _gpu(rng.randn(C, Hkv, Dh), cuda, dtype)
+    vck = _gpu(rng.randn(C, Hkv, Dh), cuda, dtype)
+    k, ks = _quant(rng, (Hkv, 12 * bs, Dh), kvd, cuda)
+    v, vs = _quant(rng, (Hkv, 12 * bs, Dh), kvd, cuda)
+    pages = _gpu(rng.permutation(12)[:P_ctx].astype(np.int32), cuda)
+    kw = dict(block_size=bs, k_scale=ks, v_scale=vs, kv_dtype=kvd)
+    before = kprefill.flash_chunk_prefill.launches[kvd]
+    got = kprefill.flash_chunk_prefill(q, kck, vck, k, v, pages, **kw)
+    want = kprefill.flash_chunk_prefill_plain(q, kck, vck, k, v, pages, **kw)
+    torch.cuda.synchronize()
+    assert kprefill.flash_chunk_prefill.launches[kvd] == before + 1
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvd", ["int8", "int4"])
+@pytest.mark.parametrize("Dh", [32, 128])
+def test_gpu_quant_span_write_matches_plain(cuda, kvd, Dh):
+    rng = np.random.RandomState(9)
+    L, Hkv, bs, pc = 2, 3, 16, 3
+    Dst = Dh // 2 if kvd == "int4" else Dh
+    pool = {n: _gpu(rng.randint(-128, 128, (L, Hkv, 8 * bs, Dst))
+                    .astype(np.int8), cuda) for n in ("k", "v")}
+    spans = {n: _gpu(rng.randint(-128, 128, (L, Hkv, pc * bs, Dst))
+                     .astype(np.int8), cuda) for n in ("k", "v")}
+    for n in ("k_scale", "v_scale"):
+        pool[n] = _gpu(rng.rand(L, Hkv, 8 * bs).astype(np.float32), cuda)
+        spans[n] = _gpu(rng.rand(L, Hkv, pc * bs).astype(np.float32), cuda)
+    pages = _gpu(np.asarray([5, 2, 0], np.int32), cuda)
+    valid = _gpu(np.arange(pc * bs) < 2 * bs + 3, cuda)
+    want = {n: t.clone() for n, t in pool.items()}
+    before = kprefill.paged_span_write.launches[kvd]
+    kprefill.paged_span_write(pool, spans, pages, valid, block_size=bs,
+                              kv_dtype=kvd)
+    kprefill.paged_span_write_plain(want, spans, pages, valid, block_size=bs,
+                                    kv_dtype=kvd)
+    torch.cuda.synchronize()
+    assert kprefill.paged_span_write.launches[kvd] == before + 1
+    for n in pool:                  # byte for byte, scales as raw bits
+        assert torch.equal(pool[n].view(torch.uint8),
+                           want[n].view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_gpu_quant_engine_runs_every_branch(cuda):
+    """A small bf16 engine on the card over an int8 pool with int8
+    weights and over an int4 pool: every quantized branch launches, and
+    a prefix hit gives the cold run's greedy tokens."""
+    from paddle_tpu_torch.io import lm_serving
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import PagedDecodeEngine
+    cfg = transformer.TransformerConfig(vocab=512, d_model=128, n_heads=2,
+                                        n_layers=2, d_ff=256, max_len=256)
+    gen = torch.Generator().manual_seed(0)
+    weights = {"int8": lm_serving.quantize_lm_params(
+                   transformer.init_train_params(cfg, gen, "cpu"), "cuda"),
+               "int4": transformer.init_params(
+                   cfg, torch.Generator().manual_seed(0), "cuda")}
+    rng = np.random.RandomState(4)
+    prompt = np.concatenate([rng.randint(0, 512, 64),
+                             rng.randint(0, 512, 30)])
+    for kvd, params in weights.items():
+        outs = []
+        for warm in (False, True):
+            eng = PagedDecodeEngine.from_params(
+                params, cfg, batch=4, cache_len=256, block_size=16,
+                chunk_tokens=64, seed=0, device="cuda", kv_dtype=kvd)
+            if warm:
+                eng.submit(prompt[:70], max_new=2)
+                eng.run_until_idle()
+            kernels.reset_launches()
+            req = eng.submit(prompt, max_new=12)
+            eng.run_until_idle()
+            outs.append((req.tokens, req.prefix_hit_tokens))
+            counts = kernels.launch_counts()
+            for name in ("flash_decode_attention", "flash_chunk_prefill",
+                         "paged_span_write"):
+                assert counts[f"{name}.{kvd}"] > 0, (name, kvd)
+        assert outs[0][1] == 0 and outs[1][1] == 64
+        assert outs[0][0] == outs[1][0]
 
 
 @pytest.mark.gpu

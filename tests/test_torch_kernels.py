@@ -143,13 +143,26 @@ class TestSpanWritePlain:
                     pool[n][:, :, b * bs:(b + 1) * bs])
 
     def test_quantized_spans_raise(self):
-        z = torch.zeros(1, 1, 4, 8)
-        with pytest.raises(NotImplementedError):
-            kprefill.paged_span_write(
-                {"k": z, "v": z, "k_scale": z[..., 0], "v_scale": z[..., 0]},
-                {"k": z, "v": z, "k_scale": z[..., 0], "v_scale": z[..., 0]},
-                torch.zeros(1, dtype=torch.int32),
-                torch.ones(4, dtype=torch.bool), block_size=4)
+        """Four arrays are a quantized pool's span write: they raise
+        unless ``kv_dtype`` names a quantized pool, and then all four
+        land."""
+        z = torch.zeros(1, 1, 4, 8, dtype=torch.int8)
+        s = torch.zeros(1, 1, 4)
+        pool = {"k": z.clone(), "v": z.clone(), "k_scale": s.clone(),
+                "v_scale": s.clone()}
+        spans = {"k": z + 3, "v": z - 3, "k_scale": s + 0.5,
+                 "v_scale": s + 2.0}
+        args = (torch.zeros(1, dtype=torch.int32),
+                torch.ones(4, dtype=torch.bool))
+        with pytest.raises(ValueError, match="expected"):
+            kprefill.paged_span_write(pool, spans, *args, block_size=4)
+        with pytest.raises(ValueError, match="kv_dtype"):
+            kprefill.paged_span_write(pool, spans, *args, block_size=4,
+                                      kv_dtype="fp8")
+        kprefill.paged_span_write(pool, spans, *args, block_size=4,
+                                  kv_dtype="int8")
+        for n in pool:
+            assert torch.equal(pool[n], spans[n])
 
 
 class TestFusedSamplePlain:
@@ -260,23 +273,48 @@ class TestWrappers:
         kdecode.fused_sample(torch.zeros(2, 5), 0, torch.zeros(2),
                              torch.zeros(2, dtype=torch.int32))
         assert kernels.launch_counts() == {
-            "flash_decode_attention": 0, "fused_sample": 0,
-            "flash_chunk_prefill": 0, "paged_span_write": 0,
+            "flash_decode_attention": 0, "flash_decode_attention.int8": 0,
+            "flash_decode_attention.int4": 0, "fused_sample": 0,
+            "flash_chunk_prefill": 0, "flash_chunk_prefill.int8": 0,
+            "flash_chunk_prefill.int4": 0, "paged_span_write": 0,
+            "paged_span_write.int8": 0, "paged_span_write.int4": 0,
             "flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
     @pytest.mark.parametrize("kvd", ["int8", "int4"])
-    def test_quantized_pools_raise(self, kvd):
-        z = torch.zeros(1, 1, 1, 8)
-        with pytest.raises(NotImplementedError):
-            kdecode.flash_decode_attention(
-                z, z[0], z[0], torch.zeros(1, 1, dtype=torch.int32),
-                torch.zeros(1, dtype=torch.int32), block_size=1,
-                kv_dtype=kvd)
-        with pytest.raises(NotImplementedError):
-            kprefill.flash_chunk_prefill(
-                z, z[:, :, 0], z[:, :, 0], z[0], z[0],
-                torch.zeros(0, dtype=torch.int32), block_size=1,
-                kv_dtype=kvd)
+    def test_quantized_pools_raise(self, kvd, rng):
+        """The wrappers take int8 and int4 pools (the plain versions run
+        here, through ``dequantize_kv``); they raise ValueError only for
+        a storage they do not know or scale tables that do not match."""
+        from paddle_tpu_torch.ops import q8
+        Dh, bs = 8, 4
+        q = _t(rng.randn(1, 1, 1, Dh).astype(np.float32))
+        k, ks = q8.quantize_kv(_t(rng.randn(1, 2 * bs, Dh)
+                                  .astype(np.float32)), kvd)
+        v, vs = q8.quantize_kv(_t(rng.randn(1, 2 * bs, Dh)
+                                  .astype(np.float32)), kvd)
+        pages = torch.tensor([[1, 0]], dtype=torch.int32)
+        pos = torch.tensor([bs + 2], dtype=torch.int32)
+        got = kdecode.flash_decode_attention(
+            q, k, v, pages, pos, block_size=bs, k_scale=ks, v_scale=vs,
+            kv_dtype=kvd)
+        want = kdecode.flash_decode_attention(
+            q, q8.dequantize_kv(k, ks, kvd), q8.dequantize_kv(v, vs, kvd),
+            pages, pos, block_size=bs)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        chunk = q[:, :, 0]
+        got = kprefill.flash_chunk_prefill(
+            q, chunk, chunk, k, v, pages[0, :1], block_size=bs,
+            k_scale=ks, v_scale=vs, kv_dtype=kvd)
+        want = kprefill.flash_chunk_prefill(
+            q, chunk, chunk, q8.dequantize_kv(k, ks, kvd),
+            q8.dequantize_kv(v, vs, kvd), pages[0, :1], block_size=bs)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        with pytest.raises(ValueError, match="kv_dtype"):
+            kdecode.flash_decode_attention(q, k, v, pages, pos, block_size=bs,
+                                           kv_dtype="fp8")
+        with pytest.raises(ValueError, match="k_scale"):
+            kprefill.flash_chunk_prefill(q, chunk, chunk, k, v, pages[0, :1],
+                                         block_size=bs, kv_dtype=kvd)
 
     def test_default_device_raises_without_a_card(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -117,8 +117,13 @@ def test_config_rejects_unported_fields():
                {"remat": "bf16"}):
         with pytest.raises(NotImplementedError):
             tt.TransformerConfig(vocab=8, **kw)
-    with pytest.raises(NotImplementedError):
-        tt.init_block_pool(_cfgs(False, False)[1], 2, BS, kv_dtype="int8",
+    # quantized pools are ported: int8 codes beside fp32 scale tables
+    pool = tt.init_block_pool(_cfgs(False, False)[1], 2, BS, kv_dtype="int8",
+                              device="cpu")
+    assert pool["k"].dtype == torch.int8 and set(pool) == {
+        "k", "v", "k_scale", "v_scale"}
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tt.init_block_pool(_cfgs(False, False)[1], 2, BS, kv_dtype="fp8",
                            device="cpu")
 
 
