@@ -9,24 +9,30 @@ order it:
 
 1. prints the environment (torch, CUDA, capability, nvcc, Triton,
    CUTLASS headers, the card's name and power limit);
-2. builds the six Hopper kernels from ``paddle_tpu_torch/ops/kernels/
-   csrc`` with nvcc (one process per source, in parallel) and prints the
-   build time;
-3. holds each kernel, and the int8 and int4 branches of kernels 1, 3
-   and 4, against its plain PyTorch version on the card, at its slice's
-   shapes and at one GQA shape, and times kernel, plain version and a
-   PyTorch library call that computes the same function (a yardstick
-   only: the port never calls it; SDPA over gathered, dequantized K/V
-   for a quantized pool), beside the least time the card could take
-   (the bytes stored and moved over 3.35 TB/s or FLOPs over the peak for
-   the input type, whichever is larger);
+2. builds the Hopper kernels from ``paddle_tpu_torch/ops/kernels/csrc``
+   with nvcc (one process per source, in parallel) and prints the build
+   time;
+3. holds each kernel, the int8 and int4 branches of kernels 1, 3 and 4,
+   and both branches of kernels 5 and 6 (bf16 on the tensor cores, fp32
+   on the CUDA cores) against its plain PyTorch version on the card, at
+   its slice's shapes and at one GQA shape, and times kernel, plain
+   version and a PyTorch library call that computes the same function
+   (a yardstick only: the port never calls it; SDPA over gathered,
+   dequantized K/V for a quantized pool), beside the least time the
+   card could take (the bytes stored and moved over 3.35 TB/s or FLOPs
+   over the peak for the input type, whichever is larger); kernels 5
+   and 6 are timed at the training slice's shape in both dtypes and at
+   the GQA D=128 shape in bf16, and launched twice on the same inputs,
+   which must give bitwise the same outputs;
 4. holds the serving step functions on the card against the CPU on a
    small fp32 model, with an fp32 pool and again with an int8 pool and
    int8 weights;
 5. holds a small fp32 LM's training on the card against the CPU (one
    step's loss and gradients, then five Adam steps' losses), and runs
    the same three steps twice on the card: losses and weights must be
-   bitwise equal (the attention backward uses no atomics);
+   bitwise equal (the attention backward uses no atomics). The card's
+   five steps are the fp32 attention branch's path: their launch counts
+   are that branch's ``launches`` (no bf16 kernel may launch there);
 6. serves 16 seeded requests with a GPT-2-small-width engine (random
    weights from a seed) and reads each serving kernel's launch count
    for that run — every count must be > 0 — and checks that a
@@ -43,9 +49,11 @@ order it:
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
-   timed steps — 12 layers x 10 steps each;
-9. prints the card line, a ``{"kernels": [...]}`` line and, last, the
-   ``{"ok": true, ...}`` line.
+   timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
+   fp32 ones; then profiles one more step (``train_profile:`` line: the
+   ten device kernels with the most time, the device's busy share);
+9. prints the card line, a ``{"kernels": [...]}`` line (14 entries) and,
+   last, the ``{"ok": true, ...}`` line.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 products are full
 fp32 on the card as on the CPU.
@@ -318,13 +326,17 @@ def check_span_write(torch, timer, kp, q8, dev, rng, Hkv, Dh, timed,
     return err, times
 
 
-def check_flash(torch, timer, ka, dev, B, T, H, Hkv, D, dtype, causal,
-                timed):
+def check_flash(torch, timer, ka, build, dev, B, T, H, Hkv, D, dtype,
+                causal, timed):
     """Kernels 5 and 6 (flash attention forward and backward) against
     their plain versions at one shape, through the same GQA expansion
     and [B*H, T, D] layout as ``flash_attention``. Returns the errors
     {fwd: (out, lse), bwd: (dq, dk, dv)} as max abs and, for bf16, in
-    bf16 ulps; and the times at the slice's shape."""
+    bf16 ulps; whether a second launch of each kernel on the same inputs
+    gave bitwise the same outputs; and, when ``timed``, the times. Beside
+    the wrapper's time (``ms``) stands ``entry_ms``: the C entry alone,
+    its outputs allocated beforehand, so the difference is the wrapper's
+    host work (checks, allocation, the ctypes call) before the launch."""
     g = torch.Generator(device=dev).manual_seed(T + H)
 
     def rand(heads):
@@ -339,9 +351,13 @@ def check_flash(torch, timer, ka, dev, B, T, H, Hkv, D, dtype, causal,
     kw = dict(sm_scale=D ** -0.5, causal=causal)
     out, lse = ka.flash_attention_fwd(q, k, v, **kw)
     grads = ka.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    out2, lse2 = ka.flash_attention_fwd(q, k, v, **kw)
+    grads2 = ka.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     want_out, want_lse = ka.flash_attention_fwd_plain(q, k, v, **kw)
     want = ka.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
+    repeat = (torch.equal(out, out2) and torch.equal(lse, lse2)
+              and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
 
     def abs_err(a, b):
         return (a.float() - b.float()).abs().max().item()
@@ -354,7 +370,7 @@ def check_flash(torch, timer, ka, dev, B, T, H, Hkv, D, dtype, causal,
                 "bwd": max(ka.bf16_ulps(a, b)
                            for a, b in zip(grads, want))}
     if not timed:
-        return errs, ulps, None
+        return errs, ulps, repeat, None
     e = q.element_size()
     n = q.numel()
     pairs = (T * (T + 1) // 2 if causal else T * T) * B * H
@@ -377,6 +393,18 @@ def check_flash(torch, timer, ka, dev, B, T, H, Hkv, D, dtype, causal,
             "library_ms": timer.ms(lambda: torch.autograd.grad(
                 o_lib, (qs, ks, vs), do4, retain_graph=True))},
     }
+    lib, ptr = build.library(), build.ptr
+    delta = (do.float() * out.float()).sum(dim=-1)
+    spare = [torch.empty_like(t) for t in (out, lse, q, k, v)]
+    flags = (kw["sm_scale"], int(causal), build.DTYPE_CODES[dtype],
+             build.stream(dev))
+    fwd_args = [ptr(t) for t in (q, k, v, *spare[:2])] + [B * H, T, D]
+    bwd_args = [ptr(t) for t in (q, k, v, do, lse, delta, *spare[2:])] + [
+        B * H, T, D]
+    for name, entry, args in (("fwd", lib.pk_flash_attn_fwd, fwd_args),
+                              ("bwd", lib.pk_flash_attn_bwd, bwd_args)):
+        build.check(entry(*args, *flags), f"flash_attention_{name}")
+        times[name]["entry_ms"] = timer.ms(lambda: entry(*args, *flags))
     dname = str(dtype).replace("torch.", "")
     # forward: q, k, v read, out written, lse written; q.k and p.v
     times["fwd"]["bound_ms"], times["fwd"]["bound_by"] = bound(
@@ -385,7 +413,7 @@ def check_flash(torch, timer, ka, dev, B, T, H, Hkv, D, dtype, causal,
     # products (q.k, do.v, p^T do, ds k, ds^T q)
     times["bwd"]["bound_ms"], times["bwd"]["bound_by"] = bound(
         8 * n * e + lse.numel() * 4, 10 * D * pairs, dname)
-    return errs, ulps, times
+    return errs, ulps, repeat, times
 
 
 FLASH_FP32_TOL = 1e-4        # fp32 out, lse and grads: sums in another order
@@ -393,44 +421,59 @@ FLASH_BF16_ULPS = 2          # bf16 out and grads: one rounding each side
 FLASH_LSE_TOL = 1e-4         # lse is fp32 for either input type
 
 
-def flash_phase(torch, ka):
-    """Kernels 5 and 6 at the training slice's shape (B=8, T=1024,
-    H=12, D=64, bf16, causal; timed), a GQA wide-head shape (H=32,
-    Hkv=8, D=128, T=2048, bf16, causal) and an uneven non-causal fp32
-    shape (B=2, T=1000, H=12, D=64). Tolerances: fp32 out, lse and
-    gradients within 1e-4 absolute (fp32 sums in another order); bf16
-    out and gradients within 2 bf16 ulps (both versions accumulate in
-    fp32 and round once, so a sum near a rounding boundary may round
+def flash_phase(torch, ka, build):
+    """Kernels 5 and 6, both branches. bf16 (tensor cores): the training
+    slice's shape (B=8, T=1024, H=12, D=64, causal) and a GQA wide-head
+    shape (H=32, Hkv=8, D=128, T=2048, causal), both timed. fp32 (CUDA
+    cores): the slice's shape, timed, and an uneven non-causal shape
+    (B=2, T=1000, H=12, D=64). Every shape also checks that a second
+    launch on the same inputs is bitwise equal. Tolerances: fp32 out,
+    lse and gradients within 1e-4 absolute (fp32 sums in another order);
+    bf16 out and gradients within 2 bf16 ulps (both versions accumulate
+    in fp32 and round once, so a sum near a rounding boundary may round
     the other way), lse within 1e-4."""
     dev = torch.device("cuda:0")
     timer = Timer(torch)
     bf16, f32 = torch.bfloat16, torch.float32
-    slice_err, slice_ulps, times = check_flash(
-        torch, timer, ka, dev, 8, 1024, 12, 12, 64, bf16, True, True)
-    gqa_err, gqa_ulps, _ = check_flash(torch, timer, ka, dev, 1, 2048, 32,
-                                       8, 128, bf16, True, False)
-    f32_err, _, _ = check_flash(torch, timer, ka, dev, 2, 1000, 12, 12, 64,
-                                f32, False, False)
+    sl_err, sl_ulps, sl_rep, sl_times = check_flash(
+        torch, timer, ka, build, dev, 8, 1024, 12, 12, 64, bf16, True, True)
+    gqa_err, gqa_ulps, gqa_rep, gqa_times = check_flash(
+        torch, timer, ka, build, dev, 1, 2048, 32, 8, 128, bf16, True, True)
+    f32_err, _, f32_rep, f32_times = check_flash(
+        torch, timer, ka, build, dev, 8, 1024, 12, 12, 64, f32, True, True)
+    odd_err, _, odd_rep, _ = check_flash(torch, timer, ka, build, dev, 2,
+                                         1000, 12, 12, 64, f32, False, False)
     rows = {}
-    for name, part in (("flash_attention_fwd", "fwd"),
-                       ("flash_attention_bwd", "bwd")):
-        extra = {"bf16_ulps": slice_ulps[part],
-                 "gqa_max_abs_err": max(gqa_err[part]),
-                 "gqa_bf16_ulps": gqa_ulps[part],
-                 "fp32_max_abs_err": max(f32_err[part])}
-        print(f"kernel {name}: max_abs_err={max(slice_err[part])!r} "
-              + " ".join(f"{k}={v!r}" for k, v in extra.items())
-              + f" tol=({FLASH_FP32_TOL!r} fp32, {FLASH_BF16_ULPS} bf16 "
-              f"ulps) "
-              + " ".join(f"{'kernel_ms' if k == 'ms' else k}={v!r}"
-                         for k, v in times[part].items()))
-        lse_ok = part == "bwd" or (slice_err[part][1] <= FLASH_LSE_TOL
-                                   and gqa_err[part][1] <= FLASH_LSE_TOL)
-        if not (lse_ok and max(f32_err[part]) <= FLASH_FP32_TOL
-                and slice_ulps[part] <= FLASH_BF16_ULPS
-                and gqa_ulps[part] <= FLASH_BF16_ULPS):
+    for part in ("fwd", "bwd"):
+        name = f"flash_attention_{part}"
+        gqa = {f"gqa_{'kernel_ms' if k == 'ms' else k}": v
+               for k, v in gqa_times[part].items()}
+        bf16_row = (max(sl_err[part]), {
+            "bf16_ulps": sl_ulps[part],
+            "gqa_max_abs_err": max(gqa_err[part]),
+            "gqa_bf16_ulps": gqa_ulps[part], **gqa,
+            "bitwise_repeat": sl_rep and gqa_rep}, sl_times[part])
+        f32_row = (max(f32_err[part]), {
+            "uneven_max_abs_err": max(odd_err[part]),
+            "bitwise_repeat": f32_rep and odd_rep}, f32_times[part])
+        lse_ok = part == "bwd" or max(sl_err[part][1], gqa_err[part][1],
+                                      f32_err[part][1],
+                                      odd_err[part][1]) <= FLASH_LSE_TOL
+        for row_name, (err, extra, times) in ((name, bf16_row),
+                                              (name + ".fp32", f32_row)):
+            print(f"kernel {row_name}: max_abs_err={err!r} "
+                  + " ".join(f"{k}={v!r}" for k, v in extra.items())
+                  + f" tol=({FLASH_FP32_TOL!r} fp32, {FLASH_BF16_ULPS} "
+                  f"bf16 ulps) "
+                  + " ".join(f"{'kernel_ms' if k == 'ms' else k}={v!r}"
+                             for k, v in times.items()))
+            rows[row_name] = (err, extra, times)
+        f32_max = max(f32_err[part] + odd_err[part])
+        if not (lse_ok and f32_max <= FLASH_FP32_TOL
+                and max(sl_ulps[part], gqa_ulps[part]) <= FLASH_BF16_ULPS):
             fail(f"{name} disagrees with its plain version")
-        rows[name] = (max(slice_err[part]), extra, times[part])
+        if not (sl_rep and gqa_rep and f32_rep and odd_rep):
+            fail(f"{name}: two launches on the same inputs differ")
     return rows
 
 
@@ -635,12 +678,14 @@ def _train_run(torch, tt, topt, cfg, batches, device):
     return losses, first, params
 
 
-def train_parity(torch, tt, topt):
+def train_parity(torch, tt, topt, kernels):
     """The step_parity model with flash attention, T=96 (one full and
     one ragged 64-row tile): card vs CPU within 1e-4 (fp32 throughout,
     sums in other orders through two layers, the vocab head and up to
     five Adam steps), then the same three steps twice on the card,
-    bitwise."""
+    bitwise. The card's five steps are the fp32 attention branch's path:
+    its launch counts are read around them (every fp32 kernel launched,
+    no bf16 one). Returns those counts."""
     cfg = tt.TransformerConfig(vocab=256, d_model=128, n_heads=4,
                                n_kv_heads=2, n_layers=2, d_ff=256,
                                max_len=128, dtype="float32")
@@ -648,7 +693,9 @@ def train_parity(torch, tt, topt):
     batches = [rng.randint(0, 256, (2, 96)).astype(np.int32)
                for _ in range(5)]
     cpu = _train_run(torch, tt, topt, cfg, batches, "cpu")
+    kernels.reset_launches()                 # counts of the fp32 path
     gpu = _train_run(torch, tt, topt, cfg, batches, "cuda")
+    launches = kernels.launch_counts()
     loss_err = max(abs(a - b) for a, b in zip(cpu[0], gpu[0]))
     grad_err = max((cpu[1][n] - gpu[1][n]).abs().max().item()
                    for n in cpu[1])
@@ -667,6 +714,15 @@ def train_parity(torch, tt, topt):
         fail("training on the card disagrees with the CPU")
     if not (same_loss and same_params):
         fail("two identical training runs on the card differ")
+    n = cfg.n_layers * len(batches)
+    print(f"train parity launches: "
+          + " ".join(f"{k}={launches[k]}" for k in TRAINING_KERNELS
+                     + FP32_BRANCHES))
+    if not (all(launches[k] == n for k in FP32_BRANCHES)
+            and all(launches[k] == 0 for k in TRAINING_KERNELS)):
+        fail(f"fp32 training launched other attention kernels than the "
+             f"fp32 branch {n} times each: {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -870,11 +926,57 @@ def train_phase(torch, tt, topt, kernels, costs, place, cfg, dev):
         fail(f"non-finite training loss: {losses}")
     if not losses[-1] < losses[0]:
         fail(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
-    for name in TRAINING_KERNELS:
-        if launches[name] != cfg.n_layers * TIMED:
+    for name in TRAINING_KERNELS + FP32_BRANCHES:
+        want = cfg.n_layers * TIMED if name in TRAINING_KERNELS else 0
+        if launches[name] != want:
             fail(f"{name} launched {launches[name]} times in {TIMED} "
-                 f"steps, expected {cfg.n_layers * TIMED}")
+                 f"steps, expected {want}")
+    train_profile(torch, step, WARMUP + TIMED)
     return launches
+
+
+def train_profile(torch, step, i):
+    """One more training step under ``torch.profiler`` (CPU and CUDA
+    activity): print the ten device kernels with the most total time
+    (name, calls, ms), the device's busy time (the union of its kernel
+    and copy intervals) and its share of the step's host-clocked time,
+    or that the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(i)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        spans.append((start, end))
+        calls, us = by_name.get(ev.name, (0, 0.0))
+        by_name[ev.name] = (calls + 1, us + (end - start))
+    if not spans:
+        print("train_profile: " + json.dumps({
+            "step_ms": wall_ms, "device_time": "none in the trace"}))
+        return
+    busy, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    doc = {"step_ms": wall_ms, "device_busy_ms": busy / 1e3,
+           "device_busy_share": busy / 1e3 / wall_ms,
+           "device_span_ms": (max(e for _, e in spans)
+                              - min(s for s, _ in spans)) / 1e3,
+           "device_kernels": len(spans),
+           "top": [{"name": name[:120], "calls": calls, "ms": us / 1e3}
+                   for name, (calls, us) in top]}
+    print("train_profile: " + json.dumps(doc))
 
 
 # ---------------------------------------------------------------------------
@@ -893,6 +995,11 @@ SOURCES = {
                             "paddle_tpu/ops/pallas/attention.py:351"),
     "flash_attention_bwd": ("flash_attn_bwd.cu",
                             "paddle_tpu/ops/pallas/attention.py:268"),
+    # the same TPU kernels for fp32 inputs: the CUDA-core branch
+    "flash_attention_fwd.fp32": ("flash_attn_fwd_f32.cu",
+                                 "paddle_tpu/ops/pallas/attention.py:351"),
+    "flash_attention_bwd.fp32": ("flash_attn_bwd_f32.cu",
+                                 "paddle_tpu/ops/pallas/attention.py:268"),
 }
 SERVING_KERNELS = ("flash_decode_attention", "fused_sample",
                    "flash_chunk_prefill", "paged_span_write")
@@ -902,6 +1009,7 @@ QUANT_BRANCHES = tuple(f"{k}.{kvd}" for kvd in ("int8", "int4")
                        for k in SERVING_KERNELS if k != "fused_sample")
 SOURCES.update({b: SOURCES[b.split(".")[0]] for b in QUANT_BRANCHES})
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+FP32_BRANCHES = tuple(f"{k}.fp32" for k in TRAINING_KERNELS)
 
 
 def main():
@@ -944,10 +1052,11 @@ def main():
           f"{time.perf_counter() - t0!r} dir={info['dir']}")
 
     dev = torch.device("cuda:0")
-    rows = {**kernel_phase(torch, kd, kp, q8), **flash_phase(torch, ka)}
+    rows = {**kernel_phase(torch, kd, kp, q8),
+            **flash_phase(torch, ka, _build)}
     step_parity(torch, tt)
     step_parity_quant(torch, tt, tlm, q8)
-    train_parity(torch, tt, topt)
+    parity = train_parity(torch, tt, topt, kernels)
     cfg = gpt2_small(tt)
     params = tt.init_params(cfg, torch.Generator().manual_seed(0), dev)
     served = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
@@ -968,7 +1077,8 @@ def main():
     launches = {**{k: served[k] for k in SERVING_KERNELS},
                 **{k: served8[k] for k in QUANT_BRANCHES if "int8" in k},
                 **{k: served4[k] for k in QUANT_BRANCHES if "int4" in k},
-                **{k: trained[k] for k in TRAINING_KERNELS}}
+                **{k: trained[k] for k in TRAINING_KERNELS},
+                **{k: parity[k] for k in FP32_BRANCHES}}
 
     out = []
     for name, (src, replaces) in SOURCES.items():

@@ -3,8 +3,10 @@
 CUDA C++ sources live in ``csrc/``; ``_build`` compiles them with nvcc
 at first use and binds them with ctypes. ``KERNELS`` lists every kernel
 wrapper of the serving and training paths, each with its ``launches``
-counter: an int, or for the three wrappers whose kernel is templated on
-the KV pool's storage a dict with one count per storage.
+counter: an int, or a dict with one count per branch for the wrappers
+that launch more than one kernel instantiation — the three templated on
+the KV pool's storage ({"none", "int8", "int4"}) and the two attention
+wrappers ({"bf16": tensor-core kernels, "fp32": CUDA-core kernels}).
 """
 
 from paddle_tpu_torch.ops.kernels.attention import (flash_attention_bwd,
@@ -29,14 +31,16 @@ def reset_launches():
 
 def launch_counts() -> dict:
     """``{kernel name: launches}`` of every kernel and branch: a
-    templated wrapper's model-dtype branch under its own name, its
-    quantized ones as ``<name>.int8`` and ``<name>.int4``."""
+    branching wrapper's first branch (the model-dtype pool, or bf16
+    attention) under its own name, the others as ``<name>.<branch>``
+    (``flash_decode_attention.int8``, ``flash_attention_fwd.fp32``)."""
     out = {}
     for fn in KERNELS:
         if isinstance(fn.launches, dict):
-            for kv, n in fn.launches.items():
-                out[fn.__name__ if kv == "none"
-                    else f"{fn.__name__}.{kv}"] = n
+            first = next(iter(fn.launches))
+            for branch, n in fn.launches.items():
+                out[fn.__name__ if branch == first
+                    else f"{fn.__name__}.{branch}"] = n
         else:
             out[fn.__name__] = fn.launches
     return out

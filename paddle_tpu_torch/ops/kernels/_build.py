@@ -27,8 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("decode_attention.cu", "fused_sample.cu", "chunk_prefill.cu",
-           "span_write.cu", "flash_attn_fwd.cu", "flash_attn_bwd.cu")
-HEADERS = ("common.cuh", "flash_tile.cuh")
+           "span_write.cu", "flash_attn_fwd.cu", "flash_attn_bwd.cu",
+           "flash_attn_fwd_f32.cu", "flash_attn_bwd_f32.cu")
+HEADERS = ("common.cuh", "flash_tc.cuh", "flash_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -212,10 +213,12 @@ def kv_store(kv_dtype, kernel: str) -> str:
     return kv
 
 
-def new_launch_counts() -> dict:
-    """Per-branch launch counts of a wrapper whose kernel is templated
-    on the pool storage: one count per ``KV_CODES`` key."""
-    return {kv: 0 for kv in KV_CODES}
+def new_launch_counts(branches=tuple(KV_CODES)) -> dict:
+    """Per-branch launch counts of a wrapper with more than one kernel
+    instantiation: one count per branch, the model-dtype branch first
+    (by default the ``KV_CODES`` keys, for a kernel templated on the
+    pool storage)."""
+    return {b: 0 for b in branches}
 
 
 def on_cpu(t: torch.Tensor, kernel: str) -> bool:

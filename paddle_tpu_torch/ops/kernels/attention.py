@@ -13,8 +13,13 @@
 
 Wrappers as in ``ops/kernels/decode.py``: a CUDA tensor launches the
 hand-written kernel or raises, a CPU tensor runs the ``*_plain``
-version, and ``<wrapper>.launches`` counts kernel launches. The kernels
-take fp32 and bf16, any ``T >= 1`` and head dims 32, 64, 96 and 128.
+version. Each C entry dispatches by dtype to one of two hand-written
+kernels: bf16 to the tensor-core kernels (wgmma, p and ds split into
+bf16 hi and lo halves so the products keep fp32 accuracy), fp32 to the
+CUDA-core kernels (``csrc/flash_attn_{fwd,bwd}_f32.cu``), whose fp32
+products no tensor-core path matches to 1e-4. ``<wrapper>.launches``
+counts launches per branch, ``{"bf16": n, "fp32": n}``. Both take any
+``T >= 1`` and head dims 32, 64, 96 and 128.
 The JAX package's block-size table (``select_block_sizes``,
 ``MEASURED_BLOCKS``, ``VMEM_BYTES``) sizes TPU VMEM tiles and has no
 counterpart: the CUDA kernels fix their own 64 x 64 tiles.
@@ -107,6 +112,9 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, *, sm_scale: float,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+# the kernel branch each input dtype launches (``<wrapper>.launches`` keys)
+BRANCHES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+
 
 def _check(q, named, what: str):
     """Validate [BH, T, D] operands for the CUDA kernels."""
@@ -122,6 +130,10 @@ def _check(q, named, what: str):
                          f"grid limit of 65535")
     for name, t in named.items():
         _build.require(t, name, device=dev, dtype=q.dtype, shape=(BH, T, D))
+    for name, t in (("q", q), *named.items()):
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned (the "
+                             f"bf16 kernels stage tiles in 16-byte copies)")
     return BH, T, D
 
 
@@ -141,11 +153,11 @@ def flash_attention_fwd(q, k, v, *, sm_scale: float, causal: bool):
             _build.ptr(lse), BH, T, D, float(sm_scale), int(bool(causal)),
             _build.DTYPE_CODES[q.dtype], _build.stream(dev))
     _build.check(err, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches[BRANCHES[q.dtype]] += 1
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+flash_attention_fwd.launches = _build.new_launch_counts(BRANCHES.values())
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, sm_scale: float,
@@ -173,11 +185,11 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, sm_scale: float,
             int(bool(causal)), _build.DTYPE_CODES[q.dtype],
             _build.stream(dev))
     _build.check(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches[BRANCHES[q.dtype]] += 1
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+flash_attention_bwd.launches = _build.new_launch_counts(BRANCHES.values())
 
 
 # ---------------------------------------------------------------------------

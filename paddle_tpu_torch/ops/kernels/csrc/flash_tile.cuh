@@ -1,5 +1,7 @@
-// Tile helpers shared by the flash-attention forward and backward
-// kernels (flash_attn_fwd.cu, flash_attn_bwd.cu).
+// Tile helpers of the fp32 flash-attention kernels, forward and
+// backward (flash_attn_fwd_f32.cu, flash_attn_bwd_f32.cu): the CUDA-core
+// branch that serves fp32 inputs only. The bf16 kernels run on the
+// tensor cores and use flash_tc.cuh.
 //
 // A CTA of 256 threads works on 64 x 64 tiles: thread (ty, tx) =
 // (tid / 16, tid % 16) owns score rows ty + 16 i and key columns

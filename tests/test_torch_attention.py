@@ -21,7 +21,10 @@ interpret mode on the same numpy inputs (scaled by 0.5, as
   sum order and the final rounding — one ulp plus 1e-5.
 
 The kernels themselves are held against these plain versions on the
-card in ``tests/test_torch_gpu.py``.
+card in ``tests/test_torch_gpu.py``. ``TestTensorCoreArithmetic``
+records why the bf16 kernels split p and ds into two bf16 halves: it
+emulates their arithmetic (bf16 operands, fp32 sums) on the CPU against
+the plain versions, under the card's 2-ulp gate.
 """
 
 import math
@@ -74,13 +77,26 @@ class TestForwardPlain:
 
     def test_cpu_runs_plain_and_counts_no_launch(self, rng):
         q, k, v = _arrays(rng, 2, 8, 32)
-        before = (ka.flash_attention_fwd.launches,
-                  ka.flash_attention_bwd.launches)
-        out = ka.flash_attention(*(_t(a).reshape(1, 8, 2, 32).requires_grad_()
-                                   for a in (q, k, v)))
-        out.sum().backward()
+        before = (dict(ka.flash_attention_fwd.launches),
+                  dict(ka.flash_attention_bwd.launches))
+        for dtype in (torch.float32, torch.bfloat16):
+            out = ka.flash_attention(*(
+                _t(a, dtype).reshape(1, 8, 2, 32).requires_grad_()
+                for a in (q, k, v)))
+            out.float().sum().backward()
         assert (ka.flash_attention_fwd.launches,
                 ka.flash_attention_bwd.launches) == before
+
+    def test_launch_counts_name_the_four_attention_branches(self):
+        """bf16 (tensor cores) under the wrapper's own name, fp32 (CUDA
+        cores) as ``.fp32``, like the quantized pool branches."""
+        from paddle_tpu_torch.ops import kernels
+        assert ka.BRANCHES == {torch.bfloat16: "bf16", torch.float32: "fp32"}
+        assert list(ka.flash_attention_fwd.launches) == ["bf16", "fp32"]
+        assert list(ka.flash_attention_bwd.launches) == ["bf16", "fp32"]
+        names = [n for n in kernels.launch_counts() if "flash_attention" in n]
+        assert names == ["flash_attention_fwd", "flash_attention_fwd.fp32",
+                         "flash_attention_bwd", "flash_attention_bwd.fp32"]
 
     def test_other_devices_raise(self):
         q = torch.zeros(2, 8, 32, device="meta")
@@ -205,3 +221,64 @@ class TestBackward:
         x = _t(rng.randn(2, 3, 2, 4))
         assert torch.equal(ka.expand_kv_heads(x, 6),
                            x.repeat_interleave(3, dim=2))
+
+
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _tensor_core_emulation(q, k, v, do, out, lse, scale, causal, split):
+    """(out, dq, dk, dv) in bf16 as the bf16 kernels compute them: bf16
+    operands into fp32 sums, with each fp32 operand (p, p^T, ds, ds^T)
+    rounded once to bf16 (``split=False``, FlashAttention-2's scheme) or
+    taken as bf16(x) + bf16(x - bf16(x)), two products into one fp32
+    sum (``split=True``, the kernels' scheme). Row statistics stay fp32
+    from the unrounded p, and the backward uses the plain forward's
+    (out, lse), as the kernels do."""
+    def product(a, b):
+        hi = _bf(a)
+        r = hi @ b
+        return r + _bf(a - hi) @ b if split else r
+
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    T = q.shape[1]
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    valid = torch.ones(T, T, dtype=torch.bool)
+    if causal:
+        valid = valid.tril()
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    o = product(p, vf) / p.sum(-1)[..., None]
+    delta = (dof * out.float()).sum(-1)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None]) * scale
+    grads = (product(ds, kf), product(ds.transpose(-1, -2), qf),
+             product(p.transpose(-1, -2), dof))
+    return [t.to(torch.bfloat16) for t in (o,) + grads]
+
+
+class TestTensorCoreArithmetic:
+    """Why the bf16 kernels split p and ds: at BH=2, T=512, D=64 (seeded
+    numpy inputs, bf16), rounding p and ds once to bf16 before their
+    products puts out, dq, dk and dv more than 2 bf16 ulps (the card's
+    gate) from the plain versions, which take those products in fp32;
+    splitting each into a hi and a lo bf16 half keeps all four within
+    2."""
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_one_rounding_misses_the_gate_and_the_split_keeps_it(
+            self, causal):
+        rng = np.random.RandomState(0)
+        q, k, v, do = (_t(rng.randn(2, 512, 64).astype(np.float32),
+                          torch.bfloat16) for _ in range(4))
+        scale = 64 ** -0.5
+        out, lse = ka.flash_attention_fwd_plain(q, k, v, sm_scale=scale,
+                                                causal=causal)
+        want = [out] + list(ka.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, sm_scale=scale, causal=causal))
+        for split in (False, True):
+            got = _tensor_core_emulation(q, k, v, do, out, lse, scale,
+                                         causal, split)
+            ulps = [ka.bf16_ulps(a, b) for a, b in zip(got, want)]
+            if split:
+                assert max(ulps) <= 2, ulps
+            else:
+                assert min(ulps) > 2, ulps

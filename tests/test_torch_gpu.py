@@ -13,7 +13,7 @@ values); the span write and the sampler's ids are exact (no arithmetic
 to round; the sampler's hash is integer and its float steps are the
 same IEEE operations in both). Flash attention, forward and backward:
 fp32 outputs, lse and gradients to 1e-4 absolute (fp32 sums in another
-order over up to 300 keys); bf16 outputs and gradients within two bf16
+order over up to 1000 keys); bf16 outputs and gradients within two bf16
 ulps of the plain version's (both accumulate in fp32 and round once,
 so a sum that lands near a rounding boundary may round the other way;
 the ulp is taken at max(|plain|, 2**-6) so values near 0 are held to
@@ -284,17 +284,35 @@ def test_gpu_engine_runs_every_kernel(cuda):
     assert outs[0][0] == outs[1][0]
 
 
+# (B, H, Hkv, T, D): every head dim at one ragged and several tile-edge
+# lengths, and one grouped-query case (k/v expanded as flash_attention
+# expands them)
+FLASH_SHAPES = [(1, 6, 6, T, D) for D in (32, 64, 96, 128)
+                for T in (1, 63, 65, 300, 1000)] + [(2, 8, 2, 257, 128)]
+
+
+def _flash_inputs(rng, B, H, Hkv, T, D, dtype, dev):
+    """q, k, v, do as [B*H, T, D] in ``dtype`` on the card, k and v
+    drawn at Hkv heads and expanded."""
+    def rows(heads):
+        x = torch.from_numpy(rng.randn(B, T, heads, D).astype(np.float32))
+        x = kattention.expand_kv_heads(x, H)
+        return _gpu(x.transpose(1, 2).reshape(B * H, T, D), dev, dtype)
+    return rows(H), rows(Hkv), rows(Hkv), rows(H)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("T,D", [(64, 64), (300, 64), (129, 128)])
-def test_gpu_flash_attention_matches_plain(cuda, dtype, causal, T, D):
+@pytest.mark.parametrize("B,H,Hkv,T,D", FLASH_SHAPES)
+def test_gpu_flash_attention_matches_plain(cuda, dtype, causal, B, H, Hkv,
+                                           T, D):
     rng = np.random.RandomState(5)
-    q, k, v, do = (_gpu(rng.randn(6, T, D).astype(np.float32), cuda, dtype)
-                   for _ in range(4))
+    q, k, v, do = _flash_inputs(rng, B, H, Hkv, T, D, dtype, cuda)
     scale = D ** -0.5
-    before = (kattention.flash_attention_fwd.launches,
-              kattention.flash_attention_bwd.launches)
+    branch = kattention.BRANCHES[dtype]
+    before = (kattention.flash_attention_fwd.launches[branch],
+              kattention.flash_attention_bwd.launches[branch])
     out, lse = kattention.flash_attention_fwd(q, k, v, sm_scale=scale,
                                               causal=causal)
     grads = kattention.flash_attention_bwd(q, k, v, out, lse, do,
@@ -304,9 +322,9 @@ def test_gpu_flash_attention_matches_plain(cuda, dtype, causal, T, D):
     want = kattention.flash_attention_bwd_plain(
         q, k, v, out, lse, do, sm_scale=scale, causal=causal)
     torch.cuda.synchronize()
-    assert (kattention.flash_attention_fwd.launches,
-            kattention.flash_attention_bwd.launches) == (before[0] + 1,
-                                                         before[1] + 1)
+    assert (kattention.flash_attention_fwd.launches[branch],
+            kattention.flash_attention_bwd.launches[branch]) == (
+                before[0] + 1, before[1] + 1)
     assert (lse - want_lse).abs().max().item() <= 1e-4
     for got, ref in zip((out,) + grads, (want_out,) + want):
         assert got.dtype == dtype
@@ -314,6 +332,43 @@ def test_gpu_flash_attention_matches_plain(cuda, dtype, causal, T, D):
             assert (got - ref).abs().max().item() <= 1e-4
         else:
             assert kattention.bf16_ulps(got, ref) <= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_gpu_flash_attention_is_bitwise_repeatable(cuda, dtype, causal):
+    """Two launches of each kernel on the same inputs give bitwise the
+    same out, lse, dq, dk and dv: no atomics, a fixed summation order."""
+    rng = np.random.RandomState(6)
+    q, k, v, do = _flash_inputs(rng, 2, 4, 4, 333, 64, dtype, cuda)
+    kw = dict(sm_scale=0.125, causal=causal)
+    runs = []
+    for _ in range(2):
+        out, lse = kattention.flash_attention_fwd(q, k, v, **kw)
+        runs.append((out, lse) + kattention.flash_attention_bwd(
+            q, k, v, out, lse, do, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_counts_each_branch(cuda):
+    """bf16 inputs launch the tensor-core kernels and fp32 inputs the
+    CUDA-core ones; each moves only its own counter."""
+    from paddle_tpu_torch.ops import kernels
+    rng = np.random.RandomState(7)
+    for dtype, name in ((torch.bfloat16, ""), (torch.float32, ".fp32")):
+        q, k, v, do = _flash_inputs(rng, 1, 2, 2, 70, 32, dtype, cuda)
+        kernels.reset_launches()
+        out, lse = kattention.flash_attention_fwd(q, k, v, sm_scale=0.2,
+                                                  causal=True)
+        kattention.flash_attention_bwd(q, k, v, out, lse, do, sm_scale=0.2,
+                                       causal=True)
+        counts = {n: c for n, c in kernels.launch_counts().items() if c}
+        assert counts == {f"flash_attention_fwd{name}": 1,
+                          f"flash_attention_bwd{name}": 1}
 
 
 @pytest.mark.gpu
@@ -329,12 +384,17 @@ def test_gpu_flash_attention_refuses_what_it_cannot_take(cuda):
     y = torch.zeros(2, 16, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         kattention.flash_attention_fwd(y, y, y, sm_scale=1.0, causal=True)
+    z = torch.zeros(2 * 16 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    z = z[1:].view(2, 16, 64)                   # contiguous, 2-byte offset
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kattention.flash_attention_fwd(z, z, z, sm_scale=1.0, causal=True)
 
 
 @pytest.mark.gpu
 def test_gpu_train_step_runs_both_attention_kernels(cuda):
     """One bf16 training step of a small LM on the card: a finite loss,
-    one launch of each attention kernel per layer."""
+    one launch of each bf16 attention kernel per layer, none of the fp32
+    branch."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.models import transformer
     cfg = transformer.TransformerConfig(
@@ -345,13 +405,14 @@ def test_gpu_train_step_runs_both_attention_kernels(cuda):
     adam = optimizer.Adam(learning_rate=1e-3)
     state = adam.tree_init_state(params)
     toks = _gpu(np.random.RandomState(6).randint(0, 512, (2, 100)), cuda)
-    before = (kattention.flash_attention_fwd.launches,
-              kattention.flash_attention_bwd.launches)
+    before = (dict(kattention.flash_attention_fwd.launches),
+              dict(kattention.flash_attention_bwd.launches))
     loss = transformer.lm_loss(params, toks, toks.roll(-1, 1), cfg)
     loss.backward()
     adam.tree_update(0, optimizer.take_grads(params), params, state)
     torch.cuda.synchronize()
     assert torch.isfinite(loss).item()
     assert (kattention.flash_attention_fwd.launches,
-            kattention.flash_attention_bwd.launches) == (before[0] + 2,
-                                                         before[1] + 2)
+            kattention.flash_attention_bwd.launches) == (
+                dict(before[0], bf16=before[0]["bf16"] + 2),
+                dict(before[1], bf16=before[1]["bf16"] + 2))

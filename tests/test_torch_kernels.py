@@ -278,7 +278,8 @@ class TestWrappers:
             "flash_chunk_prefill": 0, "flash_chunk_prefill.int8": 0,
             "flash_chunk_prefill.int4": 0, "paged_span_write": 0,
             "paged_span_write.int8": 0, "paged_span_write.int4": 0,
-            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+            "flash_attention_fwd": 0, "flash_attention_fwd.fp32": 0,
+            "flash_attention_bwd": 0, "flash_attention_bwd.fp32": 0}
 
     @pytest.mark.parametrize("kvd", ["int8", "int4"])
     def test_quantized_pools_raise(self, kvd, rng):
