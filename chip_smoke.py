@@ -12,21 +12,30 @@ order it:
 2. builds the Hopper kernels from ``paddle_tpu_torch/ops/kernels/csrc``
    with nvcc (one process per source, in parallel) and prints the build
    time;
-3. holds each kernel, the int8 and int4 branches of kernels 1, 3 and 4,
-   and both branches of kernels 5 and 6 (bf16 on the tensor cores, fp32
-   on the CUDA cores) against its plain PyTorch version on the card, at
-   its slice's shapes and at one GQA shape, and times kernel, plain
-   version and a PyTorch library call that computes the same function
-   (a yardstick only: the port never calls it; SDPA over gathered,
-   dequantized K/V for a quantized pool), beside the least time the
-   card could take (the bytes stored and moved over 3.35 TB/s or FLOPs
-   over the peak for the input type, whichever is larger); kernels 5
-   and 6 are timed at the training slice's shape in both dtypes and at
-   the GQA D=128 shape in bf16, and launched twice on the same inputs,
-   which must give bitwise the same outputs;
+3. prints the ``-Xptxas -v`` registers and spills of the paged
+   attention kernels (``ptxas:`` line), then holds each kernel, the int8
+   and int4 branches of kernels 1, 3 and 4, the fp32-query branches of
+   kernels 1 and 3, and both branches of kernels 5 and 6 (bf16 on the
+   tensor cores, fp32 on the CUDA cores) against its plain PyTorch
+   version on the card, at its slice's shapes and at one GQA shape, and
+   times kernel, plain version and a PyTorch library call that computes
+   the same function (a yardstick only: the port never calls it; SDPA
+   over gathered, dequantized K/V for a quantized pool), beside the
+   least time the card could take (the bytes stored and moved over
+   3.35 TB/s or FLOPs over the peak for the input type, whichever is
+   larger); kernels 1, 3, 5 and 6 also time their C entry alone
+   (``entry_ms``, outputs allocated beforehand), kernels 1 and 3 their
+   execution on the device alone (``device_ms``, from the profiler's
+   device activity, which a slow host's launch work cannot inflate);
+   decode is also checked at G=8, Dh=128 over 16384 positions and, per
+   slot, alone against its batch of 8 (bitwise); kernels 1, 3, 5 and 6
+   are launched twice on the
+   same inputs, which must give bitwise the same outputs; kernels 5 and
+   6 are timed at the training slice's shape in both dtypes and at the
+   GQA D=128 shape in bf16;
 4. holds the serving step functions on the card against the CPU on a
-   small fp32 model, with an fp32 pool and again with an int8 pool and
-   int8 weights;
+   small fp32 model, with an fp32 pool (the launches of the fp32-query
+   paged kernels) and again with an int8 pool and int8 weights;
 5. holds a small fp32 LM's training on the card against the CPU (one
    step's loss and gradients, then five Adam steps' losses), and runs
    the same three steps twice on the card: losses and weights must be
@@ -51,8 +60,9 @@ order it:
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
-   ten device kernels with the most time, the device's busy share);
-9. prints the card line, a ``{"kernels": [...]}`` line (14 entries) and,
+   ten device kernels with the most time, the device's busy share; the
+   bf16 engine's trace is profiled the same way, ``engine_profile:``);
+9. prints the card line, a ``{"kernels": [...]}`` line (16 entries) and,
    last, the ``{"ok": true, ...}`` line.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 products are full
@@ -61,6 +71,7 @@ fp32 on the card as on the CPU.
 
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -111,6 +122,67 @@ class Timer:
             times.append(start.elapsed_time(end))
         return float(np.median(times))
 
+    def device_ms(self, fn, kernel: str):
+        """(median execution time on the device, records) of the CUDA
+        kernels whose name holds ``kernel`` over ``REPEATS`` launches of
+        ``fn`` (each after the L2-evicting write), from
+        ``torch.profiler``'s device activity: the kernel alone, without
+        the host's launch work. The profiler drops records now and then
+        on the card's machine: the median is over those it kept, a
+        window with none is tried once more, and then the time is None
+        (not measured)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        fn()
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(REPEATS):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            us = [ev.time_range.end - ev.time_range.start
+                  for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA and kernel in ev.name]
+            if us:
+                return float(np.median(us)) / 1e3, len(us)
+        return None, 0
+
+
+def ptxas_summary(build_dir, stems) -> dict:
+    """{source: [[kernel, registers, spill store bytes, spill load
+    bytes], ...]} from the ``-Xptxas -v`` logs the build keeps beside
+    its objects (kernel names demangled by ``c++filt`` when there is
+    one, template arguments kept, parameters dropped)."""
+    out = {}
+    for stem in stems:
+        log = Path(build_dir, stem + ".log")
+        fns, name, spill = [], None, (0, 0)
+        for line in log.read_text().splitlines() if log.exists() else ():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name, spill = m.group(1), (0, 0)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                fns.append([name, int(m.group(1)), *spill])
+                name = None
+        try:
+            names = subprocess.run(
+                ["c++filt"], input="\n".join(f[0] for f in fns),
+                capture_output=True, text=True, timeout=60).stdout.split("\n")
+        except OSError:
+            names = []
+        for f, d in zip(fns, names):
+            f[0] = re.sub(r"\(.*$", "",
+                          d.replace("(anonymous namespace)::", "")) or f[0]
+        out[stem] = fns
+    return out
+
 
 def bound(nbytes: float, flops: float, dtype_name: str):
     """(bound_ms, bound_by): the larger of bytes over the memory rate
@@ -125,20 +197,76 @@ def bound(nbytes: float, flops: float, dtype_name: str):
 # ---------------------------------------------------------------------------
 
 
-def quant_pool(torch, q8, shape, kvd, dev):
-    """bf16 rows [..., M, Dh] drawn on the card, stored as ``kvd``
-    ("none": the bf16 rows; "int8"/"int4": codes and fp32 row scales
-    from ``ops/q8.quantize_kv``). Returns (values, scales or None)."""
-    x = torch.randn(*shape, device=dev).to(torch.bfloat16)
+def quant_pool(torch, q8, shape, kvd, dev, dtype=None):
+    """Rows [..., M, Dh] drawn on the card in ``dtype`` (bf16 by
+    default), stored as ``kvd`` ("none": those rows; "int8"/"int4":
+    codes and fp32 row scales from ``ops/q8.quantize_kv``). Returns
+    (values, scales or None)."""
+    x = torch.randn(*shape, device=dev).to(dtype or torch.bfloat16)
     if kvd == "none":
         return x, None
     return q8.quantize_kv(x, kvd)
 
 
-def stored_row_bytes(kvd: str, Dh: int) -> int:
-    """Bytes one pool row occupies: bf16 values, or int8 / packed int4
-    codes plus the row's fp32 scale."""
-    return {"none": 2 * Dh, "int8": Dh + 4, "int4": Dh // 2 + 4}[kvd]
+def stored_row_bytes(kvd: str, Dh: int, elt: int = 2) -> int:
+    """Bytes one pool row occupies: ``elt``-byte values, or int8 /
+    packed int4 codes plus the row's fp32 scale."""
+    return {"none": elt * Dh, "int8": Dh + 4, "int4": Dh // 2 + 4}[kvd]
+
+
+def decode_entry(torch, kd, build, q, k, v, pages, pos, kw):
+    """The decode C entry alone on the wrapper's operands, its output,
+    partials and counters allocated once beforehand: a callable that
+    launches it and returns the output tensor it writes."""
+    B, Hkv, G, Dh = q.shape
+    bs, kv = kw["block_size"], kw["kv_dtype"]
+    P, M = pages.shape[1], k.shape[1]
+    _, smem, part = kd.decode_split_layout(G, Dh, P, bs, q.dtype, kv)
+    buf = torch.empty(B * Hkv * (G * Dh + part), dtype=torch.float32,
+                      device=q.device)
+    counters = kd.arrival_counters(q.device, B * Hkv)
+    ptr = build.ptr
+    args = [ptr(q), ptr(k), ptr(v), ptr(kw.get("k_scale")),
+            ptr(kw.get("v_scale")), ptr(pages), ptr(pos), ptr(buf),
+            build.ptr(buf[B * Hkv * G * Dh:]), ptr(counters), B, Hkv, G, Dh,
+            M, P, bs, Dh ** 0.5, build.DTYPE_CODES[q.dtype],
+            build.KV_CODES[kv], smem, build.stream(q.device)]
+    lib = build.library()
+    out = buf[:B * Hkv * G * Dh].view(B, Hkv, G, Dh)
+
+    def run():
+        build.check(lib.pk_decode_attention(*args), "flash_decode_attention")
+        return out
+    return run
+
+
+def prefill_entry(torch, kp, build, q, kck, vck, k, v, pages, kw):
+    """The chunk-prefill C entry alone, as ``decode_entry``."""
+    C, Hkv, G, Dh = q.shape
+    bs, kv = kw["block_size"], kw["kv_dtype"]
+    P_ctx, M = pages.shape[0], k.shape[1]
+    rows, smem = kp.prefill_layout(C, G, Dh, P_ctx * bs, q.dtype,
+                                   kv if P_ctx else "none")
+    n_out, part, counters = C * Hkv * G * Dh, 0, None
+    if q.dtype == torch.bfloat16:
+        row_tiles, _, part = kp.prefill_tc_splits(C, G, Dh, P_ctx * bs)
+        part *= Hkv
+        counters = kp.arrival_counters(q.device, Hkv * row_tiles)
+    buf = torch.empty(n_out + part, dtype=torch.float32, device=q.device)
+    out = buf[:n_out].view(C, Hkv, G, Dh)
+    ptr = build.ptr
+    args = [ptr(q), ptr(kck), ptr(vck), ptr(k), ptr(v),
+            ptr(kw.get("k_scale")), ptr(kw.get("v_scale")), ptr(pages),
+            ptr(out), build.ptr(buf[n_out:]), ptr(counters), C, Hkv, G, Dh,
+            M, P_ctx, bs, rows, Dh ** 0.5,
+            build.DTYPE_CODES[q.dtype], build.KV_CODES[kv], smem,
+            build.stream(q.device)]
+    lib = build.library()
+
+    def run():
+        build.check(lib.pk_chunk_prefill(*args), "flash_chunk_prefill")
+        return out
+    return run
 
 
 def widened(q8, x, scale, kvd, dtype):
@@ -147,13 +275,17 @@ def widened(q8, x, scale, kvd, dtype):
     return x if kvd == "none" else q8.dequantize_kv(x, scale, kvd).to(dtype)
 
 
-def check_decode(torch, timer, kd, q8, dev, rng, Hkv, G, Dh, timed,
-                 kvd="none"):
+def check_decode(torch, timer, kd, q8, build, dev, rng, Hkv, G, Dh, timed,
+                 kvd="none", dt=None):
+    """Decode at one shape against its plain version: (max abs error,
+    times or None). Timed: kernel through the wrapper, the C entry alone
+    (``entry_ms``), the plain version and SDPA over gathered K/V; the C
+    entry's output must equal the wrapper's bitwise (two launches)."""
     B, bs, P, nblocks = 8, 16, 64, 512
-    dt = torch.bfloat16
+    dt = dt or torch.bfloat16
     q = torch.randn(B, Hkv, G, Dh, device=dev).to(dt)
-    k, ks = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev)
-    v, vs = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev)
+    k, ks = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev, dt)
+    v, vs = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev, dt)
     kw = dict(block_size=bs, kv_dtype=kvd)
     if kvd != "none":
         kw.update(k_scale=ks, v_scale=vs)
@@ -169,8 +301,13 @@ def check_decode(torch, timer, kd, q8, dev, rng, Hkv, G, Dh, timed,
     err = (got - want).abs().max().item()
     if not timed:
         return err, None
+    entry = decode_entry(torch, kd, build, *args, kw)
+    if not torch.equal(entry(), got):
+        fail(f"flash_decode_attention ({kvd}, {dt}): the C entry and the "
+             f"wrapper differ on the same inputs")
+    e = q.element_size()
     rows = int((pos_np + 1).sum())
-    nbytes = (q.numel() * 2 + rows * Hkv * stored_row_bytes(kvd, Dh) * 2
+    nbytes = (q.numel() * e + rows * Hkv * stored_row_bytes(kvd, Dh, e) * 2
               + pages.numel() * 4 + B * 4 + got.numel() * 4)
     flops = rows * Hkv * G * Dh * 2 * 2
     # library yardstick: SDPA over K/V already gathered per slot (and
@@ -191,9 +328,56 @@ def check_decode(torch, timer, kd, q8, dev, rng, Hkv, G, Dh, timed,
         "plain_ms": timer.ms(lambda: kd.flash_decode_attention_plain(
             *args, **kw)),
         "library_ms": timer.ms(lambda: sdpa(qh, kt, vt, attn_mask=mask)),
+        "entry_ms": timer.ms(entry),
     }
-    times["bound_ms"], times["bound_by"] = bound(nbytes, flops, "bfloat16")
+    times["device_ms"], times["device_records"] = timer.device_ms(
+        entry, "decode_split_kernel")
+    times["bound_ms"], times["bound_by"] = bound(
+        nbytes, flops, str(dt).replace("torch.", ""))
     return err, times
+
+
+def decode_invariance(torch, kd, q8, dev, kvd):
+    """The serving slice's decode (B=8, Hkv=12, G=1, Dh=64, 64 pages of
+    16) at positions on both sides of the split edges: (each slot decoded
+    alone bitwise equal to its row of the batch, a second launch of the
+    batch bitwise equal to the first)."""
+    rng = np.random.RandomState(3)
+    B, Hkv, G, Dh, P, bs, nblocks = 8, 12, 1, 64, 64, 16, 512
+    q = torch.randn(B, Hkv, G, Dh, device=dev).to(torch.bfloat16)
+    k, ks = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev)
+    v, vs = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev)
+    kw = dict(block_size=bs, kv_dtype=kvd, k_scale=ks, v_scale=vs)
+    pages = torch.from_numpy(np.stack(
+        [rng.permutation(nblocks)[:P] for _ in range(B)]).astype(np.int32)
+    ).to(dev)
+    pos = torch.tensor([700, 3, 63, 64, 1023, 129, 0, 511],
+                       dtype=torch.int32, device=dev)
+    batch = kd.flash_decode_attention(q, k, v, pages, pos, **kw)
+    again = kd.flash_decode_attention(q, k, v, pages, pos, **kw)
+    alone = all(torch.equal(kd.flash_decode_attention(
+        q[b:b + 1].contiguous(), k, v, pages[b:b + 1].contiguous(),
+        pos[b:b + 1].contiguous(), **kw)[0], batch[b]) for b in range(B))
+    return alone, torch.equal(batch, again)
+
+
+def decode_long(torch, kd, q8, dev, kvd):
+    """Max abs error of decode at G=8, Dh=128 over T=16384 positions
+    (256 splits; B=2, Hkv=2, one slot at the last position, one at 9000)
+    against the plain version."""
+    rng = np.random.RandomState(4)
+    B, Hkv, G, Dh, P, bs = 2, 2, 8, 128, 1024, 16
+    q = torch.randn(B, Hkv, G, Dh, device=dev).to(torch.bfloat16)
+    k, ks = quant_pool(torch, q8, (Hkv, P * bs, Dh), kvd, dev)
+    v, vs = quant_pool(torch, q8, (Hkv, P * bs, Dh), kvd, dev)
+    kw = dict(block_size=bs, kv_dtype=kvd, k_scale=ks, v_scale=vs)
+    pages = torch.from_numpy(np.stack(
+        [rng.permutation(P) for _ in range(B)]).astype(np.int32)).to(dev)
+    pos = torch.tensor([P * bs - 1, 9000], dtype=torch.int32, device=dev)
+    got = kd.flash_decode_attention(q, k, v, pages, pos, **kw)
+    want = kd.flash_decode_attention_plain(q, k, v, pages, pos, **kw)
+    torch.cuda.synchronize()
+    return (got - want).abs().max().item()
 
 
 def check_sample(torch, timer, kd, dev, rng):
@@ -223,15 +407,18 @@ def check_sample(torch, timer, kd, dev, rng):
     return err, times
 
 
-def check_prefill(torch, timer, kp, q8, dev, rng, Hkv, G, Dh, P_ctx, timed,
-                  kvd="none"):
+def check_prefill(torch, timer, kp, q8, build, dev, rng, Hkv, G, Dh, P_ctx,
+                  timed, kvd="none", dt=None):
+    """Chunk prefill at one shape against its plain version, as
+    ``check_decode``; every call also checks that a second launch is
+    bitwise equal to the first."""
     C, bs, nblocks = 256, 16, 512
-    dt = torch.bfloat16
+    dt = dt or torch.bfloat16
     q = torch.randn(C, Hkv, G, Dh, device=dev).to(dt)
     kck = torch.randn(C, Hkv, Dh, device=dev).to(dt)
     vck = torch.randn(C, Hkv, Dh, device=dev).to(dt)
-    k, ks = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev)
-    v, vs = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev)
+    k, ks = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev, dt)
+    v, vs = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev, dt)
     kw = dict(block_size=bs, kv_dtype=kvd)
     if kvd != "none":
         kw.update(k_scale=ks, v_scale=vs)
@@ -240,13 +427,21 @@ def check_prefill(torch, timer, kp, q8, dev, rng, Hkv, G, Dh, P_ctx, timed,
     args = (q, kck, vck, k, v, pages)
     got = kp.flash_chunk_prefill(*args, **kw)
     want = kp.flash_chunk_prefill_plain(*args, **kw)
+    if not torch.equal(got, kp.flash_chunk_prefill(*args, **kw)):
+        fail(f"flash_chunk_prefill ({kvd}, {dt}, P_ctx={P_ctx}): two "
+             f"launches on the same inputs differ")
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not timed:
         return err, None
+    entry = prefill_entry(torch, kp, build, *args, kw)
+    if not torch.equal(entry(), got):
+        fail(f"flash_chunk_prefill ({kvd}, {dt}): the C entry and the "
+             f"wrapper differ on the same inputs")
     S = P_ctx * bs
-    nbytes = (q.numel() * 2 + 2 * kck.numel() * 2
-              + 2 * S * Hkv * stored_row_bytes(kvd, Dh) + P_ctx * 4
+    e = q.element_size()
+    nbytes = (q.numel() * e + 2 * kck.numel() * e
+              + 2 * S * Hkv * stored_row_bytes(kvd, Dh, e) + P_ctx * 4
               + got.numel() * 4)
     visible = C * S + C * (C + 1) // 2          # (row, column) pairs seen
     flops = visible * Hkv * G * Dh * 2 * 2
@@ -271,8 +466,12 @@ def check_prefill(torch, timer, kp, q8, dev, rng, Hkv, G, Dh, P_ctx, timed,
             *args, **kw)),
         "library_ms": timer.ms(lambda: sdpa(qh, kall, vall,
                                             attn_mask=mask)),
+        "entry_ms": timer.ms(entry),
     }
-    times["bound_ms"], times["bound_by"] = bound(nbytes, flops, "bfloat16")
+    times["device_ms"], times["device_records"] = timer.device_ms(
+        entry, "chunk_prefill")
+    times["bound_ms"], times["bound_by"] = bound(
+        nbytes, flops, str(dt).replace("torch.", ""))
     return err, times
 
 
@@ -477,12 +676,16 @@ def flash_phase(torch, ka, build):
     return rows
 
 
-def kernel_phase(torch, kd, kp, q8):
+def kernel_phase(torch, kd, kp, q8, build):
     """Each kernel and each quantized branch against its plain version
     at the slice's shapes (GPT-2 small: Hkv=12, G=1, Dh=64, bf16
     queries; the prefill both cold and with 512 context positions; int8
     and int4 pools for kernels 1, 3 and 4) and at a GQA shape (G=4,
-    Dh=128), with its tolerance; timed at the slice's shapes. The
+    Dh=128), with its tolerance; timed at the slice's shapes. Decode
+    and prefill also run with fp32 queries over an fp32 pool (rows 1f
+    and 3f: the fp32 instantiation of the decode kernel, the CUDA-core
+    prefill kernel), and each decode branch at G=8, Dh=128 over 16384
+    positions and, at the slice, alone against its batch (bitwise). The
     sampler has no head layout, so it has no GQA shape."""
     dev = torch.device("cuda:0")
     timer = Timer(torch)
@@ -491,29 +694,56 @@ def kernel_phase(torch, kd, kp, q8):
         # the same pages and positions for every storage
         rng = np.random.RandomState(0)
         sfx = "" if kvd == "none" else f".{kvd}"
-        e1, t1 = check_decode(torch, timer, kd, q8, dev, rng, 12, 1, 64,
-                              True, kvd)
-        e1g, _ = check_decode(torch, timer, kd, q8, dev, rng, 4, 4, 128,
-                              False, kvd)
-        rows["flash_decode_attention" + sfx] = (e1, e1g, 1e-4, t1)
+        e1, t1 = check_decode(torch, timer, kd, q8, build, dev, rng, 12, 1,
+                              64, True, kvd)
+        e1g, _ = check_decode(torch, timer, kd, q8, build, dev, rng, 4, 4,
+                              128, False, kvd)
+        long_err = decode_long(torch, kd, q8, dev, kvd)
+        alone, repeat = decode_invariance(torch, kd, q8, dev, kvd)
+        print(f"check decode{sfx}: G=8 Dh=128 T=16384 max_abs_err="
+              f"{long_err!r} tol=1e-4; B=1 vs B=8 bitwise={alone}; two "
+              f"launches bitwise={repeat}")
+        if not (long_err <= 1e-4 and alone and repeat):
+            fail(f"flash_decode_attention{sfx}: long context, batch "
+                 f"invariance or repeatability failed")
+        rows["flash_decode_attention" + sfx] = (e1, e1g, 1e-4, t1, {
+            "long_context_max_abs_err": long_err,
+            "batch_invariant": alone, "bitwise_repeat": repeat})
         if kvd == "none":
             e2, t2 = check_sample(torch, timer, kd, dev, rng)
-            rows["fused_sample"] = (e2, None, 0.0, t2)
-        e3, t3 = check_prefill(torch, timer, kp, q8, dev, rng, 12, 1, 64, 32,
-                               True, kvd)
+            rows["fused_sample"] = (e2, None, 0.0, t2, {})
+        e3, t3 = check_prefill(torch, timer, kp, q8, build, dev, rng, 12, 1,
+                               64, 32, True, kvd)
         if kvd == "none":
-            e3c, _ = check_prefill(torch, timer, kp, q8, dev, rng, 12, 1, 64,
-                                   0, False)
+            e3c, _ = check_prefill(torch, timer, kp, q8, build, dev, rng, 12,
+                                   1, 64, 0, False)
             e3 = max(e3, e3c)
-        e3g, _ = check_prefill(torch, timer, kp, q8, dev, rng, 4, 4, 128, 32,
-                               False, kvd)
-        rows["flash_chunk_prefill" + sfx] = (e3, e3g, 1e-4, t3)
+        e3g, _ = check_prefill(torch, timer, kp, q8, build, dev, rng, 4, 4,
+                               128, 32, False, kvd)
+        rows["flash_chunk_prefill" + sfx] = (e3, e3g, 1e-4, t3,
+                                             {"bitwise_repeat": True})
         e4, t4 = check_span_write(torch, timer, kp, q8, dev, rng, 12, 64,
                                   True, kvd)
         e4g, _ = check_span_write(torch, timer, kp, q8, dev, rng, 4, 128,
                                   False, kvd)
-        rows["paged_span_write" + sfx] = (e4, e4g, 0.0, t4)
-    for name, (err, gqa_err, tol, times) in rows.items():
+        rows["paged_span_write" + sfx] = (e4, e4g, 0.0, t4, {})
+    # fp32 queries over an fp32 pool
+    rng = np.random.RandomState(0)
+    f32 = torch.float32
+    e1, t1 = check_decode(torch, timer, kd, q8, build, dev, rng, 12, 1, 64,
+                          True, dt=f32)
+    e1g, _ = check_decode(torch, timer, kd, q8, build, dev, rng, 4, 4, 128,
+                          False, dt=f32)
+    rows["flash_decode_attention.fp32"] = (e1, e1g, 1e-4, t1, {})
+    e3, t3 = check_prefill(torch, timer, kp, q8, build, dev, rng, 12, 1, 64,
+                           32, True, dt=f32)
+    e3c, _ = check_prefill(torch, timer, kp, q8, build, dev, rng, 12, 1, 64,
+                           0, False, dt=f32)
+    e3g, _ = check_prefill(torch, timer, kp, q8, build, dev, rng, 4, 4, 128,
+                           32, False, dt=f32)
+    rows["flash_chunk_prefill.fp32"] = (max(e3, e3c), e3g, 1e-4, t3,
+                                        {"bitwise_repeat": True})
+    for name, (err, gqa_err, tol, times, extra) in rows.items():
         shown = {("kernel_ms" if k == "ms" else k): v
                  for k, v in times.items()}
         print(f"kernel {name}: max_abs_err={err!r} gqa_max_abs_err="
@@ -522,8 +752,8 @@ def kernel_phase(torch, kd, kp, q8):
         if not (err <= tol and (gqa_err is None or gqa_err <= tol)):
             fail(f"{name} disagrees with its plain version: "
                  f"{err}, {gqa_err} > {tol}")
-    return {name: (err, {"gqa_max_abs_err": gqa_err}, times)
-            for name, (err, gqa_err, _, times) in rows.items()}
+    return {name: (err, {"gqa_max_abs_err": gqa_err, **extra}, times)
+            for name, (err, gqa_err, _, times, extra) in rows.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -761,12 +991,14 @@ def submit(eng, prompt, max_new, temp):
 
 
 def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
-                 kv_dtype, label, branch):
+                 kv_dtype, label, branch, profiled=False):
     """Serve the 16-request trace with ``params`` over a ``kv_dtype``
     pool; print the ``<label>:`` line; check every request, the launch
     of each serving kernel of the ``branch`` ("" for the model-dtype
     pool, ".int8"/".int4") and that the prefix hit equals the cold run
-    in a fresh engine. Returns the run's launch counts."""
+    in a fresh engine; with ``profiled``, serve the trace once more in a
+    fresh engine under the profiler (``<label>_profile:`` line). Returns
+    the timed run's launch counts."""
     kw = dict(ENGINE_KW, kv_dtype=kv_dtype)
     eng = PagedDecodeEngine.from_params(params, cfg, device=dev, **kw)
     # first calls (cuBLAS handles, allocator) stay out of the timing
@@ -828,6 +1060,21 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
     if not same:
         fail(f"{label}: prefix hit and cold prefill gave different greedy "
              f"tokens")
+    if profiled:
+        # the same trace in a fresh, warmed engine under the profiler:
+        # where the serving time goes (``engine_profile:`` line)
+        prof_eng = PagedDecodeEngine.from_params(params, cfg, device=dev,
+                                                 **kw)
+        submit(prof_eng, np.arange(40) % cfg.vocab, 4, 0.0)
+        prof_eng.run_until_idle()
+
+        def serve():
+            for r in reqs_in:
+                submit(prof_eng, *r)
+            prof_eng.run_until_idle()
+            torch.cuda.synchronize()
+        print(f"{label}_profile: " + json.dumps(profile_window(torch,
+                                                               serve)))
     return launches
 
 
@@ -935,18 +1182,18 @@ def train_phase(torch, tt, topt, kernels, costs, place, cfg, dev):
     return launches
 
 
-def train_profile(torch, step, i):
-    """One more training step under ``torch.profiler`` (CPU and CUDA
-    activity): print the ten device kernels with the most total time
-    (name, calls, ms), the device's busy time (the union of its kernel
-    and copy intervals) and its share of the step's host-clocked time,
+def profile_window(torch, fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity):
+    the host-clocked time, the ten device kernels with the most total
+    time (name, calls, ms), the device's busy time (the union of its
+    kernel and copy intervals) and its share of the host-clocked time,
     or that the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(i)
+        fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
     for ev in prof.events():
@@ -957,9 +1204,7 @@ def train_profile(torch, step, i):
         calls, us = by_name.get(ev.name, (0, 0.0))
         by_name[ev.name] = (calls + 1, us + (end - start))
     if not spans:
-        print("train_profile: " + json.dumps({
-            "step_ms": wall_ms, "device_time": "none in the trace"}))
-        return
+        return {"step_ms": wall_ms, "device_time": "none in the trace"}
     busy, reach = 0.0, None
     for start, end in sorted(spans):
         if reach is None or start > reach:
@@ -969,14 +1214,20 @@ def train_profile(torch, step, i):
             busy += end - reach
             reach = end
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    doc = {"step_ms": wall_ms, "device_busy_ms": busy / 1e3,
-           "device_busy_share": busy / 1e3 / wall_ms,
-           "device_span_ms": (max(e for _, e in spans)
-                              - min(s for s, _ in spans)) / 1e3,
-           "device_kernels": len(spans),
-           "top": [{"name": name[:120], "calls": calls, "ms": us / 1e3}
-                   for name, (calls, us) in top]}
-    print("train_profile: " + json.dumps(doc))
+    return {"step_ms": wall_ms, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / 1e3 / wall_ms,
+            "device_span_ms": (max(e for _, e in spans)
+                               - min(s for s, _ in spans)) / 1e3,
+            "device_kernels": len(spans),
+            "top": [{"name": name[:120], "calls": calls, "ms": us / 1e3}
+                    for name, (calls, us) in top]}
+
+
+def train_profile(torch, step, i):
+    """One more training step under ``torch.profiler``: the
+    ``train_profile:`` line (``profile_window``)."""
+    print("train_profile: " + json.dumps(profile_window(torch,
+                                                        lambda: step(i))))
 
 
 # ---------------------------------------------------------------------------
@@ -1010,6 +1261,13 @@ QUANT_BRANCHES = tuple(f"{k}.{kvd}" for kvd in ("int8", "int4")
 SOURCES.update({b: SOURCES[b.split(".")[0]] for b in QUANT_BRANCHES})
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 FP32_BRANCHES = tuple(f"{k}.fp32" for k in TRAINING_KERNELS)
+# fp32 queries of kernels 1 and 3: the fp32 instantiation of the decode
+# kernel and the CUDA-core prefill kernel, launched by the fp32 step
+# functions (``step_parity``) under the pool storage "none"
+PAGED_FP32 = ("flash_decode_attention", "flash_chunk_prefill")
+SOURCES["flash_decode_attention.fp32"] = SOURCES["flash_decode_attention"]
+SOURCES["flash_chunk_prefill.fp32"] = (
+    "chunk_prefill_f32.cu", SOURCES["flash_chunk_prefill"][1])
 
 
 def main():
@@ -1051,16 +1309,25 @@ def main():
     print(f"build: nvcc_s={info['seconds']!r} load_s="
           f"{time.perf_counter() - t0!r} dir={info['dir']}")
 
+    print("ptxas: " + json.dumps(ptxas_summary(
+        info["dir"], ("decode_attention", "chunk_prefill",
+                      "chunk_prefill_f32"))))
+
     dev = torch.device("cuda:0")
-    rows = {**kernel_phase(torch, kd, kp, q8),
+    rows = {**kernel_phase(torch, kd, kp, q8, _build),
             **flash_phase(torch, ka, _build)}
+    kernels.reset_launches()            # counts of the fp32 step functions
     step_parity(torch, tt)
+    fp32_steps = kernels.launch_counts()
+    if not all(fp32_steps[k] > 0 for k in PAGED_FP32):
+        fail(f"the fp32 step functions launched no fp32 paged kernel: "
+             f"{fp32_steps}")
     step_parity_quant(torch, tt, tlm, q8)
     parity = train_parity(torch, tt, topt, kernels)
     cfg = gpt2_small(tt)
     params = tt.init_params(cfg, torch.Generator().manual_seed(0), dev)
     served = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
-                          params, None, "engine", "")
+                          params, None, "engine", "", profiled=True)
     # (b) int4 pool, bf16 weights
     served4 = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
                            params, "int4", "engine_int4", ".int4")
@@ -1078,7 +1345,8 @@ def main():
                 **{k: served8[k] for k in QUANT_BRANCHES if "int8" in k},
                 **{k: served4[k] for k in QUANT_BRANCHES if "int4" in k},
                 **{k: trained[k] for k in TRAINING_KERNELS},
-                **{k: parity[k] for k in FP32_BRANCHES}}
+                **{k: parity[k] for k in FP32_BRANCHES},
+                **{k + ".fp32": fp32_steps[k] for k in PAGED_FP32}}
 
     out = []
     for name, (src, replaces) in SOURCES.items():

@@ -27,8 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("decode_attention.cu", "fused_sample.cu", "chunk_prefill.cu",
-           "span_write.cu", "flash_attn_fwd.cu", "flash_attn_bwd.cu",
-           "flash_attn_fwd_f32.cu", "flash_attn_bwd_f32.cu")
+           "chunk_prefill_f32.cu", "span_write.cu", "flash_attn_fwd.cu",
+           "flash_attn_bwd.cu", "flash_attn_fwd_f32.cu",
+           "flash_attn_bwd_f32.cu")
 HEADERS = ("common.cuh", "flash_tc.cuh", "flash_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -47,16 +48,17 @@ _F = ctypes.c_float
 # argtypes of every C entry point: pointers and the stream as void*,
 # so ctypes never truncates a 64-bit address to an int
 SIGNATURES = {
-    # q, k, v, k_scale, v_scale, pages, pos, out, B, Hkv, G, Dh, M, P,
-    # bs, scale, dtype, kv, smem_bytes, stream
-    "pk_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # q, k, v, k_scale, v_scale, pages, pos, out, partials, counters, B,
+    # Hkv, G, Dh, M, P, bs, scale, dtype, kv, smem_bytes, stream
+    "pk_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # logits, temperature, top_k, out, B, V, seed, stream
     "pk_fused_sample": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # q, k_chunk, v_chunk, k, v, k_scale, v_scale, pages, out, C, Hkv, G,
-    # Dh, M, P_ctx, bs, rows_per_cta, scale, dtype, kv, smem_bytes, stream
-    "pk_chunk_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # q, k_chunk, v_chunk, k, v, k_scale, v_scale, pages, out, partials,
+    # counters, C, Hkv, G, Dh, M, P_ctx, bs, rows_per_cta, scale, dtype,
+    # kv, smem_bytes, stream
+    "pk_chunk_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # pool x4, span x4, row_bytes x4, n, pages, valid, LH, pc, M, bs,
     # stream
     "pk_span_write": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -176,9 +178,10 @@ def check(err: int, kernel: str):
         raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    """A tensor's device address (None: a null pointer)."""
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def ptr(t):
+    """A tensor's device address as an int for a ``c_void_p`` argument
+    (None, a null pointer, for None)."""
+    return None if t is None else t.data_ptr()
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:

@@ -1,5 +1,6 @@
-// Tensor-core building blocks of the bf16 flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu) for Hopper (sm_90a).
+// Tensor-core building blocks of the bf16 attention kernels
+// (flash_attn_fwd.cu, flash_attn_bwd.cu, chunk_prefill.cu) for Hopper
+// (sm_90a); the cp.async helpers also serve decode_attention.cu.
 //
 // A CTA is one warpgroup (128 threads); it issues wgmma.mma_async of
 // shape m64nNk16 (bf16 in, fp32 accumulate), so every tile it owns has
@@ -27,6 +28,13 @@
 // next product's A operand in registers (FlashAttention-3's structure);
 // p and ds are split into hi = bf16(x) and lo = bf16(x - hi) there, and
 // both halves go through the tensor cores into one fp32 accumulator.
+//
+// Paged tiles (chunk_prefill.cu): load_paged_tile stages a tile whose
+// rows come through a page table, each 16-byte copy from pool row
+// pages[t / bs] * bs + t % bs; for an int8 or int4 pool,
+// load_paged_codes stages the codes and row scales through the same
+// ring and widen_tile turns them into bf16 (exact) in this layout, the
+// scales applied outside the products.
 #pragma once
 
 #include "common.cuh"
@@ -112,6 +120,132 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
     const bf16* g = full ? src + (size_t)(row0 + r) * D + c * 8 : src;
     cp_async_16(dst + chunk_offset<ROWS>(r, c), g, full);
   }
+}
+
+// The tile at ``dst`` from rows that need not be evenly spaced: tile row
+// r < n is the D bf16 values at ``row(r)`` (16-byte aligned); rows from n
+// on and columns D..padded(D) are zero-filled (the source address is
+// then ``dummy``, never read).
+template <int ROWS, int D, typename RowFn>
+__device__ __forceinline__ void load_rows(uint32_t dst, RowFn row, int n,
+                                          const void* dummy) {
+  constexpr int kChunks = padded(D) / 8;
+  static_assert(ROWS * kChunks % kThreads == 0, "whole passes only");
+#pragma unroll
+  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool full = r < n && c * 8 < D;
+    const void* g = full ? static_cast<const void*>(row(r) + c * 8) : dummy;
+    cp_async_16(dst + chunk_offset<ROWS>(r, c), g, full);
+  }
+}
+
+// the physical row of logical position t of a paged pool
+__device__ __forceinline__ size_t paged_row(const int* pages, int bs, int t) {
+  return (size_t)__ldg(pages + t / bs) * bs + t % bs;
+}
+
+// Logical rows [row0, row0 + ROWS) of a paged bf16 pool [M, D] into the
+// tile at ``dst``: logical row t is pool row pages[t / bs] * bs + t % bs;
+// rows at or past T are zero-filled.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_paged_tile(uint32_t dst, const bf16* pool,
+                                                const int* pages, int bs,
+                                                int row0, int T) {
+  load_rows<ROWS, D>(
+      dst,
+      [=](int r) { return pool + paged_row(pages, bs, row0 + r) * D; },
+      T - row0, pool);
+}
+
+// The quantized variant's first half: logical rows [row0, row0 + ROWS)
+// of a paged code pool of RB-byte rows (int8 codes, or int4 nibble
+// pairs) into a plain [ROWS][RB] byte buffer at ``dst`` and their fp32
+// row scales into ``scale_dst`` [ROWS]; rows at or past T are
+// zero-filled, scale included.
+template <int ROWS, int RB>
+__device__ __forceinline__ void load_paged_codes(uint32_t dst,
+                                                 uint32_t scale_dst,
+                                                 const int8_t* pool,
+                                                 const float* scales,
+                                                 const int* pages, int bs,
+                                                 int row0, int T) {
+  constexpr int kChunks = RB / 16;
+  static_assert(RB % 16 == 0, "16-byte rows");
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool full = row0 + r < T;
+    const int8_t* g =
+        full ? pool + paged_row(pages, bs, row0 + r) * RB + 16 * c : pool;
+    cp_async_16(dst + r * RB + 16 * c, g, full);
+  }
+  for (int r = threadIdx.x; r < ROWS; r += kThreads) {
+    const bool full = row0 + r < T;
+    cp_async_4(scale_dst + 4 * r,
+               full ? scales + paged_row(pages, bs, row0 + r) : scales, full);
+  }
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t dst, uint32_t a,
+                                             uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// bf16 bits of two small integers, the first in the low half (exact:
+// every |code| <= 128 is a bf16)
+__device__ __forceinline__ uint32_t bf16_pair(int a, int b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(static_cast<float>(a),
+                                                 static_cast<float>(b));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The quantized variant's second half: the codes of a [ROWS][RB] buffer
+// at generic address ``raw`` widened to bf16 into the tile at ``dst``
+// (columns D..padded(D) zero). KV is the pool storage (common.cuh):
+// kInt8 rows hold D codes, kInt4 rows D/2 bytes with element 2j in the
+// low nibble of byte j. The caller fences these generic-proxy writes
+// (fence_async_writes) before wgmma reads the tile.
+template <int ROWS, int D, int KV>
+__device__ __forceinline__ void widen_tile(uint32_t dst, const uint8_t* raw) {
+  constexpr int RB = KV == kInt4 ? D / 2 : D;
+  constexpr int kChunks = padded(D) / 8;
+  static_assert(ROWS * kChunks % kThreads == 0, "whole passes only");
+#pragma unroll
+  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (c * 8 < D) {
+      int code[8];
+      if constexpr (KV == kInt4) {
+        const uint32_t p = *reinterpret_cast<const uint32_t*>(raw + r * RB +
+                                                              4 * c);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          code[e] = static_cast<int>(p << (28 - 4 * e)) >> 28;
+      } else {
+        const uint2 p = *reinterpret_cast<const uint2*>(raw + r * RB + 8 * c);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          code[e] = static_cast<int>((e < 4 ? p.x : p.y)
+                                     << (24 - 8 * (e & 3))) >> 24;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w[e] = bf16_pair(code[2 * e], code[2 * e + 1]);
+    }
+    st_shared_v4(dst + chunk_offset<ROWS>(r, c), w[0], w[1], w[2], w[3]);
+  }
+}
+
+// make this CTA's generic-proxy shared-memory writes visible to wgmma
+// (the async proxy), then to every thread of the CTA
+__device__ __forceinline__ void fence_async_writes() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------

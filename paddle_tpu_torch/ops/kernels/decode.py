@@ -27,6 +27,7 @@ MASK32 = 0xFFFFFFFF
 
 _DECODE_THREADS = 128          # csrc/decode_attention.cu: kThreads
 _DECODE_MAX_G = 8              # csrc/decode_attention.cu: kMaxG
+DECODE_SPLIT = 64              # csrc/decode_attention.cu: kSplit
 
 
 def gather_rows(x, scale, idx, kv_dtype: str) -> torch.Tensor:
@@ -106,15 +107,43 @@ def flash_decode_attention_plain(q, k, v, pages, pos, *, block_size: int,
     return torch.einsum("bkgt,kbtd->bkgd", _softmax_exact(s), vt)
 
 
-def decode_smem_bytes(G: int, Dh: int, P: int, block_size: int,
-                      kv_dtype: str = "none") -> int:
-    """Shared memory of one (slot, kv-head) CTA: q rows, the [G, T]
-    score row, the p@V partial sums, the page vector and, for a
-    quantized pool, the T positions' V scales."""
+def decode_split_layout(G: int, Dh: int, P: int, block_size: int,
+                        dtype=torch.bfloat16, kv_dtype: str = "none"):
+    """(splits, shared-memory bytes, partial floats per (slot, head)) of
+    one decode launch. A CTA takes ``DECODE_SPLIT`` consecutive logical
+    positions of one (slot, kv-head), so the grid has ``splits =
+    ceil(P * block_size / DECODE_SPLIT)`` of them per (slot, head); its
+    shared memory holds the split's K and V rows at their stored width,
+    the G query rows, the split's [G, DECODE_SPLIT] scores, the p @ V
+    partial sums, the split's physical rows and row scales, and its
+    (max, sum) per query row. A slot whose positions span more than one
+    split combines fp32 partials: per (slot, head, split) G * Dh output
+    sums and a (max, sum) per query row. Nothing here grows with the
+    context beyond the ``splits`` count."""
+    kv = _build.kv_store(kv_dtype, "flash_decode_attention")
+    row_bytes = {"none": Dh * dtype.itemsize, "int8": Dh,
+                 "int4": Dh // 2}[kv]
     groups = max(1, _DECODE_THREADS // Dh)
-    T = P * int(block_size)
-    scales = T if _build.kv_store(kv_dtype, "decode") != "none" else 0
-    return 4 * (G * Dh + G * T + groups * G * Dh + P + scales)
+    splits = -(-P * int(block_size) // DECODE_SPLIT)
+    smem = 2 * DECODE_SPLIT * row_bytes + 4 * (
+        G * Dh + G * DECODE_SPLIT + groups * G * Dh + 3 * DECODE_SPLIT
+        + 2 * G + 1)
+    return splits, smem, splits * G * (Dh + 2)
+
+
+# per device: one arrival counter per (slot, kv-head) for the split
+# combine, zeroed once (the combining CTA leaves its counter at 0)
+_COUNTERS = {}
+
+
+def arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 arrival counters on ``dev``, made
+    once and grown when a launch needs more."""
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = buf
+    return buf
 
 
 def flash_decode_attention(q, k, v, pages, pos, *, block_size: int,
@@ -130,10 +159,15 @@ def flash_decode_attention(q, k, v, pages, pos, *, block_size: int,
 
     A quantized pool (``kv_dtype`` "int8" or "int4") passes int8 codes
     k/v [Hkv, M, Dh] (int4: nibble-packed [Hkv, M, Dh/2]) and their
-    fp32 row scales ``k_scale``/``v_scale`` [Hkv, M]; the kernel widens
-    each element as ``ops/q8.dequantize_kv`` does. Any other
-    ``kv_dtype`` raises ValueError.
-    """
+    fp32 row scales ``k_scale``/``v_scale`` [Hkv, M]; the kernel takes
+    the codes as they are and applies the row scales to the q . k
+    product and to p. Any other ``kv_dtype`` raises ValueError.
+
+    On the card the positions of a slot are split across CTAs
+    (``decode_split_layout``) and the splits combined in a fixed order,
+    so a slot's output is bitwise the same whatever the batch. Launches
+    on one device run in stream order (the combine's arrival counters
+    are shared between launches)."""
     kv = _build.kv_store(kv_dtype, "flash_decode_attention")
     check_scales(kv, k_scale, v_scale, "flash_decode_attention")
     if _build.on_cpu(q, "flash_decode_attention"):
@@ -151,21 +185,31 @@ def flash_decode_attention(q, k, v, pages, pos, *, block_size: int,
     P = pages.shape[1]
     _build.require(pages, "pages", device=dev, shape=(B, P))
     _build.require(pos, "pos", device=dev, dtype=torch.int32, shape=(B,))
-    if Dh % 32 or Dh > 256 or not 1 <= G <= _DECODE_MAX_G:
+    if Dh % 32 or Dh > 256 or not 1 <= G <= _DECODE_MAX_G or P * bs < 1:
         raise ValueError(f"flash_decode_attention: needs head_dim a "
-                         f"multiple of 32 up to 256 and 1 <= G <= "
-                         f"{_DECODE_MAX_G}; got Dh={Dh}, G={G}")
-    smem = decode_smem_bytes(G, Dh, P, bs, kv)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"flash_decode_attention: the exact [G, T] "
-                         f"score row needs {smem} bytes of shared memory, "
-                         f"over the {_build.SMEM_LIMIT}-byte limit")
-    out = torch.empty((B, Hkv, G, Dh), dtype=torch.float32, device=dev)
+                         f"multiple of 32 up to 256, 1 <= G <= "
+                         f"{_DECODE_MAX_G} and P * block_size >= 1; got "
+                         f"Dh={Dh}, G={G}, P={P}, block_size={bs}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_decode_attention: the pool views must be "
+                         "16-byte aligned")
+    splits, smem, part = decode_split_layout(G, Dh, P, bs, q.dtype, kv)
+    if splits > 65535 or smem > _build.SMEM_LIMIT:
+        raise ValueError(f"flash_decode_attention: {P * bs} positions "
+                         f"({splits} splits) or {smem} bytes of shared "
+                         f"memory exceed the launch limits")
+    BH = B * Hkv
+    # the output and the combine's partials in one allocation
+    buf = torch.empty(BH * (G * Dh + part), dtype=torch.float32, device=dev)
+    out = buf[:BH * G * Dh].view(B, Hkv, G, Dh)
+    counters = arrival_counters(dev, BH)
     with torch.cuda.device(dev):
         err = _build.library().pk_decode_attention(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(k_scale),
             _build.ptr(v_scale), _build.ptr(pages), _build.ptr(pos),
-            _build.ptr(out), B, Hkv, G, Dh, M, P, bs, math.sqrt(Dh),
+            _build.ptr(out),
+            out.data_ptr() + 4 * BH * G * Dh,
+            _build.ptr(counters), B, Hkv, G, Dh, M, P, bs, math.sqrt(Dh),
             _build.DTYPE_CODES[q.dtype], _build.KV_CODES[kv], smem,
             _build.stream(dev))
     _build.check(err, "flash_decode_attention")

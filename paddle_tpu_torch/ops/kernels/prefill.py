@@ -2,7 +2,9 @@
 ``paddle_tpu/ops/pallas/prefill.py``).
 
 - :func:`flash_chunk_prefill` — one prompt chunk's attention against
-  its pool-resident context (``csrc/chunk_prefill.cu``);
+  its pool-resident context (``csrc/chunk_prefill.cu``: bf16 queries on
+  the tensor cores; fp32 queries on the CUDA cores,
+  ``csrc/chunk_prefill_f32.cu``, from the same C entry);
 - :func:`paged_span_write` — the chunk's masked span writes into its
   pool pages, in place (``csrc/span_write.cu``).
 
@@ -21,13 +23,19 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels.decode import (NEG_INF, _softmax_exact,
+                                                 arrival_counters,
                                                  check_scales, gather_rows,
                                                  require_pool)
 
-_PREFILL_THREADS = 256         # csrc/chunk_prefill.cu: kThreads
-_PREFILL_TILE = 32             # csrc/chunk_prefill.cu: kTile
-_PREFILL_MAX_OUT = 16          # csrc/chunk_prefill.cu: kMaxOut
+# the fp32 kernel (csrc/chunk_prefill_f32.cu)
+_PREFILL_THREADS = 256         # kThreads
+_PREFILL_TILE = 32             # kTile
+_PREFILL_MAX_OUT = 16          # kMaxOut
 _PREFILL_ROWS = 16             # query rows per CTA, halved to fit smem
+# the bf16 tensor-core kernel (csrc/chunk_prefill.cu, csrc/flash_tc.cuh)
+_TC_ROWS = 64                  # kRows: query rows and columns per tile
+_TC_SPLIT_TILES = 2            # kSplitTiles: column tiles per CTA
+TC_HEAD_DIMS = (32, 64, 96, 128)   # chunk_prefill.cu's head-dim switch
 
 
 # ---------------------------------------------------------------------------
@@ -67,10 +75,10 @@ def flash_chunk_prefill_plain(q, k_chunk, v_chunk, k, v, pages, *,
 
 
 def prefill_rows_per_cta(C: int, G: int, Dh: int, S: int):
-    """(query rows per CTA, shared-memory bytes) for one chunk: the
-    staged q rows, one key/value tile and the rows' exact score rows
-    over S + C columns. Halves the rows until they fit; raises when
-    even one row's scores exceed the limit."""
+    """(query rows per CTA, shared-memory bytes) of the fp32 kernel for
+    one chunk: the staged q rows, one key/value tile and the rows' exact
+    score rows over S + C columns. Halves the rows until they fit;
+    raises when even one row's scores exceed the limit."""
     rows = min(_PREFILL_ROWS, max(1, C * G),
                _PREFILL_MAX_OUT * _PREFILL_THREADS // Dh)
     while True:
@@ -85,6 +93,43 @@ def prefill_rows_per_cta(C: int, G: int, Dh: int, S: int):
         rows //= 2
 
 
+def prefill_tc_splits(C: int, G: int, Dh: int, S: int):
+    """(row tiles, splits, partial floats) of the bf16 tensor-core
+    kernel: the grid is (kv-head, 64-row tile of the C * G query rows,
+    split), a split taking 2 consecutive 64-column tiles (context
+    tiles, then the chunk's) of its row tile; a row tile whose columns
+    span more than one split combines fp32 partials, per (kv-head, row
+    tile, split) an unnormalized [64, Dh] output and a (max, sum) per
+    row (the counts here are per kv-head)."""
+    row_tiles = -(-C * G // _TC_ROWS)
+    col_tiles = -(-S // _TC_ROWS) + (C - 1) // _TC_ROWS + 1
+    splits = -(-col_tiles // _TC_SPLIT_TILES)
+    return row_tiles, splits, row_tiles * splits * _TC_ROWS * (Dh + 2)
+
+
+def prefill_layout(C: int, G: int, Dh: int, S: int, dtype,
+                   kv_dtype: str = "none"):
+    """(query rows per CTA, shared-memory bytes) of one chunk's launch.
+    bf16 queries run the tensor-core kernel, head dims ``TC_HEAD_DIMS``
+    only (others raise ValueError): 64 rows; the q tile and two-stage K
+    and V rings (head dim padded to whole 64-column blocks), 1024 bytes
+    of alignment slack and, for a quantized context, the two-stage code
+    ring (K and V codes, then their row scales), whatever the chunk or
+    context length. fp32 queries run the CUDA-core kernel, sized by
+    ``prefill_rows_per_cta``."""
+    if dtype != torch.bfloat16:
+        return prefill_rows_per_cta(C, G, Dh, S)
+    if Dh not in TC_HEAD_DIMS:
+        raise ValueError(f"flash_chunk_prefill: bf16 head dim {Dh} not in "
+                         f"{TC_HEAD_DIMS}")
+    kv = _build.kv_store(kv_dtype, "flash_chunk_prefill")
+    smem = 5 * _TC_ROWS * (-(-Dh // 64) * 64) * 2 + 1024
+    if kv != "none":
+        code_bytes = Dh // 2 if kv == "int4" else Dh
+        smem += 4 * _TC_ROWS * code_bytes + 4 * _TC_ROWS * 4
+    return _TC_ROWS, smem
+
+
 def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
                         block_size: int, k_scale=None, v_scale=None,
                         kv_dtype: str = "none"):
@@ -97,7 +142,10 @@ def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
     ``k_scale``/``v_scale`` [Hkv, M]; pages [P_ctx] int32, the
     context's pages (context length S = P_ctx * block_size; P_ctx = 0
     is a cold chunk) -> fp32 [C, Hkv, G, Dh]. Any other ``kv_dtype``
-    raises ValueError."""
+    raises ValueError. On the card, bf16 queries run the tensor-core
+    kernel, which takes head dims 32, 64, 96 and 128 (others raise
+    ValueError) and, like decode, shares the arrival counters of
+    ``decode.arrival_counters`` between the launches of one device."""
     kv = _build.kv_store(kv_dtype, "flash_chunk_prefill")
     check_scales(kv, k_scale, v_scale, "flash_chunk_prefill")
     if _build.on_cpu(q, "flash_chunk_prefill"):
@@ -117,19 +165,33 @@ def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
                      "flash_chunk_prefill")
     _build.require(pages, "pages", device=dev, dtype=torch.int32, ndim=1)
     P_ctx = pages.shape[0]
-    rows, smem = prefill_rows_per_cta(C, G, Dh, P_ctx * bs)
-    out = torch.empty((C, Hkv, G, Dh), dtype=torch.float32, device=dev)
+    # a cold chunk reads no pool: the model-dtype instantiation serves it
+    branch = kv if P_ctx else "none"
+    rows, smem = prefill_layout(C, G, Dh, P_ctx * bs, q.dtype, branch)
+    n_out = C * Hkv * G * Dh
+    part, counters = 0, None
+    if q.dtype == torch.bfloat16:
+        if any(t.data_ptr() % 16 for t in (q, k_chunk, v_chunk, k, v)):
+            raise ValueError("flash_chunk_prefill: bf16 operands must be "
+                             "16-byte aligned")
+        row_tiles, _, part = prefill_tc_splits(C, G, Dh, P_ctx * bs)
+        part *= Hkv
+        counters = arrival_counters(dev, Hkv * row_tiles)
+    # the output and the split combine's partials in one allocation
+    buf = torch.empty(n_out + part, dtype=torch.float32, device=dev)
+    out = buf[:n_out].view(C, Hkv, G, Dh)
     with torch.cuda.device(dev):
         err = _build.library().pk_chunk_prefill(
             _build.ptr(q), _build.ptr(k_chunk), _build.ptr(v_chunk),
             _build.ptr(k), _build.ptr(v), _build.ptr(k_scale),
             _build.ptr(v_scale), _build.ptr(pages), _build.ptr(out),
-            C, Hkv, G, Dh, M, P_ctx, bs, rows, math.sqrt(Dh),
+            out.data_ptr() + 4 * n_out,
+            _build.ptr(counters), C, Hkv, G, Dh, M, P_ctx, bs, rows,
+            math.sqrt(Dh),
             _build.DTYPE_CODES[q.dtype], _build.KV_CODES[kv], smem,
             _build.stream(dev))
     _build.check(err, "flash_chunk_prefill")
-    # a cold chunk runs the model-dtype instantiation (csrc: launch_kv)
-    flash_chunk_prefill.launches[kv if P_ctx else "none"] += 1
+    flash_chunk_prefill.launches[branch] += 1
     return out
 
 

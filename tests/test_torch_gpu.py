@@ -8,8 +8,9 @@ machine that has only PyTorch (there: ``python -m pytest --noconftest
 JAX).
 
 Tolerances: attention outputs agree to 1e-4 absolute (fp32 accumulation
-in both, summed in another order over up to 640 positions of O(1)
-values); the span write and the sampler's ids are exact (no arithmetic
+in both, summed in another order over up to 16384 positions of O(1)
+values; the bf16 chunk prefill's products run on the tensor cores with
+p split into two bf16 halves, ~2^-16 relative); the span write and the sampler's ids are exact (no arithmetic
 to round; the sampler's hash is integer and its float steps are the
 same IEEE operations in both). Flash attention, forward and backward:
 fp32 outputs, lse and gradients to 1e-4 absolute (fp32 sums in another
@@ -230,6 +231,171 @@ def test_gpu_quant_engine_runs_every_branch(cuda):
                 assert counts[f"{name}.{kvd}"] > 0, (name, kvd)
         assert outs[0][1] == 0 and outs[1][1] == 64
         assert outs[0][0] == outs[1][0]
+
+
+def _pool_on(rng, shape, kvd, dtype, dev):
+    """A pool [Hkv, M, Dh] on the card: (``dtype`` values, None), or
+    (codes, fp32 row scales) of ``kvd``."""
+    if kvd == "none":
+        return _gpu(rng.randn(*shape), dev, dtype), None
+    return _quant(rng, shape, kvd, dev)
+
+
+# context lengths at the decode split edges (DECODE_SPLIT = 64 positions
+# a CTA), at page edges (16), one slot with many splits and one whose
+# position lies past its page vector (P * bs = 1024)
+DECODE_POS = [0, 14, 15, 62, 63, 64, 127, 128, 999, 1500]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvd", ["none", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Dh", [(1, 64), (4, 128), (8, 32)])
+def test_gpu_decode_split_edges_match_plain(cuda, kvd, dtype, G, Dh):
+    """Every pool storage and query dtype at context lengths 1, 15, 16,
+    63, 64, 65, 128, 129, 1000 and past the pages, within 1e-4; one
+    launch of the storage's branch."""
+    rng = np.random.RandomState(11)
+    B, Hkv, P, bs, nblocks = len(DECODE_POS), 2, 64, 16, 80
+    q = _gpu(rng.randn(B, Hkv, G, Dh), cuda, dtype)
+    k, ks = _pool_on(rng, (Hkv, nblocks * bs, Dh), kvd, dtype, cuda)
+    v, vs = _pool_on(rng, (Hkv, nblocks * bs, Dh), kvd, dtype, cuda)
+    pages = _gpu(np.stack([rng.permutation(nblocks)[:P] for _ in range(B)])
+                 .astype(np.int32), cuda)
+    pos = _gpu(np.asarray(DECODE_POS, np.int32), cuda)
+    kw = dict(block_size=bs, k_scale=ks, v_scale=vs, kv_dtype=kvd)
+    before = dict(kdecode.flash_decode_attention.launches)
+    got = kdecode.flash_decode_attention(q, k, v, pages, pos, **kw)
+    want = kdecode.flash_decode_attention_plain(q, k, v, pages, pos, **kw)
+    torch.cuda.synchronize()
+    assert kdecode.flash_decode_attention.launches == dict(
+        before, **{kvd: before[kvd] + 1})
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvd", ["none", "int8", "int4"])
+def test_gpu_decode_long_context(cuda, kvd):
+    """G = 8, Dh = 128 over 16384 positions (256 splits; the old kernel's
+    [G, T] score row refused this): within 1e-4 of the plain version."""
+    rng = np.random.RandomState(12)
+    B, Hkv, G, Dh, P, bs = 2, 2, 8, 128, 1024, 16
+    q = _gpu(rng.randn(B, Hkv, G, Dh), cuda, torch.bfloat16)
+    k, ks = _pool_on(rng, (Hkv, P * bs, Dh), kvd, torch.bfloat16, cuda)
+    v, vs = _pool_on(rng, (Hkv, P * bs, Dh), kvd, torch.bfloat16, cuda)
+    pages = _gpu(np.stack([rng.permutation(P) for _ in range(B)])
+                 .astype(np.int32), cuda)
+    pos = _gpu(np.asarray([P * bs - 1, 9000], np.int32), cuda)
+    kw = dict(block_size=bs, k_scale=ks, v_scale=vs, kv_dtype=kvd)
+    got = kdecode.flash_decode_attention(q, k, v, pages, pos, **kw)
+    want = kdecode.flash_decode_attention_plain(q, k, v, pages, pos, **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvd", ["none", "int8", "int4"])
+def test_gpu_decode_is_batch_invariant_and_repeatable(cuda, kvd):
+    """A slot decoded alone (B = 1) gives bitwise its row of a batch of 8
+    with other positions and pages, and two launches on the same inputs
+    are bitwise equal: the splits are a constant of the kernel and
+    combine in a fixed order."""
+    rng = np.random.RandomState(13)
+    B, Hkv, G, Dh, P, bs, nblocks = 8, 12, 1, 64, 64, 16, 600
+    q = _gpu(rng.randn(B, Hkv, G, Dh), cuda, torch.bfloat16)
+    k, ks = _pool_on(rng, (Hkv, nblocks * bs, Dh), kvd, torch.bfloat16, cuda)
+    v, vs = _pool_on(rng, (Hkv, nblocks * bs, Dh), kvd, torch.bfloat16, cuda)
+    pages = _gpu(np.stack([rng.permutation(nblocks)[:P] for _ in range(B)])
+                 .astype(np.int32), cuda)
+    pos = _gpu(np.asarray([700, 3, 64, 1023, 200, 129, 0, 511], np.int32),
+               cuda)
+    kw = dict(block_size=bs, k_scale=ks, v_scale=vs, kv_dtype=kvd)
+    batch = kdecode.flash_decode_attention(q, k, v, pages, pos, **kw)
+    again = kdecode.flash_decode_attention(q, k, v, pages, pos, **kw)
+    for b in range(B):
+        one = kdecode.flash_decode_attention(
+            q[b:b + 1].contiguous(), k, v, pages[b:b + 1].contiguous(),
+            pos[b:b + 1].contiguous(), **kw)
+        assert torch.equal(one[0], batch[b]), b
+    torch.cuda.synchronize()
+    assert torch.equal(batch, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvd", ["none", "int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 15, 16, 63, 64, 65, 1000])
+def test_gpu_chunk_prefill_edges_match_plain(cuda, kvd, dtype, C):
+    """Every pool storage and query dtype at chunk lengths on both sides
+    of the 16-row page and the 64-row tile, and C = 1000, cold and over a
+    5-page context that ends inside a 64-column tile (G = 2: the
+    flattened rows cross tile edges at other chunk rows than the
+    columns do), within 1e-4; one launch per call, counted under the
+    pool's storage when there is context and under "none" when cold."""
+    rng = np.random.RandomState(14)
+    Hkv, G, Dh, bs, nblocks = 2, 2, 64, 16, 12
+    q = _gpu(rng.randn(C, Hkv, G, Dh), cuda, dtype)
+    kck = _gpu(rng.randn(C, Hkv, Dh), cuda, dtype)
+    vck = _gpu(rng.randn(C, Hkv, Dh), cuda, dtype)
+    k, ks = _pool_on(rng, (Hkv, nblocks * bs, Dh), kvd, dtype, cuda)
+    v, vs = _pool_on(rng, (Hkv, nblocks * bs, Dh), kvd, dtype, cuda)
+    kw = dict(block_size=bs, k_scale=ks, v_scale=vs, kv_dtype=kvd)
+    for P_ctx in (0, 5):
+        pages = _gpu(rng.permutation(nblocks)[:P_ctx].astype(np.int32), cuda)
+        branch = kvd if P_ctx else "none"
+        before = dict(kprefill.flash_chunk_prefill.launches)
+        got = kprefill.flash_chunk_prefill(q, kck, vck, k, v, pages, **kw)
+        want = kprefill.flash_chunk_prefill_plain(q, kck, vck, k, v, pages,
+                                                  **kw)
+        torch.cuda.synchronize()
+        assert kprefill.flash_chunk_prefill.launches == dict(
+            before, **{branch: before[branch] + 1})
+        assert (got - want).abs().max().item() <= 1e-4, P_ctx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvd", ["none", "int8", "int4"])
+@pytest.mark.parametrize("Dh", [32, 96, 128])
+def test_gpu_chunk_prefill_head_dims_and_repeat(cuda, kvd, Dh):
+    """The bf16 kernel's other head dims (32 and 96 padded to 64 and 128
+    columns), at a GQA group of 4 over a 33-page context, within 1e-4;
+    two launches on the same inputs are bitwise equal."""
+    rng = np.random.RandomState(15)
+    C, Hkv, G, bs, nblocks = 100, 2, 4, 16, 40
+    q = _gpu(rng.randn(C, Hkv, G, Dh), cuda, torch.bfloat16)
+    kck = _gpu(rng.randn(C, Hkv, Dh), cuda, torch.bfloat16)
+    vck = _gpu(rng.randn(C, Hkv, Dh), cuda, torch.bfloat16)
+    k, ks = _pool_on(rng, (Hkv, nblocks * bs, Dh), kvd, torch.bfloat16, cuda)
+    v, vs = _pool_on(rng, (Hkv, nblocks * bs, Dh), kvd, torch.bfloat16, cuda)
+    pages = _gpu(rng.permutation(nblocks)[:33].astype(np.int32), cuda)
+    kw = dict(block_size=bs, k_scale=ks, v_scale=vs, kv_dtype=kvd)
+    got = kprefill.flash_chunk_prefill(q, kck, vck, k, v, pages, **kw)
+    again = kprefill.flash_chunk_prefill(q, kck, vck, k, v, pages, **kw)
+    want = kprefill.flash_chunk_prefill_plain(q, kck, vck, k, v, pages, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_gpu_paged_attention_refuses_what_it_cannot_take(cuda):
+    """A CUDA tensor the kernels cannot take raises; it never runs the
+    plain version instead."""
+    x = torch.zeros(4, 2, 1, 48, device=cuda, dtype=torch.bfloat16)
+    kc = torch.zeros(4, 2, 48, device=cuda, dtype=torch.bfloat16)
+    pool = torch.zeros(2, 64, 48, device=cuda, dtype=torch.bfloat16)
+    pages = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dim 48"):
+        kprefill.flash_chunk_prefill(x, kc, kc, pool, pool, pages,
+                                     block_size=16)
+    q = torch.zeros(1, 2, 1, 64, device=cuda, dtype=torch.bfloat16)
+    flat = torch.zeros(2 * 64 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    pool = flat[1:].view(2, 64, 64)             # 2-byte offset
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kdecode.flash_decode_attention(
+            q, pool, pool, pages[None], torch.zeros(1, dtype=torch.int32,
+                                                    device=cuda),
+            block_size=32)
 
 
 @pytest.mark.gpu

@@ -327,11 +327,32 @@ class TestWrappers:
         assert place.peak_flops("cpu") is None
 
     def test_shared_memory_limits_raise(self):
-        assert kdecode.decode_smem_bytes(1, 64, 64, 16) < 8 * 1024
-        rows, smem = kprefill.prefill_rows_per_cta(256, 1, 64, 768)
+        """Decode splits a slot's positions across CTAs and the bf16
+        prefill streams 64-column tiles through an online softmax, so
+        neither's shared memory grows with the context; the fp32
+        prefill keeps its exact score rows, and its refusal."""
+        splits, smem, part = kdecode.decode_split_layout(1, 64, 64, 16)
+        assert (splits, part) == (16, 16 * (64 + 2)) and smem < 24 * 1024
+        # G=8, Dh=128, 16384 positions: the old [G, T] score row was 512 KB
+        splits, smem, _ = kdecode.decode_split_layout(8, 128, 1024, 16)
+        assert splits == 256 and smem < 48 * 1024
+        smem_int4 = kdecode.decode_split_layout(8, 128, 1024, 16,
+                                                kv_dtype="int4")[1]
+        assert smem_int4 == smem - 2 * kdecode.DECODE_SPLIT * (256 - 64)
+        widest = kdecode.decode_split_layout(8, 256, 1, 16, torch.float32)
+        assert widest[0] == 1 and widest[1] <= 232448
+        rows, smem = kprefill.prefill_layout(256, 1, 64, 60000,
+                                             torch.bfloat16)
+        assert rows == 64 and smem == kprefill.prefill_layout(
+            256, 1, 64, 512, torch.bfloat16)[1] <= 232448
+        assert kprefill.prefill_layout(256, 1, 128, 512, torch.bfloat16,
+                                       "int8")[1] <= 232448
+        with pytest.raises(ValueError, match="head dim 48"):
+            kprefill.prefill_layout(256, 1, 48, 512, torch.bfloat16)
+        rows, smem = kprefill.prefill_layout(256, 1, 64, 768, torch.float32)
         assert rows == 16 and smem <= 232448
         with pytest.raises(ValueError, match="shared memory"):
-            kprefill.prefill_rows_per_cta(256, 1, 64, 60000)
+            kprefill.prefill_layout(256, 1, 64, 60000, torch.float32)
 
 
 def _port_files():
