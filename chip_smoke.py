@@ -13,7 +13,8 @@ order it:
    with nvcc (one process per source, in parallel) and prints the build
    time;
 3. prints the ``-Xptxas -v`` registers and spills of the paged
-   attention kernels (``ptxas:`` line), then holds each kernel, the int8
+   attention kernels, the sampler and the span write (``ptxas:`` line),
+   then holds each kernel, the int8
    and int4 branches of kernels 1, 3 and 4, the fp32-query branches of
    kernels 1 and 3, and both branches of kernels 5 and 6 (bf16 on the
    tensor cores, fp32 on the CUDA cores) against its plain PyTorch
@@ -23,16 +24,19 @@ order it:
    over gathered, dequantized K/V for a quantized pool), beside the
    least time the card could take (the bytes stored and moved over
    3.35 TB/s or FLOPs over the peak for the input type, whichever is
-   larger); kernels 1, 3, 5 and 6 also time their C entry alone
-   (``entry_ms``, outputs allocated beforehand), kernels 1 and 3 their
-   execution on the device alone (``device_ms``, from the profiler's
-   device activity, which a slow host's launch work cannot inflate);
-   decode is also checked at G=8, Dh=128 over 16384 positions and, per
-   slot, alone against its batch of 8 (bitwise); kernels 1, 3, 5 and 6
-   are launched twice on the
-   same inputs, which must give bitwise the same outputs; kernels 5 and
-   6 are timed at the training slice's shape in both dtypes and at the
-   GQA D=128 shape in bf16;
+   larger); every kernel also times its C entry alone (``entry_ms``,
+   outputs allocated beforehand), and kernels 1–4 their execution on
+   the device alone (``device_ms``, from the profiler's device activity,
+   which a slow host's launch work cannot inflate); the sampler runs on
+   both its streams (hashed: the decode tail, B=8; threefry: the
+   prefill tail, B=1) and is held bitwise over B in {1, 8, 64} and V in
+   {64, 1000, 50257} (``check sample:`` line); the span write is held
+   byte for byte; decode is also checked at G=8, Dh=128 over 16384
+   positions and, per slot, alone against its batch of 8 (bitwise);
+   kernels 1, 3, 5 and 6 are launched twice on the same inputs, which
+   must give bitwise the same outputs; kernels 5 and 6 are timed at the
+   training slice's shape in both dtypes and at the GQA D=128 shape in
+   bf16;
 4. holds the serving step functions on the card against the CPU on a
    small fp32 model, with an fp32 pool (the launches of the fp32-query
    paged kernels) and again with an int8 pool and int8 weights;
@@ -62,7 +66,7 @@ order it:
    fp32 ones; then profiles one more step (``train_profile:`` line: the
    ten device kernels with the most time, the device's busy share; the
    bf16 engine's trace is profiled the same way, ``engine_profile:``);
-9. prints the card line, a ``{"kernels": [...]}`` line (16 entries) and,
+9. prints the card line, a ``{"kernels": [...]}`` line (17 entries) and,
    last, the ``{"ok": true, ...}`` line.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 products are full
@@ -224,7 +228,8 @@ def decode_entry(torch, kd, build, q, k, v, pages, pos, kw):
     _, smem, part = kd.decode_split_layout(G, Dh, P, bs, q.dtype, kv)
     buf = torch.empty(B * Hkv * (G * Dh + part), dtype=torch.float32,
                       device=q.device)
-    counters = kd.arrival_counters(q.device, B * Hkv)
+    counters = kd.arrival_counters(q.device, build.stream(q.device),
+                                   B * Hkv)
     ptr = build.ptr
     args = [ptr(q), ptr(k), ptr(v), ptr(kw.get("k_scale")),
             ptr(kw.get("v_scale")), ptr(pages), ptr(pos), ptr(buf),
@@ -251,7 +256,8 @@ def prefill_entry(torch, kp, build, q, kck, vck, k, v, pages, kw):
     if q.dtype == torch.bfloat16:
         row_tiles, _, part = kp.prefill_tc_splits(C, G, Dh, P_ctx * bs)
         part *= Hkv
-        counters = kp.arrival_counters(q.device, Hkv * row_tiles)
+        counters = kp.arrival_counters(q.device, build.stream(q.device),
+                                       Hkv * row_tiles)
     buf = torch.empty(n_out + part, dtype=torch.float32, device=q.device)
     out = buf[:n_out].view(C, Hkv, G, Dh)
     ptr = build.ptr
@@ -380,13 +386,19 @@ def decode_long(torch, kd, q8, dev, kvd):
     return (got - want).abs().max().item()
 
 
-def check_sample(torch, timer, kd, dev, rng):
-    B, V = 8, 50257
+def check_sample(torch, timer, kd, build, dev, rng, stream):
+    """The sampler on one stream at its main-path shape (the hashed
+    stream: the decode tail, B=8; threefry: the prefill tail, B=1;
+    V=50257, temperature 0.8 and top_k 50 on sampled rows): bitwise
+    against its plain version, then timed through the wrapper, as the C
+    entry alone (``entry_ms``) and on the device (``device_ms``), beside
+    the plain version and topk + softmax + multinomial."""
+    B, V = (8, 50257) if stream == "hash" else (1, 50257)
     x = torch.from_numpy((3.0 * rng.randn(B, V)).astype(np.float32)).to(dev)
-    temp = torch.tensor([0.0, 0.8] * 4, device=dev)
-    topk = torch.tensor([0, 50] * 4, dtype=torch.int32, device=dev)
-    got = kd.fused_sample(x, 1234, temp, topk)
-    want = kd.fused_sample_plain(x, 1234, temp, topk)
+    temp = torch.tensor([0.0, 0.8] * 4, device=dev)[-B:]
+    topk = torch.tensor([0, 50] * 4, dtype=torch.int32, device=dev)[-B:]
+    got = kd.fused_sample(x, 1234, temp, topk, stream)
+    want = kd.fused_sample_plain(x, 1234, temp, topk, stream)
     torch.cuda.synchronize()
     err = float((got.long() - want.long()).abs().max().item())
 
@@ -395,16 +407,83 @@ def check_sample(torch, timer, kd, dev, rng):
         probs = torch.softmax(vals / 0.8, dim=-1)
         return idx.gather(-1, torch.multinomial(probs, 1))
 
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    lib, ptr = build.library(), build.ptr
+    args = [ptr(x), ptr(temp), ptr(topk), ptr(out), B, V, 1234,
+            kd.STREAMS.index(stream), build.stream(dev)]
+
+    def entry():
+        build.check(lib.pk_fused_sample(*args), "fused_sample")
+        return out
+
+    if not torch.equal(entry(), got):
+        fail(f"fused_sample ({stream}): the C entry and the wrapper differ "
+             f"on the same inputs")
     times = {
-        "ms": timer.ms(lambda: kd.fused_sample(x, 1234, temp, topk)),
+        "ms": timer.ms(lambda: kd.fused_sample(x, 1234, temp, topk, stream)),
         "plain_ms": timer.ms(lambda: kd.fused_sample_plain(x, 1234, temp,
-                                                           topk)),
+                                                           topk, stream)),
         "library_ms": timer.ms(library),
+        "entry_ms": timer.ms(entry),
     }
+    times["device_ms"], times["device_records"] = timer.device_ms(
+        entry, "fused_sample")
     # one read of every logit; the work per logit is a few compares
     times["bound_ms"], times["bound_by"] = bound(
         x.numel() * 4 + B * 12, x.numel() * 4, "float32")
     return err, times
+
+
+def sample_sweep(torch, kd, dev):
+    """Both streams at B in {1, 8, 64} and V in {64, 1000, 50257}, rows
+    cycling through greedy and top_k 0, 1, 50, V//4, V-1, V, every third
+    row with ties at its 50th value: bitwise the plain version, two launches
+    equal, row 0 and every greedy row alone equal to their rows of the
+    batch; and seed 33137's uniform of 1.0 (row 0, lane 219) on a lane
+    the top-k filter drops, which must not win. Returns the number of
+    cases checked."""
+    cases = 0
+    for stream in kd.STREAMS:
+        for B in (1, 8, 64):
+            for V in (64, 1000, 50257):
+                rng = np.random.RandomState(B * 7 + V)
+                x = (3.0 * rng.randn(B, V)).astype(np.float32)
+                for b in range(0, B, 3):
+                    order = np.argsort(-x[b])
+                    x[b, order[48:53]] = x[b, order[min(49, V - 1)]]
+                ks = [0, 1, 50, V // 4, V - 1, V]
+                topk = torch.tensor([ks[b % 6] for b in range(B)],
+                                    dtype=torch.int32, device=dev)
+                temp = torch.tensor([0.0 if b % 4 == 3 else 0.6 + 0.1 * (b % 7)
+                                     for b in range(B)], device=dev)
+                xs = torch.from_numpy(x).to(dev)
+                got = kd.fused_sample(xs, 4321, temp, topk, stream)
+                again = kd.fused_sample(xs, 4321, temp, topk, stream)
+                want = kd.fused_sample_plain(xs, 4321, temp, topk, stream)
+                alone = all(
+                    int(kd.fused_sample(xs[b:b + 1].contiguous(), 4321,
+                                        temp[b:b + 1].contiguous(),
+                                        topk[b:b + 1].contiguous(),
+                                        stream)[0]) == int(got[b])
+                    for b in [0] + [b for b in range(B) if temp[b] <= 0])
+                if not (torch.equal(got, want) and torch.equal(got, again)
+                        and alone):
+                    fail(f"fused_sample ({stream}, B={B}, V={V}): plain "
+                         f"{torch.equal(got, want)}, repeat "
+                         f"{torch.equal(got, again)}, alone {alone}")
+                cases += 1
+    V = 50257
+    x = np.random.RandomState(6).randn(1, V).astype(np.float32)
+    x[0, 219] = x.min() - 1.0
+    one = torch.ones(1, device=dev)
+    top5 = torch.full((1,), 5, dtype=torch.int32, device=dev)
+    got = kd.fused_sample(torch.from_numpy(x).to(dev), 33137, one, top5)
+    want = kd.fused_sample_plain(torch.from_numpy(x).to(dev), 33137, one,
+                                 top5)
+    if not (torch.equal(got, want) and int(got[0]) in np.argsort(-x[0])[:5]):
+        fail(f"fused_sample: the uniform of 1.0 on a filtered lane won "
+             f"({int(got[0])})")
+    return cases + 1
 
 
 def check_prefill(torch, timer, kp, q8, build, dev, rng, Hkv, G, Dh, P_ctx,
@@ -475,7 +554,7 @@ def check_prefill(torch, timer, kp, q8, build, dev, rng, Hkv, G, Dh, P_ctx,
     return err, times
 
 
-def check_span_write(torch, timer, kp, q8, dev, rng, Hkv, Dh, timed,
+def check_span_write(torch, timer, kp, q8, build, dev, rng, Hkv, Dh, timed,
                      kvd="none"):
     """Max abs difference of every array (exact: 0 expected); bf16 rows,
     or int8 / int4 codes with their fp32 scale tables."""
@@ -498,6 +577,10 @@ def check_span_write(torch, timer, kp, q8, dev, rng, Hkv, Dh, timed,
     torch.cuda.synchronize()
     err = max((pool[n].float() - ref[n].float()).abs().max().item()
               for n in names)
+    if not all(torch.equal(pool[n].view(torch.uint8), ref[n].view(torch.uint8))
+               for n in names):
+        fail(f"paged_span_write ({kvd}, Hkv={Hkv}, Dh={Dh}): not byte for "
+             f"byte the plain version")
     if not timed:
         return err, None
     row_bytes = {n: pool[n][0, 0, 0].numel() * pool[n].element_size()
@@ -521,6 +604,25 @@ def check_span_write(torch, timer, kp, q8, dev, rng, Hkv, Dh, timed,
             pool, spans, pages, valid, **kw)),
         "library_ms": timer.ms(library),
     }
+    # the C entry alone on the wrapper's operands
+    lib, ptr = build.library(), build.ptr
+    pad = 4 - len(names)
+    args = ([ptr(pool[n]) for n in names] + [None] * pad
+            + [ptr(spans[n]) for n in names] + [None] * pad
+            + [row_bytes[n] for n in names] + [0] * pad
+            + [len(names), ptr(pages), ptr(valid), L * Hkv, pc,
+               nblocks * bs, bs, build.stream(dev)])
+
+    def entry():
+        build.check(lib.pk_span_write(*args), "paged_span_write")
+
+    times["entry_ms"] = timer.ms(entry)
+    times["device_ms"], times["device_records"] = timer.device_ms(
+        entry, "span_write")
+    # the same launch with no valid row: the kernel's fixed cost
+    no_rows = torch.zeros_like(valid)
+    args[-6] = ptr(no_rows)
+    times["empty_device_ms"], _ = timer.device_ms(entry, "span_write")
     times["bound_ms"], times["bound_by"] = bound(nbytes, 0.0, "bfloat16")
     return err, times
 
@@ -710,8 +812,15 @@ def kernel_phase(torch, kd, kp, q8, build):
             "long_context_max_abs_err": long_err,
             "batch_invariant": alone, "bitwise_repeat": repeat})
         if kvd == "none":
-            e2, t2 = check_sample(torch, timer, kd, dev, rng)
-            rows["fused_sample"] = (e2, None, 0.0, t2, {})
+            for stream in kd.STREAMS:
+                e2, t2 = check_sample(torch, timer, kd, build, dev, rng,
+                                      stream)
+                rows["fused_sample" + ("" if stream == "hash"
+                                       else ".threefry")] = (e2, None, 0.0,
+                                                             t2, {})
+            print(f"check sample: {sample_sweep(torch, kd, dev)} cases, both "
+                  f"streams bitwise the plain version, repeatable, rows "
+                  f"alone equal to their batch rows")
         e3, t3 = check_prefill(torch, timer, kp, q8, build, dev, rng, 12, 1,
                                64, 32, True, kvd)
         if kvd == "none":
@@ -722,10 +831,10 @@ def kernel_phase(torch, kd, kp, q8, build):
                                128, 32, False, kvd)
         rows["flash_chunk_prefill" + sfx] = (e3, e3g, 1e-4, t3,
                                              {"bitwise_repeat": True})
-        e4, t4 = check_span_write(torch, timer, kp, q8, dev, rng, 12, 64,
-                                  True, kvd)
-        e4g, _ = check_span_write(torch, timer, kp, q8, dev, rng, 4, 128,
-                                  False, kvd)
+        e4, t4 = check_span_write(torch, timer, kp, q8, build, dev, rng, 12,
+                                  64, True, kvd)
+        e4g, _ = check_span_write(torch, timer, kp, q8, build, dev, rng, 4,
+                                  128, False, kvd)
         rows["paged_span_write" + sfx] = (e4, e4g, 0.0, t4, {})
     # fp32 queries over an fp32 pool
     rng = np.random.RandomState(0)
@@ -795,15 +904,17 @@ def step_parity(torch, tt):
             block_size=bs)
         out.append(lg.cpu())
         logits[d] = out
+    errs = []
     for a, b in zip(logits["cpu"], logits["cuda"]):
         if not torch.isfinite(b).all():
             fail("non-finite logits on the card")
-        err = max(err, (a - b).abs().max().item())
+        errs.append((a - b).abs().max().item())
+    err = max(errs)
     pool_err = max((pools["cpu"][n] - pools["cuda"][n].cpu()).abs().max()
                    .item() for n in ("k", "v"))
     print(f"steps: prefill(2 chunks)+decode on the card vs the CPU, fp32, "
-          f"logits max_abs_err={err!r} pool max_abs_err={pool_err!r} "
-          f"tol=1e-4")
+          f"logits max_abs_err={err!r} (per step {errs}) pool "
+          f"max_abs_err={pool_err!r} tol=1e-4")
     if not (err <= 1e-4 and pool_err <= 1e-4):
         fail("step functions on the card disagree with the CPU")
 
@@ -1041,7 +1152,7 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
     if not eng.pool.idle:
         fail(f"{label}: blocks still held after the engine drained")
     path = [k + (branch if k != "fused_sample" else "")
-            for k in SERVING_KERNELS]
+            for k in SERVING_KERNELS] + ["fused_sample.threefry"]
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         fail(f"{label}: kernels never launched on the main path: {missing}")
@@ -1187,7 +1298,9 @@ def profile_window(torch, fn) -> dict:
     the host-clocked time, the ten device kernels with the most total
     time (name, calls, ms), the device's busy time (the union of its
     kernel and copy intervals) and its share of the host-clocked time,
-    or that the trace holds no device time."""
+    or that the trace holds no device time; ``port_kernels``: calls, ms
+    and share of the busy time of each of the port's kernels (by name
+    fragment), wherever they rank."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1214,13 +1327,26 @@ def profile_window(torch, fn) -> dict:
             busy += end - reach
             reach = end
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    port = {}
+    for frag in PORT_KERNEL_NAMES:
+        hits = [v for name, v in by_name.items() if frag in name]
+        us = sum(u for _, u in hits)
+        port[frag] = {"calls": sum(c for c, _ in hits), "ms": us / 1e3,
+                      "busy_share": us / busy}
     return {"step_ms": wall_ms, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / 1e3 / wall_ms,
             "device_span_ms": (max(e for _, e in spans)
                                - min(s for s, _ in spans)) / 1e3,
             "device_kernels": len(spans),
             "top": [{"name": name[:120], "calls": calls, "ms": us / 1e3}
-                    for name, (calls, us) in top]}
+                    for name, (calls, us) in top],
+            "port_kernels": port}
+
+
+# a fragment of each port kernel's device name, for profile_window
+PORT_KERNEL_NAMES = ("decode_split_kernel", "fused_sample_kernel",
+                     "chunk_prefill", "span_write_kernel", "flash_fwd",
+                     "flash_bwd")
 
 
 def train_profile(torch, step, i):
@@ -1238,6 +1364,10 @@ SOURCES = {
                                "paddle_tpu/ops/pallas/decode.py:382"),
     "fused_sample": ("fused_sample.cu",
                      "paddle_tpu/ops/pallas/decode.py:558"),
+    # the same kernel on the threefry stream: the paged prefill tail,
+    # where the JAX package samples with sample_tokens and jax.random
+    "fused_sample.threefry": ("fused_sample.cu",
+                              "paddle_tpu/ops/pallas/decode.py:558"),
     "flash_chunk_prefill": ("chunk_prefill.cu",
                             "paddle_tpu/ops/pallas/prefill.py:314"),
     "paged_span_write": ("span_write.cu",
@@ -1311,7 +1441,7 @@ def main():
 
     print("ptxas: " + json.dumps(ptxas_summary(
         info["dir"], ("decode_attention", "chunk_prefill",
-                      "chunk_prefill_f32"))))
+                      "chunk_prefill_f32", "fused_sample", "span_write"))))
 
     dev = torch.device("cuda:0")
     rows = {**kernel_phase(torch, kd, kp, q8, _build),
@@ -1342,6 +1472,7 @@ def main():
     del w8
     trained = train_phase(torch, tt, topt, kernels, costs, place, cfg, dev)
     launches = {**{k: served[k] for k in SERVING_KERNELS},
+                "fused_sample.threefry": served["fused_sample.threefry"],
                 **{k: served8[k] for k in QUANT_BRANCHES if "int8" in k},
                 **{k: served4[k] for k in QUANT_BRANCHES if "int4" in k},
                 **{k: trained[k] for k in TRAINING_KERNELS},

@@ -5,8 +5,9 @@ at first use and binds them with ctypes. ``KERNELS`` lists every kernel
 wrapper of the serving and training paths, each with its ``launches``
 counter: an int, or a dict with one count per branch for the wrappers
 that launch more than one kernel instantiation — the three templated on
-the KV pool's storage ({"none", "int8", "int4"}) and the two attention
-wrappers ({"bf16": tensor-core kernels, "fp32": CUDA-core kernels}).
+the KV pool's storage ({"none", "int8", "int4"}), the sampler's two
+uniform streams ({"hash", "threefry"}) and the two attention wrappers
+({"bf16": tensor-core kernels, "fp32": CUDA-core kernels}).
 """
 
 from paddle_tpu_torch.ops.kernels.attention import (flash_attention_bwd,

@@ -14,6 +14,7 @@ Every C entry point launches on the stream it is given and returns
 exception naming the kernel.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,8 +53,8 @@ SIGNATURES = {
     # Hkv, G, Dh, M, P, bs, scale, dtype, kv, smem_bytes, stream
     "pk_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                             _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    # logits, temperature, top_k, out, B, V, seed, stream
-    "pk_fused_sample": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # logits, temperature, top_k, out, B, V, seed, threefry, stream
+    "pk_fused_sample": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k_chunk, v_chunk, k, v, k_scale, v_scale, pages, out, partials,
     # counters, C, Hkv, G, Dh, M, P_ctx, bs, rows_per_cta, scale, dtype,
     # kv, smem_bytes, stream
@@ -184,8 +185,24 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream (0 for the legacy
+    default stream), for a ``c_void_p`` argument: read straight from
+    PyTorch's stream registry, without building a ``torch.cuda.Stream``
+    (a few microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` the current CUDA device for a
+    launch: nothing to do when it is current already (the common case,
+    and a device switch costs a few microseconds a launch)."""
+    if device.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(device)
 
 
 def require(t: torch.Tensor, what: str, *, device: torch.device,

@@ -147,7 +147,7 @@ def flash_attention_fwd(q, k, v, *, sm_scale: float, causal: bool):
     dev = q.device
     out = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = _build.library().pk_flash_attn_fwd(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             _build.ptr(lse), BH, T, D, float(sm_scale), int(bool(causal)),
@@ -177,7 +177,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, sm_scale: float,
                    shape=(BH, T))
     delta = (do.float() * out.float()).sum(dim=-1)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = _build.library().pk_flash_attn_bwd(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
             _build.ptr(lse), _build.ptr(delta), _build.ptr(dq),

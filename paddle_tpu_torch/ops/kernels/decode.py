@@ -3,7 +3,8 @@
 - :func:`flash_decode_attention` — one decode step's attention straight
   off the head-major paged pool (``csrc/decode_attention.cu``);
 - :func:`fused_sample` — greedy / top-k / temperature sampling with no
-  sort (``csrc/fused_sample.cu``).
+  sort, on the Pallas kernel's hashed stream or on ``jax.random``'s
+  threefry stream (``csrc/fused_sample.cu``).
 
 Each public function is a wrapper around a hand-written Hopper kernel:
 a CUDA tensor launches the kernel (or raises on what the kernel does
@@ -11,7 +12,8 @@ not take), a CPU tensor runs the plain PyTorch version beside it
 (``*_plain``), which the CPU tests hold against the Pallas kernels in
 interpret mode. There is no other path. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``; ``flash_decode_attention`` counts
-them per pool storage (``{"none", "int8", "int4"}``), one kernel
+them per pool storage (``{"none", "int8", "int4"}``) and
+``fused_sample`` per stream (``{"hash", "threefry"}``), one kernel
 instantiation each.
 """
 
@@ -19,7 +21,7 @@ import math
 
 import torch
 
-from paddle_tpu_torch.ops import q8
+from paddle_tpu_torch.ops import prng, q8
 from paddle_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30
@@ -28,6 +30,11 @@ MASK32 = 0xFFFFFFFF
 _DECODE_THREADS = 128          # csrc/decode_attention.cu: kThreads
 _DECODE_MAX_G = 8              # csrc/decode_attention.cu: kMaxG
 DECODE_SPLIT = 64              # csrc/decode_attention.cu: kSplit
+SAMPLE_CLUSTER = 16            # csrc/fused_sample.cu: kCluster
+SAMPLE_CAP = 8192              # csrc/fused_sample.cu: kCap
+# the dynamic shared memory of a sampler CTA: its slice of the row and
+# two lists of SAMPLE_CAP keys, beside < 3 KB of static shared memory
+SAMPLE_SMEM_LIMIT = 224 * 1024
 
 
 def gather_rows(x, scale, idx, kv_dtype: str) -> torch.Tensor:
@@ -131,18 +138,25 @@ def decode_split_layout(G: int, Dh: int, P: int, block_size: int,
     return splits, smem, splits * G * (Dh + 2)
 
 
-# per device: one arrival counter per (slot, kv-head) for the split
-# combine, zeroed once (the combining CTA leaves its counter at 0)
+# per (device, stream): the arrival counters of the split combines,
+# zeroed once (the combining CTA leaves its counter at 0) and never
+# reallocated, so a captured launch keeps its address
+COUNTER_CAPACITY = 1 << 16
 _COUNTERS = {}
 
 
-def arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 arrival counters on ``dev``, made
-    once and grown when a launch needs more."""
-    buf = _COUNTERS.get(dev)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-        _COUNTERS[dev] = buf
+def arrival_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The ``COUNTER_CAPACITY`` zeroed int32 arrival counters of
+    (``dev``, ``stream``): launches on one stream run in order and share
+    them; launches on two streams never do. Raises ValueError for a
+    launch that needs more than ``COUNTER_CAPACITY``."""
+    if n > COUNTER_CAPACITY:
+        raise ValueError(f"a launch needs {n} arrival counters, more than "
+                         f"the {COUNTER_CAPACITY} kept per stream")
+    buf = _COUNTERS.get((dev, stream))
+    if buf is None:
+        buf = torch.zeros(COUNTER_CAPACITY, dtype=torch.int32, device=dev)
+        _COUNTERS[(dev, stream)] = buf
     return buf
 
 
@@ -165,9 +179,9 @@ def flash_decode_attention(q, k, v, pages, pos, *, block_size: int,
 
     On the card the positions of a slot are split across CTAs
     (``decode_split_layout``) and the splits combined in a fixed order,
-    so a slot's output is bitwise the same whatever the batch. Launches
-    on one device run in stream order (the combine's arrival counters
-    are shared between launches)."""
+    so a slot's output is bitwise the same whatever the batch. The
+    combine's arrival counters belong to the stream (``arrival_counters``),
+    so launches on different streams may run at once."""
     kv = _build.kv_store(kv_dtype, "flash_decode_attention")
     check_scales(kv, k_scale, v_scale, "flash_decode_attention")
     if _build.on_cpu(q, "flash_decode_attention"):
@@ -202,16 +216,16 @@ def flash_decode_attention(q, k, v, pages, pos, *, block_size: int,
     # the output and the combine's partials in one allocation
     buf = torch.empty(BH * (G * Dh + part), dtype=torch.float32, device=dev)
     out = buf[:BH * G * Dh].view(B, Hkv, G, Dh)
-    counters = arrival_counters(dev, BH)
-    with torch.cuda.device(dev):
+    stream = _build.stream(dev)
+    counters = arrival_counters(dev, stream, BH)
+    with _build.on_device(dev):
         err = _build.library().pk_decode_attention(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(k_scale),
             _build.ptr(v_scale), _build.ptr(pages), _build.ptr(pos),
             _build.ptr(out),
             out.data_ptr() + 4 * BH * G * Dh,
             _build.ptr(counters), B, Hkv, G, Dh, M, P, bs, math.sqrt(Dh),
-            _build.DTYPE_CODES[q.dtype], _build.KV_CODES[kv], smem,
-            _build.stream(dev))
+            _build.DTYPE_CODES[q.dtype], _build.KV_CODES[kv], smem, stream)
     _build.check(err, "flash_decode_attention")
     flash_decode_attention.launches[kv] += 1
     return out
@@ -242,19 +256,35 @@ def sortable_key(x: torch.Tensor) -> torch.Tensor:
 
 
 def kth_key(keys: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """The k-th largest key per row (k >= 1) by the 32-step binary search
-    on the threshold: count(keys >= t) is monotone, so keeping
-    count(>= lo) >= k pins lo to the exact k-th value. keys [B, V],
-    k [B] -> [B]."""
-    lo = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
-    hi = torch.full_like(lo, MASK32)
-    for _ in range(32):
-        d = hi - lo
-        mid = lo + (d >> 1) + (d & 1)
-        take = (keys >= mid[:, None]).sum(dim=-1) >= k
-        lo = torch.where(take, mid, lo)
-        hi = torch.where(take, hi, (mid - 1) & MASK32)
-    return lo
+    """The k-th largest key per row (1 <= k <= V) by radix select, as
+    ``csrc/fused_sample.cu`` finds it: 4 rounds of 8-bit digits from the
+    top; each round counts the keys under the prefix found so far per
+    digit and takes the digit where the count from the top reaches the
+    rank still needed. (The kernel runs its later rounds on the keys
+    under the prefix alone once they are few; the counts are the same.)
+    keys [B, V], k [B] -> [B]."""
+    B = keys.shape[0]
+    prefix = torch.zeros(B, dtype=torch.int64, device=keys.device)
+    need = k.long()
+    for shift in (24, 16, 8, 0):
+        under = (keys >> (shift + 8)) == (prefix >> (shift + 8))[:, None]
+        hist = torch.zeros(B, 256, dtype=torch.int64, device=keys.device)
+        hist.scatter_add_(1, (keys >> shift) & 255, under.long())
+        upto = hist.flip(-1).cumsum(-1).flip(-1)     # count of digits >= d
+        above = upto - hist
+        hit = (above < need[:, None]) & (upto >= need[:, None])
+        digit = hit.long().argmax(-1)
+        need = need - above.gather(1, digit[:, None])[:, 0]
+        prefix = prefix | (digit << shift)
+    return prefix
+
+
+def key_float(keys: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`sortable_key`: the fp32 values whose keys
+    are ``keys``."""
+    bits = torch.where(keys >= 0x80000000, keys ^ 0x80000000,
+                       keys ^ MASK32)
+    return bits.to(torch.int32).view(torch.float32)
 
 
 def hash_uniform(seed: int, rows: torch.Tensor, V: int) -> torch.Tensor:
@@ -281,48 +311,82 @@ def _first_argmax(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x == m, iota, V).amin(dim=-1)
 
 
-def top_k_keep(logits: torch.Tensor, top_k: torch.Tensor) -> torch.Tensor:
+def top_k_keep(logits: torch.Tensor, top_k: torch.Tensor,
+               compare_floats: bool = False) -> torch.Tensor:
     """The kept-lane mask of the top-k filter: [B, V] bool, ties at the
-    k-th value kept; k <= 0 keeps everything."""
+    k-th value kept; k <= 0 keeps everything. Lanes compare their keys
+    with the k-th key, or with ``compare_floats`` their values with the
+    k-th value as floats (``sample_tokens``' rule, which also keeps a
+    -0.0 that ties a +0.0 threshold)."""
     V = logits.shape[-1]
     k = top_k.long().clamp(0, V)
     keys = sortable_key(logits)
     kstar = kth_key(keys, k.clamp(min=1))
-    return (k[:, None] <= 0) | (keys >= kstar[:, None])
+    if compare_floats:
+        keep = logits >= key_float(kstar)[:, None]
+    else:
+        keep = keys >= kstar[:, None]
+    return (k[:, None] <= 0) | keep
 
 
-def fused_sample_plain(logits, seed, temperature, top_k):
+STREAMS = ("hash", "threefry")
+
+
+def fused_sample_plain(logits, seed, temperature, top_k, stream="hash"):
     """Plain version of the sampling epilogue: logits [B, V] fp32, int
-    ``seed``, temperature [B], top_k [B] -> ids [B] int32."""
+    ``seed``, temperature [B], top_k [B] -> ids [B] int32, over the
+    ``stream`` ("hash" or "threefry") of :func:`fused_sample`."""
     B, V = logits.shape
     x = logits.float()
     greedy = _first_argmax(x)
-    z = torch.where(top_k_keep(x, top_k), x, -math.inf)
+    threefry = _stream_code(stream)
+    z = torch.where(top_k_keep(x, top_k, threefry), x, -math.inf)
     t = temperature.float()
     z = z / torch.where(t > 0, t, 1.0)[:, None]
-    rows = torch.arange(B, device=x.device)
-    g = -torch.log(-torch.log(hash_uniform(seed, rows, V)))
-    # a uniform that rounds to 1.0 gives g = +inf; on a filtered lane
-    # (z = -inf) that is NaN, which must never win the draw (the JAX
+    if threefry:
+        g = prng.gumbel(prng.prng_key(seed, x.device), (B, V))
+    else:
+        rows = torch.arange(B, device=x.device)
+        g = -torch.log(-torch.log(hash_uniform(seed, rows, V)))
+    # a hashed uniform that rounds to 1.0 gives g = +inf; on a filtered
+    # lane (z = -inf) that is NaN, which must never win the draw (the JAX
     # kernel's max propagates it and returns the out-of-range id V)
     score = z + g
     sampled = _first_argmax(torch.where(score.isnan(), -math.inf, score))
     return torch.where(t > 0, sampled, greedy).to(torch.int32)
 
 
-def fused_sample(logits, seed, temperature, top_k):
+def _stream_code(stream: str) -> int:
+    if stream not in STREAMS:
+        raise ValueError(f"fused_sample: stream {stream!r}, expected one "
+                         f"of {STREAMS}")
+    return STREAMS.index(stream)
+
+
+def fused_sample(logits, seed, temperature, top_k, stream="hash"):
     """Sampling epilogue: logits [B, V] fp32, int32 ``seed``, per-row
     temperature [B] fp32 (<= 0 is greedy) and top_k [B] int32 (<= 0 or
     >= V disables the filter) -> sampled ids [B] int32.
 
     Greedy rows are the first-index argmax and the kept top-k set is
-    exact; the categorical draw is a Gumbel-max over hashed uniforms,
-    bitwise ``paddle_tpu``'s ``fused_sample`` stream. One departure: a
-    uniform that rounds to exactly 1.0 on a filtered lane makes that
-    lane's score NaN, which never wins here, where the JAX kernel
-    returns the out-of-range id V."""
+    exact; the categorical draw is a Gumbel-max over one of two
+    streams:
+
+    - ``"hash"`` (the paged decode tail): hashed uniforms of (seed, row,
+      lane), bitwise ``paddle_tpu``'s ``fused_sample`` stream; lanes
+      kept by key. One departure: a uniform that rounds to exactly 1.0
+      on a filtered lane makes that lane's score NaN, which never wins
+      here, where the JAX kernel returns the out-of-range id V.
+    - ``"threefry"`` (the paged prefill tail): ``paddle_tpu``'s
+      ``sample_tokens(logits, jax.random.PRNGKey(seed), ...)``, bitwise:
+      the Gumbel noise of ``ops/prng.py`` over the [B, V] batch, lanes
+      kept by float compare with the k-th value.
+
+    On the card one launch of ``csrc/fused_sample.cu`` serves either;
+    ``fused_sample.launches`` counts them per stream."""
+    threefry = _stream_code(stream)
     if _build.on_cpu(logits, "fused_sample"):
-        return fused_sample_plain(logits, seed, temperature, top_k)
+        return fused_sample_plain(logits, seed, temperature, top_k, stream)
     dev = logits.device
     _build.require(logits, "logits", device=dev, dtype=torch.float32,
                    ndim=2)
@@ -331,17 +395,20 @@ def fused_sample(logits, seed, temperature, top_k):
                    dtype=torch.float32, shape=(B,))
     _build.require(top_k, "top_k", device=dev, dtype=torch.int32,
                    shape=(B,))
+    if 4 * (-(-V // SAMPLE_CLUSTER) + 7 + 2 * SAMPLE_CAP) > SAMPLE_SMEM_LIMIT:
+        raise ValueError(f"fused_sample: a row of {V} logits does not fit "
+                         f"the shared memory of {SAMPLE_CLUSTER} CTAs")
     # int32 semantics of the seed: the kernel reads its uint32 image
     seed = int(seed) & MASK32
     seed = seed - (1 << 32) if seed >= (1 << 31) else seed
     out = torch.empty((B,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = _build.library().pk_fused_sample(
             _build.ptr(logits), _build.ptr(temperature), _build.ptr(top_k),
-            _build.ptr(out), B, V, seed, _build.stream(dev))
+            _build.ptr(out), B, V, seed, threefry, _build.stream(dev))
     _build.check(err, "fused_sample")
-    fused_sample.launches += 1
+    fused_sample.launches[stream] += 1
     return out
 
 
-fused_sample.launches = 0
+fused_sample.launches = _build.new_launch_counts(STREAMS)

@@ -145,7 +145,7 @@ def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
     raises ValueError. On the card, bf16 queries run the tensor-core
     kernel, which takes head dims 32, 64, 96 and 128 (others raise
     ValueError) and, like decode, shares the arrival counters of
-    ``decode.arrival_counters`` between the launches of one device."""
+    ``decode.arrival_counters`` between the launches of one stream."""
     kv = _build.kv_store(kv_dtype, "flash_chunk_prefill")
     check_scales(kv, k_scale, v_scale, "flash_chunk_prefill")
     if _build.on_cpu(q, "flash_chunk_prefill"):
@@ -169,6 +169,7 @@ def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
     branch = kv if P_ctx else "none"
     rows, smem = prefill_layout(C, G, Dh, P_ctx * bs, q.dtype, branch)
     n_out = C * Hkv * G * Dh
+    stream = _build.stream(dev)
     part, counters = 0, None
     if q.dtype == torch.bfloat16:
         if any(t.data_ptr() % 16 for t in (q, k_chunk, v_chunk, k, v)):
@@ -176,11 +177,11 @@ def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
                              "16-byte aligned")
         row_tiles, _, part = prefill_tc_splits(C, G, Dh, P_ctx * bs)
         part *= Hkv
-        counters = arrival_counters(dev, Hkv * row_tiles)
+        counters = arrival_counters(dev, stream, Hkv * row_tiles)
     # the output and the split combine's partials in one allocation
     buf = torch.empty(n_out + part, dtype=torch.float32, device=dev)
     out = buf[:n_out].view(C, Hkv, G, Dh)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = _build.library().pk_chunk_prefill(
             _build.ptr(q), _build.ptr(k_chunk), _build.ptr(v_chunk),
             _build.ptr(k), _build.ptr(v), _build.ptr(k_scale),
@@ -188,8 +189,7 @@ def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
             out.data_ptr() + 4 * n_out,
             _build.ptr(counters), C, Hkv, G, Dh, M, P_ctx, bs, rows,
             math.sqrt(Dh),
-            _build.DTYPE_CODES[q.dtype], _build.KV_CODES[kv], smem,
-            _build.stream(dev))
+            _build.DTYPE_CODES[q.dtype], _build.KV_CODES[kv], smem, stream)
     _build.check(err, "flash_chunk_prefill")
     flash_chunk_prefill.launches[branch] += 1
     return out
@@ -250,22 +250,58 @@ def paged_span_write(pool: Dict[str, torch.Tensor],
     rows with False keep the pool's old bytes."""
     kv = _build.kv_store(kv_dtype, "paged_span_write")
     names = _check_names(spans, kv)
-    if _build.on_cpu(pool["k"], "paged_span_write"):
+    k = pool["k"]
+    if _build.on_cpu(k, "paged_span_write"):
         return paged_span_write_plain(pool, spans, pages, valid,
                                       block_size=block_size, kv_dtype=kv)
     bs = int(block_size)
-    dev = pool["k"].device
-    _build.require(pool["k"], "pool['k']", device=dev, ndim=4)
-    L, Hkv, M, _ = pool["k"].shape
+    dev = k.device
+    if k.dim() != 4:
+        _build.require(k, "pool['k']", device=dev, ndim=4)
+    L, Hkv, M, _ = k.shape
+    pc = pages.shape[0] if pages.dim() == 1 else -1
+    # every operand checked in one pass; a failure is named by require
+    value_dtype = torch.int8 if kv != "none" else k.dtype
+    arrays = [(name, pool[name], spans[name]) for name in names]
+    ok = (pages.device == dev and pages.dtype == torch.int32
+          and pages.is_contiguous() and valid.device == dev
+          and valid.dtype == torch.bool and valid.is_contiguous()
+          and valid.shape == (pc * bs,))
+    pool_rows, span_rows = (L, Hkv, M), (L, Hkv, pc * bs)
+    ptrs, srcs, row_bytes = [None] * 4, [None] * 4, [0] * 4
+    for i, (name, p, t) in enumerate(arrays):
+        dt = torch.float32 if name.endswith("_scale") else value_dtype
+        ptrs[i], srcs[i] = p.data_ptr(), t.data_ptr()
+        ok = ok and (p.dtype == dt and t.dtype == dt and p.device == dev
+                     and t.device == dev and p.is_contiguous()
+                     and t.is_contiguous() and p.dim() <= 4
+                     and p.shape[:3] == pool_rows
+                     and t.shape == span_rows + p.shape[3:]
+                     and not (ptrs[i] | srcs[i]) % 16)
+        # contiguous: a row's elements are the stride of the row axis
+        row_bytes[i] = p.stride(2) * p.element_size() if ok else 0
+    if not ok:
+        _span_write_fault(arrays, pages, valid, dev, value_dtype, bs)
+    n = len(arrays)
+    with _build.on_device(dev):
+        err = _build.library().pk_span_write(
+            *ptrs, *srcs, *row_bytes, n, pages.data_ptr(), valid.data_ptr(),
+            L * Hkv, pc, M, bs, _build.stream(dev))
+    _build.check(err, "paged_span_write")
+    paged_span_write.launches[kv] += 1
+    return pool
+
+
+def _span_write_fault(arrays, pages, valid, dev, value_dtype, bs):
+    """Raise ValueError naming the first operand of a span write that
+    the kernel does not take."""
+    L, Hkv, M, _ = arrays[0][1].shape
     _build.require(pages, "pages", device=dev, dtype=torch.int32, ndim=1)
     pc = pages.shape[0]
     _build.require(valid, "valid", device=dev, dtype=torch.bool,
                    shape=(pc * bs,))
-    value_dtype = torch.int8 if kv != "none" else pool["k"].dtype
-    row_bytes = []
-    for name in names:
+    for name, p, t in arrays:
         dt = torch.float32 if name.endswith("_scale") else value_dtype
-        p, t = pool[name], spans[name]
         _build.require(p, f"pool[{name!r}]", device=dev, dtype=dt)
         if tuple(p.shape[:3]) != (L, Hkv, M) or p.dim() > 4:
             raise ValueError(f"paged_span_write: pool[{name!r}] shape "
@@ -276,19 +312,7 @@ def paged_span_write(pool: Dict[str, torch.Tensor],
         if p.data_ptr() % 16 or t.data_ptr() % 16:
             raise ValueError(f"paged_span_write: {name!r} buffers must be "
                              f"16-byte aligned")
-        row_bytes.append(math.prod(p.shape[3:]) * p.element_size())
-    n = len(names)
-    pad = 4 - n
-    pools = [pool[nm] for nm in names] + [None] * pad
-    srcs = [spans[nm] for nm in names] + [None] * pad
-    with torch.cuda.device(dev):
-        err = _build.library().pk_span_write(
-            *[_build.ptr(t) for t in pools], *[_build.ptr(t) for t in srcs],
-            *(row_bytes + [0] * pad), n, _build.ptr(pages),
-            _build.ptr(valid), L * Hkv, pc, M, bs, _build.stream(dev))
-    _build.check(err, "paged_span_write")
-    paged_span_write.launches[kv] += 1
-    return pool
+    raise ValueError("paged_span_write: operands the kernel does not take")
 
 
 paged_span_write.launches = _build.new_launch_counts()

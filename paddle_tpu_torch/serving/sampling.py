@@ -2,23 +2,24 @@
 ``paddle_tpu/serving/sampling.py``)."""
 
 import math
-from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.ops import prng
 from paddle_tpu_torch.ops.kernels import decode as kdecode
 
 
-def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
+def sample_tokens(logits: torch.Tensor, key: torch.Tensor,
                   temperature: torch.Tensor,
                   top_k: torch.Tensor) -> torch.Tensor:
-    """Plain sampler (``paddle_tpu``'s ``sample_tokens``): logits [B, V]
-    fp32, per-row temperature [B] (<= 0 is greedy) and top_k [B] (<= 0
-    disables the filter) -> ids [B] int32. Greedy rows are the
-    first-index argmax; the top-k threshold is the k-th value of a
-    descending sort, ties kept; the draw is Gumbel-max over
-    ``generator``'s uniforms, so it matches ``jax.random.categorical``
-    in distribution, not per id."""
+    """``paddle_tpu``'s ``sample_tokens``: logits [B, V] fp32, a
+    threefry ``key`` (``ops/prng.prng_key``), per-row temperature [B]
+    (<= 0 is greedy) and top_k [B] (<= 0 disables the filter) -> ids
+    [B] int32. Greedy rows are the first-index argmax; the top-k
+    threshold is the k-th value of a descending sort, lanes compared
+    with it as floats, ties kept; the draw is
+    ``jax.random.categorical(key, z)``, bitwise (``ops/prng.py``), so
+    the ids are JAX's for the same key."""
     V = logits.shape[-1]
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1)
@@ -29,9 +30,7 @@ def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
     z = torch.where(keep, logits, -math.inf)
     t = temperature.float()
     z = z / torch.where(t > 0, t, 1.0)[:, None]
-    u = torch.rand(z.shape, generator=generator, device=z.device)
-    u = u.clamp(min=torch.finfo(torch.float32).tiny)
-    sampled = torch.argmax(z - torch.log(-torch.log(u)), dim=-1)
+    sampled = prng.categorical(key, z)
     return torch.where(t > 0, sampled, greedy).to(torch.int32)
 
 
@@ -45,11 +44,12 @@ def paged_step_fns(cfg, block_size: int):
               -> (tokens [B] int32, pool)
 
     Both tails sample with the ``fused_sample`` kernel wrapper, so only
-    int32 ids leave the device. ``paddle_tpu``'s prefill tail samples
-    with ``sample_tokens`` and ``jax.random`` instead, a stream that
-    cannot be reproduced here: greedy rows are identical either way,
-    sampled first tokens match in distribution. The pool is updated in
-    place and returned. ``params`` may be the int8-weight tree of
+    int32 ids leave the device, each on ``paddle_tpu``'s stream: the
+    prefill tail on the threefry stream, bitwise ``paddle_tpu``'s
+    ``sample_tokens(logits, jax.random.PRNGKey(seed), ...)``; the decode
+    tail on the hashed stream of ``paddle_tpu``'s Pallas
+    ``fused_sample``. The pool is updated in place and returned.
+    ``params`` may be the int8-weight tree of
     ``io/lm_serving.quantize_lm_params`` and the pool a quantized one:
     both steps take them as they are (``paddle_tpu``'s ``_prefill_live``
     and ``_decode_live``; the per-layer dequant is in
@@ -60,7 +60,8 @@ def paged_step_fns(cfg, block_size: int):
                    top_k, seed):
         logits, pool = transformer.prefill_into_blocks(
             params, pool, tokens, length, pages, cfg, block_size=block_size)
-        return kdecode.fused_sample(logits, seed, temperature, top_k), pool
+        return kdecode.fused_sample(logits, seed, temperature, top_k,
+                                    stream="threefry"), pool
 
     def decode_fn(params, pool, tokens, pos, active, pages, temperature,
                   top_k, seed):

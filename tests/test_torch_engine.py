@@ -25,6 +25,7 @@ from paddle_tpu.serving import sampling as jsampling
 from paddle_tpu_torch.core import ragged as tragged
 from paddle_tpu_torch.models import transformer as tt
 from paddle_tpu_torch.observe import costs
+from paddle_tpu_torch.ops import prng
 from paddle_tpu_torch.serving import PagedDecodeEngine
 from paddle_tpu_torch.serving import blocks as tblocks
 from paddle_tpu_torch.serving import sampling as tsampling
@@ -173,10 +174,10 @@ def test_sample_tokens_greedy_and_top_k(rng):
     temp = np.asarray([0.0, 0.0, 1.0, 0.7], np.float32)
     topk = np.asarray([0, 3, 1, 2], np.int32)
     got = tsampling.sample_tokens(
-        torch.from_numpy(x), torch.Generator().manual_seed(0),
-        torch.from_numpy(temp), torch.from_numpy(topk)).numpy()
+        torch.from_numpy(x), prng.prng_key(0), torch.from_numpy(temp),
+        torch.from_numpy(topk)).numpy()
     want = np.asarray(jsampling.sample_tokens(
         jnp.asarray(x), jax.random.PRNGKey(0), jnp.asarray(temp),
         jnp.asarray(topk)))
-    np.testing.assert_array_equal(got[:3], want[:3])   # greedy, top-1
+    np.testing.assert_array_equal(got, want)   # the same key, the same ids
     assert got[3] in np.argsort(-x[3])[:2]             # inside the top-2

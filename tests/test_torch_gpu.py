@@ -406,12 +406,191 @@ def test_gpu_fused_sample_matches_plain(cuda):
     temp = _gpu(np.asarray([0, 0.8, 0, 0.8, 0, 1.2, 0, 0.5], np.float32),
                 cuda)
     topk = _gpu(np.asarray([0, 50, 0, 0, 3, 1, 50, 50257], np.int32), cuda)
-    before = kdecode.fused_sample.launches
+    before = kdecode.fused_sample.launches["hash"]
     got = kdecode.fused_sample(x, 1234, temp, topk)
     want = kdecode.fused_sample_plain(x, 1234, temp, topk)
     torch.cuda.synchronize()
-    assert kdecode.fused_sample.launches == before + 1
+    assert kdecode.fused_sample.launches["hash"] == before + 1
     assert torch.equal(got, want)
+
+
+def _sample_rows(rng, B, V):
+    """Logits [B, V] and controls cycling through greedy rows and top_k
+    0, 1, 50, V//4, V-1, V (at V = 50257, V//4 puts the k-th key in a
+    digit too full for the kernel's direct selection); every third row
+    has ties at its 50th value."""
+    x = (3.0 * rng.randn(B, V)).astype(np.float32)
+    for b in range(0, B, 3):
+        order = np.argsort(-x[b])
+        x[b, order[48:53]] = x[b, order[min(49, V - 1)]]
+    ks = [0, 1, 50, V // 4, V - 1, V]
+    topk = np.asarray([ks[b % 6] for b in range(B)], np.int32)
+    temp = np.asarray([0.0 if b % 4 == 3 else 0.6 + 0.1 * (b % 7)
+                       for b in range(B)], np.float32)
+    return x, temp, topk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", kdecode.STREAMS)
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("V", [64, 1000, 50257])
+def test_gpu_fused_sample_streams_bitwise(cuda, stream, B, V):
+    """Both streams bitwise the plain version at every batch and vocab
+    size; two launches equal; row 0 alone (the one row whose stream
+    index does not move with the batch) and every greedy row alone equal
+    their rows of the batch."""
+    rng = np.random.RandomState(B * 7 + V)
+    x, temp, topk = _sample_rows(rng, B, V)
+    args = (_gpu(x, cuda), 4321, _gpu(temp, cuda), _gpu(topk, cuda))
+    before = dict(kdecode.fused_sample.launches)
+    got = kdecode.fused_sample(*args, stream=stream)
+    again = kdecode.fused_sample(*args, stream=stream)
+    want = kdecode.fused_sample_plain(*args, stream=stream)
+    torch.cuda.synchronize()
+    assert kdecode.fused_sample.launches == dict(
+        before, **{stream: before[stream] + 2})
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    for b in [0] + [b for b in range(B) if temp[b] <= 0]:
+        one = kdecode.fused_sample(
+            args[0][b:b + 1].contiguous(), 4321, args[2][b:b + 1].contiguous(),
+            args[3][b:b + 1].contiguous(), stream=stream)
+        assert int(one[0]) == int(got[b]), b
+
+
+@pytest.mark.gpu
+def test_gpu_fused_sample_uniform_of_one_never_wins(cuda):
+    """Seed 33137 hashes row 0, lane 219 to u == 1.0: with that lane
+    filtered by top-k its score is NaN, which must not win on the card
+    either; kept, it wins outright."""
+    rng = np.random.RandomState(6)
+    V = 50257
+    x = rng.randn(1, V).astype(np.float32)
+    x[0, 219] = x.min() - 1.0
+    temp = _gpu(np.ones(1, np.float32), cuda)
+    topk = _gpu(np.full(1, 5, np.int32), cuda)
+    got = kdecode.fused_sample(_gpu(x, cuda), 33137, temp, topk)
+    want = kdecode.fused_sample_plain(_gpu(x, cuda), 33137, temp, topk)
+    assert torch.equal(got, want)
+    assert int(got[0]) in np.argsort(-x[0])[:5]
+    x[0, 219] = x.max() + 1.0
+    got = kdecode.fused_sample(_gpu(x, cuda), 33137, temp, topk)
+    assert int(got[0]) == 219
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvd", ["none", "int8", "int4"])
+def test_gpu_span_write_page_groups_byte_exact(cuda, kvd):
+    """A 9-page chunk (three CTAs of pages, the last holding one page)
+    with full pages, a partial page and empty padding pages, at Dh = 64
+    and the GQA width 128, byte for byte against the plain version."""
+    rng = np.random.RandomState(16)
+    L, Hkv, bs, pc, nblocks = 2, 3, 16, 9, 40
+    for Dh in (64, 128):
+        row = Dh // 2 if kvd == "int4" else Dh
+        pool, spans = {}, {}
+        for n in kprefill.span_names(kvd):
+            if n.endswith("_scale"):
+                pool[n] = _gpu(rng.rand(L, Hkv, nblocks * bs)
+                               .astype(np.float32), cuda)
+                spans[n] = _gpu(rng.rand(L, Hkv, pc * bs)
+                                .astype(np.float32), cuda)
+            elif kvd == "none":
+                pool[n] = _gpu(rng.randn(L, Hkv, nblocks * bs, row), cuda,
+                               torch.bfloat16)
+                spans[n] = _gpu(rng.randn(L, Hkv, pc * bs, row), cuda,
+                                torch.bfloat16)
+            else:
+                pool[n] = _gpu(rng.randint(-128, 128, (L, Hkv, nblocks * bs,
+                                                       row)).astype(np.int8),
+                               cuda)
+                spans[n] = _gpu(rng.randint(-128, 128, (L, Hkv, pc * bs,
+                                                        row)).astype(np.int8),
+                                cuda)
+        pages = _gpu(np.concatenate([rng.permutation(np.arange(1, nblocks))
+                                     [:6], np.zeros(3, np.int64)])
+                     .astype(np.int32), cuda)
+        valid = _gpu(np.arange(pc * bs) < 5 * bs + 7, cuda)
+        want = {n: t.clone() for n, t in pool.items()}
+        kprefill.paged_span_write(pool, spans, pages, valid, block_size=bs,
+                                  kv_dtype=kvd)
+        kprefill.paged_span_write_plain(want, spans, pages, valid,
+                                        block_size=bs, kv_dtype=kvd)
+        torch.cuda.synchronize()
+        for n in pool:
+            assert torch.equal(pool[n].view(torch.uint8),
+                               want[n].view(torch.uint8)), (Dh, n)
+
+
+@pytest.mark.gpu
+def test_gpu_span_write_refuses_what_it_cannot_take(cuda):
+    """The one-pass operand check of the span write names what the
+    kernel does not take: a wrong dtype, a span of another length, a
+    misaligned buffer, a mask of another length."""
+    L, Hkv, M, Dh, bs = 1, 2, 64, 8, 16
+    pool = {n: torch.zeros(L, Hkv, M, Dh, device=cuda) for n in ("k", "v")}
+    spans = {n: torch.ones(L, Hkv, bs, Dh, device=cuda) for n in ("k", "v")}
+    pages = torch.zeros(1, dtype=torch.int32, device=cuda)
+    valid = torch.ones(bs, dtype=torch.bool, device=cuda)
+    kw = dict(block_size=bs)
+    with pytest.raises(ValueError, match="spans\\['v'\\]: dtype"):
+        kprefill.paged_span_write(pool, dict(spans, v=spans["v"].double()),
+                                  pages, valid, **kw)
+    with pytest.raises(ValueError, match="spans\\['k'\\]: shape"):
+        kprefill.paged_span_write(pool, dict(spans, k=spans["k"][:, :, :8]
+                                             .contiguous()), pages, valid,
+                                  **kw)
+    flat = torch.zeros(L * Hkv * bs * Dh + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kprefill.paged_span_write(
+            pool, dict(spans, k=flat[1:].view(L, Hkv, bs, Dh)), pages,
+            valid, **kw)
+    with pytest.raises(ValueError, match="valid: shape"):
+        kprefill.paged_span_write(pool, spans, pages, valid[:8], **kw)
+    kprefill.paged_span_write(pool, spans, pages, valid, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(pool["k"][:, :, :bs], spans["k"])
+
+
+@pytest.mark.gpu
+def test_gpu_split_kernels_on_two_streams(cuda):
+    """Decode and chunk prefill launched on two streams at once give
+    bitwise the outputs of the same launches one after the other: each
+    stream has its own arrival counters."""
+    rng = np.random.RandomState(17)
+    B, Hkv, G, Dh, P, bs, nblocks = 8, 12, 1, 64, 64, 16, 600
+    q = _gpu(rng.randn(B, Hkv, G, Dh), cuda, torch.bfloat16)
+    k = _gpu(rng.randn(Hkv, nblocks * bs, Dh), cuda, torch.bfloat16)
+    v = _gpu(rng.randn(Hkv, nblocks * bs, Dh), cuda, torch.bfloat16)
+    pages = _gpu(np.stack([rng.permutation(nblocks)[:P] for _ in range(B)])
+                 .astype(np.int32), cuda)
+    pos = _gpu(rng.randint(100, P * bs, B).astype(np.int32), cuda)
+    C = 256
+    qc = _gpu(rng.randn(C, Hkv, G, Dh), cuda, torch.bfloat16)
+    kc = _gpu(rng.randn(C, Hkv, Dh), cuda, torch.bfloat16)
+    vc = _gpu(rng.randn(C, Hkv, Dh), cuda, torch.bfloat16)
+    ctx = _gpu(rng.permutation(nblocks)[:40].astype(np.int32), cuda)
+
+    def decode():
+        return kdecode.flash_decode_attention(q, k, v, pages, pos,
+                                              block_size=bs)
+
+    def prefill():
+        return kprefill.flash_chunk_prefill(qc, kc, vc, k, v, ctx,
+                                            block_size=bs)
+
+    want = [decode(), prefill()]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for _ in range(20):
+        outs = [[], []]
+        for _ in range(8):
+            for i, (s, fn) in enumerate(zip(streams, (decode, prefill))):
+                with torch.cuda.stream(s):
+                    outs[i].append(fn())
+        torch.cuda.synchronize()
+        for i in range(2):
+            assert all(torch.equal(o, want[i]) for o in outs[i]), i
 
 
 @pytest.mark.gpu
@@ -444,6 +623,7 @@ def test_gpu_engine_runs_every_kernel(cuda):
         counts = kernels.launch_counts()
         assert counts["flash_decode_attention"] > 0
         assert counts["fused_sample"] > 0
+        assert counts["fused_sample.threefry"] > 0
         assert counts["flash_chunk_prefill"] > 0
         assert counts["paged_span_write"] > 0
     assert outs[0][1] == 0 and outs[1][1] == 64

@@ -142,6 +142,47 @@ class TestSpanWritePlain:
                     tpool[n][:, :, b * bs:(b + 1) * bs].numpy(),
                     pool[n][:, :, b * bs:(b + 1) * bs])
 
+    @pytest.mark.parametrize("kvd", ["none", "int8", "int4"])
+    def test_full_partial_and_empty_pages_every_pool(self, kvd, rng):
+        """Four chunk pages: two full, one partial, one empty (padding
+        that maps to page 0), in a bf16-width pool and in int8 / int4
+        code pools with their fp32 scale tables: bitwise the Pallas
+        kernel's pool, byte for byte."""
+        L, Hkv, Dh, bs, nblocks = 2, 3, 8, 4, 9
+        pc = 4
+        row = Dh // 2 if kvd == "int4" else Dh
+        names = kprefill.span_names(kvd)
+        pool, spans = {}, {}
+        for n in names:
+            tail = () if n.endswith("_scale") else (row,)
+            if n.endswith("_scale") or kvd == "none":
+                draw = lambda m: rng.randn(L, Hkv, m, *tail).astype(
+                    np.float32)
+            else:
+                draw = lambda m: rng.randint(-128, 128, (L, Hkv, m, *tail)
+                                             ).astype(np.int8)
+            pool[n], spans[n] = draw(nblocks * bs), draw(pc * bs)
+        pages = np.asarray([6, 2, 8, 0], np.int32)
+        valid = np.arange(pc * bs) < 2 * bs + 1     # full, full, 1 row, none
+        want = jprefill.paged_span_write(
+            {n: jnp.asarray(a) for n, a in pool.items()},
+            {n: jnp.asarray(a) for n, a in spans.items()},
+            jnp.asarray(pages), jnp.asarray(valid), block_size=bs,
+            interpret=True)
+        tpool = {n: _t(a.copy()) for n, a in pool.items()}
+        kprefill.paged_span_write(tpool, {n: _t(a) for n, a in spans.items()},
+                                  _t(pages), _t(valid), block_size=bs,
+                                  kv_dtype=kvd)
+        for n in names:
+            got = tpool[n].numpy()
+            np.testing.assert_array_equal(got.view(np.uint8),
+                                          np.asarray(want[n]).view(np.uint8))
+            # the empty page's target (page 0) and the partial page's
+            # padded rows keep their old bytes
+            np.testing.assert_array_equal(got[:, :, :bs], pool[n][:, :, :bs])
+            np.testing.assert_array_equal(got[:, :, 8 * bs + 1:],
+                                          pool[n][:, :, 8 * bs + 1:])
+
     def test_quantized_spans_raise(self):
         """Four arrays are a quantized pool's span write: they raise
         unless ``kv_dtype`` names a quantized pool, and then all four
@@ -270,11 +311,13 @@ class TestWrappers:
         q, k, v, pages, pos = _decode_inputs(rng, 2, 1, 1, 8, 2, 4, 4)
         kdecode.flash_decode_attention(_t(q), _t(k), _t(v), _t(pages),
                                        _t(pos), block_size=4)
-        kdecode.fused_sample(torch.zeros(2, 5), 0, torch.zeros(2),
-                             torch.zeros(2, dtype=torch.int32))
+        for stream in kdecode.STREAMS:
+            kdecode.fused_sample(torch.zeros(2, 5), 0, torch.zeros(2),
+                                 torch.zeros(2, dtype=torch.int32), stream)
         assert kernels.launch_counts() == {
             "flash_decode_attention": 0, "flash_decode_attention.int8": 0,
             "flash_decode_attention.int4": 0, "fused_sample": 0,
+            "fused_sample.threefry": 0,
             "flash_chunk_prefill": 0, "flash_chunk_prefill.int8": 0,
             "flash_chunk_prefill.int4": 0, "paged_span_write": 0,
             "paged_span_write.int8": 0, "paged_span_write.int4": 0,
