@@ -46,26 +46,40 @@ order it:
    bitwise equal (the attention backward uses no atomics). The card's
    five steps are the fp32 attention branch's path: their launch counts
    are that branch's ``launches`` (no bf16 kernel may launch there);
-6. serves 16 seeded requests with a GPT-2-small-width engine (random
-   weights from a seed) and reads each serving kernel's launch count
-   for that run — every count must be > 0 — and checks that a
+6. checks the engine's step programs (``check graphs:``): at GPT-2
+   small widths over bf16, int8 and int4 pools, each CUDA graph
+   replayed (prefill: a cold chunk and a chunk with context; decode: 8
+   rows, greedy and sampled, two inactive) gives bitwise the ids and
+   every pool byte of the raw step function on the same inputs, across
+   new seeds and after a page-table remap;
+7. serves 16 seeded requests with a GPT-2-small-width engine (random
+   weights from a seed) in a fresh engine, so every CUDA graph capture
+   falls in the timed window (``captures``, ``capture_s``), then a
+   second trace drawn the same way (``warm``); reads each serving
+   kernel's launch count for the first run — every count must be > 0 —
+   checks that the graphs captured are the trace's distinct (chunk
+   bucket, page-vector length) keys plus one for decode, that a
    prefix-cache hit gives the same greedy tokens as the same prompt
-   served cold in a fresh engine;
-7. does the same twice more over quantized pools: (b) an int4 pool
-   with the bf16 weights, and (a) an int8 pool with
+   served cold in a fresh engine, and profiles a third trace
+   (``engine_profile:``: the ten device kernels with the most time, the
+   device's busy share); then does the same over quantized pools: (b)
+   an int4 pool with the bf16 weights, and (a) an int8 pool with
    ``quantize_lm_params`` int8 weights of the same seed-0 fp32 draws
    (the bf16 weights freed first, so its peak memory holds the int8
-   tree alone); each run must launch every quantized branch of its
-   storage. Between the two, decode logits off int8 and int4 pools must
-   lie within ``kv_rel_l2_budget`` of the bf16 pool's on one prompt;
+   tree alone), each run launching every quantized branch of its
+   storage (``engine_int4_profile:``, ``engine_int8_profile:``). Between
+   the two, decode logits off int8 and int4 pools must lie within
+   ``kv_rel_l2_budget`` of the bf16 pool's on one prompt, and a
+   latency-tier burst preempts batch-tier work in a pool of 8 blocks
+   (``preempt:``): both resume modes occur, every request completes,
+   each victim's greedy ids equal its run alone;
 8. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
-   ten device kernels with the most time, the device's busy share; the
-   bf16 engine's trace is profiled the same way, ``engine_profile:``);
+   ten device kernels with the most time, the device's busy share);
 9. prints the card line, a ``{"kernels": [...]}`` line (17 entries) and,
    last, the ``{"ok": true, ...}`` line.
 
@@ -397,8 +411,9 @@ def check_sample(torch, timer, kd, build, dev, rng, stream):
     x = torch.from_numpy((3.0 * rng.randn(B, V)).astype(np.float32)).to(dev)
     temp = torch.tensor([0.0, 0.8] * 4, device=dev)[-B:]
     topk = torch.tensor([0, 50] * 4, dtype=torch.int32, device=dev)[-B:]
-    got = kd.fused_sample(x, 1234, temp, topk, stream)
-    want = kd.fused_sample_plain(x, 1234, temp, topk, stream)
+    seed = torch.tensor(1234, dtype=torch.int32, device=dev)
+    got = kd.fused_sample(x, seed, temp, topk, stream)
+    want = kd.fused_sample_plain(x, seed, temp, topk, stream)
     torch.cuda.synchronize()
     err = float((got.long() - want.long()).abs().max().item())
 
@@ -409,7 +424,7 @@ def check_sample(torch, timer, kd, build, dev, rng, stream):
 
     out = torch.empty(B, dtype=torch.int32, device=dev)
     lib, ptr = build.library(), build.ptr
-    args = [ptr(x), ptr(temp), ptr(topk), ptr(out), B, V, 1234,
+    args = [ptr(x), ptr(temp), ptr(topk), ptr(out), B, V, ptr(seed),
             kd.STREAMS.index(stream), build.stream(dev)]
 
     def entry():
@@ -420,8 +435,8 @@ def check_sample(torch, timer, kd, build, dev, rng, stream):
         fail(f"fused_sample ({stream}): the C entry and the wrapper differ "
              f"on the same inputs")
     times = {
-        "ms": timer.ms(lambda: kd.fused_sample(x, 1234, temp, topk, stream)),
-        "plain_ms": timer.ms(lambda: kd.fused_sample_plain(x, 1234, temp,
+        "ms": timer.ms(lambda: kd.fused_sample(x, seed, temp, topk, stream)),
+        "plain_ms": timer.ms(lambda: kd.fused_sample_plain(x, seed, temp,
                                                            topk, stream)),
         "library_ms": timer.ms(library),
         "entry_ms": timer.ms(entry),
@@ -443,6 +458,7 @@ def sample_sweep(torch, kd, dev):
     the top-k filter drops, which must not win. Returns the number of
     cases checked."""
     cases = 0
+    seed = torch.tensor(4321, dtype=torch.int32, device=dev)
     for stream in kd.STREAMS:
         for B in (1, 8, 64):
             for V in (64, 1000, 50257):
@@ -457,11 +473,11 @@ def sample_sweep(torch, kd, dev):
                 temp = torch.tensor([0.0 if b % 4 == 3 else 0.6 + 0.1 * (b % 7)
                                      for b in range(B)], device=dev)
                 xs = torch.from_numpy(x).to(dev)
-                got = kd.fused_sample(xs, 4321, temp, topk, stream)
-                again = kd.fused_sample(xs, 4321, temp, topk, stream)
-                want = kd.fused_sample_plain(xs, 4321, temp, topk, stream)
+                got = kd.fused_sample(xs, seed, temp, topk, stream)
+                again = kd.fused_sample(xs, seed, temp, topk, stream)
+                want = kd.fused_sample_plain(xs, seed, temp, topk, stream)
                 alone = all(
-                    int(kd.fused_sample(xs[b:b + 1].contiguous(), 4321,
+                    int(kd.fused_sample(xs[b:b + 1].contiguous(), seed,
                                         temp[b:b + 1].contiguous(),
                                         topk[b:b + 1].contiguous(),
                                         stream)[0]) == int(got[b])
@@ -477,8 +493,9 @@ def sample_sweep(torch, kd, dev):
     x[0, 219] = x.min() - 1.0
     one = torch.ones(1, device=dev)
     top5 = torch.full((1,), 5, dtype=torch.int32, device=dev)
-    got = kd.fused_sample(torch.from_numpy(x).to(dev), 33137, one, top5)
-    want = kd.fused_sample_plain(torch.from_numpy(x).to(dev), 33137, one,
+    seed = torch.tensor(33137, dtype=torch.int32, device=dev)
+    got = kd.fused_sample(torch.from_numpy(x).to(dev), seed, one, top5)
+    want = kd.fused_sample_plain(torch.from_numpy(x).to(dev), seed, one,
                                  top5)
     if not (torch.equal(got, want) and int(got[0]) in np.argsort(-x[0])[:5]):
         fail(f"fused_sample: the uniform of 1.0 on a filtered lane won "
@@ -1101,54 +1118,104 @@ def submit(eng, prompt, max_new, temp):
                       top_k=50 if temp > 0 else 0)
 
 
-def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
-                 kv_dtype, label, branch, profiled=False):
-    """Serve the 16-request trace with ``params`` over a ``kv_dtype``
-    pool; print the ``<label>:`` line; check every request, the launch
-    of each serving kernel of the ``branch`` ("" for the model-dtype
-    pool, ".int8"/".int4") and that the prefix hit equals the cold run
-    in a fresh engine; with ``profiled``, serve the trace once more in a
-    fresh engine under the profiler (``<label>_profile:`` line). Returns
-    the timed run's launch counts."""
-    kw = dict(ENGINE_KW, kv_dtype=kv_dtype)
-    eng = PagedDecodeEngine.from_params(params, cfg, device=dev, **kw)
-    # first calls (cuBLAS handles, allocator) stay out of the timing
-    warm = submit(eng, np.arange(40) % cfg.vocab, 4, 0.0)
-    eng.run_until_idle()
-    if len(warm.tokens) != 4:
-        fail("warm-up request did not finish")
-    reqs_in = trace(np.random.RandomState(0), cfg.vocab)
+def chunk_keys(reqs, chunk_tokens, block_size, buckets) -> set:
+    """The (chunk bucket, page-vector length) keys the scheduler's chunk
+    walk reaches for ``reqs``: each prompt from its prefix hit (whole
+    chunks at the front) in chunks of ``chunk_tokens``, the tail padded
+    to the smallest covering bucket."""
+    keys = set()
+    for r in reqs:
+        off, n = r.prefix_hit_tokens, r.prompt.size
+        while off < n:
+            c = min(n - off, chunk_tokens)
+            b = min(x for x in buckets if x >= c)
+            keys.add((b, off // block_size + -(-b // block_size)))
+            off += c
+    return keys
+
+
+def serve_trace(torch, eng, reqs_in):
+    """Submit ``reqs_in`` at once and drain: (requests, wall seconds,
+    graphs captured in the window, capture seconds in the window)."""
+    before = eng.compile_counts()
+    secs = eng.health()["compile_seconds"]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()                 # counts of the main path only
     t0 = time.perf_counter()
     reqs = [submit(eng, *r) for r in reqs_in]
     eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    after = eng.compile_counts()
+    secs2 = eng.health()["compile_seconds"]
+    captures = {k: after[k] - before[k] for k in after}
+    return reqs, wall, captures, sum(secs2.values()) - sum(secs.values())
+
+
+def trace_doc(reqs, wall, captures, capture_s) -> dict:
     tokens = sum(len(r.tokens) for r in reqs)
     ttft = np.asarray([r.ttft_s for r in reqs])
-    health = eng.health()
-    doc = {"requests": len(reqs), "generated_tokens": tokens,
-           "wall_s": wall, "tokens_per_s": tokens / wall,
-           "ttft_p50_s": float(np.percentile(ttft, 50)),
-           "ttft_p99_s": float(np.percentile(ttft, 99)),
-           "decode_mfu": eng.decode_mfu(),
-           "decode_steps": health["decode_steps"],
-           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "kv_dtype": health["kv_dtype"],
-           "kv_bytes_per_token": health["kv_bytes_per_token"],
-           "pool_bytes": eng.pool_bytes,
-           "prefix_hit_tokens": reqs[1].prefix_hit_tokens,
-           "launches": launches}
-    print(f"{label}: " + json.dumps(doc))
+    return {"requests": len(reqs), "generated_tokens": tokens,
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "prefix_hit_tokens": reqs[1].prefix_hit_tokens,
+            "captures": captures, "capture_s": capture_s}
+
+
+def check_served(label, reqs, reqs_in, vocab):
     for r, (p, max_new, _) in zip(reqs, reqs_in):
         ids = np.asarray(r.tokens)
         if (r.status != "done" or len(ids) != max_new
-                or ids.min() < 0 or ids.max() >= cfg.vocab):
+                or ids.min() < 0 or ids.max() >= vocab):
             fail(f"{label} request {r.rid}: status {r.status}, {len(ids)} "
                  f"of {max_new} tokens, ids in [{ids.min()}, {ids.max()}]")
+
+
+def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
+                 kv_dtype, label, branch):
+    """Serve the 16-request trace with ``params`` over a ``kv_dtype``
+    pool in a fresh engine; print the ``<label>:`` line, whose timed
+    window holds every CUDA graph capture of the trace (``captures``,
+    ``capture_s``), and its ``warm`` block: a second trace drawn the same
+    way from seed 1, served next by the same engine. Check every
+    request, the launch of each serving kernel of the ``branch`` ("" for
+    the model-dtype pool, ".int8"/".int4"), that the graphs captured are
+    the trace's distinct (bucket, page-vector length) keys plus one for
+    decode, and that the prefix hit equals the cold run in a fresh
+    engine; then serve a third trace (seed 2) under the profiler
+    (``<label>_profile:`` line). Returns the timed run's launch counts."""
+    kw = dict(ENGINE_KW, kv_dtype=kv_dtype)
+    # first-use costs of the process (cuBLAS handles, the allocator)
+    # stay out of the timing: a throwaway engine serves one request, so
+    # every capture of the timed engine falls inside its window
+    warm_eng = PagedDecodeEngine.from_params(params, cfg, device=dev, **kw)
+    warm = submit(warm_eng, np.arange(40) % cfg.vocab, 4, 0.0)
+    warm_eng.run_until_idle()
+    if len(warm.tokens) != 4:
+        fail("warm-up request did not finish")
+    del warm_eng
+    eng = PagedDecodeEngine.from_params(params, cfg, device=dev, **kw)
+    reqs_in = trace(np.random.RandomState(0), cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()                 # counts of the main path only
+    reqs, wall, captures, capture_s = serve_trace(torch, eng, reqs_in)
+    launches = kernels.launch_counts()
+    health = eng.health()
+    doc = trace_doc(reqs, wall, captures, capture_s)
+    doc.update({"decode_mfu": eng.decode_mfu(),
+                "decode_steps": health["decode_steps"],
+                "max_memory_allocated_bytes":
+                    torch.cuda.max_memory_allocated(),
+                "kv_dtype": health["kv_dtype"],
+                "kv_bytes_per_token": health["kv_bytes_per_token"],
+                "pool_bytes": eng.pool_bytes, "launches": launches})
+    keys = chunk_keys(reqs, eng.chunk_tokens, eng.block_size, eng.buckets)
+    warm_in = trace(np.random.RandomState(1), cfg.vocab)
+    wreqs, wwall, wcaptures, wcapture_s = serve_trace(torch, eng, warm_in)
+    doc["warm"] = trace_doc(wreqs, wwall, wcaptures, wcapture_s)
+    print(f"{label}: " + json.dumps(doc))
+    check_served(label, reqs, reqs_in, cfg.vocab)
+    check_served(f"{label} warm", wreqs, warm_in, cfg.vocab)
     if not eng.pool.idle:
         fail(f"{label}: blocks still held after the engine drained")
     path = [k + (branch if k != "fused_sample" else "")
@@ -1156,6 +1223,15 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         fail(f"{label}: kernels never launched on the main path: {missing}")
+    wkeys = chunk_keys(wreqs, eng.chunk_tokens, eng.block_size, eng.buckets)
+    want = {"prefill": len(keys), "decode": 1}
+    wwant = {"prefill": len(wkeys - keys), "decode": 0}
+    print(f"check {label} graphs: captured {captures} in the trace, "
+          f"{wcaptures} in the warm trace; distinct (bucket, pages) keys "
+          f"{len(keys)} and {len(wkeys - keys)} new + one decode graph")
+    if captures != want or wcaptures != wwant:
+        fail(f"{label}: captured {captures} / {wcaptures}, expected "
+             f"{want} / {wwant}")
     if reqs[1].prefix_hit_tokens != 256:
         fail(f"{label}: the shared-prefix request hit "
              f"{reqs[1].prefix_hit_tokens} tokens, expected 256")
@@ -1171,22 +1247,191 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
     if not same:
         fail(f"{label}: prefix hit and cold prefill gave different greedy "
              f"tokens")
-    if profiled:
-        # the same trace in a fresh, warmed engine under the profiler:
-        # where the serving time goes (``engine_profile:`` line)
-        prof_eng = PagedDecodeEngine.from_params(params, cfg, device=dev,
-                                                 **kw)
-        submit(prof_eng, np.arange(40) % cfg.vocab, 4, 0.0)
-        prof_eng.run_until_idle()
+    del cold_eng
+    # where the serving time goes once the engine is warm: a third trace
+    # under the profiler (its few new keys capture inside the window)
+    prof_in = trace(np.random.RandomState(2), cfg.vocab)
 
-        def serve():
-            for r in reqs_in:
-                submit(prof_eng, *r)
-            prof_eng.run_until_idle()
-            torch.cuda.synchronize()
-        print(f"{label}_profile: " + json.dumps(profile_window(torch,
-                                                               serve)))
+    def serve():
+        for r in prof_in:
+            submit(eng, *r)
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+    before = eng.compile_counts()
+    profile = profile_window(torch, serve)
+    after = eng.compile_counts()
+    profile["captures"] = {k: after[k] - before[k] for k in after}
+    print(f"{label}_profile: " + json.dumps(profile))
     return launches
+
+
+def random_pool(torch, tt, cfg, nb, bs, kvd, dev, seed):
+    """A pool of ``nb`` blocks in the storage ``kvd`` holding random
+    values (bf16 values ~N(0, 0.25), int8/int4 codes over their range,
+    fp32 scales in [0.001, 0.021)), drawn on the CPU from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    pool = tt.init_block_pool(cfg, nb, bs, kv_dtype=kvd, device="cpu")
+    for name, t in pool.items():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen))
+        elif name.endswith("_scale"):
+            t.copy_(torch.rand(t.shape, generator=gen) * 0.02 + 0.001)
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen) * 0.5)
+    return {n: t.to(dev) for n, t in pool.items()}
+
+
+def same_pool(torch, a, b) -> bool:
+    return all(torch.equal(a[n].view(torch.uint8), b[n].view(torch.uint8))
+               for n in a)
+
+
+def graph_phase(torch, tt, sampling, cfg, params, dev):
+    """``check graphs:``: the engine's step programs against their raw
+    functions on the same inputs, over bf16, int8 and int4 pools at the
+    serving shapes (GPT-2 small widths, bf16 weights). Each program
+    captures at its first call and replays after; its raw function runs
+    eagerly on a copy of the pool. After every call the ids and every
+    byte of the two pools must be equal. Prefill: a cold chunk (200
+    tokens, bucket 256), a chunk with 256 tokens of context (150 tokens),
+    then the cold chunk's graph replayed greedy and sampled with new
+    seeds; decode: 8 rows (6 active, half of them sampled; 2 inactive
+    with all-zero page tables), replayed with a second seed (whose
+    sampled ids must differ somewhere, so a frozen seed shows) and after
+    a remap of one row's page table."""
+    bs, B = ENGINE_KW["block_size"], ENGINE_KW["batch"]
+    P = ENGINE_KW["cache_len"] // bs
+    nb = 460
+    rng = np.random.RandomState(21)
+    blocks = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    doc = {}
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    for kvd in (None, "int8", "int4"):
+        prefill, decode = sampling.paged_step_fns(cfg, bs)
+        pool_g = random_pool(torch, tt, cfg, nb, bs, kvd, dev, 9)
+        pool_r = {n: t.clone() for n, t in pool_g.items()}
+        calls = 0
+
+        def check(what, got, want):
+            nonlocal calls
+            calls += 1
+            if not (torch.equal(got, want) and same_pool(torch, pool_g,
+                                                         pool_r)):
+                fail(f"graphs ({kvd or 'bf16'}): {what}: replay ids "
+                     f"{got.tolist()} vs raw {want.tolist()}, pools equal "
+                     f"{same_pool(torch, pool_g, pool_r)}")
+
+        slot = blocks[:32]
+        for what, off, c, temp, seed in (
+                ("prefill cold", 0, 200, 0.8, 11),
+                ("prefill with context", 256, 150, 0.8, 12),
+                ("prefill cold greedy", 0, 200, 0.0, 13),
+                ("prefill cold, new seed", 0, 200, 0.8, 14)):
+            toks = rng.randint(0, cfg.vocab, (1, 256)).astype(np.int32)
+            toks[0, c:] = 0
+            pages = slot[:off // bs + 256 // bs]
+            args = (np.asarray([temp], np.float32),
+                    np.asarray([50], np.int32))
+            got, _ = prefill(params, pool_g, toks, np.int32(c), pages,
+                             *args, np.int32(seed))
+            got = got.clone()
+            want, _ = prefill.raw(params, pool_r, T(toks), scalar(c),
+                                  T(pages), *map(T, args), scalar(seed))
+            check(what, got, want)
+        table = np.zeros((B, P), np.int32)
+        for b in range(6):
+            table[b, :60] = blocks[32 + 60 * b:32 + 60 * (b + 1)]
+        pages_dev = T(table)
+        pos = np.concatenate([rng.randint(300, 950, 6),
+                              [5, 700]]).astype(np.int32)
+        active = np.asarray([True] * 6 + [False] * 2)
+        temp = np.asarray([0.0, 0.8] * 4, np.float32)
+        topk = np.asarray([0, 50] * 4, np.int32)
+        sampled = {}
+        for what, seed in (("decode", 21), ("decode, new seed", 22),
+                           ("decode after a remap", 23)):
+            if what.endswith("remap"):
+                table[1, :60] = blocks[32 + 360:32 + 420]
+                pages_dev.copy_(T(table))
+            toks = rng.randint(0, cfg.vocab, B).astype(np.int32)
+            got, _ = decode(params, pool_g, toks, pos, active, pages_dev,
+                            temp, topk, np.int32(seed))
+            got = got.clone()
+            want, _ = decode.raw(params, pool_r, T(toks), T(pos), T(active),
+                                 pages_dev, T(temp), T(topk), scalar(seed))
+            check(what, got, want)
+            if what != "decode after a remap":
+                sampled[seed] = (toks, got[1::2].tolist())
+        if sampled[21][0][1::2].tolist() == sampled[22][0][1::2].tolist() \
+                and sampled[21][1] == sampled[22][1]:
+            fail(f"graphs ({kvd or 'bf16'}): two seeds drew the same ids")
+        graphs = {"prefill": prefill.graphs, "decode": decode.graphs}
+        if graphs != {"prefill": 2, "decode": 1}:
+            fail(f"graphs ({kvd or 'bf16'}): captured {graphs}")
+        doc[kvd or "bf16"] = {"graphs": graphs, "calls": calls,
+                              "capture_s": prefill.tracker.compile_seconds()}
+        del pool_g, pool_r
+    print("check graphs: replayed step programs vs their raw functions, "
+          "ids and every pool byte equal: " + json.dumps(doc))
+
+
+def preempt_phase(torch, PagedDecodeEngine, cfg, dev, params):
+    """``preempt:``: GPT-2 small widths, bf16, a pool of 8 blocks of 16
+    and 2 slots. A batch-tier request decodes until a latency-tier one
+    arrives whose reservation does not fit: it is preempted to blocks,
+    and since the latency request's allocations come from free blocks
+    its own stay cached and it resumes by ``remap``. Then a second
+    batch request and a latency burst whose first request's worst case
+    is the whole pool: its allocations evict the victim's parked blocks
+    and it resumes by ``replay``. Every request completes, each victim's
+    greedy ids equal the same request served alone in a fresh engine,
+    and the pool is idle at the end."""
+    kw = dict(ENGINE_KW, batch=2, num_blocks=8)
+    rng = np.random.RandomState(31)
+    eng = PagedDecodeEngine.from_params(params, cfg, device=dev, **kw)
+    t0 = time.perf_counter()
+    victims, others = [], []
+    for lat_lens in ([(48, 16)], [(64, 64), (32, 16)]):
+        v = eng.submit(rng.randint(0, cfg.vocab, 48), 64, tier="batch")
+        victims.append(v)
+        while len(v.tokens) < 3:
+            eng.step()
+        others += [eng.submit(rng.randint(0, cfg.vocab, n), m,
+                              tier="latency") for n, m in lat_lens]
+        eng.run_until_idle()
+    wall = time.perf_counter() - t0
+    resumes = eng.metrics.get("engine_resumes_total")
+    doc = {"requests": len(victims) + len(others),
+           "preemptions": int(eng.metrics.get(
+               "engine_preemptions_total").value()),
+           "resumes": {m: int(resumes.value(mode=m))
+                       for m in ("remap", "replay")},
+           "victim_preemptions": [v.preemptions for v in victims],
+           "wall_s": wall, "captures": eng.compile_counts()}
+    alone = []
+    for v in victims:
+        # the same engine shapes: cuBLAS may round otherwise at another
+        # batch size
+        solo = PagedDecodeEngine.from_params(params, cfg, device=dev, **kw)
+        r = solo.submit(v.prompt, v.max_new)
+        solo.run_until_idle()
+        alone.append(r.tokens == v.tokens)
+    doc["equal_to_alone"] = alone
+    print("preempt: " + json.dumps(doc))
+    done = all(r.status == "done" and len(r.tokens) == r.max_new
+               for r in victims + others)
+    if not (done and eng.pool.idle and all(alone)
+            and doc["resumes"] == {"remap": 1, "replay": 1}
+            and doc["victim_preemptions"] == [1, 1]):
+        fail(f"preemption: every request done {done}, pool idle "
+             f"{eng.pool.idle}, resumes {doc['resumes']}, victims equal to "
+             f"their runs alone {alone}")
 
 
 def quant_logits_phase(torch, tt, cfg, params, dev):
@@ -1300,7 +1545,10 @@ def profile_window(torch, fn) -> dict:
     kernel and copy intervals) and its share of the host-clocked time,
     or that the trace holds no device time; ``port_kernels``: calls, ms
     and share of the busy time of each of the port's kernels (by name
-    fragment), wherever they rank."""
+    fragment), wherever they rank; ``host_top``: the ten host-side
+    events (PyTorch operators and CUDA runtime calls) with the most self
+    time, which is where the host's share of the window goes (a
+    synchronising call's self time is its wait for the device)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1308,9 +1556,11 @@ def profile_window(torch, fn) -> dict:
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_name = [], {}
+    spans, by_name, host = [], {}, {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
+            calls, us = host.get(ev.name, (0, 0.0))
+            host[ev.name] = (calls + 1, us + ev.self_cpu_time_total)
             continue
         start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
@@ -1340,7 +1590,10 @@ def profile_window(torch, fn) -> dict:
             "device_kernels": len(spans),
             "top": [{"name": name[:120], "calls": calls, "ms": us / 1e3}
                     for name, (calls, us) in top],
-            "port_kernels": port}
+            "port_kernels": port,
+            "host_top": [{"name": name[:80], "calls": calls,
+                          "self_ms": us / 1e3} for name, (calls, us) in
+                         sorted(host.items(), key=lambda kv: -kv[1][1])[:10]]}
 
 
 # a fragment of each port kernel's device name, for profile_window
@@ -1418,7 +1671,7 @@ def main():
     from paddle_tpu_torch.ops.kernels import attention as ka
     from paddle_tpu_torch.ops.kernels import decode as kd
     from paddle_tpu_torch.ops.kernels import prefill as kp
-    from paddle_tpu_torch.serving import PagedDecodeEngine
+    from paddle_tpu_torch.serving import PagedDecodeEngine, sampling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1456,11 +1709,13 @@ def main():
     parity = train_parity(torch, tt, topt, kernels)
     cfg = gpt2_small(tt)
     params = tt.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    graph_phase(torch, tt, sampling, cfg, params, dev)
     served = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
-                          params, None, "engine", "", profiled=True)
+                          params, None, "engine", "")
     # (b) int4 pool, bf16 weights
     served4 = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
                            params, "int4", "engine_int4", ".int4")
+    preempt_phase(torch, PagedDecodeEngine, cfg, dev, params)
     quant_logits_phase(torch, tt, cfg, params, dev)
     del params                  # (a)'s peak memory holds its weights only
     # (a) int8 pool, int8 weights from the same seed-0 fp32 draws

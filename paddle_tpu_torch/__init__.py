@@ -3,7 +3,9 @@
 The package mirrors ``paddle_tpu``'s module paths where a counterpart
 exists, so a reader can put the two side by side:
 
-- ``core/``            device placement, dtype names, length buckets
+- ``core/``            device placement, dtype names, length buckets,
+                       and the step programs that capture and replay
+                       CUDA graphs (``core/graphs.py``)
 - ``ops/norm.py``, ``ops/loss.py``  layer norm, softmax cross-entropy
 - ``ops/q8.py``        int8 weights and int8/int4 KV rows for serving
 - ``io/lm_serving.py`` ``quantize_lm_params``: the int8-weight tree
@@ -16,7 +18,9 @@ exists, so a reader can put the two side by side:
 - ``optimizer.py``     schedules, regularization, clipping and the
                        per-array update rules over parameter trees
 - ``serving/``         sampling, the block pool and the paged engine
-- ``observe/``         metrics registry, MFU accounting
+                       with its tiers, tenant budgets and preemption
+- ``observe/``         metrics registry, MFU accounting, the compile
+                       tracker
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 ``core.place.default_device()`` raises where there is no card.

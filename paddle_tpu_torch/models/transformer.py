@@ -322,14 +322,29 @@ def pool_from_numpy(pool: Dict, cfg: TransformerConfig,
     return out
 
 
+# (half, theta, device) -> the inverse frequencies, computed on the CPU
+# once and kept on the device: a step captured into a CUDA graph may not
+# copy from host memory
+_ROPE_FREQS: Dict = {}
+
+
+def _rope_freqs(half: int, theta: float, device) -> torch.Tensor:
+    key = (half, float(theta), device)
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        freqs = torch.pow(torch.tensor(theta, dtype=torch.float32),
+                          -torch.arange(half, dtype=torch.float32) / half)
+        freqs = _ROPE_FREQS[key] = freqs.to(device)
+    return freqs
+
+
 def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     """cos/sin tables [T, Dh/2] for the given global positions."""
     if head_dim % 2:
         raise ValueError(f"RoPE requires an even head_dim, got {head_dim}")
     half = head_dim // 2
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32),
-                      -torch.arange(half, dtype=torch.float32) / half)
-    ang = positions.float()[:, None] * freqs.to(positions.device)[None, :]
+    freqs = _rope_freqs(half, theta, positions.device)
+    ang = positions.float()[:, None] * freqs[None, :]
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -503,16 +518,25 @@ def decode_step_paged(params, pool, tokens: torch.Tensor,
     int32, active [B] bool, pages [B, P] int32 -> (logits [B, vocab]
     fp32, pool). Active row b writes its new k/v at pool position
     ``pages[b, pos[b] // bs] * bs + pos[b] % bs`` (in place), then every
-    row attends through ``flash_decode_attention``. Inactive rows write
-    nothing — the JAX scatter drops them with ``mode="drop"``; here only
-    the active rows are indexed at all.
+    row attends through ``flash_decode_attention``. Inactive rows change
+    no byte of the pool — the JAX scatter drops them with
+    ``mode="drop"``.
 
-    A quantized pool gets each active row's new k/v quantized at write
-    time (``ops/q8.quantize_kv`` on the model-dtype values after RoPE,
-    one scale per (row, head)); values and scales are written for the
-    active rows only, and attention reads through the kernel's
-    quantized branch. ``params`` may be the int8-weight tree (module
-    docstring)."""
+    The step has no host sync and no shape that depends on the data, so
+    it can be captured into a CUDA graph: every row takes part in one
+    indexed write, and an inactive row takes the write row and values
+    of the first active row. Its page-table entries may be 0, and block
+    0 may belong to a live request: redirected, it writes the same bytes
+    to the same place as that active row, never other bytes beside it
+    (duplicate indices of one write land in no fixed order). With no
+    active row at all, every row rewrites row 0's target with the bytes
+    already there.
+
+    A quantized pool gets the new k/v quantized at write time
+    (``ops/q8.quantize_kv`` on the model-dtype values after RoPE, one
+    scale per (row, head)); values and scales follow the same rule, and
+    attention reads through the kernel's quantized branch. ``params``
+    may be the int8-weight tree (module docstring)."""
     B = tokens.shape[0]
     P = pages.shape[1]
     bs = int(block_size)
@@ -524,12 +548,22 @@ def decode_step_paged(params, pool, tokens: torch.Tensor,
         x = x + params["pos"][pos.long()].to(cfg.dtype)
     rope_tabs = (_rope_tables(pos, Dh, cfg.rope_theta) if cfg.use_rope
                  else None)
-    # physical write row of each ACTIVE slot (inactive rows may sit past
-    # their page vector: clamp before the gather, they never write)
+    # physical write row of each slot (inactive rows may sit past their
+    # page vector: clamp before the gather); an inactive row then writes
+    # through the first active row's index and values
     pg = (pos.long() // bs).clamp(max=P - 1)
     wrow = pages.long().gather(1, pg[:, None])[:, 0] * bs + pos.long() % bs
-    act = active.nonzero()[:, 0]
-    widx = wrow[act]
+    rows = torch.arange(B, device=pos.device)
+    first = torch.where(active, rows, B).amin().clamp(max=B - 1)
+    src = torch.where(active, rows, first)
+    widx = wrow[src]
+    any_active = active.any()
+
+    def write(dst, new):
+        """dst[:, widx] = new [Hkv, B, ...], or dst's own bytes there
+        when no row is active."""
+        dst[:, widx] = torch.where(any_active, new, dst[:, widx])
+
     for li in range(cfg.n_layers):
         w = _layer_weights(params["blocks"], li, cfg.dtype)
         kc, vc, kvkw = _pool_layer(pool, li, kvq)     # [Hkv, M, ...] views
@@ -539,18 +573,18 @@ def decode_step_paged(params, pool, tokens: torch.Tensor,
         if cfg.use_rope:
             q = _rope_rows(q.reshape(B, H, Dh), rope_tabs).reshape(B, H * Dh)
             k = _rope_rows(k.reshape(B, Hkv, Dh), rope_tabs).reshape(B, kvd)
-        k_new = k.reshape(B, Hkv, Dh)[act]
-        v_new = v.reshape(B, Hkv, Dh)[act]
+        k_new = k.reshape(B, Hkv, Dh)[src]
+        v_new = v.reshape(B, Hkv, Dh)[src]
         if kvq != "none":
             kq, ks = q8.quantize_kv(k_new, kvq)
             vq, vs = q8.quantize_kv(v_new, kvq)
-            kc[:, widx] = kq.transpose(0, 1)
-            vc[:, widx] = vq.transpose(0, 1)
-            kvkw["k_scale"][:, widx] = ks.transpose(0, 1)
-            kvkw["v_scale"][:, widx] = vs.transpose(0, 1)
+            write(kc, kq.transpose(0, 1))
+            write(vc, vq.transpose(0, 1))
+            write(kvkw["k_scale"], ks.transpose(0, 1))
+            write(kvkw["v_scale"], vs.transpose(0, 1))
         else:
-            kc[:, widx] = k_new.transpose(0, 1).to(kc.dtype)
-            vc[:, widx] = v_new.transpose(0, 1).to(vc.dtype)
+            write(kc, k_new.transpose(0, 1).to(kc.dtype))
+            write(vc, v_new.transpose(0, 1).to(vc.dtype))
         attn = kdecode.flash_decode_attention(
             q.reshape(B, Hkv, G, Dh).contiguous(), kc, vc, pages, pos,
             block_size=bs, **kvkw)
@@ -561,13 +595,16 @@ def decode_step_paged(params, pool, tokens: torch.Tensor,
     return _vocab_logits(x, params), pool
 
 
-def prefill_into_blocks(params, pool, tokens: torch.Tensor, length: int,
+def prefill_into_blocks(params, pool, tokens: torch.Tensor, length,
                         pages: torch.Tensor, cfg: TransformerConfig, *,
                         block_size: int):
     """Prefill ONE chunk of one prompt into its pool pages.
 
     tokens [1, C] is the chunk right-padded to its bucket; ``length``
-    counts its valid tokens; pages [P] int32 covers context + chunk, the
+    counts its valid tokens, a 0-d int32 tensor (as ``np.int32(c)`` is
+    a traced scalar in the JAX package; an int is taken too), so one
+    captured program serves every length of its bucket and nothing
+    here waits on the device; pages [P] int32 covers context + chunk, the
     chunk on the last ``ceil(C / bs)`` pages, so the context already in
     the pool is ``S = (P - ceil(C / bs)) * bs`` tokens. Each layer's
     attention runs ``flash_chunk_prefill`` (context fully visible, chunk
@@ -596,7 +633,7 @@ def prefill_into_blocks(params, pool, tokens: torch.Tensor, length: int,
     kvd, G = Hkv * Dh, H // Hkv
     kvq = pool_kv_dtype(pool, cfg)
     dev = tokens.device
-    length = int(length)
+    length = torch.as_tensor(length, dtype=torch.int32, device=dev)
     gpos = S + torch.arange(C, device=dev)
     x = _embed_rows(params, tokens[0], cfg)
     if not cfg.use_rope:
@@ -638,6 +675,7 @@ def prefill_into_blocks(params, pool, tokens: torch.Tensor, length: int,
     kprefill.paged_span_write(pool, spans, pages[P - pc:].contiguous(),
                               valid, block_size=bs, kv_dtype=kvq)
     # only the last valid position feeds the vocab head
-    last = max(length - 1, 0)
-    x = norm.layer_norm(x[last:last + 1], params["ln_f"], params["ln_f_b"])
+    last = (length.long() - 1).clamp(min=0).reshape(1)
+    x = norm.layer_norm(x.index_select(0, last), params["ln_f"],
+                        params["ln_f_b"])
     return _vocab_logits(x, params), pool

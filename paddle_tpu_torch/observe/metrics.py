@@ -1,10 +1,11 @@
 """Metrics registry: Counter / Gauge / Histogram with labelled series —
 the port's own copy of the parts of ``paddle_tpu/observe/metrics.py``
-that the engine uses (stdlib only)."""
+that the engine and the compile tracker use (stdlib only), with the
+process-wide default registry."""
 
 import math
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 # Prometheus' default buckets, in seconds
 DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
@@ -63,6 +64,13 @@ class Metric:
     def series(self) -> Dict[Tuple[Tuple[str, str], ...], object]:
         with self._lock:
             return dict(self._series)
+
+    def remove(self, **labels):
+        """Drop one labelled series (no-op when absent): a per-entity
+        sample whose entity went away (a tenant whose budget was
+        removed) must not freeze at its last value."""
+        with self._lock:
+            self._series.pop(_label_key(labels), None)
 
 
 class _Cell:
@@ -186,6 +194,10 @@ class Registry:
                   buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:
         return self.register(Histogram(name, help, buckets))
 
+    def get(self, name: str) -> Optional[Metric]:
+        with self._lock:
+            return self._metrics.get(name)
+
     def metrics(self) -> List[Metric]:
         with self._lock:
             return sorted(self._metrics.values(), key=lambda m: m.name)
@@ -217,3 +229,16 @@ class Registry:
                     lines.append(f"{m.name}{_fmt_labels(key)} "
                                  f"{_fmt_value(cell.value)}")
         return "\n".join(lines) + ("\n" if lines else "")
+
+
+# -- the process-wide default registry ---------------------------------------
+
+_default = Registry()
+
+
+def default_registry() -> Registry:
+    return _default
+
+
+def counter(name: str, help: str = "") -> Counter:
+    return _default.counter(name, help)

@@ -8,6 +8,11 @@ that launch more than one kernel instantiation — the three templated on
 the KV pool's storage ({"none", "int8", "int4"}), the sampler's two
 uniform streams ({"hash", "threefry"}) and the two attention wrappers
 ({"bf16": tensor-core kernels, "fp32": CUDA-core kernels}).
+
+The counters tick in Python, where a wrapper launches its kernel. A
+CUDA graph replay runs no Python: ``core/graphs.py`` records what one
+replay launches at capture (``launch_counts`` before and after) and adds
+it with :func:`add_launches` at every replay.
 """
 
 from paddle_tpu_torch.ops.kernels.attention import (flash_attention_bwd,
@@ -45,3 +50,17 @@ def launch_counts() -> dict:
         else:
             out[fn.__name__] = fn.launches
     return out
+
+
+def add_launches(delta: dict):
+    """Add ``{kernel name: n}`` (the names of :func:`launch_counts`) to
+    the wrappers' counts."""
+    for fn in KERNELS:
+        if isinstance(fn.launches, dict):
+            first = next(iter(fn.launches))
+            for branch in fn.launches:
+                name = (fn.__name__ if branch == first
+                        else f"{fn.__name__}.{branch}")
+                fn.launches[branch] += delta.get(name, 0)
+        else:
+            fn.launches += delta.get(fn.__name__, 0)

@@ -53,8 +53,9 @@ SIGNATURES = {
     # Hkv, G, Dh, M, P, bs, scale, dtype, kv, smem_bytes, stream
     "pk_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                             _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    # logits, temperature, top_k, out, B, V, seed, threefry, stream
-    "pk_fused_sample": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # logits, temperature, top_k, out, B, V, seed (device int32), threefry,
+    # stream
+    "pk_fused_sample": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     # q, k_chunk, v_chunk, k, v, k_scale, v_scale, pages, out, partials,
     # counters, C, Hkv, G, Dh, M, P_ctx, bs, rows_per_cta, scale, dtype,
     # kv, smem_bytes, stream

@@ -293,8 +293,11 @@ __global__ void __launch_bounds__(kThreads)
 fused_sample_kernel(const float* __restrict__ logits,
                     const float* __restrict__ temperature,
                     const int* __restrict__ top_k, int* __restrict__ out,
-                    int V, int chunk, uint32_t seed) {
+                    int V, int chunk, const int* __restrict__ seed_ptr) {
   __shared__ Shared sh;
+  // the seed's uint32 image, read from device memory: a captured launch
+  // takes each replay's seed from the same address
+  const auto seed = static_cast<uint32_t>(__ldg(seed_ptr));
   extern __shared__ float4 slice_mem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -424,7 +427,7 @@ fused_sample_kernel(const float* __restrict__ logits,
 
 template <bool kThreefry>
 cudaError_t launch(const float* logits, const float* temperature,
-                   const int* top_k, int* out, int B, int V, uint32_t seed,
+                   const int* top_k, int* out, int B, int V, const int* seed,
                    cudaStream_t stream) {
   auto* kernel = fused_sample_kernel<kThreefry>;
   // each CTA's slice: a multiple of 4 floats, plus 3 of alignment slack;
@@ -472,11 +475,13 @@ cudaError_t launch(const float* logits, const float* temperature,
 
 }  // namespace
 
-// threefry = 0: the hashed stream (seed's uint32 image); 1: the threefry
-// stream under the key (0, seed's uint32 image), JAX's PRNGKey(seed)
+// seed: the address of one int32 in device memory, read by every CTA
+// (the TPU kernel's seed is a device scalar too). threefry = 0: the
+// hashed stream (seed's uint32 image); 1: the threefry stream under the
+// key (0, seed's uint32 image), JAX's PRNGKey(seed)
 extern "C" int pk_fused_sample(const void* logits, const void* temperature,
                                const void* top_k, void* out, int B, int V,
-                               int seed, int threefry, void* stream) {
+                               const void* seed, int threefry, void* stream) {
   if (B == 0) return cudaSuccess;
   if (V < 1) return cudaErrorInvalidValue;
   const auto* x = static_cast<const float*>(logits);
@@ -484,7 +489,8 @@ extern "C" int pk_fused_sample(const void* logits, const void* temperature,
   const auto* k = static_cast<const int*>(top_k);
   auto* o = static_cast<int*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto u = static_cast<uint32_t>(seed);
+  const auto* u = static_cast<const int*>(seed);
+  if (u == nullptr) return cudaErrorInvalidValue;
   return threefry ? launch<true>(x, t, k, o, B, V, u, s)
                   : launch<false>(x, t, k, o, B, V, u, s);
 }

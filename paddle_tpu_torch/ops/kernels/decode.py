@@ -155,6 +155,11 @@ def arrival_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
                          f"the {COUNTER_CAPACITY} kept per stream")
     buf = _COUNTERS.get((dev, stream))
     if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            # made inside a capture, the buffer would come from the
+            # graph's pool and its zero-fill would be part of the graph
+            raise RuntimeError("arrival counters of a stream must exist "
+                               "before a capture on it: launch once first")
         buf = torch.zeros(COUNTER_CAPACITY, dtype=torch.int32, device=dev)
         _COUNTERS[(dev, stream)] = buf
     return buf
@@ -333,9 +338,10 @@ STREAMS = ("hash", "threefry")
 
 
 def fused_sample_plain(logits, seed, temperature, top_k, stream="hash"):
-    """Plain version of the sampling epilogue: logits [B, V] fp32, int
-    ``seed``, temperature [B], top_k [B] -> ids [B] int32, over the
-    ``stream`` ("hash" or "threefry") of :func:`fused_sample`."""
+    """Plain version of the sampling epilogue: logits [B, V] fp32,
+    ``seed`` an int32 value (an int or a 0-d int32 tensor), temperature
+    [B], top_k [B] -> ids [B] int32, over the ``stream`` ("hash" or
+    "threefry") of :func:`fused_sample`."""
     B, V = logits.shape
     x = logits.float()
     greedy = _first_argmax(x)
@@ -364,9 +370,12 @@ def _stream_code(stream: str) -> int:
 
 
 def fused_sample(logits, seed, temperature, top_k, stream="hash"):
-    """Sampling epilogue: logits [B, V] fp32, int32 ``seed``, per-row
+    """Sampling epilogue: logits [B, V] fp32, ``seed`` a 0-d int32
+    tensor on the logits' device (on the CPU also an int), per-row
     temperature [B] fp32 (<= 0 is greedy) and top_k [B] int32 (<= 0 or
-    >= V disables the filter) -> sampled ids [B] int32.
+    >= V disables the filter) -> sampled ids [B] int32. The kernel reads
+    the seed from device memory, as the TPU kernel takes a device scalar:
+    a captured launch draws with whatever seed each replay finds there.
 
     Greedy rows are the first-index argmax and the kept top-k set is
     exact; the categorical draw is a Gumbel-max over one of two
@@ -398,14 +407,16 @@ def fused_sample(logits, seed, temperature, top_k, stream="hash"):
     if 4 * (-(-V // SAMPLE_CLUSTER) + 7 + 2 * SAMPLE_CAP) > SAMPLE_SMEM_LIMIT:
         raise ValueError(f"fused_sample: a row of {V} logits does not fit "
                          f"the shared memory of {SAMPLE_CLUSTER} CTAs")
-    # int32 semantics of the seed: the kernel reads its uint32 image
-    seed = int(seed) & MASK32
-    seed = seed - (1 << 32) if seed >= (1 << 31) else seed
+    if not isinstance(seed, torch.Tensor):
+        raise ValueError("fused_sample: on the card the seed is a 0-d int32 "
+                         "tensor on the logits' device, read by the kernel")
+    _build.require(seed, "seed", device=dev, dtype=torch.int32, shape=())
     out = torch.empty((B,), dtype=torch.int32, device=dev)
     with _build.on_device(dev):
         err = _build.library().pk_fused_sample(
             _build.ptr(logits), _build.ptr(temperature), _build.ptr(top_k),
-            _build.ptr(out), B, V, seed, threefry, _build.stream(dev))
+            _build.ptr(out), B, V, _build.ptr(seed), threefry,
+            _build.stream(dev))
     _build.check(err, "fused_sample")
     fused_sample.launches[stream] += 1
     return out

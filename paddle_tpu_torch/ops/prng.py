@@ -40,10 +40,11 @@ _LOG_Q1 = -2.12194440e-4
 _LOG_Q2 = 0.693359375
 
 
-def prng_key(seed: int, device="cpu") -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)``'s key data for an int32 seed: int64
-    [2] holding the uint32 words (0, seed & 0xFFFFFFFF). Raises for a
-    seed outside int32, as JAX does without 64-bit mode."""
+def prng_key(seed, device="cpu") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``'s key data for an int32 seed (an int
+    or a 0-d integer tensor): int64 [2] holding the uint32 words
+    (0, seed & 0xFFFFFFFF). Raises for a seed outside int32, as JAX does
+    without 64-bit mode."""
     seed = int(seed)
     if not -2 ** 31 <= seed < 2 ** 31:
         raise OverflowError(f"seed {seed} is outside int32")

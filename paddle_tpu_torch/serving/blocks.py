@@ -12,8 +12,8 @@ hashlib; digests are byte-identical to the JAX package's).
 - **LRU** — a cached block whose refcount drops to 0 parks in an LRU;
   allocation pressure evicts oldest-first (un-publishing its hash).
 
-The spill-tier hook, preemption's ``unpublish`` and the fleet's digest
-listing of the JAX version belong to engine parts not ported yet.
+The spill-tier hook, ``lru_oldest`` and the fleet's digest listing of
+the JAX version belong to engine parts not ported yet.
 """
 
 import hashlib
@@ -177,3 +177,18 @@ class BlockPool:
             return
         self._index[digest] = block
         self._hash[block] = digest
+
+    def unpublish(self, block: int):
+        """Drop ``block``'s prefix-cache entry, if any. The
+        preempt-to-blocks resume calls this on the revived partial tail
+        block right before decoding writes into it again: its bytes are
+        about to stop matching the digest. A refcount-0 block parked in
+        the LRU loses its place there too and returns to the free
+        list."""
+        h = self._hash.pop(block, None)
+        if h is None:
+            return
+        del self._index[h]
+        if block in self._lru:
+            del self._lru[block]
+            self._free.append(block)

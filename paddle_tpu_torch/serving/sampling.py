@@ -34,26 +34,36 @@ def sample_tokens(logits: torch.Tensor, key: torch.Tensor,
     return torch.where(t > 0, sampled, greedy).to(torch.int32)
 
 
-def paged_step_fns(cfg, block_size: int):
-    """(prefill_fn, decode_fn) of the paged engine:
+def paged_step_fns(cfg, block_size: int, *, tracker=None):
+    """(prefill_fn, decode_fn) of the paged engine, as step programs
+    (``core/graphs.StepProgram``, the counterpart of the JAX engine's
+    jitted functions) under the tracker names
+    ``serving_engine.prefill`` / ``serving_engine.decode``, sharing one
+    capture stream and graph memory pool. On a CUDA device each program
+    captures one CUDA graph per argument signature and replays it; on
+    the CPU it runs its function. ``.raw`` is the function itself:
 
-    prefill_fn(params, pool, tokens [1, C], length, pages [P],
-               temperature [1], top_k [1], seed) -> (token [1], pool)
-    decode_fn(params, pool, tokens [B], pos [B], active [B] bool,
-              pages [B, P], temperature [B], top_k [B], seed)
-              -> (tokens [B] int32, pool)
+    prefill(params, pool, tokens [1, C], length, pages [P],
+            temperature [1], top_k [1], seed) -> (token [1], pool)
+    decode(params, pool, tokens [B], pos [B], active [B] bool,
+           pages [B, P], temperature [B], top_k [B], seed)
+           -> (tokens [B] int32, pool)
 
-    Both tails sample with the ``fused_sample`` kernel wrapper, so only
-    int32 ids leave the device, each on ``paddle_tpu``'s stream: the
-    prefill tail on the threefry stream, bitwise ``paddle_tpu``'s
-    ``sample_tokens(logits, jax.random.PRNGKey(seed), ...)``; the decode
-    tail on the hashed stream of ``paddle_tpu``'s Pallas
-    ``fused_sample``. The pool is updated in place and returned.
+    ``length`` and ``seed`` are 0-d int32 tensors in the raw functions;
+    the programs take them as numpy scalars (``np.int32``) and the other
+    per-call inputs as numpy arrays, the parameters and the pool as
+    tensors. Both tails sample with the ``fused_sample`` kernel wrapper,
+    so only int32 ids leave the device, each on ``paddle_tpu``'s
+    stream: the prefill tail on the threefry stream, bitwise
+    ``paddle_tpu``'s ``sample_tokens(logits, jax.random.PRNGKey(seed),
+    ...)``; the decode tail on the hashed stream of ``paddle_tpu``'s
+    Pallas ``fused_sample``. The pool is updated in place and returned.
     ``params`` may be the int8-weight tree of
     ``io/lm_serving.quantize_lm_params`` and the pool a quantized one:
     both steps take them as they are (``paddle_tpu``'s ``_prefill_live``
     and ``_decode_live``; the per-layer dequant is in
     ``models/transformer.py``)."""
+    from paddle_tpu_torch.core import graphs
     from paddle_tpu_torch.models import transformer
 
     def prefill_fn(params, pool, tokens, length, pages, temperature,
@@ -70,4 +80,11 @@ def paged_step_fns(cfg, block_size: int):
             block_size=block_size)
         return kdecode.fused_sample(logits, seed, temperature, top_k), pool
 
-    return prefill_fn, decode_fn
+    from paddle_tpu_torch.observe import compile_tracker
+    if tracker is None:
+        tracker = compile_tracker.CompileTracker()
+    context = graphs.GraphContext()
+    return (graphs.StepProgram(prefill_fn, "serving_engine.prefill",
+                               tracker, context),
+            graphs.StepProgram(decode_fn, "serving_engine.decode", tracker,
+                               context))

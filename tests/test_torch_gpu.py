@@ -407,8 +407,11 @@ def test_gpu_fused_sample_matches_plain(cuda):
                 cuda)
     topk = _gpu(np.asarray([0, 50, 0, 0, 3, 1, 50, 50257], np.int32), cuda)
     before = kdecode.fused_sample.launches["hash"]
-    got = kdecode.fused_sample(x, 1234, temp, topk)
-    want = kdecode.fused_sample_plain(x, 1234, temp, topk)
+    seed = torch.tensor(1234, dtype=torch.int32, device=cuda)
+    got = kdecode.fused_sample(x, seed, temp, topk)
+    want = kdecode.fused_sample_plain(x, seed, temp, topk)
+    with pytest.raises(ValueError, match="seed"):
+        kdecode.fused_sample(x, 1234, temp, topk)    # a host int
     torch.cuda.synchronize()
     assert kdecode.fused_sample.launches["hash"] == before + 1
     assert torch.equal(got, want)
@@ -441,7 +444,8 @@ def test_gpu_fused_sample_streams_bitwise(cuda, stream, B, V):
     their rows of the batch."""
     rng = np.random.RandomState(B * 7 + V)
     x, temp, topk = _sample_rows(rng, B, V)
-    args = (_gpu(x, cuda), 4321, _gpu(temp, cuda), _gpu(topk, cuda))
+    seed = torch.tensor(4321, dtype=torch.int32, device=cuda)
+    args = (_gpu(x, cuda), seed, _gpu(temp, cuda), _gpu(topk, cuda))
     before = dict(kdecode.fused_sample.launches)
     got = kdecode.fused_sample(*args, stream=stream)
     again = kdecode.fused_sample(*args, stream=stream)
@@ -453,7 +457,7 @@ def test_gpu_fused_sample_streams_bitwise(cuda, stream, B, V):
     assert torch.equal(got, again)
     for b in [0] + [b for b in range(B) if temp[b] <= 0]:
         one = kdecode.fused_sample(
-            args[0][b:b + 1].contiguous(), 4321, args[2][b:b + 1].contiguous(),
+            args[0][b:b + 1].contiguous(), seed, args[2][b:b + 1].contiguous(),
             args[3][b:b + 1].contiguous(), stream=stream)
         assert int(one[0]) == int(got[b]), b
 
@@ -469,12 +473,13 @@ def test_gpu_fused_sample_uniform_of_one_never_wins(cuda):
     x[0, 219] = x.min() - 1.0
     temp = _gpu(np.ones(1, np.float32), cuda)
     topk = _gpu(np.full(1, 5, np.int32), cuda)
-    got = kdecode.fused_sample(_gpu(x, cuda), 33137, temp, topk)
-    want = kdecode.fused_sample_plain(_gpu(x, cuda), 33137, temp, topk)
+    seed = torch.tensor(33137, dtype=torch.int32, device=cuda)
+    got = kdecode.fused_sample(_gpu(x, cuda), seed, temp, topk)
+    want = kdecode.fused_sample_plain(_gpu(x, cuda), seed, temp, topk)
     assert torch.equal(got, want)
     assert int(got[0]) in np.argsort(-x[0])[:5]
     x[0, 219] = x.max() + 1.0
-    got = kdecode.fused_sample(_gpu(x, cuda), 33137, temp, topk)
+    got = kdecode.fused_sample(_gpu(x, cuda), seed, temp, topk)
     assert int(got[0]) == 219
 
 
@@ -762,3 +767,147 @@ def test_gpu_train_step_runs_both_attention_kernels(cuda):
             kattention.flash_attention_bwd.launches) == (
                 dict(before[0], bf16=before[0]["bf16"] + 2),
                 dict(before[1], bf16=before[1]["bf16"] + 2))
+
+
+def _small_lm(cuda):
+    from paddle_tpu_torch.models import transformer
+    cfg = transformer.TransformerConfig(vocab=512, d_model=128, n_heads=2,
+                                        n_layers=2, d_ff=256, max_len=256)
+    return cfg, transformer.init_params(
+        cfg, torch.Generator().manual_seed(0), cuda)
+
+
+def _random_pool(cfg, nb, bs, kv_dtype, cuda):
+    from paddle_tpu_torch.models import transformer
+    gen = torch.Generator().manual_seed(9)
+    pool = transformer.init_block_pool(cfg, nb, bs, kv_dtype=kv_dtype,
+                                       device="cpu")
+    for name, t in pool.items():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen))
+        elif name.endswith("_scale"):
+            t.copy_(torch.rand(t.shape, generator=gen) * 0.02 + 0.001)
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen) * 0.5)
+    return {n: t.to(cuda) for n, t in pool.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "int4"])
+def test_gpu_step_graphs_replay_the_raw_steps(cuda, kv_dtype):
+    """The engine's step programs (one CUDA graph per key) against their
+    raw functions on the same inputs: ids and every pool byte equal, for
+    a cold prefill chunk, a chunk with context, decode with greedy and
+    sampled rows and two inactive rows, a replay with a new seed and a
+    replay after a page-table remap."""
+    from paddle_tpu_torch.serving import sampling
+    cfg, params = _small_lm(cuda)
+    bs, nb, B, P = 16, 64, 4, 16
+    prefill, decode = sampling.paged_step_fns(cfg, bs)
+    pool_g = _random_pool(cfg, nb, bs, kv_dtype, cuda)
+    pool_r = {n: t.clone() for n, t in pool_g.items()}
+    rng = np.random.RandomState(2)
+    blocks = rng.permutation(np.arange(1, nb)).astype(np.int32)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int32, device=cuda)
+
+    def same_pools():
+        return all(torch.equal(pool_g[n].view(torch.uint8),
+                               pool_r[n].view(torch.uint8)) for n in pool_g)
+
+    for off, c, temp, seed in ((0, 50, 0.8, 1), (64, 30, 0.8, 2),
+                               (0, 50, 0.0, 3), (0, 50, 0.8, 4)):
+        toks = np.zeros((1, 64), np.int32)
+        toks[0, :c] = rng.randint(0, 512, c)
+        pages = blocks[:off // bs + 4]
+        ctl = (np.asarray([temp], np.float32), np.asarray([50], np.int32))
+        got, _ = prefill(params, pool_g, toks, np.int32(c), pages, *ctl,
+                         np.int32(seed))
+        got = got.clone()
+        want, _ = prefill.raw(params, pool_r, _gpu(toks, cuda), scalar(c),
+                              _gpu(pages, cuda), *(_gpu(a, cuda) for a in ctl),
+                              scalar(seed))
+        assert torch.equal(got, want) and same_pools(), (off, seed)
+    table = np.zeros((B, P), np.int32)
+    table[0, :10], table[1, :10] = blocks[8:18], blocks[18:28]
+    pages_dev = _gpu(table, cuda)
+    pos = np.asarray([150, 90, 3, 100], np.int32)
+    active = np.asarray([True, True, False, False])
+    temp = np.asarray([0.0, 0.9, 0.0, 0.9], np.float32)
+    topk = np.asarray([0, 0, 0, 50], np.int32)
+    drawn = []
+    for seed, remap in ((5, False), (6, False), (7, True)):
+        if remap:
+            table[1, :10] = blocks[28:38]
+            pages_dev.copy_(_gpu(table, cuda))
+        toks = rng.randint(0, 512, B).astype(np.int32)
+        got, _ = decode(params, pool_g, toks, pos, active, pages_dev, temp,
+                        topk, np.int32(seed))
+        got = got.clone()
+        want, _ = decode.raw(params, pool_r, _gpu(toks, cuda),
+                             _gpu(pos, cuda), _gpu(active, cuda), pages_dev,
+                             _gpu(temp, cuda), _gpu(topk, cuda), scalar(seed))
+        assert torch.equal(got, want) and same_pools(), seed
+        drawn.append(int(got[1]))
+    assert prefill.graphs == 2 and decode.graphs == 1
+    assert prefill.tracker.count() == 3
+
+
+@pytest.mark.gpu
+def test_gpu_capture_failure_names_the_operation(cuda):
+    """A step that syncs with the host cannot be captured: the program
+    raises, from the operation that broke the capture, and no graph is
+    kept."""
+    from paddle_tpu_torch.core import graphs
+
+    def step(x, n):
+        return x * int(x.sum().item()) + n
+
+    prog = graphs.StepProgram(step, "sync_step")
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(graphs.GraphCaptureError, match="sync_step") as err:
+        prog(x, np.int32(1))
+    assert err.value.__cause__ is not None
+    assert prog.graphs == 0
+    torch.cuda.synchronize()
+    assert torch.equal(x + 1, torch.full((4,), 2.0, device=cuda))
+
+
+@pytest.mark.gpu
+def test_gpu_engine_preempts_remap_and_replay(cuda):
+    """A pool of 8 blocks and 2 slots: a latency arrival preempts a
+    batch victim that resumes by remap; a second one whose worst case is
+    the whole pool evicts the next victim's blocks, which resumes by
+    replay. Both victims' greedy ids equal their runs alone, and the
+    launch counts of the replayed graphs add up."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import PagedDecodeEngine
+    cfg, params = _small_lm(cuda)
+    kw = dict(batch=2, cache_len=256, block_size=16, chunk_tokens=64,
+              num_blocks=8, seed=0, device="cuda")
+    rng = np.random.RandomState(8)
+    eng = PagedDecodeEngine.from_params(params, cfg, **kw)
+    kernels.reset_launches()
+    victims = []
+    for lat in ([(48, 16)], [(64, 64), (32, 16)]):
+        v = eng.submit(rng.randint(0, 512, 48), 64, tier="batch")
+        victims.append(v)
+        while len(v.tokens) < 3:
+            eng.step()
+        for n, m in lat:
+            eng.submit(rng.randint(0, 512, n), m, tier="latency")
+        eng.run_until_idle()
+    resumes = eng.metrics.get("engine_resumes_total")
+    assert [int(resumes.value(mode=m)) for m in ("remap", "replay")] == [1, 1]
+    assert eng.pool.idle and [v.preemptions for v in victims] == [1, 1]
+    # every replay adds its graph's launches; each capture's warm-up
+    # launched once more
+    counts = kernels.launch_counts()
+    assert counts["flash_decode_attention"] == cfg.n_layers * (
+        eng.health()["decode_steps"] + eng.compile_counts()["decode"])
+    for v in victims:
+        solo = PagedDecodeEngine.from_params(params, cfg, **kw)
+        r = solo.submit(v.prompt, v.max_new)
+        solo.run_until_idle()
+        assert r.tokens == v.tokens
