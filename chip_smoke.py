@@ -92,7 +92,10 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -1200,6 +1203,7 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
     kernels.reset_launches()                 # counts of the main path only
     reqs, wall, captures, capture_s = serve_trace(torch, eng, reqs_in)
     launches = kernels.launch_counts()
+    observed = observe_check(eng, reqs) if label == "engine" else None
     health = eng.health()
     doc = trace_doc(reqs, wall, captures, capture_s)
     doc.update({"decode_mfu": eng.decode_mfu(),
@@ -1247,6 +1251,9 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
     if not same:
         fail(f"{label}: prefix hit and cold prefill gave different greedy "
              f"tokens")
+    if observed is not None:
+        observed["abort"] = abort_check(cold_eng, cfg.vocab)
+        print("observe: " + json.dumps(observed))
     del cold_eng
     # where the serving time goes once the engine is warm: a third trace
     # under the profiler (its few new keys capture inside the window)
@@ -1263,6 +1270,282 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
     profile["captures"] = {k: after[k] - before[k] for k in after}
     print(f"{label}_profile: " + json.dumps(profile))
     return launches
+
+
+def track_balance(trace_id) -> list:
+    """The (name, phase) lifecycle events of one request track in the
+    span ring, and whether its b/e slices balance (never more e than b,
+    none open at the end)."""
+    from paddle_tpu_torch.observe import chrome_trace
+    evs = [(s[0], s[5]) for s in chrome_trace.default_buffer().spans()
+           if s[6] == trace_id and s[7] == "request"]
+    depth, ok = 0, True
+    for _, ph in evs:
+        depth += {"b": 1, "e": -1}.get(ph, 0)
+        ok = ok and depth >= 0
+    return evs, ok and depth == 0
+
+
+def http_get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def observe_check(eng, reqs) -> dict:
+    """The ``observe:`` line's checks, right after the bf16 engine's
+    first trace: every request's track in the chrome-trace export holds
+    balanced ``b``/``e`` slices and the lifecycle's events, the request
+    log holds the 16 records, ``health()``'s window counts 16 requests,
+    and the engine's HealthServer on 127.0.0.1 answers ``/healthz``,
+    ``/metrics`` and ``/requests`` with 200 (each GET timed)."""
+    from paddle_tpu_torch.observe import chrome_trace
+    t0 = time.perf_counter()
+    export = chrome_trace.trace_export()
+    export_s = time.perf_counter() - t0
+    ids = {r.trace_id for r in reqs}
+    events = sum(1 for e in export["traceEvents"] if e.get("id") in ids)
+    unbalanced = [r.rid for r in reqs if not track_balance(r.trace_id)[1]]
+    need = {"request", "queued", "admitted", "prefill", "prefill_chunk",
+            "first_token", "finished"}
+    incomplete = [r.rid for r in reqs
+                  if not need <= {n for n, _ in track_balance(r.trace_id)[0]}]
+    doc_req = eng.requests_doc()
+    window = eng.health()["window"]
+    srv = eng.serve()
+    codes, get_ms = {}, {}
+    try:
+        for route in ("/healthz", "/metrics", "/requests"):
+            t0 = time.perf_counter()
+            codes[route], body = http_get(srv.url + route)
+            get_ms[route] = 1e3 * (time.perf_counter() - t0)
+            if route == "/requests":
+                served_count = json.loads(body)["count"]
+    finally:
+        srv.close()
+    doc = {"events": events, "tracks": len(ids),
+           "unbalanced_tracks": unbalanced,
+           "incomplete_tracks": incomplete,
+           "trace_export_ms": 1e3 * export_s,
+           "request_records": doc_req["count"],
+           "by_reason": doc_req["by_reason"],
+           "window_requests": window["requests"],
+           "window_ttft_p50_s": window["ttft_p50_s"],
+           "window_ttft_p99_s": window["ttft_p99_s"],
+           "http": codes, "http_ms": get_ms,
+           "http_requests_count": served_count}
+    if (unbalanced or incomplete or doc_req["count"] != len(reqs)
+            or window["requests"] != len(reqs) or served_count != len(reqs)
+            or any(c != 200 for c in codes.values())):
+        print("observe: " + json.dumps(doc))
+        fail(f"observe: tracks unbalanced {unbalanced}, incomplete "
+             f"{incomplete}, {doc_req['count']} records, window "
+             f"{window['requests']} requests, HTTP {codes}")
+    return doc
+
+
+def abort_check(eng, vocab) -> dict:
+    """``abort_requests`` on a loaded engine (12 requests: 8 in slots
+    after 3 steps, the rest queued): it returns the live count and
+    leaves every track balanced. The engine is not used again."""
+    rng = np.random.RandomState(41)
+    reqs = [submit(eng, rng.randint(0, vocab, int(rng.randint(32, 400))),
+                   32, 0.0) for _ in range(12)]
+    for _ in range(3):
+        eng.step()
+    live = sum(1 for r in reqs if r.status != "done")
+    n = eng.abort_requests()
+    unbalanced = [r.rid for r in reqs if not track_balance(r.trace_id)[1]]
+    doc = {"live": live, "aborted": n, "unbalanced_tracks": unbalanced,
+           "statuses": sorted({r.status for r in reqs})}
+    if n != live or unbalanced or doc["statuses"] != ["aborted"]:
+        fail(f"abort_requests: {doc}")
+    return doc
+
+
+def rows_equal(torch, a, b, ba: int, bb: int, bs: int) -> bool:
+    """Block ``ba`` of pool ``a`` and block ``bb`` of pool ``b``, byte for
+    byte over every leaf."""
+    return all(torch.equal(
+        a[n][:, :, ba * bs:(ba + 1) * bs].contiguous().view(torch.uint8),
+        b[n][:, :, bb * bs:(bb + 1) * bs].contiguous().view(torch.uint8))
+        for n in a)
+
+
+def prefix_phase(torch, kernels, PagedDecodeEngine, cfg, dev, params):
+    """The ``prefix:`` line, at the engine phase's configuration (bf16
+    weights).
+
+    Transfer, for bf16, int8 and int4 pools: engine A serves a 300-token
+    prompt with ``max_new=1`` and exports its 16 chunk-aligned prefix
+    blocks (``export_prefix``, timed over 5 exports); a fresh engine B,
+    warmed by another 300-token prompt (its graphs captured), imports
+    them (``import_prefix``, timed; then the chain's deserialize and
+    in-place write repeated 5 times). Every pool leaf of B keeps its
+    ``data_ptr`` and B's captures do not change; B's adopted rows equal
+    A's byte for byte; B then serves the prompt greedily with a
+    256-token hit (16 blocks x 16) and its ids equal the same prompt
+    served cold in a third fresh engine, launching each serving kernel
+    of its storage.
+
+    Tiers (bf16 pool of 24 blocks of 16, so other prompts evict the
+    prompt's cached blocks): a DRAM pass and a disk pass
+    (``dram_bytes=0``, a temporary directory) each serve the prompt,
+    evict it with three other prompts and serve it again: the second
+    run's tier hits are > 0 in the expected tier and its greedy ids are
+    the cold run's. The disk pass then evicts it once more, corrupts the
+    first block's file and serves it a third time: a quarantined miss,
+    the ids still the cold run's. Each demotion (``pool.on_evict``) is
+    timed."""
+    from paddle_tpu_torch.serving import transfer
+    bs = ENGINE_KW["block_size"]
+    rng = np.random.RandomState(51)
+    prompt = rng.randint(0, cfg.vocab, 300)
+    other = rng.randint(0, cfg.vocab, 300)
+    max_new = 32
+    doc = {"max_new": max_new}
+
+    def serve(eng, p, n=max_new):
+        r = eng.submit(p, n)
+        eng.run_until_idle()
+        if r.status != "done" or len(r.tokens) != n:
+            fail(f"prefix: request {r.rid} {r.status}, {len(r.tokens)} of "
+                 f"{n} tokens")
+        return r
+
+    def fresh(kvd, **kw):
+        return PagedDecodeEngine.from_params(
+            params, cfg, device=dev, **dict(ENGINE_KW, kv_dtype=kvd, **kw))
+
+    want = None
+    for kvd in (None, "int8", "int4"):
+        name = kvd or "bf16"
+        cold = serve(fresh(kvd), prompt).tokens
+        if kvd is None:
+            want = cold
+        a = fresh(kvd)
+        serve(a, prompt, 1)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = a.export_prefix(prompt)
+            times.append(time.perf_counter() - t0)
+        digests = a.prefix_digests(prompt)
+        b = fresh(kvd)
+        serve(b, other)
+        ptrs = {n: t.data_ptr() for n, t in b.cache.items()}
+        captures = b.compile_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adopted = b.import_prefix(payload)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        same_ptrs = {n: t.data_ptr() for n, t in b.cache.items()} == ptrs
+        same_captures = b.compile_counts() == captures
+        rows = all(rows_equal(torch, a.cache, b.cache, a.pool.lookup(h),
+                              b.pool.lookup(h), bs) for h in digests)
+        rewrite = []
+        meta, items = transfer.deserialize_blocks(payload)
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            meta, items = transfer.deserialize_blocks(payload)
+            transfer.write_blocks(b.cache, [(b.pool.lookup(h), arr)
+                                            for h, arr in items], bs)
+            torch.cuda.synchronize()
+            rewrite.append(time.perf_counter() - t0)
+        kernels.reset_launches()
+        r = serve(b, prompt)
+        launched = kernels.launch_counts()
+        branch = "" if kvd is None else f".{kvd}"
+        path = [k + (branch if k != "fused_sample" else "")
+                for k in SERVING_KERNELS]
+        entry = {"blocks": len(digests), "adopted": adopted,
+                 "payload_bytes_per_block": len(payload) / len(digests),
+                 "export_ms_per_block": 1e3 * float(np.median(times))
+                 / len(digests),
+                 "import_ms_per_block": 1e3 * import_s / len(digests),
+                 "rewrite_ms_per_block": 1e3 * float(np.median(rewrite))
+                 / len(digests),
+                 "prefix_hit_tokens": r.prefix_hit_tokens,
+                 "ids_equal_cold": r.tokens == cold,
+                 "rows_equal": rows, "data_ptrs_kept": same_ptrs,
+                 "captures_kept": same_captures,
+                 "captures_after_serve": b.compile_counts(),
+                 "launches": {k: launched[k] for k in path}}
+        doc[name] = entry
+        if not (adopted == len(digests) == 16 and rows and same_ptrs
+                and same_captures and r.tokens == cold
+                and r.prefix_hit_tokens == 16 * bs
+                and all(launched[k] > 0 for k in path)):
+            print("prefix: " + json.dumps(doc))
+            fail(f"prefix transfer ({name}): {entry}")
+        del a, b
+
+    kw = dict(num_blocks=24)
+    for tier, tiers in (("dram", {"dram_bytes": 1 << 30}),
+                        ("disk", {"dram_bytes": 0, "disk_bytes": 1 << 30})):
+        with tempfile.TemporaryDirectory() as tmp:
+            if tier == "disk":
+                tiers = dict(tiers, disk_dir=tmp)
+            eng = fresh(None, tiers=tiers, **kw)
+            demote = []
+            hook = eng.pool.on_evict
+
+            def timed(block, digest, hook=hook, demote=demote):
+                t0 = time.perf_counter()
+                hook(block, digest)
+                demote.append(time.perf_counter() - t0)
+            eng.pool.on_evict = timed
+
+            def evict(seed):
+                g = np.random.RandomState(seed)
+                for _ in range(3):
+                    serve(eng, g.randint(0, cfg.vocab, 300), 16)
+            runs = [serve(eng, prompt).tokens]
+            evict(61)
+            r = serve(eng, prompt)
+            runs.append(r.tokens)
+            hits = eng.metrics.get("engine_prefix_tier_hit_blocks_total")
+            miss = eng.metrics.get("engine_prefix_tier_miss_blocks_total")
+            entry = {"promoted_hit_tokens": r.prefix_hit_tokens}
+            corrupt_ok = True
+            if tier == "disk":
+                evict(62)
+                path = Path(tmp) / (eng.prefix_digests(prompt)[0].hex()
+                                    + ".kv")
+                raw = bytearray(path.read_bytes())
+                raw[len(raw) // 2] ^= 0x40
+                path.write_bytes(bytes(raw))
+                r = serve(eng, prompt)
+                runs.append(r.tokens)
+                corrupt = int(eng.metrics.get(
+                    "engine_tier_corrupt_total").value())
+                corrupt_ok = (corrupt == 1 and r.prefix_hit_tokens == 0
+                              and Path(str(path) + ".corrupt").exists())
+                entry["corrupt"] = corrupt
+            entry.update({
+                "demotions": len(demote),
+                "demote_ms_per_block": 1e3 * float(np.median(demote))
+                if demote else None,
+                "demote_ms_max": 1e3 * max(demote) if demote else None,
+                "hits": {t: int(hits.value(tier=t))
+                         for t in ("hbm", "dram", "disk")},
+                "misses": {t: int(miss.value(tier=t))
+                           for t in ("hbm", "dram", "disk")},
+                "ids_equal_cold": [x == want for x in runs],
+                "tiers": {k: v for k, v in eng.health()["tiers"].items()
+                          if k != "digests"}})
+            doc[f"tier_{tier}"] = entry
+            if not (all(entry["ids_equal_cold"]) and entry["hits"][tier] > 0
+                    and corrupt_ok and eng.pool.idle):
+                print("prefix: " + json.dumps(doc))
+                fail(f"prefix tiers ({tier}): {entry}")
+            del eng
+    print("prefix: " + json.dumps(doc))
 
 
 def random_pool(torch, tt, cfg, nb, bs, kvd, dev, seed):
@@ -1716,6 +1999,7 @@ def main():
     served4 = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
                            params, "int4", "engine_int4", ".int4")
     preempt_phase(torch, PagedDecodeEngine, cfg, dev, params)
+    prefix_phase(torch, kernels, PagedDecodeEngine, cfg, dev, params)
     quant_logits_phase(torch, tt, cfg, params, dev)
     del params                  # (a)'s peak memory holds its weights only
     # (a) int8 pool, int8 weights from the same seed-0 fp32 draws

@@ -18,9 +18,13 @@ exists, so a reader can put the two side by side:
 - ``optimizer.py``     schedules, regularization, clipping and the
                        per-array update rules over parameter trees
 - ``serving/``         sampling, the block pool and the paged engine
-                       with its tiers, tenant budgets and preemption
+                       with its tiers, tenant budgets and preemption,
+                       the PTKV block wire (``transfer.py``) and the
+                       DRAM/disk spill store (``tiers.py``)
 - ``observe/``         metrics registry, MFU accounting, the compile
-                       tracker
+                       tracker, SLO windows, the request log, chrome
+                       traces, the health server, the flight recorder
+- ``utils/``           timers, the runtime flags the port reads, logging
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 ``core.place.default_device()`` raises where there is no card.

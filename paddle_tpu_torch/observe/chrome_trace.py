@@ -1,0 +1,291 @@
+"""Chrome-trace export: trace scopes and request lifecycle events recorded
+into a bounded buffer — the port's own copy of
+``paddle_tpu/observe/chrome_trace.py`` (stdlib only; ``torch`` is read
+only if already imported).
+
+``observe.trace.trace_scope`` records each closed scope as a *span* —
+(qualified name, wall-clock start, duration, thread) — and the serving
+engine records each request's lifecycle as nestable-async events, into
+a bounded in-memory ring buffer (``PADDLE_TPU_TRACE_BUFFER`` spans; 0
+disables). ``trace_export`` renders the buffer as ``chrome://tracing`` /
+Perfetto JSON (the Trace Event Format).
+
+Multi-process: the event ``pid`` is the distributed process index
+(``PADDLE_PROCESS_ID`` from the launcher, else the rank of an
+initialised ``torch.distributed`` group), so traces exported by every
+process concatenate into one timeline; ``merge_traces`` aligns them on
+shared barrier marks. Timestamps are wall-clock epoch microseconds.
+"""
+
+import collections
+import json
+import os
+import sys
+import threading
+import time
+from typing import Dict, List, Optional
+
+def _env_capacity(default: int = 16384) -> int:
+    """Spans kept in the ring buffer; ~100 bytes each. 0 disables
+    recording. A malformed env value falls back to the default — it
+    must not kill every entry point that imports observe (same guard
+    as PADDLE_TPU_PEAK_TFLOPS)."""
+    try:
+        return int(os.environ.get("PADDLE_TPU_TRACE_BUFFER", default))
+    except ValueError:
+        return default
+
+
+DEFAULT_CAPACITY = _env_capacity()
+
+
+class SpanBuffer:
+    """Thread-safe bounded ring of closed spans (oldest evicted first)."""
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY):
+        self._lock = threading.Lock()
+        self._capacity = max(0, int(capacity))
+        self._spans = collections.deque(maxlen=self._capacity or 1)
+        self._dropped = 0
+
+    @property
+    def capacity(self) -> int:
+        return self._capacity
+
+    @property
+    def enabled(self) -> bool:
+        return self._capacity > 0
+
+    def add(self, name: str, ts_s: float, dur_s: float,
+            tid: Optional[int] = None, args: Optional[dict] = None,
+            ph: str = "X", ev_id: Optional[str] = None,
+            cat: Optional[str] = None):
+        """Record one closed span (``ph="X"``, the default) or one
+        async/instant lifecycle event (``ph`` in ``b``/``n``/``e`` with
+        an ``ev_id`` joining the events of one logical flow — a serving
+        request's timeline)."""
+        if not self._capacity:
+            return
+        if tid is None:
+            tid = threading.get_ident()
+        with self._lock:
+            if len(self._spans) == self._capacity:
+                self._dropped += 1
+            self._spans.append((name, ts_s, dur_s, tid, args, ph,
+                                ev_id, cat))
+
+    def spans(self) -> List[tuple]:
+        with self._lock:
+            return list(self._spans)
+
+    def dropped(self) -> int:
+        with self._lock:
+            return self._dropped
+
+    def clear(self):
+        with self._lock:
+            self._spans.clear()
+            self._dropped = 0
+
+    def __len__(self):
+        with self._lock:
+            return len(self._spans)
+
+
+_default = SpanBuffer()
+
+# wall-clock alignment marks for offline multi-rank merge: name -> the
+# wall-clock second at which this process exited a gang-wide rendezvous
+# (first exit per name wins — every rank leaves a barrier at the same
+# true instant, so the pairwise difference of the stamps IS the clock
+# skew between the ranks)
+_alignments: Dict[str, float] = {}
+_align_lock = threading.Lock()
+
+
+def note_alignment(key: str, wall_s: Optional[float] = None):
+    """Record a wall-clock instant known to be simultaneous across the
+    gang (a barrier exit). Only the FIRST stamp per key is kept."""
+    if wall_s is None:
+        wall_s = time.time()
+    with _align_lock:
+        _alignments.setdefault(str(key), float(wall_s))
+
+
+def alignments() -> Dict[str, float]:
+    with _align_lock:
+        return dict(_alignments)
+
+
+def clear_alignments():
+    with _align_lock:
+        _alignments.clear()
+
+
+def default_buffer() -> SpanBuffer:
+    return _default
+
+
+def set_trace_capacity(capacity: int) -> SpanBuffer:
+    """Resize (or with 0 disable) the default span buffer. Existing
+    spans are dropped — call before the run, not mid-trace."""
+    global _default
+    _default = SpanBuffer(capacity)
+    return _default
+
+
+def record_span(name: str, ts_s: float, dur_s: float,
+                args: Optional[dict] = None):
+    """Append one closed span to the default buffer (no-op when trace
+    recording is disabled). ``ts_s`` is wall-clock epoch seconds."""
+    _default.add(name, ts_s, dur_s, args=args)
+
+
+def record_event(name: str, ts_s: float, ph: str, ev_id: str,
+                 cat: str = "request", args: Optional[dict] = None):
+    """Append one async lifecycle event to the default buffer. Phases
+    follow the Trace Event Format's nestable-async family: ``b`` opens
+    a slice, ``e`` closes the most recent open slice, ``n`` is an
+    instant marker — all joined per ``(cat, ev_id)``, so Perfetto
+    renders the events of one request as one track next to the engine's
+    step spans. No-op when trace recording is disabled."""
+    if ph not in ("b", "n", "e"):
+        raise ValueError(f"record_event: ph must be b/n/e, got {ph!r}")
+    _default.add(name, ts_s, 0.0, args=args, ph=ph, ev_id=str(ev_id),
+                 cat=cat)
+
+
+def trace_enabled() -> bool:
+    return _default.enabled
+
+
+def _process_index() -> int:
+    """Distributed process index: the launcher env contract first, then
+    the rank of an initialised ``torch.distributed`` group (only if
+    torch is already imported: exporting never pulls it in), else 0."""
+    env = os.environ.get("PADDLE_PROCESS_ID")
+    if env is not None:
+        try:
+            return int(env)
+        except ValueError:
+            pass
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        try:
+            dist = torch.distributed
+            if dist.is_available() and dist.is_initialized():
+                return int(dist.get_rank())
+        except Exception:  # noqa: BLE001 — observability is best-effort
+            pass
+    return 0
+
+
+def trace_export(path: Optional[str] = None,
+                 buffer: Optional[SpanBuffer] = None,
+                 process_index: Optional[int] = None,
+                 align: Optional[Dict[str, float]] = None) -> dict:
+    """Render the span buffer as a Chrome Trace Event Format object
+    (open in chrome://tracing or https://ui.perfetto.dev). Writes JSON
+    to ``path`` when given; always returns the trace dict.
+
+    ``process_index`` overrides the pid (tests / offline merge tools);
+    by default it comes from the distributed process index so per-host
+    exports merge cleanly. The export stamps ``otherData`` with that
+    pid plus the process's :func:`alignments` marks (override with
+    ``align``), so :func:`merge_traces` can join N per-rank exports on
+    a shared clock even when the hosts' wall clocks drift.
+    """
+    buffer = buffer or _default
+    pid = _process_index() if process_index is None else int(process_index)
+    # stable small tids per thread ident, in first-seen order
+    tid_map: Dict[int, int] = {}
+    events = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+               "args": {"name": f"paddle_tpu_torch p{pid}"}}]
+    for span in buffer.spans():
+        name, ts_s, dur_s, ident, args, ph, ev_id, cat = span
+        tid = tid_map.setdefault(ident, len(tid_map))
+        ev = {"name": name, "cat": cat or "paddle_tpu", "ph": ph,
+              "ts": round(ts_s * 1e6, 3), "pid": pid, "tid": tid}
+        if ph == "X":
+            ev["dur"] = round(dur_s * 1e6, 3)
+        else:
+            # nestable-async events join on (cat, id); the engine bakes
+            # its engine-instance id into ev_id so exports never collide
+            ev["id"] = ev_id
+        if args:
+            ev["args"] = args
+        events.append(ev)
+    for ident, tid in tid_map.items():
+        events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                       "tid": tid, "args": {"name": f"thread-{tid}"}})
+    trace = {"traceEvents": events, "displayTimeUnit": "ms",
+             "otherData": {"dropped_spans": buffer.dropped(),
+                           "process_index": pid,
+                           "alignments": (dict(align) if align
+                                          is not None
+                                          else alignments())}}
+    if path:
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(trace, f)
+    return trace
+
+
+def merge_traces(traces: List[dict],
+                 path: Optional[str] = None) -> dict:
+    """Join N per-rank trace exports into one aligned gang timeline.
+
+    The first trace is the clock reference. Every other trace is
+    shifted by the mean, over alignment keys both sides stamped, of
+    ``ref_mark - own_mark`` — each mark names the SAME true instant (a
+    barrier exit), so the difference is that rank's wall-clock offset
+    from the reference. Traces sharing no alignment key merge unshifted
+    (NTP-level agreement, the pre-merge status quo). Colliding pids are
+    remapped so two exports that both claim pid 0 (single-process test
+    runs) still render as distinct process tracks.
+    """
+    merged: List[dict] = []
+    offsets: Dict[str, float] = {}
+    used_pids: Dict[int, int] = {}
+    ref_align: Dict[str, float] = {}
+    dropped = 0
+    for i, tr in enumerate(traces):
+        other = tr.get("otherData") or {}
+        al = {str(k): float(v)
+              for k, v in (other.get("alignments") or {}).items()}
+        if i == 0:
+            ref_align = al
+            off = 0.0
+        else:
+            shared = sorted(set(ref_align) & set(al))
+            off = (sum(ref_align[k] - al[k] for k in shared)
+                   / len(shared)) if shared else 0.0
+        src_pid = other.get("process_index")
+        dropped += int(other.get("dropped_spans") or 0)
+        pid_map: Dict[int, int] = {}
+        for ev in tr.get("traceEvents", ()):
+            ev = dict(ev)
+            old = int(ev.get("pid", 0))
+            if old not in pid_map:
+                new = old
+                while new in used_pids:
+                    new += 1000
+                used_pids[new] = i
+                pid_map[old] = new
+            ev["pid"] = pid_map[old]
+            if "ts" in ev:
+                ev["ts"] = round(ev["ts"] + off * 1e6, 3)
+            merged.append(ev)
+        key = f"p{src_pid if src_pid is not None else i}#{i}"
+        offsets[key] = round(off, 6)
+    trace = {"traceEvents": merged, "displayTimeUnit": "ms",
+             "otherData": {"merged_from": len(traces),
+                           "offsets_s": offsets,
+                           "dropped_spans": dropped}}
+    if path:
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(trace, f)
+    return trace

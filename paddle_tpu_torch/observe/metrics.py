@@ -1,7 +1,9 @@
 """Metrics registry: Counter / Gauge / Histogram with labelled series —
 the port's own copy of the parts of ``paddle_tpu/observe/metrics.py``
-that the engine and the compile tracker use (stdlib only), with the
-process-wide default registry."""
+that the engine, the compile tracker, the health server and the flight
+recorder use (stdlib only), with the process-wide default registry and
+the JSON cleaning of ``JsonlSink`` (the file sink itself is not
+ported)."""
 
 import math
 import threading
@@ -125,12 +127,14 @@ class Histogram(Metric):
     kind = "histogram"
 
     class _HCell:
-        __slots__ = ("counts", "sum", "count")
+        __slots__ = ("counts", "sum", "count", "min", "max")
 
         def __init__(self, n_buckets):
             self.counts = [0] * n_buckets
             self.sum = 0.0
             self.count = 0
+            self.min = math.inf
+            self.max = -math.inf
 
     def __init__(self, name: str, help: str = "",
                  buckets: Sequence[float] = DEFAULT_BUCKETS):
@@ -151,11 +155,24 @@ class Histogram(Metric):
                     break
             cell.sum += value
             cell.count += 1
+            cell.min = min(cell.min, value)
+            cell.max = max(cell.max, value)
 
     def _read_cell(self, cell) -> Dict[str, object]:
         with self._lock:
             return {"counts": list(cell.counts), "sum": cell.sum,
-                    "count": cell.count}
+                    "count": cell.count, "min": cell.min, "max": cell.max}
+
+    def snapshot(self, **labels) -> Dict[str, float]:
+        cell = self._peek(labels)
+        if cell is None:
+            return {"count": 0, "sum": 0.0, "avg": 0.0,
+                    "min": 0.0, "max": 0.0}
+        c = self._read_cell(cell)
+        return {"count": c["count"], "sum": c["sum"],
+                "avg": c["sum"] / c["count"] if c["count"] else 0.0,
+                "min": c["min"] if c["count"] else 0.0,
+                "max": c["max"] if c["count"] else 0.0}
 
 
 class Registry:
@@ -202,6 +219,22 @@ class Registry:
         with self._lock:
             return sorted(self._metrics.values(), key=lambda m: m.name)
 
+    def snapshot(self) -> Dict[str, dict]:
+        """Nested plain-python snapshot: {name: {kind, help, series:
+        [{labels, ...values}]}} (the flight recorder's ``metrics``)."""
+        out = {}
+        for m in self.metrics():
+            series = []
+            for key, cell in sorted(m.series().items()):
+                rec = {"labels": dict(key)}
+                if m.kind == "histogram":
+                    rec.update(m.snapshot(**dict(key)))
+                else:
+                    rec["value"] = cell.value
+                series.append(rec)
+            out[m.name] = {"kind": m.kind, "help": m.help, "series": series}
+        return out
+
     def render_prometheus(self) -> str:
         """Prometheus text exposition format (version 0.0.4)."""
         lines = []
@@ -242,3 +275,20 @@ def default_registry() -> Registry:
 
 def counter(name: str, help: str = "") -> Counter:
     return _default.counter(name, help)
+
+
+class JsonlSink:
+    """The JSON cleaning of ``paddle_tpu``'s per-step JSONL sink, which
+    the health server and the flight recorder apply to their documents."""
+
+    @staticmethod
+    def _clean(v):
+        """Stringify non-finite floats at ANY depth: bare NaN/Infinity
+        is not valid JSON and would break strict parsers."""
+        if isinstance(v, float) and not math.isfinite(v):
+            return repr(v)
+        if isinstance(v, dict):
+            return {k: JsonlSink._clean(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [JsonlSink._clean(x) for x in v]
+        return v

@@ -1,0 +1,207 @@
+"""Sliding-window quantile estimation + SLO policy — the port's own copy
+of ``paddle_tpu/observe/window.py`` (stdlib only).
+
+The registry's ``Histogram`` is cumulative: its buckets count every
+observation since process start, so "TTFT p99 over the last minute" —
+the number an SLO-aware scheduler steers on and a `/healthz` probe
+reports — is unrecoverable from it once traffic has been flowing for a
+while. ``WindowedQuantiles`` keeps the raw samples of a bounded time
+window and answers EXACT nearest-rank quantiles over it.
+
+Bounded two ways: samples older than ``window_s`` expire at every
+observe/read, and at most ``max_samples`` are kept (oldest evicted) so
+a request flood cannot grow host memory.
+
+``SloConfig`` is the declarative policy the serving engine evaluates
+over such a window: a TTFT objective (``ttft_s`` met by ``target`` of
+requests) and the burn-rate threshold past which `/healthz` degrades.
+Burn rate is the observed violation fraction over the error budget
+(``1 - target``).
+"""
+
+import dataclasses
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Sequence
+
+
+def _nearest_rank(sorted_vals: List[float], q: float) -> float:
+    """The repo-wide percentile convention (benchmarks/serving_bench
+    ``_pct``): index round(q * (n-1)) of the sorted sample."""
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, int(q * (len(sorted_vals) - 1) + 0.5))
+    return sorted_vals[i]
+
+
+class WindowedQuantiles:
+    """Exact quantiles over a sliding time window of scalar samples."""
+
+    def __init__(self, window_s: float = 60.0, max_samples: int = 2048,
+                 clock=time.monotonic):
+        if window_s <= 0:
+            raise ValueError(f"window_s must be > 0, got {window_s}")
+        if max_samples < 1:
+            raise ValueError(f"max_samples must be >= 1, "
+                             f"got {max_samples}")
+        self.window_s = float(window_s)
+        self.max_samples = int(max_samples)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._dq: deque = deque(maxlen=self.max_samples)   # (t, value)
+
+    def observe(self, value: float, t: Optional[float] = None):
+        """Record one sample (``t`` defaults to the clock's now; tests
+        pass explicit times to pin expiry deterministically)."""
+        now = self._clock() if t is None else float(t)
+        with self._lock:
+            self._dq.append((now, float(value)))
+            self._expire(now)
+
+    def _expire(self, now: float):
+        cutoff = now - self.window_s
+        dq = self._dq
+        while dq and dq[0][0] <= cutoff:
+            dq.popleft()
+
+    def _values(self, now: Optional[float]) -> List[float]:
+        now = self._clock() if now is None else float(now)
+        with self._lock:
+            self._expire(now)
+            return [v for _, v in self._dq]
+
+    def count(self, now: Optional[float] = None) -> int:
+        return len(self._values(now))
+
+    def __len__(self):
+        return self.count()
+
+    def quantile(self, q: float, now: Optional[float] = None) -> float:
+        """Exact nearest-rank quantile of the live window (0.0 empty)."""
+        return _nearest_rank(sorted(self._values(now)), q)
+
+    def quantiles(self, qs: Sequence[float],
+                  now: Optional[float] = None) -> Dict[float, float]:
+        """Several quantiles off ONE sort of the window."""
+        vals = sorted(self._values(now))
+        return {q: _nearest_rank(vals, q) for q in qs}
+
+    def samples(self, now: Optional[float] = None) -> List[tuple]:
+        """Raw ``(t, value)`` pairs of the live window, oldest first.
+
+        This is the export fleet aggregation pools. Quantiles are rank
+        statistics of a distribution, not means: the fleet p99 is the
+        99th percentile of EVERY request the fleet served, which only
+        the pooled samples can answer. Averaging per-replica p99s is
+        wrong twice over — it weights a replica that served 3 requests
+        the same as one that served 3000, and a mean of per-replica
+        tails neither bounds nor tracks the pooled tail (one slow
+        replica's p99 dilutes into the average instead of dominating
+        the fleet tail the way its requests actually do).
+        """
+        now = self._clock() if now is None else float(now)
+        with self._lock:
+            self._expire(now)
+            return list(self._dq)
+
+    def export_samples(self, now: Optional[float] = None) -> List[list]:
+        """Clock-free wire form of :meth:`samples`: ``[age_s, value]``
+        pairs (age relative to now). Timestamps here are this process's
+        monotonic clock — meaningless to another process — so the wire
+        carries ages and :meth:`absorb` re-stamps them into the
+        importer's clock domain."""
+        now = self._clock() if now is None else float(now)
+        return [[now - t, v] for t, v in self.samples(now)]
+
+    def absorb(self, aged_samples, now: Optional[float] = None):
+        """Ingest ``[age_s, value]`` pairs (an :meth:`export_samples`
+        payload, possibly from another process), re-stamped into this
+        window's clock domain. Samples older than ``window_s`` are
+        dropped; the pooled set is re-ordered by time so deque eviction
+        stays oldest-first."""
+        now = self._clock() if now is None else float(now)
+        incoming = [(now - float(age), float(v))
+                    for age, v in aged_samples
+                    if float(age) < self.window_s]
+        if not incoming:
+            return
+        with self._lock:
+            self._expire(now)
+            pooled = sorted(list(self._dq) + incoming)
+            self._dq.clear()
+            self._dq.extend(pooled[-self.max_samples:])
+
+    def merge(self, *others: "WindowedQuantiles",
+              now: Optional[float] = None):
+        """Pool other windows' live samples into this one (same clock
+        domain — in-process replicas; across processes go through
+        :meth:`export_samples` / :meth:`absorb`). After merging,
+        ``quantile(q)`` equals the quantile of the concatenated sample
+        sets — the ONLY correct fleet quantile (see :meth:`samples` on
+        why averaging per-replica quantiles is not)."""
+        now = self._clock() if now is None else float(now)
+        incoming = []
+        for other in others:
+            incoming.extend(other.samples(now))
+        incoming = [(t, v) for t, v in incoming
+                    if t > now - self.window_s]
+        if not incoming:
+            return
+        with self._lock:
+            self._expire(now)
+            pooled = sorted(list(self._dq) + incoming)
+            self._dq.clear()
+            self._dq.extend(pooled[-self.max_samples:])
+
+    def fraction_over(self, threshold: float,
+                      now: Optional[float] = None) -> float:
+        """Fraction of windowed samples strictly above ``threshold``
+        (0.0 on an empty window — no traffic is not a violation)."""
+        vals = self._values(now)
+        if not vals:
+            return 0.0
+        return sum(1 for v in vals if v > threshold) / len(vals)
+
+    def clear(self):
+        with self._lock:
+            self._dq.clear()
+
+
+@dataclasses.dataclass(frozen=True)
+class SloConfig:
+    """A TTFT service-level objective evaluated over a sliding window.
+
+    ``ttft_s`` met by at least ``target`` of the window's requests;
+    burn rate = (fraction over ``ttft_s``) / (1 - ``target``). The
+    engine's `/healthz` reports ``degraded`` (with the burn rate as
+    reason) once the burn rate exceeds ``burn_threshold`` — HTTP 200
+    still, so load balancers keep routing while schedulers/operators
+    see the budget bleeding; only ``unhealthy`` maps to 503.
+    """
+
+    ttft_s: float
+    target: float = 0.99
+    window_s: float = 60.0
+    burn_threshold: float = 1.0
+
+    def __post_init__(self):
+        if self.ttft_s <= 0:
+            raise ValueError(f"ttft_s must be > 0, got {self.ttft_s}")
+        if not 0.0 <= self.target < 1.0:
+            raise ValueError(f"target must be in [0, 1), "
+                             f"got {self.target}")
+        if self.window_s <= 0:
+            raise ValueError(f"window_s must be > 0, "
+                             f"got {self.window_s}")
+
+    @property
+    def budget(self) -> float:
+        """Allowed violation fraction (the error budget)."""
+        return 1.0 - self.target
+
+    def burn_rate(self, violation_fraction: float) -> float:
+        return float(violation_fraction) / self.budget
+
+    def exceeded(self, violation_fraction: float) -> bool:
+        return self.burn_rate(violation_fraction) > self.burn_threshold

@@ -1,4 +1,5 @@
-"""Serving: sampling, the block pool and the paged decode engine."""
+"""Serving: sampling, the block pool, the paged decode engine, the KV
+block wire and the spill tiers."""
 
 from paddle_tpu_torch.serving.engine import (EngineRequest,
                                              PagedDecodeEngine)

@@ -10,10 +10,9 @@ hashlib; digests are byte-identical to the JAX package's).
   content-chain hash (:func:`chain_hash` over the parent digest + the
   block's token ids, so a hit certifies the whole prefix);
 - **LRU** — a cached block whose refcount drops to 0 parks in an LRU;
-  allocation pressure evicts oldest-first (un-publishing its hash).
-
-The spill-tier hook, ``lru_oldest`` and the fleet's digest listing of
-the JAX version belong to engine parts not ported yet.
+  allocation pressure evicts oldest-first (un-publishing its hash), and
+  ``on_evict`` lets a spill store (``serving/tiers.py``) take the block
+  on its way out.
 """
 
 import hashlib
@@ -67,6 +66,12 @@ class BlockPool:
         self._lru: "OrderedDict[int, None]" = OrderedDict()
         self._reserved = 0
         self.evictions = 0                      # lifetime LRU evictions
+        # demotion hook: on_evict(block, digest) when alloc() evicts a
+        # refcount-0 cached block, BEFORE the new holder writes its rows:
+        # the bytes still match the digest, so a spill store can
+        # serialize them. unpublish() does not fire it (the bytes are
+        # about to stop matching the digest there)
+        self.on_evict = None
 
     # -- occupancy ---------------------------------------------------------
     @property
@@ -100,6 +105,12 @@ class BlockPool:
 
     def refcount(self, block: int) -> int:
         return int(self._ref[block])
+
+    def lru_oldest(self) -> Optional[int]:
+        """The refcount-0 cached block ``alloc()`` would evict next (None
+        when the LRU is empty): a bulk adopter stops before evicting its
+        own chain's head."""
+        return next(iter(self._lru), None)
 
     @property
     def idle(self) -> bool:
@@ -135,8 +146,11 @@ class BlockPool:
             b = self._free.popleft()
         elif self._lru:
             b, _ = self._lru.popitem(last=False)      # oldest first
-            del self._index[self._hash.pop(b)]
+            h = self._hash.pop(b)
+            del self._index[h]
             self.evictions += 1
+            if self.on_evict is not None:
+                self.on_evict(b, h)
         else:
             raise RuntimeError("block pool exhausted despite reservation")
         self._ref[b] = 1
@@ -165,6 +179,15 @@ class BlockPool:
                 self._free.append(block)
 
     # -- prefix cache ------------------------------------------------------
+    def cached_digests(self, limit: Optional[int] = None) -> List[bytes]:
+        """Digests published in the prefix cache, hottest first (blocks
+        with holders, then the LRU newest to oldest): the ``hbm`` rows
+        of ``health()``'s tier listing."""
+        hot = [self._hash[b] for b in self._hash if self._ref[b] > 0]
+        cold = [self._hash[b] for b in reversed(self._lru)]
+        out = hot + cold
+        return out[:limit] if limit else out
+
     def lookup(self, digest: bytes) -> Optional[int]:
         """Cached block for ``digest`` (LRU-parked ones included)."""
         return self._index.get(digest)

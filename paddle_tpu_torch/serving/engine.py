@@ -30,10 +30,24 @@ them (``remap``) or, when some were evicted, by a cache-hit chunked
 prefill and a forced replay of its emitted tokens through decode steps
 (``replay``).
 
-Not ported yet (queued in ROADMAP.md): SLO windows, the request log,
-chrome-trace events (``_ev`` is the hook they attach to), the health
-server, ``abort_requests``, the spill tiers,
-``export_prefix``/``import_prefix``, ``SpecDecodeEngine`` and the
+Observability follows the JAX engine's: each request leaves
+chrome-trace lifecycle events on its own async track (``eng<N>.r<rid>``:
+request, queued, admitted, prefill, prefill_chunk, first_token, decode,
+preempted, resumed, finished; ``observe/chrome_trace.py``) and one
+record in the request log (``observe/requests.py``); TTFT and goodput
+feed rolling windows (``observe/window.py``) whose quantiles and SLO
+burn rate ``health()`` reports; ``serve()`` puts ``/metrics``,
+``/healthz`` and ``/requests`` on an HTTP port (``observe/health.py``);
+``abort_requests`` closes every open slice.
+
+Prefix mobility: ``export_prefix`` serializes a prompt's cached prefix
+blocks onto the PTKV wire (``serving/transfer.py``) and
+``import_prefix`` adopts such a payload into the pool, written in place
+so the captured graphs keep reading the same tensors. With ``tiers=``
+an evicted cached block is demoted to host DRAM or disk
+(``serving/tiers.py``) and promoted back at admission.
+
+Not ported yet (queued in ROADMAP.md): ``SpecDecodeEngine`` and the
 row-arena ``DecodeEngine`` path.
 """
 
@@ -48,14 +62,29 @@ import torch
 
 from paddle_tpu_torch.core import graphs, place, ragged
 from paddle_tpu_torch.models import transformer
+from paddle_tpu_torch.observe import chrome_trace as _chrome
 from paddle_tpu_torch.observe import compile_tracker as _ct
 from paddle_tpu_torch.observe import costs as _costs
 from paddle_tpu_torch.observe import metrics as _metrics
+from paddle_tpu_torch.observe import requests as _requests
+from paddle_tpu_torch.observe.window import SloConfig, WindowedQuantiles
 from paddle_tpu_torch.serving import blocks as _blocks
+from paddle_tpu_torch.serving import tiers as _tiers
+from paddle_tpu_torch.serving import transfer as _transfer
+from paddle_tpu_torch.utils.logger import get_logger
+
+log = get_logger("serving.engine")
+
+# per-process engine counter: bakes into request trace ids
+# (``eng<N>.r<rid>``) so several engines' events never collide in one
+# exported timeline
+_ENGINE_IDS = itertools.count()
 
 # decode steps run single-digit ms; prefill tens-to-hundreds
 _LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                     0.1, 0.25, 0.5, 1.0, 2.5, 5.0)
+_GOODPUT_BUCKETS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+                    500.0, 1000.0, 2500.0, 5000.0, 10000.0)
 
 # the two scheduling tiers: "latency" admits ahead of "batch" and may
 # preempt a batch-tier victim's blocks; "batch" fills whatever capacity
@@ -81,15 +110,21 @@ class EngineRequest:
     slot: int = -1
     prefix_hit_tokens: int = 0          # prompt tokens served from cache
     block_hashes: Optional[List[bytes]] = None
+    tier_promote_done: bool = False     # spill-tier promotion attempted
+    #                                     (once per request)
+    tier_promoted_blocks: int = 0       # blocks promotion just adopted
+    #                                     for it: dram/disk hits, not hbm
     tokens: List[int] = dataclasses.field(default_factory=list)
     status: str = "queued"              # queued | prefilling | running
-    #                                     | preempted | done
-    finish_reason: Optional[str] = None  # eos | max_tokens
+    #                                     | preempted | done | aborted
+    finish_reason: Optional[str] = None  # eos | max_tokens | abort reason
     submit_t: float = 0.0
     prefill_t: Optional[float] = None   # last admission
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
     prefill_own_s: float = 0.0          # this request's own chunk time
+    trace_id: str = ""                  # eng<N>.r<rid>: joins its events
+    decode_open: bool = False           # a "decode" trace slice is open
     preemptions: int = 0                # times preempted to blocks
     # preempt-to-blocks resume state: the host snapshot taken at
     # preemption (block-chain digests + decode cursor), and, on the
@@ -111,6 +146,39 @@ class EngineRequest:
             return None
         return self.first_token_t - self.submit_t
 
+    @property
+    def latency_s(self) -> Optional[float]:
+        if self.finish_t is None:
+            return None
+        return self.finish_t - self.submit_t
+
+    @property
+    def queue_wait_s(self) -> Optional[float]:
+        if self.prefill_t is None:
+            return None
+        return self.prefill_t - self.submit_t
+
+    @property
+    def prefill_stall_s(self) -> Optional[float]:
+        """Admitted -> first token, minus own prefill time: time parked
+        behind other requests' chunks and the decode steps between
+        them."""
+        if self.first_token_t is None or self.prefill_t is None:
+            return None
+        return max(self.first_token_t - self.prefill_t
+                   - self.prefill_own_s, 0.0)
+
+    @property
+    def decode_s(self) -> Optional[float]:
+        if self.finish_t is None or self.first_token_t is None:
+            return None
+        return self.finish_t - self.first_token_t
+
+    @property
+    def cache_hit_frac(self) -> float:
+        """Fraction of the prompt served from the prefix cache."""
+        return self.prefix_hit_tokens / max(int(self.prompt.size), 1)
+
 
 class DecodeEngine:
     """Slot-scheduler core: request records, host-side slot state, the
@@ -125,7 +193,8 @@ class DecodeEngine:
     def __init__(self, prefill: Callable, decode: Callable, params, cache,
                  *, batch: int, cache_len: int, buckets: Sequence[int],
                  device, cfg, seed: Optional[int] = None,
-                 tracker: Optional[_ct.CompileTracker] = None):
+                 tracker: Optional[_ct.CompileTracker] = None,
+                 slo: Optional[SloConfig] = None):
         if tracker is None:
             tracker = getattr(decode, "tracker", None) or \
                 _ct.CompileTracker()
@@ -161,6 +230,15 @@ class DecodeEngine:
         self._free = deque(range(B))
         self._queue: deque = deque()
         self._ids = itertools.count()
+        # -- request-scoped observability --------------------------------
+        self._engine_id = next(_ENGINE_IDS)
+        # perf_counter -> wall-clock anchor: lifecycle events land on the
+        # epoch timeline of the trace spans, while the engine's own
+        # timestamps stay monotonic
+        self._wall_anchor = time.time() - time.perf_counter()
+        self.request_log = _requests.RequestLog()
+        self.slo: Optional[SloConfig] = None
+        self.configure_slo(slo)
         reg = self.metrics = _metrics.Registry()
         self._m_requests = reg.counter(
             "engine_requests_total", "requests submitted")
@@ -196,6 +274,19 @@ class DecodeEngine:
             "engine_decode_mfu", "model-FLOPs utilisation of the last "
             "decode step (FLOPs from the shapes, observe/costs.py; 0 "
             "until a step ran on a card with a declared peak)")
+        self._m_goodput = reg.histogram(
+            "engine_request_tokens_per_sec", "per-request goodput: "
+            "tokens emitted / (finish - submit)", buckets=_GOODPUT_BUCKETS)
+        self._m_win_ttft = reg.gauge(
+            "engine_ttft_window_seconds", "rolling TTFT quantile over "
+            "the SLO window (label q = p50|p95|p99, and per tier)")
+        self._m_win_tps = reg.gauge(
+            "engine_tokens_per_sec_window", "rolling per-request "
+            "goodput quantile over the SLO window (label q)")
+        self._m_burn = reg.gauge(
+            "engine_slo_burn_rate", "TTFT SLO burn rate: windowed "
+            "violation fraction / error budget (0 without a "
+            "configured SLO)")
 
     def _program(self, fn, name: str, context) -> graphs.StepProgram:
         """``fn`` as a step program under this engine's tracker."""
@@ -207,30 +298,171 @@ class DecodeEngine:
             return fn
         return graphs.StepProgram(fn, name, self._tracker, context)
 
-    # -- request API -------------------------------------------------------
-    def _reject(self, reason: str, msg: str) -> ValueError:
+    # -- request-scoped observability --------------------------------------
+    def configure_slo(self, slo: Optional[SloConfig]):
+        """Install (or with ``None`` clear) the TTFT SLO ``health()``
+        evaluates over its rolling window; resets the windows to the new
+        length."""
+        self.slo = slo
+        win = slo.window_s if slo is not None else 60.0
+        self._win_ttft = WindowedQuantiles(window_s=win)
+        self._win_tps = WindowedQuantiles(window_s=win)
+        # per-tier TTFT windows, made as tiers appear: the scheduler's
+        # point is the per-tier p99 separation the aggregate hides
+        self._win_ttft_tier: Dict[str, WindowedQuantiles] = {}
+        self._tier_window_s = win
+
+    def _tier_window(self, tier: str) -> WindowedQuantiles:
+        win = self._win_ttft_tier.get(tier)
+        if win is None:
+            win = self._win_ttft_tier[tier] = WindowedQuantiles(
+                window_s=self._tier_window_s)
+        return win
+
+    def _wall(self, perf_t: float) -> float:
+        return self._wall_anchor + perf_t
+
+    def _ev(self, req: EngineRequest, name: str, ph: str, perf_t: float,
+            **args):
+        """One lifecycle event on this request's async trace track."""
+        _chrome.record_event(name, self._wall(perf_t), ph, req.trace_id,
+                             args=args or None)
+
+    def _reject(self, rid: int, reason: str, msg: str) -> ValueError:
+        """Count, trace and log a rejected submission; returns (does not
+        raise) the ValueError, so call sites read ``raise
+        self._reject(...)``."""
+        now = time.perf_counter()
         self._m_rejected.inc(reason=reason)
+        _chrome.record_event(
+            "request_rejected", self._wall(now), "n",
+            f"eng{self._engine_id}.r{rid}",
+            args={"rid": rid, "reason": reason})
+        # a rejection leaves a record too, with no measured components
+        rec = {"rid": rid, "engine": self._engine_id,
+               "trace_id": f"eng{self._engine_id}.r{rid}",
+               "submit_ts": round(self._wall(now), 6),
+               "finish_reason": f"rejected:{reason}",
+               "prompt_tokens": None, "tokens": 0,
+               "queue_wait_s": None, "prefill_own_s": None,
+               "prefill_stall_s": None, "decode_s": None,
+               "ttft_s": None, "latency_s": None, "cache_hit_frac": 0.0}
+        self.request_log.add(rec)
+        _requests.default_request_log().add(rec)
         return ValueError(msg)
 
-    def _validate_submit(self, prompt: np.ndarray, max_new: int, tier: str):
-        if prompt.size < 1:
-            raise self._reject("empty_prompt", "submit: empty prompt")
-        if max_new < 1:
-            raise self._reject("bad_max_new", f"submit: max_new must be "
-                               f">= 1, got {max_new}")
-        if tier not in VALID_TIERS:
-            raise self._reject("bad_tier", f"submit: tier must be one of "
-                               f"{VALID_TIERS}, got {tier!r}")
-        if prompt.size + max_new > self.cache_len:
-            raise self._reject(
-                "exceeds_cache", f"submit: {prompt.size} prompt + "
-                f"{max_new} new tokens exceed cache_len {self.cache_len}")
-
     def _enqueue(self, req: EngineRequest) -> EngineRequest:
+        """Queue the request and open its trace track (an async
+        ``request`` slice and a nested ``queued`` one). A caller's trace
+        id (``submit(trace=...)``) is adopted as it is."""
+        if not req.trace_id:
+            req.trace_id = f"eng{self._engine_id}.r{req.rid}"
         self._queue.append(req)
         self._m_requests.inc()
         self._m_queue.set(len(self._queue))
+        self._ev(req, "request", "b", req.submit_t, rid=req.rid,
+                 prompt_tokens=int(req.prompt.size), max_new=req.max_new,
+                 tenant=req.tenant, tier=req.tier)
+        self._ev(req, "queued", "b", req.submit_t)
         return req
+
+    def _record_request(self, req: EngineRequest):
+        """One flat record into the engine's request log and the process
+        default (``observe.requests.default_request_log()``)."""
+        def r6(v):
+            return round(v, 6) if v is not None else None
+
+        rec = {"rid": req.rid, "engine": self._engine_id,
+               "trace_id": req.trace_id,
+               "submit_ts": round(self._wall(req.submit_t), 6),
+               "finish_reason": req.finish_reason,
+               "tenant": req.tenant, "tier": req.tier,
+               "preemptions": req.preemptions,
+               "prompt_tokens": int(req.prompt.size),
+               "tokens": len(req.tokens),
+               "queue_wait_s": r6(req.queue_wait_s),
+               "prefill_own_s": r6(req.prefill_own_s),
+               "prefill_stall_s": r6(req.prefill_stall_s),
+               "decode_s": r6(req.decode_s),
+               "ttft_s": r6(req.ttft_s),
+               "latency_s": r6(req.latency_s),
+               "cache_hit_frac": round(req.cache_hit_frac, 4)}
+        self.request_log.add(rec)
+        _requests.default_request_log().add(rec)
+
+    def _slo_burn_rate(self) -> float:
+        if self.slo is None:
+            return 0.0
+        return self.slo.burn_rate(
+            self._win_ttft.fraction_over(self.slo.ttft_s))
+
+    def _update_window_gauges(self):
+        """Refresh the rolling-quantile gauges and the burn rate: when a
+        request finishes (request grain, off the per-token path) and on
+        every read (``health()``, ``metrics_text()``), since samples
+        expire with time."""
+        ttft = self._win_ttft.quantiles((0.5, 0.95, 0.99))
+        tps = self._win_tps.quantiles((0.5, 0.95, 0.99))
+        for lbl, q in (("p50", 0.5), ("p95", 0.95), ("p99", 0.99)):
+            self._m_win_ttft.set(ttft[q], q=lbl)
+            self._m_win_tps.set(tps[q], q=lbl)
+        for tier, win in self._win_ttft_tier.items():
+            tq = win.quantiles((0.5, 0.95, 0.99))
+            for lbl, q in (("p50", 0.5), ("p95", 0.95), ("p99", 0.99)):
+                self._m_win_ttft.set(tq[q], q=lbl, tier=tier)
+        self._m_burn.set(self._slo_burn_rate())
+
+    # -- request API -------------------------------------------------------
+    def _validate_submit(self, rid: int, prompt: np.ndarray, max_new: int,
+                         tier: str):
+        if prompt.size < 1:
+            raise self._reject(rid, "empty_prompt", "submit: empty prompt")
+        if max_new < 1:
+            raise self._reject(rid, "bad_max_new", f"submit: max_new must "
+                               f"be >= 1, got {max_new}")
+        if tier not in VALID_TIERS:
+            raise self._reject(rid, "bad_tier", f"submit: tier must be one "
+                               f"of {VALID_TIERS}, got {tier!r}")
+        if prompt.size + max_new > self.cache_len:
+            raise self._reject(
+                rid, "exceeds_cache", f"submit: {prompt.size} prompt + "
+                f"{max_new} new tokens exceed cache_len {self.cache_len}")
+
+    def abort_requests(self, reason: str = "replica_killed") -> int:
+        """Close every live request's open trace slices (``queued`` /
+        ``prefill`` / ``decode`` / ``request``) with an ``aborted``
+        marker and drop the work: the in-process counterpart of the
+        serving process dying. Trace-level only: block and slot
+        accounting is abandoned, not released, as in a dead process; do
+        not reuse the engine afterwards. Returns the requests aborted."""
+        now = time.perf_counter()
+        aborted: List[EngineRequest] = []
+        # a preempted request closed its prefill/decode slices at
+        # preemption and waits in a "queued" slice opened there, which
+        # closes here too (the JAX engine leaves that one open)
+        for req in list(self._queue) + list(getattr(self, "_preempted", ())):
+            self._ev(req, "queued", "e", now)
+            aborted.append(req)
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            if req.first_token_t is None:
+                self._ev(req, "prefill", "e", now)
+            if req.decode_open:
+                self._ev(req, "decode", "e", now)
+                req.decode_open = False
+            self._active[slot] = False
+            self._slot_req[slot] = None
+            aborted.append(req)
+        for req in aborted:
+            req.status, req.finish_reason = "aborted", reason
+            self._ev(req, "aborted", "n", now, reason=reason)
+            self._ev(req, "request", "e", now)
+        self._queue.clear()
+        if hasattr(self, "_preempted"):
+            self._preempted.clear()
+        self._m_queue.set(0)
+        return len(aborted)
 
     @property
     def active_count(self) -> int:
@@ -248,27 +480,44 @@ class DecodeEngine:
     def _seed(self) -> np.int32:
         return np.int32(self._rng.randint(0, 2 ** 31 - 1))
 
-    def _ev(self, req: EngineRequest, name: str, now: float, **args):
-        """A request's lifecycle event (admitted, preempted, resumed,
-        finished). No-op here: the chrome-trace events of the JAX engine
-        attach to this hook (ROADMAP A)."""
-
     def _finish(self, req: EngineRequest, reason: str, now: float):
         req.status, req.finish_reason, req.finish_t = "done", reason, now
         self._m_completed.inc(reason=reason)
+        if req.latency_s and req.latency_s > 0:
+            goodput = len(req.tokens) / req.latency_s
+            self._m_goodput.observe(goodput)
+            self._win_tps.observe(goodput)
         if req.slot >= 0:
             self._active[req.slot] = False
             self._slot_req[req.slot] = None
             self._free.append(req.slot)
-        self._ev(req, "finished", now, reason=reason)
+        if req.decode_open:
+            self._ev(req, "decode", "e", now)
+            req.decode_open = False
+        self._ev(req, "finished", "n", now, reason=reason,
+                 tokens=len(req.tokens))
+        self._ev(req, "request", "e", now)
+        self._record_request(req)
+        self._update_window_gauges()
 
     def _emit(self, req: EngineRequest, tok: int, now: float) -> bool:
         """Record one emitted token; True when the request finished."""
         req.tokens.append(int(tok))
         self._m_tokens.inc()
+        finishing = ((req.eos_id is not None and tok == req.eos_id)
+                     or len(req.tokens) >= req.max_new)
         if req.first_token_t is None:
             req.first_token_t = now
-            self._m_ttft_s.observe(now - req.submit_t)
+            ttft = now - req.submit_t
+            self._m_ttft_s.observe(ttft)
+            self._win_ttft.observe(ttft)
+            self._tier_window(req.tier).observe(ttft)
+            self._ev(req, "prefill", "e", now)
+            self._ev(req, "first_token", "n", now,
+                     ttft_ms=round(1000 * ttft, 3))
+            if not finishing:
+                self._ev(req, "decode", "b", now)
+                req.decode_open = True
         if req.eos_id is not None and tok == req.eos_id:
             self._finish(req, "eos", now)
             return True
@@ -384,10 +633,63 @@ class DecodeEngine:
         mfu = self.decode_mfu()
         if mfu is not None:
             doc["decode_mfu"] = mfu
+        self._update_window_gauges()
+        ttft = self._win_ttft.quantiles((0.5, 0.95, 0.99))
+        doc["window"] = {
+            "window_s": self._win_ttft.window_s,
+            "requests": self._win_ttft.count(),
+            "ttft_p50_s": round(ttft[0.5], 6),
+            "ttft_p95_s": round(ttft[0.95], 6),
+            "ttft_p99_s": round(ttft[0.99], 6),
+            "tokens_per_sec_p50": round(self._win_tps.quantile(0.5), 3),
+            # raw windowed TTFT samples, clock-free [age_s, value] (the
+            # newest 512): quantiles of several engines pool from these
+            "ttft_samples": [[round(a, 4), round(v, 6)] for a, v in
+                             self._win_ttft.export_samples()[-512:]]}
+        if self._win_ttft_tier:
+            doc["window"]["tiers"] = {
+                tier: {"requests": win.count(),
+                       "ttft_p50_s": round(win.quantile(0.5), 6),
+                       "ttft_p99_s": round(win.quantile(0.99), 6)}
+                for tier, win in sorted(self._win_ttft_tier.items())}
+        if self.slo is not None:
+            burn = self._slo_burn_rate()
+            doc["slo"] = {"ttft_s": self.slo.ttft_s,
+                          "target": self.slo.target,
+                          "window_s": self.slo.window_s,
+                          "burn_threshold": self.slo.burn_threshold,
+                          "ttft_burn_rate": round(burn, 4)}
+            if burn > self.slo.burn_threshold:
+                # degraded, not unhealthy: /healthz stays 200 while the
+                # reason is machine-readable
+                doc["status"] = "degraded"
+                doc["degraded_reason"] = (
+                    f"ttft_slo_burn_rate {burn:.2f} > "
+                    f"{self.slo.burn_threshold} (p99 "
+                    f"{ttft[0.99]:.4f}s vs slo {self.slo.ttft_s}s over "
+                    f"{self._win_ttft.count()} requests)")
+        return doc
+
+    def requests_doc(self, k: int = 10) -> dict:
+        """The ``/requests`` document: the request log's summary and the
+        ``k`` slowest by TTFT with their attributed components."""
+        doc = self.request_log.summary()
+        doc["slowest_by_ttft"] = self.request_log.slowest(k, by="ttft_s")
         return doc
 
     def metrics_text(self) -> str:
+        self._update_window_gauges()   # samples expire: refresh on read
         return self.metrics.render_prometheus()
+
+    def serve(self, host: str = "127.0.0.1", port: int = 0):
+        """``/metrics``, ``/healthz`` and ``/requests`` over this engine
+        (``observe/health.HealthServer``); the caller owns ``close()``.
+        The documents are host state: a scrape never reads the card."""
+        from paddle_tpu_torch.observe.health import HealthServer
+        return HealthServer(registry=self.metrics, health_fn=self.health,
+                            host=host, port=port,
+                            requests_fn=self.requests_doc,
+                            metrics_fn=self.metrics_text)
 
 
 def _params_device(params) -> torch.device:
@@ -442,7 +744,12 @@ class PagedDecodeEngine(DecodeEngine):
       batch admissions;
     - **tenant budgets** — a tenant's reserved tokens in flight are
       capped (``set_tenant_budget``); an exhausted tenant's requests
-      wait and are skipped, never block the others, never reject.
+      wait and are skipped, never block the others, never reject;
+    - **prefix mobility** — ``export_prefix`` / ``import_prefix`` move
+      a prompt's cached prefix blocks between pools over the PTKV wire;
+      with ``tiers`` (a ``serving.tiers.TieredStore`` or its kwargs) an
+      evicted cached block is demoted to host DRAM / disk and promoted
+      back when a request that needs it is admitted.
 
     Program discipline: one prefill program per (chunk bucket, context
     span) pair and one decode program (``compile_counts()``).
@@ -453,7 +760,8 @@ class PagedDecodeEngine(DecodeEngine):
                  device, cfg, num_blocks: Optional[int] = None,
                  chunk_tokens: int = 64, seed: Optional[int] = None,
                  tracker: Optional[_ct.CompileTracker] = None,
-                 tenant_budgets: Optional[Dict[str, int]] = None):
+                 tenant_budgets: Optional[Dict[str, int]] = None,
+                 slo: Optional[SloConfig] = None, tiers=None):
         bs = int(block_size)
         if bs < 1 or cache_len % bs:
             raise ValueError(f"cache_len {cache_len} must be a positive "
@@ -470,7 +778,8 @@ class PagedDecodeEngine(DecodeEngine):
             tracker = paged_tracker(cache_len, chunk_tokens, buckets)
         super().__init__(prefill, decode, params, cache, batch=batch,
                          cache_len=cache_len, buckets=buckets,
-                         device=device, cfg=cfg, seed=seed, tracker=tracker)
+                         device=device, cfg=cfg, seed=seed, tracker=tracker,
+                         slo=slo)
         self.block_size = bs
         self.pages_per_slot = cache_len // bs
         self.num_blocks = int(num_blocks if num_blocks is not None
@@ -549,6 +858,31 @@ class PagedDecodeEngine(DecodeEngine):
             "costs across all layers (k + v, and their scales in a "
             "quantized pool)")
         self._m_kv_bytes.set(self.kv_bytes_per_token)
+        self._m_kv_exported = reg.counter(
+            "engine_kv_blocks_exported_total", "prefix-cache blocks "
+            "serialized out over the transfer wire (export_prefix)")
+        self._m_kv_imported = reg.counter(
+            "engine_kv_blocks_imported_total", "transferred or promoted "
+            "blocks adopted into the pool through the prefix-cache "
+            "publish path (import_prefix, tier promotion)")
+        self._m_tier_hits = reg.counter(
+            "engine_prefix_tier_hit_blocks_total", "prompt blocks "
+            "served per tier (label tier): hbm = ordinary prefix-cache "
+            "hit, dram/disk = spilled block adopted again at admission")
+        self._m_tier_miss = reg.counter(
+            "engine_prefix_tier_miss_blocks_total", "prefix lookups "
+            "that missed a tier (label tier), once per request's "
+            "promotion walk: a cold block misses hbm, dram and disk")
+        # -- spill store (the card's pool -> host DRAM -> disk) ----------
+        # a serving.tiers.TieredStore, or the kwargs of one
+        # ({"dram_bytes": ..., "disk_bytes": ..., "disk_dir": ...});
+        # None disables spill: eviction drops the block
+        self.tiers = None
+        if tiers is not None:
+            self.tiers = (tiers if isinstance(tiers, _tiers.TieredStore)
+                          else _tiers.TieredStore(registry=reg,
+                                                  **dict(tiers)))
+            self.pool.on_evict = self._demote_block
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -558,7 +892,8 @@ class PagedDecodeEngine(DecodeEngine):
                     chunk_tokens: int = 64, seed: Optional[int] = None,
                     kv_dtype: Optional[str] = None, device=None,
                     tracker: Optional[_ct.CompileTracker] = None,
-                    tenant_budgets: Optional[Dict[str, int]] = None):
+                    tenant_budgets: Optional[Dict[str, int]] = None,
+                    slo: Optional[SloConfig] = None, tiers=None):
         """Engine over live ``params`` (from ``transformer.init_params``,
         ``params_from_numpy`` or the int8-weight
         ``io/lm_serving.quantize_lm_params``) with a fresh pool of
@@ -566,7 +901,8 @@ class PagedDecodeEngine(DecodeEngine):
         the storage ``kv_dtype`` names (None: the model dtype; "int8" or
         "int4": quantized, see ``transformer.init_block_pool``), and the
         step programs of ``sampling.paged_step_fns`` under ``tracker``
-        (default: a fresh one per engine). Runs on the card unless
+        (default: a fresh one per engine), with the TTFT ``slo`` and the
+        spill ``tiers`` of the constructor. Runs on the card unless
         ``device="cpu"``; ``params`` must already live there."""
         from paddle_tpu_torch.serving import sampling
         device = place.resolve_device(device)
@@ -594,7 +930,7 @@ class PagedDecodeEngine(DecodeEngine):
                    cache_len=cache_len, block_size=block_size,
                    num_blocks=nb, chunk_tokens=chunk_tokens, device=device,
                    cfg=cfg, seed=seed, tracker=tracker,
-                   tenant_budgets=tenant_budgets)
+                   tenant_budgets=tenant_budgets, slo=slo, tiers=tiers)
 
     # -- request API -------------------------------------------------------
     def set_tenant_budget(self, tenant: str, tokens: Optional[int]):
@@ -612,23 +948,24 @@ class PagedDecodeEngine(DecodeEngine):
 
     def submit(self, prompt, max_new: int, *, temperature: float = 0.0,
                top_k: int = 0, eos_id: Optional[int] = None,
-               tenant: str = "default", tier: str = "batch"
-               ) -> EngineRequest:
+               tenant: str = "default", tier: str = "batch",
+               trace: Optional[str] = None) -> EngineRequest:
         """Queue one request. Any prompt with ``len(prompt) + max_new <=
         cache_len`` is accepted and prefilled in chunks.
         ``tier="latency"`` admits ahead of batch-tier work and may
         preempt a batch victim's blocks under pool pressure; ``tenant``
         charges the request's worst-case tokens against that tenant's
-        budget (exhaustion queues, never rejects)."""
+        budget (exhaustion queues, never rejects); ``trace`` adopts a
+        caller's trace id instead of minting ``eng<N>.r<rid>``."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         rid = next(self._ids)
-        self._validate_submit(prompt, max_new, tier)
+        self._validate_submit(rid, prompt, max_new, tier)
         need = -(-(prompt.size + max_new) // self.block_size)
         if need > self.num_blocks:
             # a request needing more blocks than the pool has could
             # never reserve and would block the FIFO head forever
             raise self._reject(
-                "exceeds_pool", f"submit: {prompt.size} prompt + "
+                rid, "exceeds_pool", f"submit: {prompt.size} prompt + "
                 f"{max_new} new tokens need {need} blocks, exceeding the "
                 f"pool's {self.num_blocks}")
         budget = self.tenant_budgets.get(str(tenant))
@@ -636,15 +973,203 @@ class PagedDecodeEngine(DecodeEngine):
             # a request whose own charge exceeds its tenant's cap could
             # never admit: impossibility rejects, exhaustion queues
             raise self._reject(
-                "exceeds_budget", f"submit: {prompt.size} prompt + "
+                rid, "exceeds_budget", f"submit: {prompt.size} prompt + "
                 f"{max_new} new tokens exceed tenant {tenant!r}'s budget "
                 f"of {budget}")
         req = EngineRequest(
             rid=rid, prompt=prompt, max_new=int(max_new),
             temperature=float(temperature), top_k=int(top_k),
             eos_id=eos_id, tenant=str(tenant), tier=str(tier),
-            submit_t=time.perf_counter())
+            submit_t=time.perf_counter(),
+            trace_id=str(trace) if trace else "")
         return self._enqueue(req)
+
+    # -- prefix transfer (the PTKV wire) -----------------------------------
+    def prefix_digests(self, prompt) -> List[bytes]:
+        """Content-chain digests of ``prompt``'s transferable prefix: the
+        chunk-aligned full blocks admission can serve as hits (the final
+        chunk is always computed here: it produces the logits)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        per = self.chunk_tokens // self.block_size
+        usable = ((int(prompt.size) - 1) // self.chunk_tokens) * per
+        if usable <= 0:
+            return []
+        return _blocks.prompt_block_hashes(prompt,
+                                           self.block_size)[:usable]
+
+    def _checked_slabs(self, digest: bytes, payload: bytes):
+        """The slabs of a spill tier's single-block ``payload`` for
+        ``digest``, stamp-checked against this pool; a corrupt or
+        mismatched payload is quarantined and gives None (a miss)."""
+        try:
+            meta, items = _transfer.deserialize_blocks(payload)
+            _transfer.check_pool_match(meta, self.cache, self.block_size,
+                                       self.kv_dtype)
+            if len(items) != 1 or items[0][0] != digest:
+                raise ValueError("spill payload digest mismatch")
+        except (ValueError, KeyError):
+            self.tiers.quarantine(digest)
+            return None
+        return items[0][1]
+
+    def export_prefix(self, prompt, trace: Optional[str] = None,
+                      partial: bool = False) -> Optional[bytes]:
+        """Serialize ``prompt``'s transferable prefix out of this pool.
+        Every prefix block must be published (serve the prompt first,
+        e.g. ``submit(prompt, max_new=1)`` and drain). None when the
+        prompt has no transferable prefix or a block was evicted: the
+        receiver then prefills cold, slower but identical.
+
+        ``partial=True`` serves the LEADING run from wherever it lives —
+        pool rows and spilled DRAM/disk payloads in one chain — and
+        stops at the first miss; None only when that run is empty."""
+        digests = self.prefix_digests(prompt)
+        if not digests:
+            return None
+        chain = []              # (digest, pool block or None, tier slabs)
+        for h in digests:
+            b = self.pool.lookup(h)
+            if b is not None:
+                chain.append((h, b, None))
+                continue
+            if not partial:
+                return None
+            got = self.tiers.get(h) if self.tiers is not None else None
+            slabs = (self._checked_slabs(h, got[1]) if got is not None
+                     else None)
+            if slabs is None:
+                break
+            chain.append((h, None, slabs))
+        if not chain:
+            return None
+        read = iter(_transfer.read_blocks(
+            self.cache, [b for _, b, _ in chain if b is not None],
+            self.block_size))
+        items = [(h, next(read) if b is not None else slabs)
+                 for h, b, slabs in chain]
+        payload = _transfer.serialize_raw_blocks(
+            _transfer.pool_meta(self.cache, self.block_size,
+                                self.kv_dtype), items, trace=trace)
+        self._m_kv_exported.inc(len(items))
+        return payload
+
+    def _adopt(self, digest: bytes, chain_blocks: set) -> Optional[int]:
+        """Allocate a block for ``digest`` and publish it (refcount 0,
+        parked in the LRU, served as a hit from here on); None when the
+        pool cannot take one more block without evicting a block of
+        this chain (a chain whose head is evicted serves no hits)."""
+        if not self.pool.can_reserve(1):
+            return None
+        if (self.pool.free_count == 0
+                and self.pool.lru_oldest() in chain_blocks):
+            return None
+        self.pool.reserve(1)
+        b = self.pool.alloc()
+        self.pool.publish(digest, b)
+        self.pool.release(b)
+        chain_blocks.add(b)
+        return b
+
+    def import_prefix(self, payload: bytes) -> int:
+        """Adopt serialized prefix blocks into this pool through the
+        prefix-cache publish path. Stamp-checked: a payload whose layout,
+        kv_dtype or slab shapes differ from this pool's raises. Walks
+        the chain in order, skipping digests already cached, and stops
+        when the pool cannot take another block. The slabs are written
+        in place (one ``index_copy_`` per pool leaf): every pool tensor
+        keeps its address, so the captured graphs read the adopted rows.
+        Returns the blocks adopted; they park refcount-0 in the LRU.
+        Generation over them equals the cold run token for token."""
+        meta, blocks = _transfer.deserialize_blocks(payload)
+        _transfer.check_pool_match(meta, self.cache, self.block_size,
+                                   self.kv_dtype)
+        chain_blocks = set()    # pool blocks of this chain's digests
+        pending = []
+        for digest, arrays in blocks:
+            existing = self.pool.lookup(digest)
+            if existing is not None:
+                chain_blocks.add(existing)
+                continue
+            b = self._adopt(digest, chain_blocks)
+            if b is None:
+                break
+            pending.append((b, arrays))
+        # one write per pool leaf for the whole chain: nothing reads the
+        # pool between the publishes and here (one engine thread)
+        _transfer.write_blocks(self.cache, pending, self.block_size)
+        if pending:
+            self._m_kv_imported.inc(len(pending))
+        if meta.get("trace"):
+            # the payload carried the sender's trace context: mark the
+            # adoption on that track
+            _chrome.record_event(
+                "prefix_import", self._wall(time.perf_counter()), "n",
+                str(meta["trace"]),
+                args={"blocks": len(pending), "chain": len(blocks)})
+        return len(pending)
+
+    # -- tiered spill (the card's pool -> host DRAM -> disk) ---------------
+    def _demote_block(self, block: int, digest: bytes):
+        """``pool.on_evict``: serialize the evicted cached block onto the
+        wire (the spill format) and park it in the tiers. Fires inside
+        ``alloc()`` before the new holder's rows are written (by a later
+        step on the current stream); the copy to the host is blocking on
+        that stream, so the bytes still match the digest. A failed spill
+        is a lost cache entry, as eviction was before tiers, never an
+        error on the allocation path."""
+        try:
+            payload = _transfer.serialize_blocks(
+                self.cache, [block], [digest], self.block_size,
+                self.kv_dtype)
+            self.tiers.put(digest, payload)
+        except Exception as e:  # noqa: BLE001 — a lost entry, no more
+            log.warning("demoting block %d (%s) failed, the entry is "
+                        "lost: %s: %s", block, digest.hex(),
+                        type(e).__name__, e)
+
+    def _promote_for(self, req: EngineRequest):
+        """Adopt ``req``'s spilled prefix from the DRAM/disk tiers into
+        the pool once its admission is certain, so the plan sees the
+        promoted blocks as ordinary prefix-cache hits. Walks the chain
+        to the chunk-aligned hit cap and stops at the first miss. Runs
+        once per request; a corrupt or mismatched payload is quarantined
+        and is a miss."""
+        req.tier_promote_done = True
+        bs = self.block_size
+        if req.block_hashes is None:
+            req.block_hashes = _blocks.prompt_block_hashes(req.prompt, bs)
+        per = self.chunk_tokens // bs
+        usable = ((int(req.prompt.size) - 1) // self.chunk_tokens) * per
+        chain_blocks = set()
+        pending = []
+        for h in req.block_hashes[:usable]:
+            existing = self.pool.lookup(h)
+            if existing is not None:
+                chain_blocks.add(existing)
+                continue
+            self._m_tier_miss.inc(tier="hbm")
+            got = self.tiers.get(h)
+            if got is None:
+                self._m_tier_miss.inc(tier="dram")
+                self._m_tier_miss.inc(tier="disk")
+                break
+            tier = got[0]
+            if tier == "disk":
+                self._m_tier_miss.inc(tier="dram")
+            slabs = self._checked_slabs(h, got[1])
+            if slabs is None:
+                break
+            b = self._adopt(h, chain_blocks)
+            if b is None:
+                break
+            pending.append((b, slabs))
+            self._m_tier_hits.inc(tier=tier)
+        _transfer.write_blocks(self.cache, pending, bs)
+        req.tier_promoted_blocks = len(pending)
+        if pending:
+            self._m_kv_imported.inc(len(pending))
+            self._ev(req, "tier_promote", "n", time.perf_counter(),
+                     blocks=len(pending))
 
     @property
     def preempted_count(self) -> int:
@@ -743,6 +1268,15 @@ class PagedDecodeEngine(DecodeEngine):
         hashes, hits, need, revive = self._admission_plan(req)
         if not self.pool.can_reserve(need + revive):
             return False
+        # promote only once admission is certain (a promoted block parks
+        # refcount-0 in the LRU, where a long wait would see it evicted
+        # again). Each promoted block moves free -> LRU and its digest
+        # need -> revive, so the verdict above stands; only the hits
+        # change
+        if self.tiers is not None and not req.tier_promote_done:
+            self._promote_for(req)
+            if req.tier_promoted_blocks:
+                hashes, hits, need, revive = self._admission_plan(req)
         slot = self._free.popleft()
         self.pool.reserve(need)
         for b in hits:
@@ -754,12 +1288,23 @@ class PagedDecodeEngine(DecodeEngine):
         self._slot_prefill_s[slot] = 0.0
         req.prefix_hit_tokens = len(hits) * self.block_size
         self._m_prefix_hits.inc(len(hits))
+        # the blocks promotion just adopted were dram/disk hits (counted
+        # there); the rest were in the pool all along
+        hbm_hits = len(hits) - req.tier_promoted_blocks
+        req.tier_promoted_blocks = 0
+        if hbm_hits > 0:
+            self._m_tier_hits.inc(hbm_hits, tier="hbm")
         now = time.perf_counter()
         req.prefill_t = now
         if req.preemptions == 0:
             # a re-admission would observe the whole submit -> now span
             # again: the histogram keeps each request's first wait
             self._m_wait_s.observe(now - req.submit_t)
+        self._ev(req, "queued", "e", now)
+        self._ev(req, "admitted", "n", now, slot=slot,
+                 queue_wait_ms=round(1000 * (now - req.submit_t), 3),
+                 hit_blocks=len(hits), reserved_blocks=need)
+        self._ev(req, "prefill", "b", now)
         req.slot, req.status = slot, "prefilling"
         self._slot_req[slot] = req
         self._track_tenant(req, self._charge(req))
@@ -770,7 +1315,6 @@ class PagedDecodeEngine(DecodeEngine):
             self._slot_forced[slot] = deque(req.replay)
             req.replay = None
         self._prefilling.append(slot)
-        self._ev(req, "admitted", now, slot=slot, hit_blocks=len(hits))
         return True
 
     def _admit(self):
@@ -857,6 +1401,9 @@ class PagedDecodeEngine(DecodeEngine):
         bs = self.block_size
         blocks = list(self._slot_blocks[slot])
         if req.status == "running":
+            if req.decode_open:
+                self._ev(req, "decode", "e", now)
+                req.decode_open = False
             pos = int(self._pos[slot])
             seq = np.concatenate([req.prompt,
                                   np.asarray(req.tokens, np.int32)])
@@ -874,9 +1421,12 @@ class PagedDecodeEngine(DecodeEngine):
             req.snapshot = {"hashes": hashes, "tail_hash": tail_hash,
                             "pos": pos, "last": int(self._last[slot]),
                             "forced": list(self._slot_forced[slot])}
+            published = nfull + (1 if tail_len else 0)
             self._active[slot] = False
-        else:
+        else:                       # mid-prefill: the published chunk
+            published = 0           # blocks already carry their digests
             self._prefilling.remove(slot)
+            self._ev(req, "prefill", "e", now)
             if self._slot_forced[slot]:
                 # a replay-resuming victim preempted again mid-prefill:
                 # its history must survive the re-queue, or the next
@@ -890,8 +1440,11 @@ class PagedDecodeEngine(DecodeEngine):
         req.slot = -1
         req.preemptions += 1
         self._m_preempts.inc()
-        self._ev(req, "preempted", now, tokens=len(req.tokens),
-                 was=req.status)
+        self._ev(req, "preempted", "n", now, tokens=len(req.tokens),
+                 blocks_published=published, was=req.status)
+        # queued again (resume line or arrival queue): a fresh "queued"
+        # slice keeps the next admission's "queued e" balanced
+        self._ev(req, "queued", "b", now)
         if req.status == "running":
             req.status = "preempted"
             self._preempted.append(req)
@@ -957,8 +1510,13 @@ class PagedDecodeEngine(DecodeEngine):
             self._topk[slot] = req.top_k
             self._track_tenant(req, self._charge(req))
             req.snapshot = None
+            self._ev(req, "queued", "e", now)
+            if not req.decode_open:
+                self._ev(req, "decode", "b", now)
+                req.decode_open = True
             self._m_resumes.inc(mode="remap")
-            self._ev(req, "resumed", now, mode="remap")
+            self._ev(req, "resumed", "n", now, mode="remap",
+                     blocks=len(blocks))
             return "remap"
         # eviction fallback: forced replay through normal admission
         req.replay = list(req.tokens)
@@ -967,7 +1525,8 @@ class PagedDecodeEngine(DecodeEngine):
             return None
         req.snapshot = None
         self._m_resumes.inc(mode="replay")
-        self._ev(req, "resumed", time.perf_counter(), mode="replay")
+        self._ev(req, "resumed", "n", time.perf_counter(), mode="replay",
+                 replay_tokens=len(req.tokens))
         return "replay"
 
     def _try_adopt(self, slot: int) -> bool:
@@ -1000,6 +1559,9 @@ class PagedDecodeEngine(DecodeEngine):
         self._slot_off[slot] = off + K
         req.prefix_hit_tokens += K
         self._m_prefix_hits.inc(len(blocks))
+        self._m_tier_hits.inc(len(blocks), tier="hbm")
+        self._ev(req, "prefix_adopt", "n", time.perf_counter(),
+                 hit_blocks=len(blocks), tokens=K)
         return True
 
     def _prefill_chunk(self, finished: List[EngineRequest]):
@@ -1035,10 +1597,16 @@ class PagedDecodeEngine(DecodeEngine):
             self._m_stall.observe(now - t0)
         # publish the chunk's full prompt blocks now: a concurrent
         # same-prefix request adopts them instead of prefilling again
+        cold = 0
         for j in range(off // bs, (off + c) // bs):
             self.pool.publish(self._slot_hashes[slot][j],
                               int(self._pages[slot, j]))
             self._m_prefix_miss.inc()
+            cold += 1
+        self._ev(req, "prefill_chunk", "n", now, tokens=int(c),
+                 cold_blocks=cold, hit_blocks=req.prefix_hit_tokens // bs,
+                 stalled_decoders=int(self._active.sum()) if stalled
+                 else 0)
         self._slot_off[slot] = off + c
         if off + c < req.prompt.size:
             self._prefilling.append(slot)   # round-robin: one chunk per
@@ -1055,7 +1623,12 @@ class PagedDecodeEngine(DecodeEngine):
             # preempt-resume replay: the prompt's first token was
             # emitted before the preemption; the chunk grid just derived
             # it again. Restore the cursor on the known token, emit
-            # nothing
+            # nothing; the slices still move on (prefill closes, decode
+            # opens), so the trace stays balanced through a replay
+            self._ev(req, "prefill", "e", now)
+            if not req.decode_open:
+                self._ev(req, "decode", "b", now)
+                req.decode_open = True
             self._last[slot] = self._slot_forced[slot].popleft()
             return
         self._last[slot] = tok
@@ -1129,6 +1702,18 @@ class PagedDecodeEngine(DecodeEngine):
                     "pool_bytes": self.pool_bytes,
                     "preempted_queued": len(self._preempted),
                     "preemptions": int(self._m_preempts.value())})
+        # decode FLOPs of one token at the full context: the recompute
+        # cost a router weighs against fetching kv_bytes_per_token
+        doc["flops_per_token"] = _costs.decode_step_flops(
+            self.cfg, [self.cache_len - 1])
+        # occupancy and a capped newest-first digest listing per tier,
+        # hbm (this pool's prefix cache) included; present without a
+        # spill store too
+        tiers_doc = (self.tiers.health() if self.tiers is not None
+                     else {"digests": {}})
+        tiers_doc["digests"]["hbm"] = [
+            d.hex() for d in self.pool.cached_digests(512)]
+        doc["tiers"] = tiers_doc
         tenants = sorted(set(self._tenant_used) | set(self.tenant_budgets))
         if tenants:
             doc["tenants"] = {

@@ -911,3 +911,122 @@ def test_gpu_engine_preempts_remap_and_replay(cuda):
         r = solo.submit(v.prompt, v.max_new)
         solo.run_until_idle()
         assert r.tokens == v.tokens
+
+
+def _serve(eng, prompt, max_new):
+    r = eng.submit(prompt, max_new)
+    eng.run_until_idle()
+    assert r.status == "done" and len(r.tokens) == max_new
+    return r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "int4"])
+def test_gpu_import_and_promotion_write_in_place(cuda, kv_dtype):
+    """``import_prefix`` and tier promotion write the captured pool in
+    place: every pool leaf keeps its ``data_ptr``, the graph count does
+    not move, and the greedy ids over the adopted (or promoted) blocks
+    equal the same prompt served cold."""
+    from paddle_tpu_torch.serving import PagedDecodeEngine
+    cfg, params = _small_lm(cuda)
+    kw = dict(batch=2, cache_len=256, block_size=16, chunk_tokens=64,
+              seed=0, device="cuda", kv_dtype=kv_dtype)
+    rng = np.random.RandomState(12)
+    prompt = rng.randint(0, 512, 150)        # 8 transferable blocks
+    want = _serve(PagedDecodeEngine.from_params(params, cfg, **kw),
+                  prompt, 16).tokens
+    a = PagedDecodeEngine.from_params(params, cfg, **kw)
+    _serve(a, prompt, 1)
+    payload = a.export_prefix(prompt)
+    b = PagedDecodeEngine.from_params(params, cfg, **kw)
+    _serve(b, rng.randint(0, 512, 150), 16)  # captures the same keys
+    ptrs = {n: t.data_ptr() for n, t in b.cache.items()}
+    graphs = b.compile_counts()
+    assert b.import_prefix(payload) == 8
+    assert {n: t.data_ptr() for n, t in b.cache.items()} == ptrs
+    assert b.compile_counts() == graphs
+    r = _serve(b, prompt, 16)
+    assert r.prefix_hit_tokens == 128 and r.tokens == want
+    assert b.compile_counts() == graphs
+    # promotion: a pool of 16 blocks, the prompt evicted by two others
+    eng = PagedDecodeEngine.from_params(
+        params, cfg, num_blocks=16, tiers={"dram_bytes": 1 << 28}, **kw)
+    ptrs = {n: t.data_ptr() for n, t in eng.cache.items()}
+    assert _serve(eng, prompt, 16).tokens == want
+    for _ in range(2):
+        _serve(eng, rng.randint(0, 512, 150), 16)
+    graphs = eng.compile_counts()
+    r = _serve(eng, prompt, 16)
+    hits = eng.metrics.get("engine_prefix_tier_hit_blocks_total")
+    assert hits.value(tier="dram") == 8 and r.prefix_hit_tokens == 128
+    assert r.tokens == want
+    assert {n: t.data_ptr() for n, t in eng.cache.items()} == ptrs
+    assert eng.compile_counts() == graphs and eng.pool.idle
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "int4"])
+def test_gpu_replay_after_import_is_the_raw_step(cuda, kv_dtype):
+    """A chain written by ``transfer.write_blocks`` into a pool the step
+    graphs captured: a prefill chunk whose context is the adopted blocks
+    and a decode step over them, replayed, give bitwise the ids and pool
+    bytes of the raw step functions on a copy written the same way."""
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.serving import sampling, transfer
+    cfg, params = _small_lm(cuda)
+    bs, nb = 16, 32
+    kvd = kv_dtype or "none"
+    prefill, decode = sampling.paged_step_fns(cfg, bs)
+    pool_g = _random_pool(cfg, nb, bs, kv_dtype, cuda)
+    pool_r = {n: t.clone() for n, t in pool_g.items()}
+    src = {n: t.roll(7 * bs, dims=2).contiguous() for n, t in pool_g.items()}
+    assert transformer.pool_kv_dtype(pool_g, cfg) == kvd
+    ptrs = {n: t.data_ptr() for n, t in pool_g.items()}
+    rng = np.random.RandomState(13)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int32, device=cuda)
+
+    def same_pools():
+        return all(torch.equal(pool_g[n].view(torch.uint8),
+                               pool_r[n].view(torch.uint8)) for n in pool_g)
+
+    ctl = (np.asarray([0.0], np.float32), np.asarray([0], np.int32))
+    pages = np.arange(1, 9, dtype=np.int32)        # 4 context + 4 chunk
+    table = np.zeros((2, 16), np.int32)
+    table[0, :6] = [1, 2, 3, 4, 5, 6]
+    pages_dev = _gpu(table, cuda)                  # resident: one tensor
+    for step in ("capture", "replay"):
+        if step == "replay":
+            meta, items = transfer.deserialize_blocks(
+                transfer.serialize_blocks(src, [9, 10, 11, 12],
+                                          [bytes([i]) * 16 for i in range(4)],
+                                          bs, kvd))
+            for pool in (pool_g, pool_r):
+                transfer.check_pool_match(meta, pool, bs, kvd)
+                transfer.write_blocks(
+                    pool, [(b, arr) for b, (_, arr) in
+                           zip((1, 2, 3, 4), items)], bs)
+            assert {n: t.data_ptr() for n, t in pool_g.items()} == ptrs
+            assert same_pools()
+        toks = np.zeros((1, 64), np.int32)
+        toks[0, :40] = rng.randint(0, 512, 40)
+        got, _ = prefill(params, pool_g, toks, np.int32(40), pages, *ctl,
+                         np.int32(3))
+        got = got.clone()
+        want, _ = prefill.raw(params, pool_r, _gpu(toks, cuda), scalar(40),
+                              _gpu(pages, cuda), *(_gpu(a, cuda) for a in ctl),
+                              scalar(3))
+        assert torch.equal(got, want) and same_pools(), step
+        toks1 = rng.randint(0, 512, 2).astype(np.int32)
+        pos, active = (np.asarray([90, 0], np.int32),
+                       np.asarray([True, False]))
+        temp, topk = np.zeros(2, np.float32), np.zeros(2, np.int32)
+        got, _ = decode(params, pool_g, toks1, pos, active, pages_dev, temp,
+                        topk, np.int32(4))
+        got = got.clone()
+        want, _ = decode.raw(params, pool_r, _gpu(toks1, cuda),
+                             _gpu(pos, cuda), _gpu(active, cuda), pages_dev,
+                             _gpu(temp, cuda), _gpu(topk, cuda), scalar(4))
+        assert torch.equal(got, want) and same_pools(), step
+    assert prefill.graphs == 1 and decode.graphs == 1
