@@ -73,15 +73,31 @@ order it:
    latency-tier burst preempts batch-tier work in a pool of 8 blocks
    (``preempt:``): both resume modes occur, every request completes,
    each victim's greedy ids equal its run alone;
-8. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
+8. speculative decoding (``spec:`` line, ``spec_phase``): the repo's
+   draft-friendly pair at GPT-2 small widths (a 2-layer draft that is
+   the target's first layers, the later layers' residual outputs scaled
+   by 0.05), k = 4: a verify window against sequential raw decode steps
+   over bf16, int8 and int4 pools (whether it is bitwise) and on an
+   fp32 model within 1e-4; kernel 1 at the verify's 40 rows and
+   ``fused_spec_verify`` at [8, 5, 50257] against their plain versions;
+   the engine trace cold and warm through the target-only engine and the
+   spec engine (captures, launches, acceptance), 4 requests through an
+   unrelated draft; every greedy id equal to the target-only engine's
+   (or, if the window is not bitwise, diverging only below the window's
+   logit difference); a remap and a replay preemption of spec victims;
+   the port's v5 artifact of the pair saved, loaded and served; the spec
+   programs' replays bitwise their raw steps; a profiled third trace
+   (``spec_profile:``);
+9. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
    ten device kernels with the most time, the device's busy share);
-9. prints the card line, a ``{"kernels": [...]}`` line (17 entries) and,
-   last, the ``{"ok": true, ...}`` line.
+10. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
+   17 kernels and branches, and ``fused_spec_verify``, kernel 2 at the
+   spec trace's verify rows) and, last, the ``{"ok": true, ...}`` line.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 products are full
 fp32 on the card as on the CPU.
@@ -299,12 +315,16 @@ def widened(q8, x, scale, kvd, dtype):
 
 
 def check_decode(torch, timer, kd, q8, build, dev, rng, Hkv, G, Dh, timed,
-                 kvd="none", dt=None):
+                 kvd="none", dt=None, window=1):
     """Decode at one shape against its plain version: (max abs error,
     times or None). Timed: kernel through the wrapper, the C entry alone
     (``entry_ms``), the plain version and SDPA over gathered K/V; the C
-    entry's output must equal the wrapper's bitwise (two launches)."""
-    B, bs, P, nblocks = 8, 16, 64, 512
+    entry's output must equal the wrapper's bitwise (two launches).
+    ``window`` > 1 is the verify step's shape: 8 slots of ``window``
+    rows each, a slot's rows sharing its page-table row at consecutive
+    positions (the library call: SDPA with ``window`` queries a slot)."""
+    S, bs, P, nblocks = 8, 16, 64, 512
+    B = S * window
     dt = dt or torch.bfloat16
     q = torch.randn(B, Hkv, G, Dh, device=dev).to(dt)
     k, ks = quant_pool(torch, q8, (Hkv, nblocks * bs, Dh), kvd, dev, dt)
@@ -312,10 +332,11 @@ def check_decode(torch, timer, kd, q8, build, dev, rng, Hkv, G, Dh, timed,
     kw = dict(block_size=bs, kv_dtype=kvd)
     if kvd != "none":
         kw.update(k_scale=ks, v_scale=vs)
-    pages = torch.from_numpy(np.stack(
-        [rng.permutation(nblocks)[:P] for _ in range(B)]).astype(np.int32)
-    ).to(dev)
-    pos_np = rng.randint(32, 765, B).astype(np.int32)
+    slot_pages = np.stack([rng.permutation(nblocks)[:P]
+                           for _ in range(S)]).astype(np.int32)
+    pages = torch.from_numpy(np.repeat(slot_pages, window, axis=0)).to(dev)
+    pos_np = (rng.randint(32, 765 - (window - 1), S)[:, None]
+              + np.arange(window)).reshape(B).astype(np.int32)
     pos = torch.from_numpy(pos_np).to(dev)
     args = (q, k, v, pages, pos)
     got = kd.flash_decode_attention(*args, **kw)
@@ -329,22 +350,24 @@ def check_decode(torch, timer, kd, q8, build, dev, rng, Hkv, G, Dh, timed,
         fail(f"flash_decode_attention ({kvd}, {dt}): the C entry and the "
              f"wrapper differ on the same inputs")
     e = q.element_size()
-    rows = int((pos_np + 1).sum())
+    # each slot's rows read once (a window's rows share them); every
+    # query row does its own products
+    rows = int((pos_np.reshape(S, window).max(1) + 1).sum())
     nbytes = (q.numel() * e + rows * Hkv * stored_row_bytes(kvd, Dh, e) * 2
               + pages.numel() * 4 + B * 4 + got.numel() * 4)
-    flops = rows * Hkv * G * Dh * 2 * 2
+    flops = int((pos_np + 1).sum()) * Hkv * G * Dh * 2 * 2
     # library yardstick: SDPA over K/V already gathered per slot (and
     # dequantized, for a quantized pool)
     T = P * bs
-    gidx = (pages.long()[:, :, None] * bs
-            + torch.arange(bs, device=dev)).reshape(B, T)
+    gidx = (torch.from_numpy(slot_pages).to(dev).long()[:, :, None] * bs
+            + torch.arange(bs, device=dev)).reshape(S, T)
     kt = widened(q8, k[:, gidx], None if ks is None else ks[:, gidx], kvd, dt)
     vt = widened(q8, v[:, gidx], None if vs is None else vs[:, gidx], kvd, dt)
     kt = kt.permute(1, 0, 2, 3).repeat_interleave(G, dim=1)
     vt = vt.permute(1, 0, 2, 3).repeat_interleave(G, dim=1)
-    qh = q.reshape(B, Hkv * G, 1, Dh)
-    mask = (torch.arange(T, device=dev)[None, :]
-            <= pos[:, None])[:, None, None, :]
+    qh = q.reshape(S, window, Hkv * G, Dh).transpose(1, 2)
+    mask = (torch.arange(T, device=dev)[None, None, :]
+            <= pos.reshape(S, window)[:, :, None])[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times = {
         "ms": timer.ms(lambda: kd.flash_decode_attention(*args, **kw)),
@@ -891,20 +914,23 @@ def kernel_phase(torch, kd, kp, q8, build):
 
 
 def step_parity(torch, tt):
+    """Two prefill chunks and a decode step of a small fp32 model on the
+    card against the CPU, logits and pool within 1e-4. When they part, the
+    walk runs again on both sides (does either side repeat itself?) and
+    the pool's per-(layer, page) differences are printed before the
+    failure (``steps diag:`` line)."""
     cfg = tt.TransformerConfig(vocab=256, d_model=128, n_heads=4,
                                n_kv_heads=2, n_layers=2, d_ff=256,
                                max_len=128, dtype="float32")
     bs, nb = 16, 16
-    params = {d: tt.init_params(cfg, torch.Generator().manual_seed(5), d)
-              for d in ("cpu", "cuda")}
-    pools = {d: tt.init_block_pool(cfg, nb, bs, device=d)
-             for d in ("cpu", "cuda")}
     rng = np.random.RandomState(7)
     prompt = rng.randint(0, 256, 40).astype(np.int32)
     pages = np.asarray([3, 9, 4, 0], np.int32)       # 0: unmapped tail
-    err = 0.0
-    logits = {}
-    for d in ("cpu", "cuda"):
+
+    def walk(d):
+        """(logits of the three steps on the CPU, the pool) on ``d``."""
+        params = tt.init_params(cfg, torch.Generator().manual_seed(5), d)
+        pool = tt.init_block_pool(cfg, nb, bs, device=d)
         out = []
         for off, c in ((0, 32), (32, 8)):
             bucket = 32 if c > 16 else 16
@@ -912,30 +938,44 @@ def step_parity(torch, tt):
             padded[0, :c] = prompt[off:off + c]
             pv = pages[:off // bs + bucket // bs]
             lg, _ = tt.prefill_into_blocks(
-                params[d], pools[d], torch.from_numpy(padded).to(d), c,
+                params, pool, torch.from_numpy(padded).to(d), c,
                 torch.from_numpy(pv.copy()).to(d), cfg, block_size=bs)
             out.append(lg.cpu())
         tok = torch.tensor([int(out[-1].argmax()), 5], dtype=torch.int32)
         lg, _ = tt.decode_step_paged(
-            params[d], pools[d], tok.to(d),
+            params, pool, tok.to(d),
             torch.tensor([40, 3], dtype=torch.int32).to(d),
             torch.tensor([True, False]).to(d),
             torch.from_numpy(np.stack([pages, pages])).to(d), cfg,
             block_size=bs)
         out.append(lg.cpu())
-        logits[d] = out
-    errs = []
-    for a, b in zip(logits["cpu"], logits["cuda"]):
-        if not torch.isfinite(b).all():
-            fail("non-finite logits on the card")
-        errs.append((a - b).abs().max().item())
+        return out, {n: t.cpu() for n, t in pool.items()}
+
+    def diffs(a, b):
+        """(per-step logits errors, pool error) between two walks."""
+        return ([(x - y).abs().max().item() for x, y in zip(a[0], b[0])],
+                max((a[1][n] - b[1][n]).abs().max().item()
+                    for n in ("k", "v")))
+
+    cpu, card = walk("cpu"), walk("cuda")
+    if not all(torch.isfinite(x).all() for x in card[0]):
+        fail("non-finite logits on the card")
+    errs, pool_err = diffs(cpu, card)
     err = max(errs)
-    pool_err = max((pools["cpu"][n] - pools["cuda"][n].cpu()).abs().max()
-                   .item() for n in ("k", "v"))
     print(f"steps: prefill(2 chunks)+decode on the card vs the CPU, fp32, "
           f"logits max_abs_err={err!r} (per step {errs}) pool "
           f"max_abs_err={pool_err!r} tol=1e-4")
     if not (err <= 1e-4 and pool_err <= 1e-4):
+        cpu2, card2 = walk("cpu"), walk("cuda")
+        per_page = {n: [[(cpu[1][n][li, :, p * bs:(p + 1) * bs]
+                          - card[1][n][li, :, p * bs:(p + 1) * bs])
+                         .abs().max().item() for p in (3, 9, 4)]
+                        for li in range(cfg.n_layers)] for n in ("k", "v")}
+        print("steps diag: " + json.dumps({
+            "cpu_again": diffs(cpu, cpu2), "card_again": diffs(card, card2),
+            "cpu_again_vs_card_again": diffs(cpu2, card2),
+            "pool_by_layer_and_page_3_9_4": per_page,
+            "threads": torch.get_num_threads()}))
         fail("step functions on the card disagree with the CPU")
 
 
@@ -1664,28 +1704,31 @@ def graph_phase(torch, tt, sampling, cfg, params, dev):
           "ids and every pool byte equal: " + json.dumps(doc))
 
 
-def preempt_phase(torch, PagedDecodeEngine, cfg, dev, params):
-    """``preempt:``: GPT-2 small widths, bf16, a pool of 8 blocks of 16
-    and 2 slots. A batch-tier request decodes until a latency-tier one
-    arrives whose reservation does not fit: it is preempted to blocks,
-    and since the latency request's allocations come from free blocks
-    its own stay cached and it resumes by ``remap``. Then a second
-    batch request and a latency burst whose first request's worst case
-    is the whole pool: its allocations evict the victim's parked blocks
-    and it resumes by ``replay``. Every request completes, each victim's
-    greedy ids equal the same request served alone in a fresh engine,
-    and the pool is idle at the end."""
-    kw = dict(ENGINE_KW, batch=2, num_blocks=8)
+def preempt_run(make, vocab, label) -> dict:
+    """Two preemptions of a batch-tier victim in engines from ``make()``
+    (2 slots, a pool of 8 blocks of 16): a latency-tier arrival whose
+    reservation does not fit preempts it to blocks, and since the
+    arrival's allocations come from free blocks the victim's own stay
+    cached and it resumes by ``remap``; then a second victim and a
+    latency burst whose first request's worst case is the whole pool:
+    its allocations evict the victim's parked blocks and it resumes by
+    ``replay``. Each victim is running when its arrival comes. Every
+    request completes, each victim's greedy ids equal the same request
+    served alone in a fresh engine, and the pool is idle at the end.
+    Returns the ``<label>`` document."""
     rng = np.random.RandomState(31)
-    eng = PagedDecodeEngine.from_params(params, cfg, device=dev, **kw)
+    eng = make()
     t0 = time.perf_counter()
     victims, others = [], []
     for lat_lens in ([(48, 16)], [(64, 64), (32, 16)]):
-        v = eng.submit(rng.randint(0, cfg.vocab, 48), 64, tier="batch")
+        v = eng.submit(rng.randint(0, vocab, 48), 64, tier="batch")
         victims.append(v)
         while len(v.tokens) < 3:
             eng.step()
-        others += [eng.submit(rng.randint(0, cfg.vocab, n), m,
+        if v.status != "running":
+            fail(f"{label}: the victim is {v.status} when the latency "
+                 f"requests arrive")
+        others += [eng.submit(rng.randint(0, vocab, n), m,
                               tier="latency") for n, m in lat_lens]
         eng.run_until_idle()
     wall = time.perf_counter() - t0
@@ -1701,20 +1744,29 @@ def preempt_phase(torch, PagedDecodeEngine, cfg, dev, params):
     for v in victims:
         # the same engine shapes: cuBLAS may round otherwise at another
         # batch size
-        solo = PagedDecodeEngine.from_params(params, cfg, device=dev, **kw)
+        solo = make()
         r = solo.submit(v.prompt, v.max_new)
         solo.run_until_idle()
         alone.append(r.tokens == v.tokens)
     doc["equal_to_alone"] = alone
-    print("preempt: " + json.dumps(doc))
+    print(f"{label}: " + json.dumps(doc))
     done = all(r.status == "done" and len(r.tokens) == r.max_new
                for r in victims + others)
     if not (done and eng.pool.idle and all(alone)
             and doc["resumes"] == {"remap": 1, "replay": 1}
             and doc["victim_preemptions"] == [1, 1]):
-        fail(f"preemption: every request done {done}, pool idle "
+        fail(f"{label}: every request done {done}, pool idle "
              f"{eng.pool.idle}, resumes {doc['resumes']}, victims equal to "
              f"their runs alone {alone}")
+    return doc
+
+
+def preempt_phase(torch, PagedDecodeEngine, cfg, dev, params):
+    """``preempt:``: ``preempt_run`` at GPT-2 small widths, bf16."""
+    kw = dict(ENGINE_KW, batch=2, num_blocks=8)
+    preempt_run(lambda: PagedDecodeEngine.from_params(params, cfg,
+                                                      device=dev, **kw),
+                cfg.vocab, "preempt")
 
 
 def quant_logits_phase(torch, tt, cfg, params, dev):
@@ -1756,6 +1808,518 @@ def quant_logits_phase(torch, tt, cfg, params, dev):
             fail(f"{kvd} pool logits outside kv_rel_l2_budget: {rel} vs "
                  f"{budget}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding phase
+# ---------------------------------------------------------------------------
+
+# benchmarks/serving_bench.py::build_draft_pair's recipe, at k = 4
+SPEC_K, SPEC_DRAFT_LAYERS, SPEC_ALPHA = 4, 2, 0.05
+
+
+def draft_pair(torch, tt, cfg, params):
+    """The repo's draft-friendly pair on the port's weights: the target
+    is ``params`` with ``attn_out`` and ``mlp_out`` of every layer past
+    the first ``SPEC_DRAFT_LAYERS`` scaled by ``SPEC_ALPHA`` (its cost is
+    unchanged, its logits land near the draft's); the draft IS the
+    target's first ``SPEC_DRAFT_LAYERS`` layers with the shared
+    embedding, position table, head and final norm. Returns (target
+    params, draft config, draft params)."""
+    blocks = dict(params["blocks"])
+    for leaf in ("attn_out", "mlp_out"):
+        w = blocks[leaf].clone()
+        w[SPEC_DRAFT_LAYERS:] *= SPEC_ALPHA
+        blocks[leaf] = w
+    target = dict(params, blocks=blocks)
+    dcfg = tt.TransformerConfig(
+        vocab=cfg.vocab, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_layers=SPEC_DRAFT_LAYERS, d_ff=cfg.d_ff, max_len=cfg.max_len,
+        use_rope=cfg.use_rope, dtype=cfg.dtype)
+    draft = dict(target, blocks={k: v[:SPEC_DRAFT_LAYERS].contiguous()
+                                 for k, v in blocks.items()})
+    return target, dcfg, draft
+
+
+def window_check(torch, tt, cfg, params, dev, kvd, P, lo, hi):
+    """One verify window (W = SPEC_K + 1) against W sequential raw decode
+    steps from the same pool state: 8 slots on disjoint pages (P a
+    slot), 6 active at positions in [lo, hi) and 2 inactive, a random
+    pool in the storage ``kvd``; the window's tokens are the sequential
+    steps' greedy ids. Returns (the window's logits and pool, the
+    sequential ones, the active rows' mask)."""
+    bs, B, W = ENGINE_KW["block_size"], 8, SPEC_K + 1
+    nb = B * P + 1
+    rng = np.random.RandomState(41)
+    pool_s = random_pool(torch, tt, cfg, nb, bs, kvd, dev, 19)
+    pool_v = {n: t.clone() for n, t in pool_s.items()}
+    blocks = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    table = blocks.reshape(B, P).copy()
+    table[6:] = 0
+    act = np.asarray([True] * 6 + [False] * 2)
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    pages, active = T(table), T(act)
+    pos = T(np.concatenate([rng.randint(lo, hi, 6), [5, hi // 2]])
+            .astype(np.int32))
+    tok = T(rng.randint(0, cfg.vocab, B).astype(np.int32))
+    seq, window = [], [tok]
+    for j in range(W):
+        lg, _ = tt.decode_step_paged(params, pool_s, tok, pos + j, active,
+                                     pages, cfg, block_size=bs)
+        seq.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+        if j < W - 1:
+            window.append(tok)
+    valid = torch.full((B,), W, dtype=torch.int32, device=dev)
+    vlg, _ = tt.verify_step_paged(params, pool_v, torch.stack(window, 1),
+                                  pos, valid, active, pages, cfg,
+                                  block_size=bs)
+    return vlg, pool_v, torch.stack(seq, 1), pool_s, active
+
+
+def window_numbers(torch, vlg, pool_v, seq, pool_s, active) -> dict:
+    """The window check's reading over the active slots: max |logit
+    difference|, whether logits, written pool and greedy ids are equal."""
+    a, b = vlg[active].float(), seq[active].float()
+    return {"max_abs_dlogit": (a - b).abs().max().item(),
+            "logits_bitwise": torch.equal(a, b),
+            "pool_bitwise": same_pool(torch, pool_v, pool_s),
+            "greedy_equal": torch.equal(a.argmax(-1), b.argmax(-1))}
+
+
+def check_spec_verify(torch, timer, kd, sampling, build, dev):
+    """``fused_spec_verify`` at the spec engine's shape, [8, 5, 50257]
+    fp32 logits: every slot its own temperature and top_k (a tiled
+    repeat of the controls would give rows other ones), drafts that
+    match the greedy rows for a slot-dependent run, valid rows 1..5:
+    sampled ids and accepted counts exactly the plain version's (the
+    plain sampler over the flattened rows and ``spec_accept``). Timed
+    through the wrapper, its kernel launch as the C entry alone
+    (``entry_ms``) and on the device (``device_ms``), the plain version,
+    and topk + softmax + multinomial over the [40, V] rows."""
+    B, W, V = 8, SPEC_K + 1, 50257
+    rng = np.random.RandomState(45)
+    x = torch.from_numpy((3.0 * rng.randn(B, W, V)).astype(np.float32)
+                         ).to(dev)
+    draft = x.argmax(-1)[:, :W - 1].to(torch.int32).clone()
+    for b in range(B):
+        if b % W < W - 1:
+            draft[b, b % W] = (draft[b, b % W] + 1) % V
+    temp = torch.tensor([0.0, 0.8, 0.0, 1.1, 0.0, 0.6, 0.7, 0.9],
+                        device=dev)
+    topk = torch.tensor([0, 50, 0, 20, 7, 5, 0, 100], dtype=torch.int32,
+                        device=dev)
+    valid = torch.tensor([5, 5, 3, 5, 1, 4, 2, 5], dtype=torch.int32,
+                         device=dev)
+    seed = torch.tensor(4321, dtype=torch.int32, device=dev)
+    flat = x.reshape(B * W, V)
+    temp_r = sampling.window_rows(temp, W)
+    topk_r = sampling.window_rows(topk, W)
+
+    def plain():
+        ids = kd.fused_sample_plain(flat, seed, temp_r, topk_r).reshape(B, W)
+        return ids, sampling.spec_accept(ids, draft, valid)
+
+    ids, n = kd.fused_spec_verify(x, draft, seed, temp, topk, valid)
+    want_ids, want_n = plain()
+    torch.cuda.synchronize()
+    err = float(max((ids.long() - want_ids.long()).abs().max().item(),
+                    (n.long() - want_n.long()).abs().max().item()))
+
+    def library():
+        vals, idx = torch.topk(flat, 50, dim=-1)
+        probs = torch.softmax(vals / 0.8, dim=-1)
+        return idx.gather(-1, torch.multinomial(probs, 1))
+
+    out = torch.empty(B * W, dtype=torch.int32, device=dev)
+    lib, ptr = build.library(), build.ptr
+    args = [ptr(flat), ptr(temp_r), ptr(topk_r), ptr(out), B * W, V,
+            ptr(seed), kd.STREAMS.index("hash"), build.stream(dev)]
+
+    def entry():
+        build.check(lib.pk_fused_sample(*args), "fused_sample")
+        return out
+
+    if not torch.equal(entry().reshape(B, W), ids):
+        fail("fused_spec_verify: the C entry and the wrapper differ on the "
+             "same inputs")
+    times = {
+        "ms": timer.ms(lambda: kd.fused_spec_verify(x, draft, seed, temp,
+                                                    topk, valid)),
+        "plain_ms": timer.ms(plain),
+        "library_ms": timer.ms(library),
+        "entry_ms": timer.ms(entry),
+    }
+    times["device_ms"], times["device_records"] = timer.device_ms(
+        entry, "fused_sample")
+    # one read of every logit (and the small per-slot vectors), the ids
+    # and counts written; a few compares per logit
+    times["bound_ms"], times["bound_by"] = bound(
+        x.numel() * 4 + B * (W - 1) * 4 + B * 12 + B * W * 4 + B * 4,
+        x.numel() * 4, "float32")
+    return err, times
+
+
+def target_margin(torch, tt, cfg, params, dev, buckets, prompt, ids, i):
+    """The top-2 logit margin of the target-only engine's step that chose
+    ``ids[i]`` for ``prompt``, recomputed with the raw steps at the
+    engine's shapes: the prompt in chunks of ``chunk_tokens`` padded to
+    the engine's buckets, then decode at B = 8 rows (row 0 active) fed
+    ``ids[:i]``."""
+    bs, C, B = (ENGINE_KW["block_size"], ENGINE_KW["chunk_tokens"],
+                ENGINE_KW["batch"])
+    P = ENGINE_KW["cache_len"] // bs
+    pool = tt.init_block_pool(cfg, P + 1, bs, device=dev)
+    pages = np.arange(1, P + 1, dtype=np.int32)
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    off, n = 0, len(prompt)
+    while off < n:
+        c = min(n - off, C)
+        b = min(x for x in buckets if x >= c)
+        padded = np.zeros((1, b), np.int32)
+        padded[0, :c] = prompt[off:off + c]
+        lg, _ = tt.prefill_into_blocks(
+            params, pool, T(padded), c, T(pages[:off // bs + -(-b // bs)]),
+            cfg, block_size=bs)
+        off += c
+    table = np.zeros((B, P), np.int32)
+    table[0] = pages
+    active = np.zeros(B, bool)
+    active[0] = True
+    for j in range(i):
+        toks, pos = np.zeros(B, np.int32), np.zeros(B, np.int32)
+        toks[0], pos[0] = ids[j], n + j
+        lg, _ = tt.decode_step_paged(params, pool, T(toks), T(pos),
+                                     T(active), T(table), cfg,
+                                     block_size=bs)
+    top = lg[0].float().topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def greedy_gate(torch, tt, cfg, params, dev, buckets, pairs, dmax,
+                bitwise) -> list:
+    """Every greedy spec request's ids against the target-only engine's
+    for the same prompt (``pairs``: (spec request, target-only ids)).
+    A divergence passes only where the window check was not bitwise and
+    the target-only step's top-2 margin at the first differing token is
+    below the window check's max |logit difference| ``dmax``; each one
+    is printed with its margin. Returns the divergences."""
+    out = []
+    for req, want in pairs:
+        got = list(req.tokens)
+        if got == list(want):
+            continue
+        i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+        margin = target_margin(torch, tt, cfg, params, dev, buckets,
+                               req.prompt, list(want), i)
+        div = {"rid": req.rid, "token": i, "margin": margin,
+               "max_abs_dlogit": dmax}
+        print("spec greedy divergence: " + json.dumps(div))
+        out.append(div)
+        if bitwise or not margin < dmax:
+            fail(f"spec: greedy request {req.rid} diverges from the "
+                 f"target-only engine at token {i} (margin {margin} vs the "
+                 f"window check's {dmax}, bitwise {bitwise})")
+    return out
+
+
+def spec_graph_check(torch, tt, sampling, cfg, target, dcfg, draft, dev):
+    """The spec programs (``sampling.paged_spec_fns``) against their raw
+    functions on the same inputs at the spec phase's shapes: propose,
+    verify (greedy and sampled slots, per-slot valid rows, two inactive
+    slots) and draft_verify (the replay rows), each captured at its first
+    call and replayed with new inputs and after a page-table remap: ids,
+    counts and every byte of both pools equal. Returns the graphs."""
+    bs, B, W = ENGINE_KW["block_size"], 8, SPEC_K + 1
+    P = 64
+    nb = (B + 1) * P + 1
+    spec = sampling.paged_spec_fns(cfg, dcfg, bs, SPEC_K)
+    pools = {"g": random_pool(torch, tt, cfg, nb, bs, None, dev, 29),
+             "dg": random_pool(torch, tt, dcfg, nb, bs, None, dev, 31)}
+    pools["r"] = {n: t.clone() for n, t in pools["g"].items()}
+    pools["dr"] = {n: t.clone() for n, t in pools["dg"].items()}
+    rng = np.random.RandomState(47)
+    blocks = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    table = blocks[:B * P].reshape(B, P).copy()
+    table[6:] = 0
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    pages_dev = T(table)
+    active = np.asarray([True] * 6 + [False] * 2)
+    forced = np.asarray([False, True] * 4) & active
+    temp = np.asarray([0.0, 0.8] * 4, np.float32)
+    topk = np.asarray([0, 50] * 4, np.int32)
+    for what, seed in (("first", 51), ("new inputs", 52),
+                       ("after a remap", 53)):
+        if what == "after a remap":
+            table[1] = blocks[B * P:(B + 1) * P]
+            pages_dev.copy_(T(table))
+        last = rng.randint(0, cfg.vocab, B).astype(np.int32)
+        pos = np.concatenate([rng.randint(300, 950, 6), [5, 700]]
+                             ).astype(np.int32)
+        valid = np.asarray([5, 4, 5, 2, 5, 1, 5, 5], np.int32)
+        props, _ = spec["propose"](draft, pools["dg"], last, pos, active,
+                                   valid, pages_dev)
+        props = props.clone()
+        want, _ = spec["propose"].raw(draft, pools["dr"], T(last), T(pos),
+                                      T(active), T(valid), pages_dev)
+        window = np.concatenate([last[:, None], props.cpu().numpy()], 1)
+        X, n, _ = spec["verify"](target, pools["g"], window, pos, valid,
+                                 active, pages_dev, temp, topk,
+                                 np.int32(seed))
+        X, n = X.clone(), n.clone()
+        wX, wn, _ = spec["verify"].raw(
+            target, pools["r"], T(window), T(pos), T(valid), T(active),
+            pages_dev, T(temp), T(topk),
+            torch.tensor(seed, dtype=torch.int32, device=dev))
+        spec["draft_verify"](draft, pools["dg"], window, pos, valid, forced,
+                             pages_dev)
+        spec["draft_verify"].raw(draft, pools["dr"], T(window), T(pos),
+                                 T(valid), T(forced), pages_dev)
+        ok = (torch.equal(props, want) and torch.equal(X, wX)
+              and torch.equal(n, wn)
+              and same_pool(torch, pools["g"], pools["r"])
+              and same_pool(torch, pools["dg"], pools["dr"]))
+        if not ok:
+            fail(f"spec graphs ({what}): a replay differs from its raw "
+                 f"step")
+    graphs = {k: spec[k].graphs for k in ("propose", "verify",
+                                          "draft_verify")}
+    if graphs != {"propose": 1, "verify": 1, "draft_verify": 1}:
+        fail(f"spec graphs: captured {graphs}")
+    return graphs
+
+
+def spec_preempt(SpecDecodeEngine, cfg, target, dcfg, draft, dev):
+    """``preempt_run`` with spec-engine victims (``spec_preempt:`` line):
+    on the replay resume ``draft_verify`` writes the forced windows into
+    the draft pool, so its graph must have been captured."""
+    kw = dict(ENGINE_KW, batch=2, num_blocks=8, spec_k=SPEC_K)
+    doc = preempt_run(lambda: SpecDecodeEngine.from_params(
+        target, cfg, draft, dcfg, device=dev, **kw), cfg.vocab,
+        "spec_preempt")
+    if doc["captures"]["draft_verify"] < 1:
+        fail(f"spec_preempt: draft_verify never ran: {doc['captures']}")
+    return doc
+
+
+def spec_phase(torch, tt, tlm, kd, q8, build, kernels, sampling,
+               PagedDecodeEngine, SpecDecodeEngine, cfg, dev, params):
+    """The ``spec:`` line: speculative decoding at GPT-2 small widths, on
+    the repo's draft-friendly pair (``draft_pair``), k = 4.
+
+    1. window check: one verify window of 5 rows against 5 sequential raw
+       decode steps from the same pool state, on bf16, int8 and int4
+       target pools (max |logit difference|, whether logits and written
+       pool rows are bitwise equal); and on the fp32 step-parity model
+       within 1e-4, window against steps and card against the CPU;
+    2. kernel 1 at the verify's 40 rows (5 a slot sharing its page-table
+       row) within 1e-4 of its plain version, and ``fused_spec_verify``
+       at [8, 5, 50257] exactly (ids and accepted counts), both timed;
+    3. the engine trace's 16 requests cold and then the seed-1 trace
+       warm through a target-only ``PagedDecodeEngine`` and through a
+       ``SpecDecodeEngine``, both on the scaled target; the spec cold
+       run's launch counts are the phase's main-path counts (every
+       kernel of the path and ``fused_spec_verify`` > 0); captures:
+       propose 1, verify 1, draft_prefill = the target-only prefill's,
+       decode 0; then 4 requests through an unrelated 2-layer draft
+       (seed 1): low acceptance, rejections and rewinds at full width;
+    4. greedy gate (``greedy_gate``) for both spec runs;
+    5. a remap and a replay preemption of spec victims (``spec_preempt``,
+       its own line);
+    6. the port's v5 artifact of the pair saved, loaded and served (4
+       greedy requests equal to the in-process spec engine's);
+    7. the spec programs' replays bitwise their raw steps
+       (``spec_graph_check``);
+    8. a third trace (seed 2) through the warm spec engine under the
+       profiler (``spec_profile:`` line).
+    Returns (the spec trace's launch counts, the ``fused_spec_verify``
+    kernel row)."""
+    t_phase = time.perf_counter()
+    W = SPEC_K + 1
+    target, dcfg, draft = draft_pair(torch, tt, cfg, params)
+    doc = {"k": SPEC_K, "draft_layers": SPEC_DRAFT_LAYERS,
+           "alpha": SPEC_ALPHA}
+    # 1. window check
+    windows = {}
+    for kvd in (None, "int8", "int4"):
+        windows[kvd or "bf16"] = window_numbers(torch, *window_check(
+            torch, tt, cfg, target, dev, kvd, 64, 300, 950))
+    c32 = tt.TransformerConfig(vocab=256, d_model=128, n_heads=4,
+                               n_kv_heads=2, n_layers=2, d_ff=256,
+                               max_len=128, dtype="float32")
+    runs = {d: window_check(torch, tt, c32, tt.init_params(
+        c32, torch.Generator().manual_seed(5), d), d, None, 8, 40, 100)
+        for d in ("cpu", dev)}
+    w32 = window_numbers(torch, *runs[dev])
+    vlg_c, pool_c = runs["cpu"][0], runs["cpu"][1]
+    vlg_g, pool_g = runs[dev][0].cpu(), {n: t.cpu()
+                                         for n, t in runs[dev][1].items()}
+    w32["card_vs_cpu_logits"] = (vlg_g - vlg_c).abs().max().item()
+    w32["card_vs_cpu_pool"] = max((pool_g[n] - pool_c[n]).abs().max().item()
+                                  for n in pool_c)
+    windows["fp32_step_parity"] = w32
+    print("check spec window: verify window of 5 vs 5 sequential decode "
+          "steps: " + json.dumps(windows))
+    if not (w32["max_abs_dlogit"] <= 1e-4 and w32["card_vs_cpu_logits"]
+            <= 1e-4 and w32["card_vs_cpu_pool"] <= 1e-4):
+        fail(f"spec window (fp32): {w32} outside 1e-4")
+    if not all(np.isfinite(w["max_abs_dlogit"]) for w in windows.values()):
+        fail(f"spec window: non-finite logits {windows}")
+    doc["window_check"] = windows
+    dmax = windows["bf16"]["max_abs_dlogit"]
+    bitwise = windows["bf16"]["logits_bitwise"]
+    # 2. the kernels at the verify's shapes
+    timer = Timer(torch)
+    err1, t1 = check_decode(torch, timer, kd, q8, build, dev,
+                            np.random.RandomState(43), 12, 1, 64, True,
+                            window=W)
+    err2, t2 = check_spec_verify(torch, timer, kd, sampling, build, dev)
+    for name, err, tol, t in (
+            ("flash_decode_attention (40 window rows)", err1, 1e-4, t1),
+            ("fused_spec_verify", err2, 0.0, t2)):
+        print(f"kernel {name}: max_abs_err={err!r} tol={tol!r} "
+              + " ".join(f"{'kernel_ms' if k == 'ms' else k}={v!r}"
+                         for k, v in t.items()))
+        if not err <= tol:
+            fail(f"{name} disagrees with its plain version: {err} > {tol}")
+    doc["window_kernel"] = {"rows": 8 * W, "max_abs_err": err1, **t1}
+    # 3. the engines, each timed from a fresh engine after a throwaway
+    # one served a request (first-use costs stay out of the window)
+    def make(draft_params=None):
+        if draft_params is None:
+            return PagedDecodeEngine.from_params(target, cfg, device=dev,
+                                                 **ENGINE_KW)
+        return SpecDecodeEngine.from_params(target, cfg, draft_params, dcfg,
+                                            spec_k=SPEC_K, device=dev,
+                                            **ENGINE_KW)
+
+    reqs_in = trace(np.random.RandomState(0), cfg.vocab)
+    warm_in = trace(np.random.RandomState(1), cfg.vocab)
+    served = {}
+    for kind, dp in (("target_only", None), ("spec", draft)):
+        throwaway = make(dp)
+        submit(throwaway, np.arange(40) % cfg.vocab, 4, 0.0)
+        throwaway.run_until_idle()
+        del throwaway
+        eng = make(dp)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()             # counts of the main path only
+        reqs, wall, captures, capture_s = serve_trace(torch, eng, reqs_in)
+        launches = {**kernels.launch_counts(), **kernels.entry_counts()}
+        health = eng.health()
+        d = trace_doc(reqs, wall, captures, capture_s)
+        d.update({"decode_steps": health["decode_steps"],
+                  "decode_mfu": eng.decode_mfu(),
+                  "max_memory_allocated_bytes":
+                      torch.cuda.max_memory_allocated(),
+                  "launches": {k: v for k, v in launches.items() if v}})
+        if dp is not None:
+            d["spec"] = health["spec"]
+        wreqs, wwall, wcaptures, wcapture_s = serve_trace(torch, eng,
+                                                          warm_in)
+        d["warm"] = trace_doc(wreqs, wwall, wcaptures, wcapture_s)
+        if dp is not None:
+            d["warm"]["spec_lifetime"] = eng.health()["spec"]
+        check_served(f"spec {kind}", reqs, reqs_in, cfg.vocab)
+        check_served(f"spec {kind} warm", wreqs, warm_in, cfg.vocab)
+        if not eng.pool.idle:
+            fail(f"spec {kind}: blocks still held after the engine drained")
+        served[kind] = (eng, reqs, wreqs, d, launches)
+    doc["target_only"] = served["target_only"][3]
+    doc["spec"] = served["spec"][3]
+    t_eng, t_reqs, t_wreqs = served["target_only"][:3]
+    s_eng, s_reqs, s_wreqs, _, launches = served["spec"]
+    del t_eng
+    captures = doc["spec"]["captures"]
+    want = {"prefill": doc["target_only"]["captures"]["prefill"],
+            "decode": 0, "draft_prefill":
+                doc["target_only"]["captures"]["prefill"],
+            "propose": 1, "verify": 1, "draft_verify": 0}
+    if captures != want:
+        fail(f"spec: captured {captures}, expected {want}")
+    path = list(SERVING_KERNELS) + ["fused_sample.threefry",
+                                    "fused_spec_verify"]
+    missing = [k for k in path if launches[k] <= 0]
+    if missing:
+        fail(f"spec: kernels never launched on the main path: {missing}")
+    # 4. greedy gate, and an unrelated draft: rejections and rewinds
+    pairs = ([(r, t.tokens) for r, t, (_, _, temp) in
+              zip(s_reqs, t_reqs, reqs_in) if temp == 0]
+             + [(r, t.tokens) for r, t, (_, _, temp) in
+                zip(s_wreqs, t_wreqs, warm_in) if temp == 0])
+    unrelated = tt.init_params(dcfg, torch.Generator().manual_seed(1), dev)
+    u_eng = make(unrelated)
+    u_in = reqs_in[:4]
+    u_reqs, u_wall, _, _ = serve_trace(torch, u_eng, u_in)
+    check_served("spec unrelated", u_reqs, u_in, cfg.vocab)
+    doc["unrelated_draft"] = {"requests": len(u_reqs), "wall_s": u_wall,
+                              "spec": u_eng.health()["spec"]}
+    del u_eng, unrelated
+    pairs += [(r, t.tokens) for r, t, (_, _, temp) in
+              zip(u_reqs, t_reqs, u_in) if temp == 0]
+    divergences = greedy_gate(torch, tt, cfg, target, dev, s_eng.buckets,
+                              pairs, dmax, bitwise)
+    doc["greedy_gate"] = {"greedy_requests": len(pairs),
+                          "divergences": divergences}
+    print(f"check spec greedy: {len(pairs)} greedy requests (cold, warm, "
+          f"unrelated draft) vs the target-only engine, "
+          f"{len(divergences)} divergences, window bitwise {bitwise}")
+    # 5. preemption
+    doc["preempt"] = spec_preempt(SpecDecodeEngine, cfg, target, dcfg,
+                                  draft, dev)
+    # 6. the artifact
+    greedy = [i for i, (_, _, temp) in enumerate(reqs_in) if temp == 0][:4]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tlm.save_lm_artifact(
+            f"{tmp}/pair.tar", target, cfg, batch=ENGINE_KW["batch"],
+            prompt_len=ENGINE_KW["chunk_tokens"],
+            cache_len=ENGINE_KW["cache_len"], engine_buckets=s_eng.buckets,
+            engine_paged=True, engine_block_size=ENGINE_KW["block_size"],
+            engine_draft_params=draft, engine_draft_config=dcfg,
+            engine_spec_k=SPEC_K)
+        save_s = time.perf_counter() - t0
+        srv = tlm.load_lm_artifact(f"{tmp}/pair.tar")
+        a_eng = srv.engine(seed=0, device=dev)
+        load_s = time.perf_counter() - t0 - save_s
+    a_in = [reqs_in[i] for i in greedy]
+    a_reqs, _, _, _ = serve_trace(torch, a_eng, a_in)
+    a_equal = [a.tokens == s_reqs[i].tokens for a, i in zip(a_reqs, greedy)]
+    doc["artifact"] = {"format_version": srv.meta["format_version"],
+                       "engine": type(a_eng).__name__, "save_s": save_s,
+                       "load_s": load_s, "ids_equal_in_process": a_equal}
+    del a_eng, srv
+    if not (all(a_equal) and doc["artifact"]["engine"] == "SpecDecodeEngine"
+            and doc["artifact"]["format_version"] == 5):
+        fail(f"spec artifact: {doc['artifact']}")
+    # 7. replays against raw steps
+    doc["graphs"] = spec_graph_check(torch, tt, sampling, cfg, target, dcfg,
+                                     draft, dev)
+    # 8. where a warm spec trace's time goes
+    prof_in = trace(np.random.RandomState(2), cfg.vocab)
+
+    def serve():
+        for r in prof_in:
+            submit(s_eng, *r)
+        s_eng.run_until_idle()
+        torch.cuda.synchronize()
+    profile = profile_window(torch, serve)
+    doc["phase_s"] = time.perf_counter() - t_phase
+    print("spec: " + json.dumps(doc))
+    print("spec_profile: " + json.dumps(profile))
+    del s_eng
+    row = (err2, {"rows": 8 * W}, t2)
+    return launches, row
 
 
 # ---------------------------------------------------------------------------
@@ -1934,6 +2498,10 @@ PAGED_FP32 = ("flash_decode_attention", "flash_chunk_prefill")
 SOURCES["flash_decode_attention.fp32"] = SOURCES["flash_decode_attention"]
 SOURCES["flash_chunk_prefill.fp32"] = (
     "chunk_prefill_f32.cu", SOURCES["flash_chunk_prefill"][1])
+# kernel 2 at a speculative verify window's rows, through the entry point
+# that reaches it there (its launches: the spec trace's)
+SOURCES["fused_spec_verify"] = ("fused_sample.cu",
+                                "paddle_tpu/ops/pallas/decode.py:589")
 
 
 def main():
@@ -1954,7 +2522,8 @@ def main():
     from paddle_tpu_torch.ops.kernels import attention as ka
     from paddle_tpu_torch.ops.kernels import decode as kd
     from paddle_tpu_torch.ops.kernels import prefill as kp
-    from paddle_tpu_torch.serving import PagedDecodeEngine, sampling
+    from paddle_tpu_torch.serving import (PagedDecodeEngine,
+                                          SpecDecodeEngine, sampling)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2000,6 +2569,9 @@ def main():
                            params, "int4", "engine_int4", ".int4")
     preempt_phase(torch, PagedDecodeEngine, cfg, dev, params)
     prefix_phase(torch, kernels, PagedDecodeEngine, cfg, dev, params)
+    spec_launches, rows["fused_spec_verify"] = spec_phase(
+        torch, tt, tlm, kd, q8, _build, kernels, sampling, PagedDecodeEngine,
+        SpecDecodeEngine, cfg, dev, params)
     quant_logits_phase(torch, tt, cfg, params, dev)
     del params                  # (a)'s peak memory holds its weights only
     # (a) int8 pool, int8 weights from the same seed-0 fp32 draws
@@ -2016,7 +2588,8 @@ def main():
                 **{k: served4[k] for k in QUANT_BRANCHES if "int4" in k},
                 **{k: trained[k] for k in TRAINING_KERNELS},
                 **{k: parity[k] for k in FP32_BRANCHES},
-                **{k + ".fp32": fp32_steps[k] for k in PAGED_FP32}}
+                **{k + ".fp32": fp32_steps[k] for k in PAGED_FP32},
+                "fused_spec_verify": spec_launches["fused_spec_verify"]}
 
     out = []
     for name, (src, replaces) in SOURCES.items():

@@ -156,7 +156,7 @@ class GraphContext:
 
 def _launch_counts() -> dict:
     from paddle_tpu_torch.ops import kernels
-    return kernels.launch_counts()
+    return {**kernels.launch_counts(), **kernels.entry_counts()}
 
 
 def _add_launches(delta: dict):

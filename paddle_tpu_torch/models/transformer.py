@@ -183,6 +183,8 @@ def init_train_params(cfg: TransformerConfig,
 
 def _from_numpy(tree: Dict) -> Dict:
     def t(a):
+        if isinstance(a, torch.Tensor):    # e.g. a bf16 leaf of an artifact
+            return a.detach().float()
         if q8.is_quantized_weight(a):      # int8 codes, fp32 scales
             return {"q8": torch.from_numpy(np.asarray(a["q8"], np.int8)
                                            .copy()),
@@ -199,7 +201,8 @@ def params_from_numpy(tree: Dict, cfg: TransformerConfig,
                       device=None) -> Dict:
     """``paddle_tpu``'s parameter tree, already converted to numpy
     (``jax.tree_util.tree_map(np.asarray, params)``), as the port's
-    serving tensors — same names, shapes and orientation. A tree from
+    serving tensors — same names, shapes and orientation. A leaf may also
+    be a tensor (an artifact's bf16 leaf), taken at its value. A tree from
     ``paddle_tpu``'s ``quantize_lm_params`` keeps its {"q8", "scale"}
     nodes, bytes and scales exactly. Runs on the card unless ``device``
     says otherwise."""
@@ -510,59 +513,60 @@ def _pool_layer(pool, li: int, kvq: str):
     return pool["k"][li], pool["v"][li], dict(scales, kv_dtype=kvq)
 
 
-def decode_step_paged(params, pool, tokens: torch.Tensor,
-                      pos: torch.Tensor, active: torch.Tensor,
-                      pages: torch.Tensor, cfg: TransformerConfig, *,
-                      block_size: int):
-    """One decode step over the paged pool: tokens [B] int32, pos [B]
-    int32, active [B] bool, pages [B, P] int32 -> (logits [B, vocab]
-    fp32, pool). Active row b writes its new k/v at pool position
-    ``pages[b, pos[b] // bs] * bs + pos[b] % bs`` (in place), then every
-    row attends through ``flash_decode_attention``. Inactive rows change
-    no byte of the pool — the JAX scatter drops them with
-    ``mode="drop"``.
+def _paged_rows(params, pool, tokens: torch.Tensor, pos: torch.Tensor,
+                live: torch.Tensor, pages: torch.Tensor,
+                cfg: TransformerConfig, block_size: int):
+    """The paged decode step over ``N = B * W`` rows: tokens [B, W]
+    int32, row (b, j) at position ``pos[b] + j``, live [B, W] bool (the
+    rows that write), pages [B, P] -> (logits [N, vocab] fp32, pool).
 
-    The step has no host sync and no shape that depends on the data, so
-    it can be captured into a CUDA graph: every row takes part in one
-    indexed write, and an inactive row takes the write row and values
-    of the first active row. Its page-table entries may be 0, and block
-    0 may belong to a live request: redirected, it writes the same bytes
-    to the same place as that active row, never other bytes beside it
-    (duplicate indices of one write land in no fixed order). With no
-    active row at all, every row rewrites row 0's target with the bytes
-    already there.
-
-    A quantized pool gets the new k/v quantized at write time
-    (``ops/q8.quantize_kv`` on the model-dtype values after RoPE, one
-    scale per (row, head)); values and scales follow the same rule, and
-    attention reads through the kernel's quantized branch. ``params``
-    may be the int8-weight tree (module docstring)."""
-    B = tokens.shape[0]
+    Every live row's k/v is written before attention, then each row
+    attends to its positions <= pos[b] + j through
+    ``flash_decode_attention``, reading its slot's page-table row. There
+    is no host sync and no shape that depends on the data, so it can be
+    captured into a CUDA graph: every row takes part in one indexed write
+    and a dead row takes the write row and values of the first live row
+    (its page-table entries may be 0, and block 0 may belong to a live
+    request: redirected, it writes the same bytes to the same place as
+    that row, never other bytes beside it; duplicate indices of one write
+    land in no fixed order). With no live row at all, every row rewrites
+    row 0's target with the bytes already there. ``pos // block_size``
+    of a dead row may pass P - 1: it is clamped before the gather.
+    Learned positions clip at ``max_len - 1`` (dead rows only)."""
+    B, W = tokens.shape
+    N = B * W
     P = pages.shape[1]
     bs = int(block_size)
     H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     kvd, G = Hkv * Dh, H // Hkv
     kvq = pool_kv_dtype(pool, cfg)
-    x = _embed_rows(params, tokens, cfg)
+    dev = tokens.device
+    gpos = pos.long()[:, None] + torch.arange(W, device=dev)[None, :]
+    flat_pos = gpos.reshape(N)
+    x = _embed_rows(params, tokens.reshape(N), cfg)
     if not cfg.use_rope:
-        x = x + params["pos"][pos.long()].to(cfg.dtype)
-    rope_tabs = (_rope_tables(pos, Dh, cfg.rope_theta) if cfg.use_rope
+        x = x + params["pos"][flat_pos.clamp(max=params["pos"].shape[0] - 1)
+                              ].to(cfg.dtype)
+    rope_tabs = (_rope_tables(flat_pos, Dh, cfg.rope_theta) if cfg.use_rope
                  else None)
-    # physical write row of each slot (inactive rows may sit past their
-    # page vector: clamp before the gather); an inactive row then writes
-    # through the first active row's index and values
-    pg = (pos.long() // bs).clamp(max=P - 1)
-    wrow = pages.long().gather(1, pg[:, None])[:, 0] * bs + pos.long() % bs
-    rows = torch.arange(B, device=pos.device)
-    first = torch.where(active, rows, B).amin().clamp(max=B - 1)
-    src = torch.where(active, rows, first)
+    live = live.reshape(N)
+    pg = (gpos // bs).clamp(max=P - 1)
+    wrow = (pages.long().gather(1, pg) * bs + gpos % bs).reshape(N)
+    rows = torch.arange(N, device=dev)
+    first = torch.where(live, rows, N).amin().clamp(max=N - 1)
+    src = torch.where(live, rows, first)
     widx = wrow[src]
-    any_active = active.any()
+    any_live = live.any()
+    # kernel 1's operands: each row reads its slot's page-table row (an
+    # element-wise repeat, as repeat_interleave(W, 0), written as an
+    # expand so no step input depends on a host read; a view for W = 1)
+    row_pages = pages[:, None, :].expand(B, W, P).reshape(N, P)
+    row_pos = flat_pos.to(torch.int32)
 
     def write(dst, new):
-        """dst[:, widx] = new [Hkv, B, ...], or dst's own bytes there
-        when no row is active."""
-        dst[:, widx] = torch.where(any_active, new, dst[:, widx])
+        """dst[:, widx] = new [Hkv, N, ...], or dst's own bytes there
+        when no row is live."""
+        dst[:, widx] = torch.where(any_live, new, dst[:, widx])
 
     for li in range(cfg.n_layers):
         w = _layer_weights(params["blocks"], li, cfg.dtype)
@@ -571,10 +575,10 @@ def decode_step_paged(params, pool, tokens: torch.Tensor,
         qkv = h @ w["qkv"]
         q, k, v = torch.split(qkv, [H * Dh, kvd, kvd], dim=-1)
         if cfg.use_rope:
-            q = _rope_rows(q.reshape(B, H, Dh), rope_tabs).reshape(B, H * Dh)
-            k = _rope_rows(k.reshape(B, Hkv, Dh), rope_tabs).reshape(B, kvd)
-        k_new = k.reshape(B, Hkv, Dh)[src]
-        v_new = v.reshape(B, Hkv, Dh)[src]
+            q = _rope_rows(q.reshape(N, H, Dh), rope_tabs).reshape(N, H * Dh)
+            k = _rope_rows(k.reshape(N, Hkv, Dh), rope_tabs).reshape(N, kvd)
+        k_new = k.reshape(N, Hkv, Dh)[src]
+        v_new = v.reshape(N, Hkv, Dh)[src]
         if kvq != "none":
             kq, ks = q8.quantize_kv(k_new, kvq)
             vq, vs = q8.quantize_kv(v_new, kvq)
@@ -586,13 +590,73 @@ def decode_step_paged(params, pool, tokens: torch.Tensor,
             write(kc, k_new.transpose(0, 1).to(kc.dtype))
             write(vc, v_new.transpose(0, 1).to(vc.dtype))
         attn = kdecode.flash_decode_attention(
-            q.reshape(B, Hkv, G, Dh).contiguous(), kc, vc, pages, pos,
-            block_size=bs, **kvkw)
-        x = x + attn.reshape(B, cfg.d_model).to(cfg.dtype) @ w["attn_out"]
+            q.reshape(N, Hkv, G, Dh).contiguous(), kc, vc, row_pages,
+            row_pos, block_size=bs, **kvkw)
+        x = x + attn.reshape(N, cfg.d_model).to(cfg.dtype) @ w["attn_out"]
         h2 = norm.layer_norm(x, w["ln2"], w["ln2_b"])
         x = x + _mlp(h2, w["mlp_in"], w["mlp_out"])
     x = norm.layer_norm(x, params["ln_f"], params["ln_f_b"])
     return _vocab_logits(x, params), pool
+
+
+def decode_step_paged(params, pool, tokens: torch.Tensor,
+                      pos: torch.Tensor, active: torch.Tensor,
+                      pages: torch.Tensor, cfg: TransformerConfig, *,
+                      block_size: int):
+    """One decode step over the paged pool: tokens [B] int32, pos [B]
+    int32, active [B] bool, pages [B, P] int32 -> (logits [B, vocab]
+    fp32, pool). Active row b writes its new k/v at pool position
+    ``pages[b, pos[b] // bs] * bs + pos[b] % bs`` (in place), then every
+    row attends through ``flash_decode_attention``. Inactive rows change
+    no byte of the pool — the JAX scatter drops them with
+    ``mode="drop"``; here an inactive row rewrites the first active
+    row's target with its bytes (``_paged_rows``), so the step has no
+    host sync and can be captured into a CUDA graph.
+
+    A quantized pool gets the new k/v quantized at write time
+    (``ops/q8.quantize_kv`` on the model-dtype values after RoPE, one
+    scale per (row, head)); values and scales follow the same rule, and
+    attention reads through the kernel's quantized branch. ``params``
+    may be the int8-weight tree (module docstring)."""
+    return _paged_rows(params, pool, tokens[:, None], pos, active[:, None],
+                       pages, cfg, block_size)
+
+
+def verify_step_paged(params, pool, tokens: torch.Tensor, pos: torch.Tensor,
+                      valid: torch.Tensor, active: torch.Tensor,
+                      pages: torch.Tensor, cfg: TransformerConfig, *,
+                      block_size: int):
+    """W tokens of every slot in one pass over the paged pool, the
+    speculative-decoding verify step: tokens [B, W] int32 (row b holds
+    ``[last_token, draft_1, ..., draft_{W-1}]``), pos [B] int32 (where
+    row b's first token writes, ``decode_step_paged``'s ``pos``), valid
+    [B] int32 (window rows at or past it neither write nor matter),
+    active [B] bool, pages [B, P] the full page table -> (logits
+    [B, W, vocab] fp32, pool).
+
+    This is :func:`decode_step_paged` over ``N = B * W`` rows (the same
+    function, ``_paged_rows``): window row (b, j) stands at position
+    ``pos[b] + j``. All W rows' k/v are written before attention, and row
+    (b, j) attends to positions <= pos[b] + j, so it sees the rows before
+    it in its own window and itself, as the sequential decode steps
+    would. Attention is the decode step's own kernel reduction, which a
+    slot computes bitwise the same whatever the batch; the dense ops are
+    row-wise over [N, ...], but their GEMMs run at M = N where the decode
+    step runs at M = B, so a window row equals its decode step within
+    the library's rounding, bitwise only where the GEMM does not change
+    with M.
+
+    Rows at or past ``valid`` and inactive slots change no byte of the
+    pool. Rejected draft rows' k/v do land in the pool: the engine
+    rewinds ``pos``, the attention mask hides them and the next window
+    overwrites them. A quantized pool and the int8-weight tree ride as
+    in the decode step."""
+    B, W = tokens.shape
+    live = active[:, None] & (torch.arange(W, device=tokens.device)[None, :]
+                              < valid.long()[:, None])
+    logits, pool = _paged_rows(params, pool, tokens, pos, live, pages, cfg,
+                               block_size)
+    return logits.reshape(B, W, cfg.vocab), pool
 
 
 def prefill_into_blocks(params, pool, tokens: torch.Tensor, length,

@@ -28,6 +28,14 @@ def decode_step_flops(cfg, positions: Iterable[int]) -> float:
     return float(2 * matmul_params(cfg) * len(positions) + attn)
 
 
+def verify_step_flops(cfg, positions: Iterable[int], window: int) -> float:
+    """Model FLOPs of one speculative verify step over the slots at
+    ``positions``: every one of their ``window`` rows, row j of a slot
+    at ``pos + j`` (the program computes them all, valid or not)."""
+    return decode_step_flops(cfg, [p + j for p in positions
+                                   for j in range(int(window))])
+
+
 def train_step_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one training step on ``batch`` x ``seq`` tokens:
     6 x weights touched per token (2 forward, 4 backward), plus causal

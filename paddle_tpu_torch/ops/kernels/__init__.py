@@ -13,21 +13,32 @@ The counters tick in Python, where a wrapper launches its kernel. A
 CUDA graph replay runs no Python: ``core/graphs.py`` records what one
 replay launches at capture (``launch_counts`` before and after) and adds
 it with :func:`add_launches` at every replay.
+
+``ENTRY_POINTS`` lists the callers that reach a kernel through another
+wrapper and keep a tally of their own beside that kernel's count
+(``fused_spec_verify``: kernel 2 at a verify window's rows);
+:func:`entry_counts` reads them, :func:`reset_launches` and
+:func:`add_launches` cover them too.
 """
 
 from paddle_tpu_torch.ops.kernels.attention import (flash_attention_bwd,
                                                     flash_attention_fwd)
 from paddle_tpu_torch.ops.kernels.decode import (flash_decode_attention,
-                                                 fused_sample)
+                                                 fused_sample,
+                                                 fused_spec_verify)
 from paddle_tpu_torch.ops.kernels.prefill import (flash_chunk_prefill,
                                                   paged_span_write)
 
 KERNELS = (flash_decode_attention, fused_sample, flash_chunk_prefill,
            paged_span_write, flash_attention_fwd, flash_attention_bwd)
+ENTRY_POINTS = (fused_spec_verify,)
 
 
 def reset_launches():
-    """Set every kernel wrapper's launch counts to 0."""
+    """Set every kernel wrapper's launch counts, and every entry point's
+    tally, to 0."""
+    for fn in ENTRY_POINTS:
+        fn.launches = 0
     for fn in KERNELS:
         if isinstance(fn.launches, dict):
             fn.launches = dict.fromkeys(fn.launches, 0)
@@ -52,9 +63,16 @@ def launch_counts() -> dict:
     return out
 
 
+def entry_counts() -> dict:
+    """``{entry point name: launches}`` of ``ENTRY_POINTS``."""
+    return {fn.__name__: fn.launches for fn in ENTRY_POINTS}
+
+
 def add_launches(delta: dict):
-    """Add ``{kernel name: n}`` (the names of :func:`launch_counts`) to
-    the wrappers' counts."""
+    """Add ``{kernel name: n}`` (the names of :func:`launch_counts` and
+    :func:`entry_counts`) to the wrappers' counts."""
+    for fn in ENTRY_POINTS:
+        fn.launches += delta.get(fn.__name__, 0)
     for fn in KERNELS:
         if isinstance(fn.launches, dict):
             first = next(iter(fn.launches))

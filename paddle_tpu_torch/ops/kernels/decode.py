@@ -4,7 +4,9 @@
   off the head-major paged pool (``csrc/decode_attention.cu``);
 - :func:`fused_sample` — greedy / top-k / temperature sampling with no
   sort, on the Pallas kernel's hashed stream or on ``jax.random``'s
-  threefry stream (``csrc/fused_sample.cu``).
+  threefry stream (``csrc/fused_sample.cu``);
+- :func:`fused_spec_verify` — the speculative verify tail: the same
+  kernel over a window's B * W rows, then the accept fold.
 
 Each public function is a wrapper around a hand-written Hopper kernel:
 a CUDA tensor launches the kernel (or raises on what the kernel does
@@ -423,3 +425,27 @@ def fused_sample(logits, seed, temperature, top_k, stream="hash"):
 
 
 fused_sample.launches = _build.new_launch_counts(STREAMS)
+
+
+def fused_spec_verify(logits, draft, seed, temperature, top_k, valid):
+    """The speculative-decoding accept/reject tail: :func:`fused_sample`
+    on the hashed stream over a verify window's logits [B, W, V]
+    flattened to [B * W, V] (window row (b, w) is row ``b * W + w``, per-
+    slot temperature [B] and top_k [B] repeated element by element over
+    the window), then ``serving/sampling.spec_accept`` over draft
+    [B, W-1] and valid [B] -> (sampled [B, W] int32, n [B] int32).
+
+    On the card it is one launch of ``csrc/fused_sample.cu`` at B * W
+    rows, counted under ``fused_sample`` as every other; this entry
+    point also keeps its own tally, ``fused_spec_verify.launches``."""
+    from paddle_tpu_torch.serving import sampling
+    B, W, V = logits.shape
+    ids = fused_sample(logits.reshape(B * W, V), seed,
+                       sampling.window_rows(temperature, W),
+                       sampling.window_rows(top_k, W)).reshape(B, W)
+    if not _build.on_cpu(logits, "fused_spec_verify"):
+        fused_spec_verify.launches += 1
+    return ids, sampling.spec_accept(ids, draft, valid)
+
+
+fused_spec_verify.launches = 0

@@ -47,8 +47,13 @@ so the captured graphs keep reading the same tensors. With ``tiers=``
 an evicted cached block is demoted to host DRAM or disk
 (``serving/tiers.py``) and promoted back at admission.
 
-Not ported yet (queued in ROADMAP.md): ``SpecDecodeEngine`` and the
-row-arena ``DecodeEngine`` path.
+:class:`SpecDecodeEngine` is the paged engine with speculative
+decoding: a small draft model proposes ``spec_k`` tokens per step, the
+target verifies every slot's window in one pass, and the accept/reject
+tail emits the accepted drafts plus one token of the target's own.
+
+Not ported yet (queued in ROADMAP.md): the row-arena ``DecodeEngine``
+path.
 """
 
 import dataclasses
@@ -194,7 +199,9 @@ class DecodeEngine:
                  *, batch: int, cache_len: int, buckets: Sequence[int],
                  device, cfg, seed: Optional[int] = None,
                  tracker: Optional[_ct.CompileTracker] = None,
-                 slo: Optional[SloConfig] = None):
+                 slo: Optional[SloConfig] = None,
+                 registry: Optional[_metrics.Registry] = None,
+                 decode_flops: Optional[float] = None):
         if tracker is None:
             tracker = getattr(decode, "tracker", None) or \
                 _ct.CompileTracker()
@@ -220,6 +227,9 @@ class DecodeEngine:
                             if self.device.type == "cuda" else None)
         self._flops_total = 0.0
         self._step_s_total = 0.0
+        # a fixed model-FLOPs numerator per step (an artifact's stamped
+        # cost); None counts each step's FLOPs from its shapes
+        self.decode_flops = decode_flops
         B = self.batch
         self._pos = np.zeros(B, np.int32)
         self._active = np.zeros(B, bool)
@@ -239,7 +249,8 @@ class DecodeEngine:
         self.request_log = _requests.RequestLog()
         self.slo: Optional[SloConfig] = None
         self.configure_slo(slo)
-        reg = self.metrics = _metrics.Registry()
+        reg = self.metrics = (registry if registry is not None
+                              else _metrics.Registry())
         self._m_requests = reg.counter(
             "engine_requests_total", "requests submitted")
         self._m_rejected = reg.counter(
@@ -564,15 +575,8 @@ class DecodeEngine:
             # use of its staging buffers and outputs before the next call
             nxt = nxt.cpu().numpy()
             now = time.perf_counter()
-            dt = now - t0
-            self._m_step_s.observe(dt)
-            self._m_steps.inc()
-            flops = _costs.decode_step_flops(self.cfg, positions)
-            self._flops_total += flops
-            self._step_s_total += dt
-            mfu = _costs.mfu(flops, dt, self._peak_flops)
-            if mfu is not None:
-                self._m_decode_mfu.set(mfu)
+            self._account_step(now - t0, _costs.decode_step_flops(
+                self.cfg, positions))
             for slot in np.flatnonzero(self._active):
                 if self._consume_forced(slot):
                     continue
@@ -584,6 +588,20 @@ class DecodeEngine:
                     finished.append(req)
         self._update_gauges()
         return finished
+
+    def _account_step(self, dt: float, flops: float):
+        """One batched step's seconds and model FLOPs (the fixed
+        ``decode_flops`` numerator instead, when set) into the step
+        histogram and counter, the lifetime MFU totals and the MFU
+        gauge."""
+        flops = self.decode_flops or flops
+        self._m_step_s.observe(dt)
+        self._m_steps.inc()
+        self._flops_total += flops
+        self._step_s_total += dt
+        mfu = _costs.mfu(flops, dt, self._peak_flops)
+        if mfu is not None:
+            self._m_decode_mfu.set(mfu)
 
     def run_until_idle(self, max_steps: int = 100_000
                        ) -> List[EngineRequest]:
@@ -761,7 +779,10 @@ class PagedDecodeEngine(DecodeEngine):
                  chunk_tokens: int = 64, seed: Optional[int] = None,
                  tracker: Optional[_ct.CompileTracker] = None,
                  tenant_budgets: Optional[Dict[str, int]] = None,
-                 slo: Optional[SloConfig] = None, tiers=None):
+                 slo: Optional[SloConfig] = None, tiers=None,
+                 chunk_buckets: Optional[Sequence[int]] = None,
+                 registry: Optional[_metrics.Registry] = None,
+                 decode_flops: Optional[float] = None):
         bs = int(block_size)
         if bs < 1 or cache_len % bs:
             raise ValueError(f"cache_len {cache_len} must be a positive "
@@ -773,13 +794,15 @@ class PagedDecodeEngine(DecodeEngine):
         if cache_len % chunk_tokens:
             raise ValueError(f"cache_len {cache_len} must be a multiple "
                              f"of chunk_tokens {chunk_tokens}")
-        buckets = default_chunk_buckets(chunk_tokens)
+        buckets = (tuple(chunk_buckets) if chunk_buckets is not None
+                   else default_chunk_buckets(chunk_tokens))
         if tracker is None and not isinstance(decode, graphs.StepProgram):
             tracker = paged_tracker(cache_len, chunk_tokens, buckets)
         super().__init__(prefill, decode, params, cache, batch=batch,
                          cache_len=cache_len, buckets=buckets,
                          device=device, cfg=cfg, seed=seed, tracker=tracker,
-                         slo=slo)
+                         slo=slo, registry=registry,
+                         decode_flops=decode_flops)
         self.block_size = bs
         self.pages_per_slot = cache_len // bs
         self.num_blocks = int(num_blocks if num_blocks is not None
@@ -889,11 +912,15 @@ class PagedDecodeEngine(DecodeEngine):
     def from_params(cls, params, cfg, *, batch: int, cache_len: int,
                     block_size: int = 16,
                     num_blocks: Optional[int] = None,
-                    chunk_tokens: int = 64, seed: Optional[int] = None,
+                    chunk_tokens: int = 64,
+                    chunk_buckets: Optional[Sequence[int]] = None,
+                    seed: Optional[int] = None,
                     kv_dtype: Optional[str] = None, device=None,
                     tracker: Optional[_ct.CompileTracker] = None,
                     tenant_budgets: Optional[Dict[str, int]] = None,
-                    slo: Optional[SloConfig] = None, tiers=None):
+                    slo: Optional[SloConfig] = None, tiers=None,
+                    registry: Optional[_metrics.Registry] = None,
+                    decode_flops: Optional[float] = None):
         """Engine over live ``params`` (from ``transformer.init_params``,
         ``params_from_numpy`` or the int8-weight
         ``io/lm_serving.quantize_lm_params``) with a fresh pool of
@@ -901,9 +928,12 @@ class PagedDecodeEngine(DecodeEngine):
         the storage ``kv_dtype`` names (None: the model dtype; "int8" or
         "int4": quantized, see ``transformer.init_block_pool``), and the
         step programs of ``sampling.paged_step_fns`` under ``tracker``
-        (default: a fresh one per engine), with the TTFT ``slo`` and the
-        spill ``tiers`` of the constructor. Runs on the card unless
-        ``device="cpu"``; ``params`` must already live there."""
+        (default: a fresh one per engine), with the TTFT ``slo``, the
+        spill ``tiers``, the chunk buckets (default: the powers of two
+        up to ``chunk_tokens``, and it), the metrics ``registry`` and the
+        fixed per-step ``decode_flops`` of the constructor. Runs on the
+        card unless ``device="cpu"``; ``params`` must already live
+        there."""
         from paddle_tpu_torch.serving import sampling
         device = place.resolve_device(device)
         where = _params_device(params)
@@ -922,15 +952,17 @@ class PagedDecodeEngine(DecodeEngine):
                                            kv_dtype=kv_dtype, device=device)
         if tracker is None:
             chunk = min(int(chunk_tokens), int(cache_len))
-            tracker = paged_tracker(cache_len, chunk,
-                                    default_chunk_buckets(chunk))
+            tracker = paged_tracker(cache_len, chunk, chunk_buckets
+                                    or default_chunk_buckets(chunk))
         prefill_fn, decode_fn = sampling.paged_step_fns(
             cfg, block_size, tracker=tracker)
         return cls(prefill_fn, decode_fn, params, pool, batch=batch,
                    cache_len=cache_len, block_size=block_size,
                    num_blocks=nb, chunk_tokens=chunk_tokens, device=device,
                    cfg=cfg, seed=seed, tracker=tracker,
-                   tenant_budgets=tenant_budgets, slo=slo, tiers=tiers)
+                   tenant_budgets=tenant_budgets, slo=slo, tiers=tiers,
+                   chunk_buckets=chunk_buckets, registry=registry,
+                   decode_flops=decode_flops)
 
     # -- request API -------------------------------------------------------
     def set_tenant_budget(self, tenant: str, tokens: Optional[int]):
@@ -1529,6 +1561,11 @@ class PagedDecodeEngine(DecodeEngine):
                  replay_tokens=len(req.tokens))
         return "replay"
 
+    def _draft_chunk_hook(self, slot: int, padded: np.ndarray, c: int,
+                          npages: int):
+        """No-op on the paged engine; the spec engine mirrors the chunk
+        into the draft pool here."""
+
     def _try_adopt(self, slot: int) -> bool:
         """Map the slot's NEXT chunk straight onto cached blocks when
         every block of it is already published (a concurrent request
@@ -1590,6 +1627,9 @@ class PagedDecodeEngine(DecodeEngine):
             np.asarray([req.temperature], np.float32),
             np.asarray([req.top_k], np.int32), self._seed())
         tok = int(tok.cpu()[0])
+        # the spec engine's draft prefills the same chunk into its own
+        # pool here, through the same page vector
+        self._draft_chunk_hook(slot, padded, c, npages)
         now = time.perf_counter()
         self._slot_prefill_s[slot] += now - t0
         self._m_chunks.inc()
@@ -1720,4 +1760,299 @@ class PagedDecodeEngine(DecodeEngine):
                 t: {"tokens_in_flight": self._tenant_used.get(t, 0),
                     "budget": self.tenant_budgets.get(t)}
                 for t in tenants}
+        return doc
+
+
+PROPOSE = "serving_engine.propose"
+VERIFY = "serving_engine.verify"
+DRAFT_VERIFY = "serving_engine.draft_verify"
+DRAFT_PREFILL = "serving_engine.draft_prefill"
+
+
+def spec_tracker(cache_len: int, chunk_tokens: int,
+                 buckets: Sequence[int]) -> _ct.CompileTracker:
+    """A compile tracker for the spec engine: it captures about twice
+    the paged engine's prefill set (target and draft) plus propose,
+    verify and draft_verify, so the storm threshold is
+    ``2 * spans * buckets + 8``."""
+    spans = max(1, int(cache_len) // int(chunk_tokens))
+    return _ct.CompileTracker(
+        storm_threshold=2 * spans * len(tuple(buckets)) + 8)
+
+
+class SpecDecodeEngine(PagedDecodeEngine):
+    """Speculative decoding over the paged pool: a small draft model
+    proposes ``spec_k`` tokens per step, the target verifies every
+    slot's ``W = spec_k + 1`` window in one pass
+    (``transformer.verify_step_paged``), and the accept/reject tail
+    (``fused_spec_verify``) emits the accepted drafts plus one token of
+    the target's own: up to ``spec_k + 1`` tokens per step.
+
+    **Shared pool.** The draft keeps its own pool (its depth and widths
+    differ, its storage is the model dtype) on the same block grid,
+    behind the same page table and ``BlockPool``: every writer (chunk
+    prefill, propose, verify) writes both pools at the same physical
+    rows, so a content hash that certifies a target block certifies the
+    draft rows beside it, and prefix hits, preemption and resume need no
+    draft-side bookkeeping.
+
+    **The step.** ``propose`` runs the k greedy draft decode steps as
+    one program, its proposals are copied to the host and make the
+    window, ``verify`` runs the window and the tail, and (X, n) come
+    back: two host round trips per step. Greedy rows emit the target's
+    argmax at every position, so acceptance changes how fast tokens
+    come, not which: each window row is the decode step it stands for
+    up to the GEMM's rounding at another row count (``verify_step_paged``).
+
+    Rejected rows' k/v stay in the pool above the rewound cursor, where
+    nothing reads them; the next window overwrites them. The scheduler
+    (tiers, budgets, preempt-to-blocks) is the paged engine's; on a
+    replay resume the forced history runs through verify windows, with
+    ``draft_verify`` writing the same windows into the draft pool.
+    Refused: ``tiers=`` and ``import_prefix`` (a payload carries target
+    rows only)."""
+
+    def __init__(self, prefill: Callable, decode: Callable, params, cache,
+                 *, draft_params, draft_cache, draft_prefill: Callable,
+                 propose: Callable, verify: Callable,
+                 draft_verify: Callable, spec_k: int,
+                 tracker: Optional[_ct.CompileTracker] = None, **kw):
+        if kw.get("tiers") is not None:
+            # a spilled payload carries only target pool rows; adopting
+            # one would leave the draft rows beside it stale
+            raise ValueError("SpecDecodeEngine does not support tiered "
+                             "spill (draft pool rows cannot ride the "
+                             "single-pool payload)")
+        if tracker is None and not isinstance(decode, graphs.StepProgram):
+            chunk = min(int(kw.get("chunk_tokens", 64)), int(kw["cache_len"]))
+            tracker = spec_tracker(kw["cache_len"], chunk,
+                                   kw.get("chunk_buckets")
+                                   or default_chunk_buckets(chunk))
+        super().__init__(prefill, decode, params, cache, tracker=tracker,
+                         **kw)
+        self.spec_k = int(spec_k)
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        context = self._decode_fn.context
+        self._draft_prefill_fn = self._program(draft_prefill, DRAFT_PREFILL,
+                                               context)
+        self._propose_fn = self._program(propose, PROPOSE, context)
+        self._verify_fn = self._program(verify, VERIFY, context)
+        self._draft_verify_fn = self._program(draft_verify, DRAFT_VERIFY,
+                                              context)
+        self.draft_params = draft_params
+        self.draft_cache = draft_cache
+        self._valid = np.ones(self.batch, np.int32)
+        reg = self.metrics
+        self._m_spec_rounds = reg.counter(
+            "engine_spec_rounds_total", "propose+verify rounds executed")
+        self._m_spec_proposed = reg.counter(
+            "engine_spec_proposed_tokens_total",
+            "draft tokens proposed for verification")
+        self._m_spec_accepted = reg.counter(
+            "engine_spec_accepted_tokens_total",
+            "proposed draft tokens the target accepted (the emitted "
+            "correction/bonus token is not counted: acceptance measures "
+            "the draft's hit rate, not throughput)")
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def from_params(cls, params, cfg, draft_params, draft_cfg, *,
+                    spec_k: int = 4, batch: int, cache_len: int,
+                    block_size: int = 16, num_blocks: Optional[int] = None,
+                    chunk_tokens: int = 64,
+                    chunk_buckets: Optional[Sequence[int]] = None,
+                    seed: Optional[int] = None,
+                    kv_dtype: Optional[str] = None, device=None,
+                    tracker: Optional[_ct.CompileTracker] = None,
+                    tenant_budgets: Optional[Dict[str, int]] = None,
+                    slo: Optional[SloConfig] = None, tiers=None,
+                    registry: Optional[_metrics.Registry] = None,
+                    decode_flops: Optional[float] = None):
+        """Spec engine over live target ``params`` and ``draft_params``
+        (both already on the engine's device): the target's pool in the
+        storage ``kv_dtype`` names, the draft's in its model dtype, both
+        of ``num_blocks`` blocks; the programs of
+        ``sampling.paged_step_fns`` and ``sampling.paged_spec_fns`` under
+        one tracker (default: :func:`spec_tracker`) and one graph
+        context. The draft must share the target's vocab (its proposals
+        are target ids) and cover ``cache_len`` positions. Runs on the
+        card unless ``device="cpu"``."""
+        from paddle_tpu_torch.serving import sampling
+        device = place.resolve_device(device)
+        for name, tree in (("params", params), ("draft_params",
+                                                draft_params)):
+            where = _params_device(tree)
+            if where != device:
+                raise ValueError(f"{name} live on {where}, the engine runs "
+                                 f"on {device}")
+        if draft_cfg.vocab != cfg.vocab:
+            raise ValueError(f"draft vocab {draft_cfg.vocab} != target vocab "
+                             f"{cfg.vocab}: proposals must be target token "
+                             f"ids")
+        if cache_len > cfg.max_len or cache_len > draft_cfg.max_len:
+            raise ValueError(f"cache_len {cache_len} exceeds max_len (target "
+                             f"{cfg.max_len}, draft {draft_cfg.max_len})")
+        if block_size < 1 or cache_len % block_size:
+            raise ValueError(f"cache_len {cache_len} must be a positive "
+                             f"multiple of block_size {block_size}")
+        nb = int(num_blocks if num_blocks is not None
+                 else batch * (cache_len // block_size))
+        if tracker is None:
+            chunk = min(int(chunk_tokens), int(cache_len))
+            tracker = spec_tracker(cache_len, chunk, chunk_buckets
+                                   or default_chunk_buckets(chunk))
+        prefill_fn, decode_fn = sampling.paged_step_fns(
+            cfg, block_size, tracker=tracker)
+        spec = sampling.paged_spec_fns(cfg, draft_cfg, block_size, spec_k,
+                                       tracker=tracker,
+                                       context=decode_fn.context)
+        pool = transformer.init_block_pool(cfg, nb, block_size,
+                                           kv_dtype=kv_dtype, device=device)
+        draft_pool = transformer.init_block_pool(draft_cfg, nb, block_size,
+                                                 device=device)
+        return cls(prefill_fn, decode_fn, params, pool,
+                   draft_params=draft_params, draft_cache=draft_pool,
+                   draft_prefill=spec["draft_prefill"],
+                   propose=spec["propose"], verify=spec["verify"],
+                   draft_verify=spec["draft_verify"], spec_k=spec_k,
+                   batch=batch, cache_len=cache_len, block_size=block_size,
+                   num_blocks=nb, chunk_tokens=chunk_tokens,
+                   chunk_buckets=chunk_buckets, device=device, cfg=cfg,
+                   seed=seed, tracker=tracker,
+                   tenant_budgets=tenant_budgets, slo=slo, tiers=tiers,
+                   registry=registry, decode_flops=decode_flops)
+
+    # -- scheduler ---------------------------------------------------------
+    def _draft_chunk_hook(self, slot: int, padded: np.ndarray, c: int,
+                          npages: int):
+        self.draft_cache = self._draft_prefill_fn(
+            self.draft_params, self.draft_cache, padded, np.int32(c),
+            self._pages[slot, :npages])
+
+    def _pre_decode(self):
+        # a verify round writes up to `valid` rows per slot: allocate
+        # every page the window touches (the admission reservation
+        # covers them: pos + valid - 1 <= prompt + max_new - 1)
+        for slot in np.flatnonzero(self._active):
+            end = int(self._pos[slot]) + int(self._valid[slot]) - 1
+            while end // self.block_size >= self._nalloc[slot]:
+                self._alloc_page(slot)
+
+    def step(self) -> List[EngineRequest]:
+        """One scheduler iteration: admission and chunk prefill as the
+        paged engine, then one propose + verify round for every active
+        slot (instead of one decode step)."""
+        finished: List[EngineRequest] = []
+        self._schedule(finished)
+        if self._active.any():
+            B, W = self.batch, self.spec_k + 1
+            valid = np.ones(B, np.int32)
+            forced = np.zeros(B, bool)
+            for slot in np.flatnonzero(self._active):
+                req = self._slot_req[slot]
+                if self._slot_forced[slot]:
+                    forced[slot] = True
+                    valid[slot] = min(W, 1 + len(self._slot_forced[slot]))
+                else:
+                    cap = (req.prompt.size + req.max_new
+                           - int(self._pos[slot]) - 1)
+                    valid[slot] = max(min(W, cap), 1)
+            self._valid = valid
+            self._pre_decode()
+            positions = self._pos.tolist()
+            t0 = time.perf_counter()
+            pages = self._decode_extra()[0]
+            window = np.zeros((B, W), np.int32)
+            window[:, 0] = self._last
+            act_prop = self._active & ~forced
+            if act_prop.any():
+                props, self.draft_cache = self._propose_fn(
+                    self.draft_params, self.draft_cache, self._last,
+                    self._pos, act_prop, valid, pages)
+                # the first host round trip: the window is built here
+                window[:, 1:] = props.cpu().numpy()
+            for slot in np.flatnonzero(forced):
+                # replay window: the known history is the proposal set
+                f = list(self._slot_forced[slot])[:W - 1]
+                window[slot, 1:1 + len(f)] = f
+            if forced.any():
+                # keep the draft pool position-faithful on replay rows
+                # (propose's writes were masked off for these slots)
+                self.draft_cache = self._draft_verify_fn(
+                    self.draft_params, self.draft_cache, window, self._pos,
+                    valid, forced & self._active, pages)
+            X, n, self.cache = self._verify_fn(
+                self.params, self.cache, window, self._pos, valid,
+                self._active, pages, self._temp, self._topk, self._seed())
+            X, n = X.cpu().numpy(), n.cpu().numpy()
+            now = time.perf_counter()
+            self._account_step(now - t0, _costs.verify_step_flops(
+                self.cfg, positions, W))
+            self._m_spec_rounds.inc()
+            for slot in np.flatnonzero(self._active):
+                req = self._slot_req[slot]
+                if forced[slot]:
+                    f = self._slot_forced[slot]
+                    m = min(int(valid[slot]), len(f))
+                    for _ in range(m):
+                        tok = f.popleft()
+                    self._pos[slot] += m
+                    self._last[slot] = tok
+                    continue
+                nprop = max(int(valid[slot]) - 1, 0)
+                m = int(n[slot])
+                self._m_spec_proposed.inc(nprop)
+                self._m_spec_accepted.inc(max(m - 1, 0))
+                fin, used = False, 0
+                for j in range(m):
+                    used += 1
+                    if self._emit(req, int(X[slot, j]), now):
+                        fin = True
+                        break
+                if fin:
+                    finished.append(req)
+                else:
+                    self._pos[slot] += used
+                    self._last[slot] = int(X[slot, used - 1])
+        self._update_gauges()
+        return finished
+
+    def import_prefix(self, payload: bytes) -> int:
+        """Refused on the spec engine: the wire carries target pool rows
+        only, and adopting them would leave the draft rows beside them
+        unwritten (propose would read garbage). A spec engine still
+        exports."""
+        raise ValueError("import_prefix: a SpecDecodeEngine cannot adopt "
+                         "transferred blocks (no draft-pool rows travel on "
+                         "the wire); use a target-only decode engine for "
+                         "P/D disaggregation")
+
+    # -- observability -----------------------------------------------------
+    def acceptance_rate(self) -> Optional[float]:
+        """Lifetime draft acceptance: accepted / proposed (None before
+        the first proposal). 1.0: every draft token survived, as with a
+        draft equal to the target under greedy sampling."""
+        prop = self._m_spec_proposed.value()
+        if not prop:
+            return None
+        return self._m_spec_accepted.value() / prop
+
+    def compile_counts(self) -> Dict[str, int]:
+        c = super().compile_counts()
+        c.update({"draft_prefill": self._tracker.count(DRAFT_PREFILL),
+                  "propose": self._tracker.count(PROPOSE),
+                  "verify": self._tracker.count(VERIFY),
+                  "draft_verify": self._tracker.count(DRAFT_VERIFY)})
+        return c
+
+    def health(self) -> dict:
+        doc = super().health()
+        acc = self.acceptance_rate()
+        doc["spec"] = {
+            "k": self.spec_k,
+            "rounds": int(self._m_spec_rounds.value()),
+            "proposed": int(self._m_spec_proposed.value()),
+            "accepted": int(self._m_spec_accepted.value()),
+            "acceptance_rate": round(acc, 4) if acc is not None else None}
         return doc

@@ -1,5 +1,6 @@
-"""Token sampling and the paged engine's step functions (counterpart of
-``paddle_tpu/serving/sampling.py``)."""
+"""Token sampling, the speculative accept/reject tails, and the paged
+engine's step functions and speculative-decoding programs (counterpart
+of ``paddle_tpu/serving/sampling.py``)."""
 
 import math
 
@@ -34,7 +35,54 @@ def sample_tokens(logits: torch.Tensor, key: torch.Tensor,
     return torch.where(t > 0, sampled, greedy).to(torch.int32)
 
 
-def paged_step_fns(cfg, block_size: int, *, tracker=None):
+def spec_accept(sampled: torch.Tensor, draft: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """The accept fold of one speculative verify window: ``sampled``
+    [B, W] are the target's own tokens at each window position, ``draft``
+    [B, W-1] the proposals those positions were conditioned on, ``valid``
+    [B] the usable window rows -> ``n`` [B] int32, the leading sampled
+    tokens to emit: 1 + the run of leading draft matches, at most
+    ``valid`` (W = 1 gives min(1, valid)). An accepted draft token equals
+    the target's sample at its position, so the emitted tokens are
+    ``sampled[:, :n]``. Plain tensor code on the device, no host read."""
+    B, W = sampled.shape
+    valid = valid.to(torch.int32)
+    if W == 1:
+        return torch.minimum(torch.ones_like(valid), valid)
+    m = ((sampled[:, :W - 1] == draft)
+         & (torch.arange(1, W, device=sampled.device)[None, :]
+            < valid[:, None]))
+    run = torch.cumprod(m.to(torch.int32), dim=1).sum(dim=1)
+    return torch.minimum(1 + run, valid).to(torch.int32)
+
+
+def window_rows(x: torch.Tensor, W: int) -> torch.Tensor:
+    """Per-slot values [B, ...] repeated over a window's W rows, element
+    by element (``repeat_interleave(W, 0)``, as ``jnp.repeat``): row
+    ``b * W + w`` gets slot b's value. Written as an expand, which needs
+    no host read."""
+    return x[:, None].expand(x.shape[0], W, *x.shape[1:]).reshape(
+        x.shape[0] * W, *x.shape[1:])
+
+
+def spec_verify_tokens(logits: torch.Tensor, draft: torch.Tensor,
+                       key: torch.Tensor, temperature: torch.Tensor,
+                       top_k: torch.Tensor, valid: torch.Tensor):
+    """``paddle_tpu``'s verify tail with its kernels off: logits
+    [B, W, V], draft [B, W-1], a threefry ``key``, per-slot temperature
+    and top_k [B] (repeated over the window), valid [B] -> (sampled
+    [B, W] int32, n [B] int32). Window row (b, w) is row ``b * W + w``
+    of one :func:`sample_tokens` call, so its draws are JAX's for the
+    same key. The engine does not use it (its tail is
+    ``ops/kernels/decode.fused_spec_verify``, on the hashed stream)."""
+    B, W, V = logits.shape
+    X = sample_tokens(logits.reshape(B * W, V), key,
+                      window_rows(temperature, W),
+                      window_rows(top_k, W)).reshape(B, W)
+    return X, spec_accept(X, draft, valid)
+
+
+def paged_step_fns(cfg, block_size: int, *, tracker=None, context=None):
     """(prefill_fn, decode_fn) of the paged engine, as step programs
     (``core/graphs.StepProgram``, the counterpart of the JAX engine's
     jitted functions) under the tracker names
@@ -52,8 +100,10 @@ def paged_step_fns(cfg, block_size: int, *, tracker=None):
     ``length`` and ``seed`` are 0-d int32 tensors in the raw functions;
     the programs take them as numpy scalars (``np.int32``) and the other
     per-call inputs as numpy arrays, the parameters and the pool as
-    tensors. Both tails sample with the ``fused_sample`` kernel wrapper,
-    so only int32 ids leave the device, each on ``paddle_tpu``'s
+    tensors. ``context`` (default: a new one) is the programs'
+    ``graphs.GraphContext``. Both tails sample with the
+    ``fused_sample`` kernel wrapper, so only int32 ids leave the
+    device, each on ``paddle_tpu``'s
     stream: the prefill tail on the threefry stream, bitwise
     ``paddle_tpu``'s ``sample_tokens(logits, jax.random.PRNGKey(seed),
     ...)``; the decode tail on the hashed stream of ``paddle_tpu``'s
@@ -83,8 +133,99 @@ def paged_step_fns(cfg, block_size: int, *, tracker=None):
     from paddle_tpu_torch.observe import compile_tracker
     if tracker is None:
         tracker = compile_tracker.CompileTracker()
-    context = graphs.GraphContext()
+    if context is None:
+        context = graphs.GraphContext()
     return (graphs.StepProgram(prefill_fn, "serving_engine.prefill",
                                tracker, context),
             graphs.StepProgram(decode_fn, "serving_engine.decode", tracker,
                                context))
+
+
+def paged_spec_fns(cfg, draft_cfg, block_size: int, spec_k: int, *,
+                   tracker=None, context=None):
+    """The speculative-decoding programs of the paged spec engine,
+    beside (never instead of) the :func:`paged_step_fns` pair: a dict of
+    four step programs under the JAX tracker names, sharing ``context``
+    (the target pair's: one capture stream, one graph memory pool).
+    ``spec_k`` fixes the proposal depth; a verify window has
+    ``W = spec_k + 1`` rows (the last accepted token and the k
+    proposals).
+
+    - ``propose`` (``serving_engine.propose``): ``(draft_params,
+      draft_pool, last [B], pos [B], active [B], valid [B], pages [B, P])
+      -> (proposals [B, k] int32, draft_pool)`` — k greedy draft decode
+      steps and their argmax in one program (one graph on the card, the
+      counterpart of the JAX ``lax.scan``). Step j's pool write is masked to
+      ``active & (j < valid)``: the engine allocates pages only through
+      ``pos + valid - 1``, and a write past that would land through the
+      zeroed page-table tail in another slot's block 0. Proposals past
+      the mask are unused.
+    - ``verify`` (``serving_engine.verify``): ``(params, pool, window
+      [B, W], pos, valid, active, pages, temperature [B], top_k [B],
+      seed) -> (sampled [B, W], n [B], pool)`` — ``transformer.
+      verify_step_paged`` and the accept/reject tail
+      ``fused_spec_verify``; only these int32 outputs reach the host.
+    - ``draft_verify`` (``serving_engine.draft_verify``): ``(draft_params,
+      draft_pool, window, pos, valid, active, pages) -> draft_pool`` —
+      the draft's forced-window write on a preempted request's replay,
+      where propose's own proposals would differ from the forced
+      history. Its logits are unused.
+    - ``draft_prefill`` (``serving_engine.draft_prefill``):
+      ``(draft_params, draft_pool, tokens [1, C], length, pages [P]) ->
+      draft_pool`` — the draft's chunk prefill on the target's chunk
+      grid and page vectors (kernels 3 and 4); the first token is the
+      target prefill's.
+
+    Every pool is updated in place and, where returned, returned."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.observe import compile_tracker
+
+    k = int(spec_k)
+    if k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+
+    def propose_fn(draft_params, draft_pool, last, pos, active, valid,
+                   pages):
+        toks, p, props = last, pos, []
+        for j in range(k):
+            lg, draft_pool = transformer.decode_step_paged(
+                draft_params, draft_pool, toks, p, active & (j < valid),
+                pages, draft_cfg, block_size=block_size)
+            toks = torch.argmax(lg, dim=-1).to(torch.int32)
+            props.append(toks)
+            p = p + 1
+        return torch.stack(props, dim=1), draft_pool
+
+    def verify_fn(params, pool, window, pos, valid, active, pages,
+                  temperature, top_k, seed):
+        logits, pool = transformer.verify_step_paged(
+            params, pool, window, pos, valid, active, pages, cfg,
+            block_size=block_size)
+        sampled, n = kdecode.fused_spec_verify(
+            logits, window[:, 1:], seed, temperature, top_k, valid)
+        return sampled, n, pool
+
+    def draft_verify_fn(draft_params, draft_pool, window, pos, valid,
+                        active, pages):
+        _, draft_pool = transformer.verify_step_paged(
+            draft_params, draft_pool, window, pos, valid, active, pages,
+            draft_cfg, block_size=block_size)
+        return draft_pool
+
+    def draft_prefill_fn(draft_params, draft_pool, tokens, length, pages):
+        _, draft_pool = transformer.prefill_into_blocks(
+            draft_params, draft_pool, tokens, length, pages, draft_cfg,
+            block_size=block_size)
+        return draft_pool
+
+    if tracker is None:
+        tracker = compile_tracker.CompileTracker()
+    if context is None:
+        context = graphs.GraphContext()
+    fns = {"propose": propose_fn, "verify": verify_fn,
+           "draft_verify": draft_verify_fn,
+           "draft_prefill": draft_prefill_fn}
+    return {name: graphs.StepProgram(fn, f"serving_engine.{name}", tracker,
+                                     context)
+            for name, fn in fns.items()}

@@ -1030,3 +1030,151 @@ def test_gpu_replay_after_import_is_the_raw_step(cuda, kv_dtype):
                              _gpu(temp, cuda), _gpu(topk, cuda), scalar(4))
         assert torch.equal(got, want) and same_pools(), step
     assert prefill.graphs == 1 and decode.graphs == 1
+
+
+@pytest.mark.gpu
+def test_gpu_fused_spec_verify_matches_plain(cuda):
+    """``fused_spec_verify`` (kernel 2 at a verify window's B*W rows) on
+    the card: ids and accepted counts exactly the plain sampler's over
+    the flattened rows and ``spec_accept``, with every slot's own
+    temperature and top_k; one launch, counted under ``fused_sample``
+    and in the entry point's own tally."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import sampling
+    rng = np.random.RandomState(14)
+    B, W, V = 4, 5, 1000
+    x = _gpu((3.0 * rng.randn(B, W, V)).astype(np.float32), cuda)
+    draft = x.argmax(-1)[:, :W - 1].to(torch.int32).clone()
+    draft[1, 2] = (draft[1, 2] + 1) % V
+    temp = torch.tensor([0.0, 0.8, 1.2, 0.0], device=cuda)
+    topk = torch.tensor([0, 50, 3, 7], dtype=torch.int32, device=cuda)
+    valid = torch.tensor([5, 5, 2, 1], dtype=torch.int32, device=cuda)
+    seed = torch.tensor(99, dtype=torch.int32, device=cuda)
+    kernels.reset_launches()
+    ids, n = kdecode.fused_spec_verify(x, draft, seed, temp, topk, valid)
+    want = kdecode.fused_sample_plain(
+        x.reshape(B * W, V), seed, sampling.window_rows(temp, W),
+        sampling.window_rows(topk, W)).reshape(B, W)
+    assert torch.equal(ids, want)
+    assert torch.equal(n, sampling.spec_accept(want, draft, valid))
+    assert n[0].item() == 5 and n[3].item() == 1
+    assert kernels.launch_counts()["fused_sample"] == 1
+    assert kernels.entry_counts() == {"fused_spec_verify": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "int4"])
+def test_gpu_verify_window_matches_decode_steps(cuda, kv_dtype):
+    """The window check at a small width: one verify window of 4 rows
+    against 4 sequential raw decode steps from the same pool state (two
+    active slots, one inactive). The attention is the decode kernel's
+    own reduction per row; the GEMMs run at M = B * W against M = B, so
+    logits agree within 1e-4 (fp32 model) and the greedy ids exactly;
+    the written pool rows within the same bound (int8/int4: codes within
+    one step)."""
+    from paddle_tpu_torch.models import transformer
+    cfg = transformer.TransformerConfig(vocab=512, d_model=128, n_heads=4,
+                                        n_kv_heads=2, n_layers=2, d_ff=256,
+                                        max_len=256, dtype="float32")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(3),
+                                     cuda)
+    bs, nb, W = 16, 40, 4
+    pool_s = _random_pool(cfg, nb, bs, kv_dtype, cuda)
+    pool_v = {n: t.clone() for n, t in pool_s.items()}
+    table = np.zeros((3, 16), np.int32)
+    table[0], table[1] = np.arange(1, 17), np.arange(17, 33)
+    pages = _gpu(table, cuda)
+    active = _gpu(np.asarray([True, True, False]), cuda)
+    pos = _gpu(np.asarray([100, 37, 4], np.int32), cuda)
+    tok = _gpu(np.asarray([5, 9, 1], np.int32), cuda)
+    seq, window = [], [tok]
+    for j in range(W):
+        lg, _ = transformer.decode_step_paged(params, pool_s, tok, pos + j,
+                                              active, pages, cfg,
+                                              block_size=bs)
+        seq.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+        if j < W - 1:
+            window.append(tok)
+    vlg, _ = transformer.verify_step_paged(
+        params, pool_v, torch.stack(window, 1), pos,
+        torch.full((3,), W, dtype=torch.int32, device=cuda), active, pages,
+        cfg, block_size=bs)
+    seq = torch.stack(seq, 1)
+    assert (vlg[:2] - seq[:2]).abs().max().item() <= 1e-4
+    assert torch.equal(vlg[:2].argmax(-1), seq[:2].argmax(-1))
+    for n in pool_s:
+        a, b = pool_v[n], pool_s[n]
+        if a.dtype == torch.int8 and kv_dtype == "int4":
+            # nibble pairs: each code on its own
+            a, b = q8.unpack_int4(a), q8.unpack_int4(b)
+        diff = (a.float() - b.float()).abs().max().item()
+        assert diff <= (1e-4 if a.is_floating_point() else 1.0), n
+
+
+@pytest.mark.gpu
+def test_gpu_spec_graphs_replay_the_raw_steps(cuda):
+    """The spec programs (propose, verify, draft_verify) captured and
+    replayed against their raw functions on the same inputs, with new
+    inputs and after a page-table remap: ids, accepted counts and every
+    byte of both pools equal."""
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.serving import sampling
+    cfg, params = _small_lm(cuda)
+    dcfg = transformer.TransformerConfig(vocab=512, d_model=128, n_heads=2,
+                                         n_layers=1, d_ff=256, max_len=256)
+    draft = transformer.init_params(dcfg, torch.Generator().manual_seed(7),
+                                    cuda)
+    bs, nb, B, P, k = 16, 64, 4, 16, 3
+    spec = sampling.paged_spec_fns(cfg, dcfg, bs, k)
+    pool_g = _random_pool(cfg, nb, bs, None, cuda)
+    dpool_g = _random_pool(dcfg, nb, bs, None, cuda)
+    pool_r = {n: t.clone() for n, t in pool_g.items()}
+    dpool_r = {n: t.clone() for n, t in dpool_g.items()}
+    rng = np.random.RandomState(15)
+    table = np.zeros((B, P), np.int32)
+    table[0, :10], table[1, :10] = np.arange(1, 11), np.arange(11, 21)
+    pages_dev = _gpu(table, cuda)
+    active = np.asarray([True, True, False, False])
+    temp = np.asarray([0.0, 0.9, 0.0, 0.9], np.float32)
+    topk = np.asarray([0, 20, 0, 20], np.int32)
+
+    def same(a, b):
+        return all(torch.equal(a[n].view(torch.uint8), b[n].view(torch.uint8))
+                   for n in a)
+
+    for seed, remap in ((5, False), (6, False), (7, True)):
+        if remap:
+            table[1, :10] = np.arange(21, 31)
+            pages_dev.copy_(_gpu(table, cuda))
+        last = rng.randint(0, 512, B).astype(np.int32)
+        pos = np.asarray([120, 60, 3, 9], np.int32)
+        valid = np.asarray([4, 2, 1, 4], np.int32)
+        props, _ = spec["propose"](draft, dpool_g, last, pos, active, valid,
+                                   pages_dev)
+        props = props.clone()
+        want, _ = spec["propose"].raw(draft, dpool_r, _gpu(last, cuda),
+                                      _gpu(pos, cuda), _gpu(active, cuda),
+                                      _gpu(valid, cuda), pages_dev)
+        assert torch.equal(props, want) and same(dpool_g, dpool_r), seed
+        window = np.concatenate([last[:, None], props.cpu().numpy()], 1)
+        X, n, _ = spec["verify"](params, pool_g, window, pos, valid, active,
+                                 pages_dev, temp, topk, np.int32(seed))
+        X, n = X.clone(), n.clone()
+        wX, wn, _ = spec["verify"].raw(
+            params, pool_r, _gpu(window, cuda), _gpu(pos, cuda),
+            _gpu(valid, cuda), _gpu(active, cuda), pages_dev,
+            _gpu(temp, cuda), _gpu(topk, cuda),
+            torch.tensor(seed, dtype=torch.int32, device=cuda))
+        assert torch.equal(X, wX) and torch.equal(n, wn), seed
+        assert same(pool_g, pool_r), seed
+        forced = np.asarray([False, True, False, False])
+        spec["draft_verify"](draft, dpool_g, window, pos, valid, forced,
+                             pages_dev)
+        spec["draft_verify"].raw(draft, dpool_r, _gpu(window, cuda),
+                                 _gpu(pos, cuda), _gpu(valid, cuda),
+                                 _gpu(forced, cuda), pages_dev)
+        assert same(dpool_g, dpool_r), seed
+    assert {k: spec[k].graphs for k in ("propose", "verify",
+                                        "draft_verify")} == {
+        "propose": 1, "verify": 1, "draft_verify": 1}
