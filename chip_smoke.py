@@ -88,16 +88,36 @@ order it:
    the port's v5 artifact of the pair saved, loaded and served; the spec
    programs' replays bitwise their raw steps; a profiled third trace
    (``spec_profile:``);
-9. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
+9. the row-arena slot engine and the lockstep paths (``slots:``,
+   ``slots_profile:`` and ``lockstep:`` lines): the slot engine
+   (batch 8, an arena of 1024 positions, buckets 16..512) serves the
+   engine trace with prompts clipped to 512 tokens, cold (every capture
+   in its window: one per bucket met, one for decode) and warm, beside
+   the paged engine on the same traces; every greedy request equals
+   ``generate`` at B = 1 or diverges only where the lockstep step's
+   top-2 margin is below the slot path's max |logit difference| from
+   it; kernel 5 at the slot prefill's shapes (T = 16, 32, 200, 512,
+   B*H = 12, bf16, causal) within 2 bf16 ulps of its plain version,
+   timed at T = 16 and 512 against SDPA; the slot step programs'
+   replays bitwise their raw steps (a prefill bucket replayed with two
+   seeds), ``decode_step_slots`` bitwise ``decode_step`` at equal
+   positions; the arena attention's share of a warm decode step; a
+   profiled third trace; then ``generate`` (B = 4, 128-token prompts,
+   64 new, greedy and sampled), ``beam_search`` (B = 2, K = 4, 16 new)
+   and the port's v1 and v3 artifacts saved, loaded and served with
+   the in-process ids;
+10. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
    ten device kernels with the most time, the device's busy share);
-10. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
+11. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
    17 kernels and branches, and ``fused_spec_verify``, kernel 2 at the
-   spec trace's verify rows) and, last, the ``{"ok": true, ...}`` line.
+   spec trace's verify rows; kernel 2's two streams and kernel 5's bf16
+   forward count the slot trace's and the lockstep calls' launches too)
+   and, last, the ``{"ok": true, ...}`` line.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 products are full
 fp32 on the card as on the CPU.
@@ -2002,31 +2022,30 @@ def target_margin(torch, tt, cfg, params, dev, buckets, prompt, ids, i):
     return (top[0] - top[1]).item()
 
 
-def greedy_gate(torch, tt, cfg, params, dev, buckets, pairs, dmax,
-                bitwise) -> list:
-    """Every greedy spec request's ids against the target-only engine's
-    for the same prompt (``pairs``: (spec request, target-only ids)).
-    A divergence passes only where the window check was not bitwise and
-    the target-only step's top-2 margin at the first differing token is
-    below the window check's max |logit difference| ``dmax``; each one
-    is printed with its margin. Returns the divergences."""
+def greedy_gate(pairs, dmax, margin, label, against,
+                bitwise=False) -> list:
+    """Every greedy request's ids against ``against``'s ids for the same
+    prompt (``pairs``: (request, reference ids)). A divergence passes
+    only where the two paths are not bitwise and ``margin(request, ids,
+    i)``, the reference step's top-2 logit margin at the first differing
+    token ``i``, is below ``dmax``, the paths' max |logit difference|;
+    each one is printed with its margin. Returns the divergences."""
     out = []
     for req, want in pairs:
-        got = list(req.tokens)
-        if got == list(want):
+        got, want = list(req.tokens), list(want)
+        if got == want:
             continue
         i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
                  min(len(got), len(want)))
-        margin = target_margin(torch, tt, cfg, params, dev, buckets,
-                               req.prompt, list(want), i)
-        div = {"rid": req.rid, "token": i, "margin": margin,
+        m = margin(req, want, i)
+        div = {"rid": req.rid, "token": i, "margin": m,
                "max_abs_dlogit": dmax}
-        print("spec greedy divergence: " + json.dumps(div))
+        print(f"{label} greedy divergence: " + json.dumps(div))
         out.append(div)
-        if bitwise or not margin < dmax:
-            fail(f"spec: greedy request {req.rid} diverges from the "
-                 f"target-only engine at token {i} (margin {margin} vs the "
-                 f"window check's {dmax}, bitwise {bitwise})")
+        if bitwise or not m < dmax:
+            fail(f"{label}: greedy request {req.rid} diverges from "
+                 f"{against} at token {i} (margin {m} vs {dmax}, bitwise "
+                 f"{bitwise})")
     return out
 
 
@@ -2267,8 +2286,10 @@ def spec_phase(torch, tt, tlm, kd, q8, build, kernels, sampling,
     del u_eng, unrelated
     pairs += [(r, t.tokens) for r, t, (_, _, temp) in
               zip(u_reqs, t_reqs, u_in) if temp == 0]
-    divergences = greedy_gate(torch, tt, cfg, target, dev, s_eng.buckets,
-                              pairs, dmax, bitwise)
+    divergences = greedy_gate(
+        pairs, dmax, lambda req, ids, i: target_margin(
+            torch, tt, cfg, target, dev, s_eng.buckets, req.prompt, ids, i),
+        "spec", "the target-only engine", bitwise)
     doc["greedy_gate"] = {"greedy_requests": len(pairs),
                           "divergences": divergences}
     print(f"check spec greedy: {len(pairs)} greedy requests (cold, warm, "
@@ -2320,6 +2341,439 @@ def spec_phase(torch, tt, tlm, kd, q8, build, kernels, sampling,
     del s_eng
     row = (err2, {"rows": 8 * W}, t2)
     return launches, row
+
+
+# ---------------------------------------------------------------------------
+# slot engine and lockstep phase
+# ---------------------------------------------------------------------------
+
+SLOT_KW = dict(batch=8, cache_len=1024, buckets=(16, 32, 64, 128, 256, 512),
+               seed=0)
+LOCKSTEP_B, LOCKSTEP_TP, LOCKSTEP_NEW = 4, 128, 64
+SLOT_FLASH_TIMED = (16, 512)            # row 5s: B = 1, the end buckets
+
+
+def slot_trace(rng, vocab):
+    """The engine trace with every prompt clipped to its first 512
+    tokens (the slot engine's largest bucket): 32..512 tokens."""
+    top = SLOT_KW["buckets"][-1]
+    return [(p[:top], m, t) for p, m, t in trace(rng, vocab)]
+
+
+def slot_flash(torch, ka, build, ragged) -> dict:
+    """Kernel 5 at every shape the slot and lockstep paths give it (12
+    heads, D = 64, bf16, causal): B = 1 at each slot bucket (16..512) and
+    at the ``ragged`` prompt lengths that ``generate`` prefills at B = 1
+    in the greedy gate; B = 4, T = 128 (``generate`` and
+    ``LMServer.generate`` in ``lockstep:``) and B = 2, T = 128
+    (``beam_search``). Each against its plain version within 2 bf16 ulps
+    (lse 1e-4), two launches bitwise equal; timed at B = 1, T = 16 and
+    512 against SDPA ``is_causal``, with its bound (row 5s)."""
+    dev = torch.device("cuda:0")
+    timer = Timer(torch)
+    shapes = ([(1, T) for T in SLOT_KW["buckets"]]
+              + [(1, T) for T in ragged]
+              + [(LOCKSTEP_B, LOCKSTEP_TP), (2, LOCKSTEP_TP)])
+    doc = {}
+    for B, T in shapes:
+        errs, ulps, rep, times = check_flash(
+            torch, timer, ka, build, dev, B, T, 12, 12, 64, torch.bfloat16,
+            True, B == 1 and T in SLOT_FLASH_TIMED)
+        row = {"max_abs_err": errs["fwd"][0], "bf16_ulps": ulps["fwd"],
+               "lse_err": errs["fwd"][1], "bitwise_repeat": rep}
+        if times is not None:
+            row.update(times["fwd"])
+        doc[f"B={B},T={T}"] = row
+        if not (ulps["fwd"] <= FLASH_BF16_ULPS
+                and errs["fwd"][1] <= FLASH_LSE_TOL and rep):
+            fail(f"flash_attention_fwd at the slot/lockstep B={B}, T={T}: "
+                 f"{row}")
+    print("kernel flash_attention_fwd (slot and lockstep paths, H=12, D=64, "
+          "bf16, causal): " + json.dumps(doc))
+    return doc
+
+
+def slot_graph_check(torch, tt, sampling, cfg, params, dev) -> dict:
+    """The slot engine's step programs (``sampling.engine_step_fns``)
+    against their raw functions on a random arena at the engine's
+    shapes: prefill at bucket 64 into slot 3 (sampled), the same bucket's
+    graph replayed into slot 5 greedy and twice more sampled with two
+    seeds (each replay must give the raw step's id for its own seed, and
+    the two seeds must draw different ids), a prefill at bucket 512;
+    decode at 8 rows (6 active, half sampled), replayed with a new seed.
+    After each call the ids and every arena byte equal. Then
+    ``decode_step_slots`` at 8 equal positions against ``decode_step``:
+    logits and arena bitwise."""
+    B, L = SLOT_KW["batch"], SLOT_KW["cache_len"]
+    prefill, decode = sampling.engine_step_fns(cfg)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    arena_g = tt.init_cache(cfg, B, L, device=dev)
+    for t in arena_g.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    arena_r = {n: t.clone() for n, t in arena_g.items()}
+    rng = np.random.RandomState(32)
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def same():
+        return all(torch.equal(arena_g[n].view(torch.int16),
+                               arena_r[n].view(torch.int16)) for n in arena_g)
+
+    calls, drawn = 0, {}
+    for what, bucket, n, slot, temp, seed in (
+            ("prefill", 64, 50, 3, 0.8, 41), ("prefill greedy", 64, 40, 5,
+                                               0.0, 42),
+            ("prefill seed a", 64, 50, 3, 5.0, 43),
+            ("prefill seed b", 64, 50, 3, 5.0, 44),
+            ("prefill 512", 512, 300, 6, 0.8, 45)):
+        toks = np.zeros((1, bucket), np.int32)
+        if what != "prefill seed b":
+            prompt = rng.randint(0, cfg.vocab, n)
+        toks[0, :n] = prompt
+        ctl = (np.asarray([temp], np.float32), np.asarray([50], np.int32))
+        got, _ = prefill(params, arena_g, toks, np.int32(n), np.int32(slot),
+                         *ctl, np.int32(seed))
+        got = got.clone()
+        want, _ = prefill.raw(params, arena_r, T(toks), scalar(n),
+                              scalar(slot), *map(T, ctl), scalar(seed))
+        calls += 1
+        if not (torch.equal(got, want) and same()):
+            fail(f"slot graphs: {what}: replay {got.tolist()} vs raw "
+                 f"{want.tolist()}, arenas equal {same()}")
+        drawn[seed] = int(got[0])
+    pos = np.concatenate([rng.randint(100, 1000, 6), [5, 1023]]).astype(
+        np.int32)
+    active = np.asarray([True] * 6 + [False] * 2)
+    temp = np.asarray([0.0, 0.8] * 4, np.float32)
+    topk = np.asarray([0, 50] * 4, np.int32)
+    for what, seed in (("decode", 51), ("decode, new seed", 52)):
+        toks = rng.randint(0, cfg.vocab, B).astype(np.int32)
+        got, _ = decode(params, arena_g, toks, pos, active, temp, topk,
+                        np.int32(seed))
+        got = got.clone()
+        want, _ = decode.raw(params, arena_r, T(toks), T(pos), T(active),
+                             T(temp), T(topk), scalar(seed))
+        calls += 1
+        if not (torch.equal(got, want) and same()):
+            fail(f"slot graphs: {what}: replay {got.tolist()} vs raw "
+                 f"{want.tolist()}, arenas equal {same()}")
+    if drawn[43] == drawn[44]:
+        fail(f"slot graphs: seeds 43 and 44 drew the same id {drawn[43]}: "
+             f"the replay may have frozen its seed")
+    graphs = {"prefill": prefill.graphs, "decode": decode.graphs}
+    if graphs != {"prefill": 2, "decode": 1}:
+        fail(f"slot graphs: captured {graphs}")
+    # the slot step at equal positions is the lockstep step, bitwise
+    toks = T(rng.randint(0, cfg.vocab, B).astype(np.int32))
+    c1 = {n: t.clone() for n, t in arena_r.items()}
+    c2 = {n: t.clone() for n, t in arena_r.items()}
+    l1, c1 = tt.decode_step(params, c1, toks, 700, cfg)
+    l2, c2 = tt.decode_step_slots(params, c2, toks,
+                                  torch.full((B,), 700, dtype=torch.int32,
+                                             device=dev),
+                                  torch.ones(B, dtype=torch.bool, device=dev),
+                                  cfg)
+    lock_bitwise = torch.equal(l1, l2) and all(
+        torch.equal(c1[n].view(torch.int16), c2[n].view(torch.int16))
+        for n in c1)
+    if not lock_bitwise:
+        fail("decode_step_slots at equal positions is not bitwise "
+             "decode_step on the card")
+    return {"graphs": graphs, "calls": calls,
+            "two_seed_ids": [drawn[43], drawn[44]],
+            "slots_vs_lockstep_bitwise": lock_bitwise}
+
+
+def lockstep_margin(torch, tt, cfg, params, dev, prompt, ids, i):
+    """The top-2 logit margin of the lockstep step that chose ``ids[i]``
+    for ``prompt`` (``generate``'s arithmetic at B = 1 and its cache
+    length), fed ``ids[:i]``."""
+    lg, cache = tt.prefill(params, torch.from_numpy(prompt[None]).to(dev),
+                           cfg, len(prompt) + len(ids))
+    for j in range(i):
+        lg, cache = tt.decode_step(
+            params, cache, torch.tensor([ids[j]], dtype=torch.int32,
+                                        device=dev), len(prompt) + j, cfg)
+    top = lg[0].float().topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def slot_dlogit(torch, tt, cfg, params, dev) -> float:
+    """Max |logit difference| between the slot path (the prompt padded to
+    its bucket in row 3 of an 8-row arena of 1024, then decode steps at 8
+    rows, only row 3 active) and the lockstep path at B = 1
+    (``generate``'s), over the 16 greedy steps of one 300-token prompt:
+    what cuBLAS at other row counts, kernel 5 at the padded length and
+    the arena's length move. The greedy gate's near-tie bound."""
+    prompt = np.random.RandomState(33).randint(0, cfg.vocab, 300)
+    steps = 16
+    arena = tt.init_cache(cfg, 8, SLOT_KW["cache_len"], device=dev)
+    padded = np.zeros((1, 512), np.int32)
+    padded[0, :300] = prompt
+    slot_lg, arena = tt.prefill_into_slot(
+        params, arena, torch.from_numpy(padded).to(dev),
+        torch.tensor(300, dtype=torch.int32, device=dev),
+        torch.tensor(3, dtype=torch.int32, device=dev), cfg)
+    lock_lg, cache = tt.prefill(params, torch.from_numpy(prompt[None]).to(
+        dev), cfg, 300 + steps)
+    dmax = (slot_lg[0] - lock_lg[0]).abs().max().item()
+    active = torch.zeros(8, dtype=torch.bool, device=dev)
+    active[3] = True
+    for j in range(steps - 1):
+        tok = int(lock_lg[0].argmax())
+        toks = torch.zeros(8, dtype=torch.int32, device=dev)
+        toks[3] = tok
+        pos = torch.zeros(8, dtype=torch.int32, device=dev)
+        pos[3] = 300 + j
+        slot_lg, arena = tt.decode_step_slots(params, arena, toks, pos,
+                                              active, cfg)
+        lock_lg, cache = tt.decode_step(params, cache, toks[3:4], 300 + j,
+                                        cfg)
+        dmax = max(dmax, (slot_lg[3] - lock_lg[0]).abs().max().item())
+    return dmax
+
+
+def arena_attention_ms(torch, tt, cfg, dev) -> float:
+    """Device time of one layer's arena attention at the slot engine's
+    decode shape (8 rows over 1024 positions, 12 heads, Dh 64, bf16
+    arena), as the decode graph runs it: captured into a CUDA graph of
+    its own (so no host launch gap is timed) and replayed, CUDA events
+    around the replay, median of ``REPEATS``, each after the L2-evicting
+    write (a step's 12 layers read 25 MB of arena each)."""
+    B, L = SLOT_KW["batch"], SLOT_KW["cache_len"]
+    g = torch.Generator(device=dev).manual_seed(34)
+    q = torch.randn(B, 12, 1, 64, generator=g, device=dev).to(cfg.dtype)
+    kc, vc = (torch.randn(B, L, 12, 64, generator=g, device=dev)
+              .to(cfg.dtype) for _ in range(2))
+    attend = torch.arange(L, device=dev)[None, :] <= torch.randint(
+        0, L, (B, 1), generator=g, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        tt.arena_attention(q, kc, vc, attend)       # warm-up
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tt.arena_attention(q, kc, vc, attend)
+    return Timer(torch).ms(graph.replay)
+
+
+def slots_phase(torch, tt, kernels, sampling, ka, build, DecodeEngine,
+                PagedDecodeEngine, cfg, dev, params) -> dict:
+    """The ``slots:`` line: the row-arena slot engine at GPT-2 small widths
+    (batch 8, an arena of 1024 positions, buckets 16..512) on the engine
+    trace clipped to 512-token prompts, cold in a fresh engine (every
+    capture in its window) and then warm (seed 1); the paged engine's
+    figures on the same two clipped traces beside it. Checks every
+    request, each kernel of the path launched (kernel 5 in the slot
+    prefills, kernel 2 on both streams), captures = buckets met + 1, and
+    every greedy request against ``generate`` at B = 1 (divergences only
+    at near-ties: ``greedy_gate``); prints kernel 5 at the shapes the
+    slot and lockstep paths give it, the step programs' replays against their raw
+    steps, the arena attention's share of a decode step and a profiled
+    third trace (``slots_profile:``). Returns the cold run's launch
+    counts."""
+    from paddle_tpu_torch.core import ragged
+    t_phase = time.perf_counter()
+    warm_eng = DecodeEngine.from_params(params, cfg, device=dev, **SLOT_KW)
+    warm = submit(warm_eng, np.arange(40) % cfg.vocab, 4, 0.0)
+    warm_eng.run_until_idle()
+    if len(warm.tokens) != 4:
+        fail("slots: warm-up request did not finish")
+    del warm_eng
+    eng = DecodeEngine.from_params(params, cfg, device=dev, **SLOT_KW)
+    reqs_in = slot_trace(np.random.RandomState(0), cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()                 # counts of the main path only
+    reqs, wall, captures, capture_s = serve_trace(torch, eng, reqs_in)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    health = eng.health()
+    doc = trace_doc(reqs, wall, captures, capture_s)
+    doc.pop("prefix_hit_tokens")
+    step = eng.metrics.get("engine_decode_step_seconds").snapshot()
+    doc.update({"decode_mfu": eng.decode_mfu(),
+                "decode_steps": health["decode_steps"],
+                "decode_step_ms_mean": 1e3 * step["avg"],
+                "prefill_ms_mean": 1e3 * eng.metrics.get(
+                    "engine_prefill_seconds").snapshot()["avg"],
+                "max_memory_allocated_bytes": peak,
+                "arena_bytes": sum(t.numel() * t.element_size()
+                                   for t in eng.cache.values()),
+                "launches": {k: v for k, v in launches.items() if v}})
+    check_served("slots", reqs, reqs_in, cfg.vocab)
+    path = ("fused_sample", "fused_sample.threefry", "flash_attention_fwd")
+    missing = [k for k in path if launches[k] <= 0]
+    if missing:
+        fail(f"slots: kernels never launched on the main path: {missing}")
+    met = {ragged.bucket_length(len(p), eng.buckets) for p, _, _ in reqs_in}
+    if captures != {"prefill": len(met), "decode": 1}:
+        fail(f"slots: captured {captures}, expected {len(met)} prefill "
+             f"graphs (buckets met {sorted(met)}) + 1 decode")
+    doc["buckets_met"] = sorted(met)
+    warm_in = slot_trace(np.random.RandomState(1), cfg.vocab)
+    wreqs, wwall, wcaptures, wcapture_s = serve_trace(torch, eng, warm_in)
+    step_w = eng.metrics.get("engine_decode_step_seconds").snapshot()
+    check_served("slots warm", wreqs, warm_in, cfg.vocab)
+    wmet = {ragged.bucket_length(len(p), eng.buckets) for p, _, _ in warm_in}
+    if wcaptures != {"prefill": len(wmet - met), "decode": 0}:
+        fail(f"slots warm: captured {wcaptures}")
+    doc["warm"] = trace_doc(wreqs, wwall, wcaptures, wcapture_s)
+    doc["warm"].pop("prefix_hit_tokens")
+    doc["warm"]["decode_step_ms_mean"] = 1e3 * (
+        (step_w["sum"] - step["sum"]) / (step_w["count"] - step["count"]))
+    # the paged engine on the same clipped traces
+    p_eng = PagedDecodeEngine.from_params(params, cfg, device=dev,
+                                          **ENGINE_KW)
+    preqs, pwall, pcapt, pcap_s = serve_trace(torch, p_eng, reqs_in)
+    pwreqs, pwwall, pwcapt, pwcap_s = serve_trace(torch, p_eng, warm_in)
+    doc["paged"] = {**trace_doc(preqs, pwall, pcapt, pcap_s),
+                    "decode_mfu": p_eng.decode_mfu(),
+                    "warm": trace_doc(pwreqs, pwwall, pwcapt, pwcap_s)}
+    del p_eng
+    # the greedy gate against generate at B = 1
+    dmax = slot_dlogit(torch, tt, cfg, params, dev)
+    pairs = [(req, tt.generate(params, torch.from_numpy(p[None]).to(dev),
+                               cfg, max_new=m)[0, len(p):].tolist())
+             for req, (p, m, t) in zip(reqs + wreqs, reqs_in + warm_in)
+             if t == 0]
+    divs = greedy_gate(
+        pairs, dmax, lambda req, ids, i: lockstep_margin(
+            torch, tt, cfg, params, dev, req.prompt, ids, i),
+        "slots", "generate")
+    n_greedy = len(pairs)
+    doc["greedy_gate"] = {"requests": int(n_greedy),
+                          "divergences": len(divs),
+                          "max_abs_dlogit_slot_vs_lockstep": dmax}
+    print(f"check slots greedy: {n_greedy} greedy requests against "
+          f"generate at B=1, {len(divs)} divergences (each at a near-tie), "
+          f"max |dlogit| slot vs lockstep {dmax!r}")
+    # kernel 5 at every shape this phase and ``lockstep:`` launch it at;
+    # 300 is ``slot_dlogit``'s prompt
+    ragged = sorted({len(p) for p, _, t in reqs_in + warm_in if t == 0}
+                    | {300})
+    doc["flash_slot_prefill"] = slot_flash(torch, ka, build, ragged)
+    doc["graphs"] = slot_graph_check(torch, tt, sampling, cfg, params, dev)
+    # where a warm decode step's time goes: the arena attention alone,
+    # 12 layers of it, against the warm trace's mean step (replay, ids
+    # copy and host work included)
+    attn_ms = arena_attention_ms(torch, tt, cfg, dev)
+    doc["arena_attention_ms_per_layer"] = attn_ms
+    doc["arena_attention_share_of_warm_step"] = (
+        cfg.n_layers * attn_ms / doc["warm"]["decode_step_ms_mean"])
+    prof_in = slot_trace(np.random.RandomState(2), cfg.vocab)
+
+    def serve():
+        for r in prof_in:
+            submit(eng, *r)
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+    profile = profile_window(torch, serve)
+    # whether the arena attention leads a warm step (ROADMAP B's test)
+    profile["arena_attention_share_of_warm_step"] = \
+        doc["arena_attention_share_of_warm_step"]
+    doc["phase_s"] = time.perf_counter() - t_phase
+    print("slots: " + json.dumps(doc))
+    print("slots_profile: " + json.dumps(profile))
+    del eng
+    return launches
+
+
+def lockstep_phase(torch, tt, tlm, prng, DecodeEngine, cfg, dev, params):
+    """The ``lockstep:`` line: ``generate`` at B = 4, 128-token prompts,
+    64 new tokens, greedy and sampled (temperature 0.8, key 0), each
+    timed after a warm-up call, twice greedy (bitwise the same ids);
+    ``beam_search`` at B = 2, K = 4, 16 new tokens (scores finite, best
+    first); then the port's v1 and v3 artifacts of the same weights
+    (batch 4, prompt length 128, 192 positions, v3's buckets 64 and
+    128), saved and loaded: ``LMServer.generate`` gives ``generate``'s
+    greedy ids, and the v3 engine serves the four prompts with the ids
+    of an in-process slot engine of the same geometry."""
+    t_phase = time.perf_counter()
+    B, Tp, new = LOCKSTEP_B, LOCKSTEP_TP, LOCKSTEP_NEW
+    prompt = np.random.RandomState(35).randint(0, cfg.vocab, (B, Tp)).astype(
+        np.int32)
+    pt = torch.from_numpy(prompt).to(dev)
+    doc = {}
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    greedy, g_s = timed(lambda: tt.generate(params, pt, cfg, max_new=new))
+    sampled, s_s = timed(lambda: tt.generate(
+        params, pt, cfg, max_new=new, temperature=0.8,
+        key=prng.prng_key(0)))
+    again = tt.generate(params, pt, cfg, max_new=new)
+    for name, ids in (("greedy", greedy), ("sampled", sampled)):
+        if (ids.shape != (B, Tp + new) or not torch.equal(ids[:, :Tp], pt)
+                or ids.min() < 0 or ids.max() >= cfg.vocab):
+            fail(f"lockstep generate ({name}): shape {tuple(ids.shape)}, "
+                 f"ids in [{ids.min()}, {ids.max()}]")
+    if not torch.equal(greedy, again) or torch.equal(greedy, sampled):
+        fail("lockstep generate: greedy not repeatable, or sampling gave "
+             "the greedy ids")
+    doc["generate"] = {"batch": B, "prompt_len": Tp, "max_new": new,
+                       "greedy_s": g_s, "greedy_tokens_per_s": B * new / g_s,
+                       "sampled_s": s_s,
+                       "sampled_tokens_per_s": B * new / s_s}
+    (toks, scores), b_s = timed(lambda: tt.beam_search(
+        params, pt[:2], cfg, max_new=16, beam_size=4))
+    sc = scores.float()
+    if (toks.shape != (2, 4, Tp + 16) or not torch.isfinite(sc).all()
+            or (sc[:, 1:] > sc[:, :-1]).any()):
+        fail(f"beam_search: shape {tuple(toks.shape)}, scores "
+             f"{sc.tolist()}")
+    doc["beam_search"] = {"batch": 2, "beam": 4, "max_new": 16, "s": b_s,
+                          "scores": sc.tolist()}
+    art = {}
+    kw = dict(batch=B, prompt_len=Tp, cache_len=Tp + new)
+    with tempfile.TemporaryDirectory() as tmp:
+        for version, extra in (("v1", {}),
+                               ("v3", {"engine_buckets": (64, 128)})):
+            t0 = time.perf_counter()
+            tlm.save_lm_artifact(f"{tmp}/{version}.tar", params, cfg, **kw,
+                                 **extra)
+            save_s = time.perf_counter() - t0
+            srv = tlm.load_lm_artifact(f"{tmp}/{version}.tar")
+            load_s = time.perf_counter() - t0 - save_s
+            ids = srv.generate(prompt, new, device=dev)
+            row = {"format_version": srv.meta["format_version"],
+                   "save_s": save_s, "load_s": load_s,
+                   "generate_ids_equal": bool(np.array_equal(
+                       ids, greedy.cpu().numpy()))}
+            if version == "v3":
+                a_eng = srv.engine(seed=0, device=dev)
+                ref = DecodeEngine.from_params(
+                    params, cfg, batch=B, cache_len=Tp + new,
+                    buckets=(64, 128), seed=0, device=dev)
+                got = [submit(a_eng, p, new, 0.0) for p in prompt]
+                want = [submit(ref, p, new, 0.0) for p in prompt]
+                a_eng.run_until_idle()
+                ref.run_until_idle()
+                row["engine"] = type(a_eng).__name__
+                row["engine_ids_equal"] = [a.tokens == b.tokens
+                                           for a, b in zip(got, want)]
+                del a_eng, ref
+            art[version] = row
+            del srv
+    doc["artifacts"] = art
+    doc["phase_s"] = time.perf_counter() - t_phase
+    print("lockstep: " + json.dumps(doc))
+    if not (art["v1"]["generate_ids_equal"] and art["v3"]["generate_ids_equal"]
+            and art["v1"]["format_version"] == 1
+            and art["v3"]["format_version"] == 3
+            and art["v3"]["engine"] == "DecodeEngine"
+            and all(art["v3"]["engine_ids_equal"])):
+        fail(f"lockstep artifacts: {art}")
 
 
 # ---------------------------------------------------------------------------
@@ -2522,7 +2976,8 @@ def main():
     from paddle_tpu_torch.ops.kernels import attention as ka
     from paddle_tpu_torch.ops.kernels import decode as kd
     from paddle_tpu_torch.ops.kernels import prefill as kp
-    from paddle_tpu_torch.serving import (PagedDecodeEngine,
+    from paddle_tpu_torch.ops import prng
+    from paddle_tpu_torch.serving import (DecodeEngine, PagedDecodeEngine,
                                           SpecDecodeEngine, sampling)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2572,6 +3027,14 @@ def main():
     spec_launches, rows["fused_spec_verify"] = spec_phase(
         torch, tt, tlm, kd, q8, _build, kernels, sampling, PagedDecodeEngine,
         SpecDecodeEngine, cfg, dev, params)
+    slot_launches = slots_phase(torch, tt, kernels, sampling, ka, _build,
+                                DecodeEngine, PagedDecodeEngine, cfg, dev,
+                                params)
+    kernels.reset_launches()            # counts of the lockstep calls
+    lockstep_phase(torch, tt, tlm, prng, DecodeEngine, cfg, dev, params)
+    lock_launches = kernels.launch_counts()
+    if lock_launches["flash_attention_fwd"] <= 0:
+        fail(f"lockstep: kernel 5 never launched: {lock_launches}")
     quant_logits_phase(torch, tt, cfg, params, dev)
     del params                  # (a)'s peak memory holds its weights only
     # (a) int8 pool, int8 weights from the same seed-0 fp32 draws
@@ -2590,6 +3053,9 @@ def main():
                 **{k: parity[k] for k in FP32_BRANCHES},
                 **{k + ".fp32": fp32_steps[k] for k in PAGED_FP32},
                 "fused_spec_verify": spec_launches["fused_spec_verify"]}
+    # the slot engine's trace and the lockstep calls run kernels 2 and 5
+    for k in ("fused_sample", "fused_sample.threefry", "flash_attention_fwd"):
+        launches[k] += slot_launches[k] + lock_launches[k]
 
     out = []
     for name, (src, replaces) in SOURCES.items():

@@ -8,17 +8,20 @@ exists, so a reader can put the two side by side:
                        CUDA graphs (``core/graphs.py``)
 - ``ops/norm.py``, ``ops/loss.py``  layer norm, softmax cross-entropy
 - ``ops/q8.py``        int8 weights and int8/int4 KV rows for serving
-- ``io/lm_serving.py`` ``quantize_lm_params``: the int8-weight tree
+- ``io/lm_serving.py`` the serving artifact (formats v1-v5, no
+                       compiled modules), ``LMServer.generate`` and
+                       ``quantize_lm_params``: the int8-weight tree
 - ``ops/kernels/``     the hand-written Hopper kernels (CUDA C++ under
                        ``csrc/``) that replace ``paddle_tpu/ops/pallas/``,
                        each beside its plain PyTorch version
 - ``parallel/ring.py`` the plain single-device attention reference
-- ``models/transformer.py``  the decoder-only LM's serving and training
-                       paths
+- ``models/transformer.py``  the decoder-only LM's serving (paged and
+                       arena steps, ``generate``, ``beam_search``) and
+                       training paths
 - ``optimizer.py``     schedules, regularization, clipping and the
                        per-array update rules over parameter trees
-- ``serving/``         sampling, the block pool and the paged engine
-                       with its tiers, tenant budgets and preemption,
+- ``serving/``         sampling, the block pool, the row-arena slot
+                       engine and the paged engine with its tiers, tenant budgets and preemption,
                        the PTKV block wire (``transfer.py``) and the
                        DRAM/disk spill store (``tiers.py``)
 - ``observe/``         metrics registry, MFU accounting, the compile

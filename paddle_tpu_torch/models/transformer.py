@@ -30,6 +30,17 @@ steps. Attention and the pool's span writes go through the kernel
 wrappers of ``ops/kernels``; the dense projections stay ``torch.matmul``
 as they stayed XLA matmuls in the JAX package.
 
+The row arena of the lockstep and slot paths is token-major,
+``[L, B, max_len, Hkv, Dh]`` per k/v (:func:`init_cache`, the v3
+artifact's layout), also updated in place: :func:`prefill` and
+:func:`prefill_into_slot` run the training forward's block (kernel 5)
+with the ``"last"`` / ``"gather"`` head and the stacked k/v
+(:func:`_forward_impl`); :func:`decode_step` and
+:func:`decode_step_slots` are one function over per-row positions whose
+attention is ``paddle_tpu``'s XLA arena attention, in plain torch
+(:func:`arena_attention`); :func:`generate` and :func:`beam_search`
+drive them.
+
 Training keeps the JAX package's layout instead: an fp32 tree whose
 leaves require grad (:func:`init_train_params`,
 :func:`train_params_from_numpy`), and :func:`forward` / :func:`lm_loss`
@@ -53,6 +64,7 @@ import torch.nn.functional as F
 from paddle_tpu_torch.core import dtypes, place
 from paddle_tpu_torch.ops import loss as ops_loss
 from paddle_tpu_torch.ops import norm
+from paddle_tpu_torch.ops import prng
 from paddle_tpu_torch.ops import q8
 from paddle_tpu_torch.ops.kernels import attention as kattention
 from paddle_tpu_torch.ops.kernels import decode as kdecode
@@ -397,14 +409,15 @@ def _layer_weights(w: Dict, li: int, dtype) -> Dict[str, torch.Tensor]:
 
 
 def _embed_rows(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Token-embedding gather, cast to the model dtype. An int8
-    embedding gathers int8 rows and their row scales and dequantizes
-    only those rows."""
+    """Token-embedding gather, cast to the model dtype (``F.embedding``,
+    whose backward the training forward takes). An int8 embedding
+    gathers int8 rows and their row scales and dequantizes only those
+    rows."""
     emb = params["embed"]
     idx = tokens.long()
     if q8.is_quantized_weight(emb):
         return (emb["q8"][idx].float() * emb["scale"][idx]).to(cfg.dtype)
-    return emb[idx].to(cfg.dtype)
+    return F.embedding(idx, emb).to(cfg.dtype)
 
 
 def _vocab_logits(x: torch.Tensor, params) -> torch.Tensor:
@@ -443,9 +456,35 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     row's length (plain attention then, as in the JAX package);
     ``generator`` enables inverted dropout at ``cfg.dropout`` on the
     embedding and both residual branches of every block, drawn on the
-    tokens' device — omit it for a deterministic forward. The
-    prefill/decode heads (``head="last"``/``"gather"``) and
-    ``return_kv`` are not ported."""
+    tokens' device — omit it for a deterministic forward. The serving
+    heads and the stacked k/v are :func:`_forward_impl`'s (through
+    :func:`prefill` and :func:`prefill_into_slot`)."""
+    return _forward_impl(params, tokens, cfg, lengths=lengths,
+                         generator=generator)
+
+
+HEADS = ("all", "last", "gather")
+
+
+def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
+                  lengths: Optional[torch.Tensor] = None,
+                  return_kv: bool = False, head: str = "all",
+                  gather_pos: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None):
+    """The forward of :func:`forward` with the JAX package's serving
+    options. ``head`` picks the positions that feed the vocab head:
+    ``"all"`` ([B, T, V]), ``"last"`` (position -1, [B, 1, V]: the
+    lockstep prefill) or ``"gather"`` (position ``gather_pos[b]`` of row
+    b, a [B] device tensor read on the device, [B, 1, V]: the slot
+    prefill of a right-padded prompt, whose causal attention keeps the
+    padding out of the real positions). ``return_kv`` also returns each
+    layer's k and v after RoPE, stacked [L, B, T, Hkv, Dh] in
+    ``cfg.dtype``: (logits, (k, v)). ``params`` may be the int8-weight
+    tree (module docstring): its layers dequantize one at a time and its
+    embedding rows gather as codes; the serving dict and the training
+    tree run the JAX forward's operations, casts at use included."""
+    if head not in HEADS:
+        raise ValueError(f"head {head!r}: one of {HEADS}")
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"cfg.dropout must be in [0, 1), got {cfg.dropout}")
     rate = cfg.dropout if generator is not None else 0.0
@@ -453,36 +492,56 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     kvd = Hkv * Dh
     dt = cfg.dtype
-    x = F.embedding(tokens.long(), params["embed"]).to(dt)
+    x = _embed_rows(params, tokens, cfg)
     if not cfg.use_rope:
         x = x + params["pos"][:T].to(dt)[None]
     x = _dropout(x, rate, generator)
     rope_tabs = (_rope_tables(torch.arange(T, device=tokens.device), Dh,
                               cfg.rope_theta) if cfg.use_rope else None)
-    # one unbind per stacked leaf: its backward stacks the layers'
-    # gradients once instead of adding L full-size zero tensors
-    w = {k: t.unbind(0) for k, t in params["blocks"].items()}
+    if _blocks_quantized(params):
+        def layer(li):
+            return _layer_weights(params["blocks"], li, dt)
+    else:
+        # one unbind per stacked leaf: its backward stacks the layers'
+        # gradients once instead of adding L full-size zero tensors
+        w = {k: t.unbind(0) for k, t in params["blocks"].items()}
+
+        def layer(li):
+            return {k: t[li] for k, t in w.items()}
+    ks, vs = [], []
     for li in range(cfg.n_layers):
-        h = norm.layer_norm(x, w["ln1"][li], w["ln1_b"][li])
-        qkv = h @ w["qkv"][li].to(h.dtype)
+        wl = layer(li)
+        h = norm.layer_norm(x, wl["ln1"], wl["ln1_b"])
+        qkv = h @ wl["qkv"].to(h.dtype)
         q, k, v = torch.split(qkv, [H * Dh, kvd, kvd], dim=-1)
         q = q.reshape(B, T, H, Dh)
         k = k.reshape(B, T, Hkv, Dh)
         v = v.reshape(B, T, Hkv, Dh)
         if cfg.use_rope:
             q, k = _rope(q, rope_tabs), _rope(k, rope_tabs)
+        if return_kv:
+            ks.append(k.to(dt))
+            vs.append(v.to(dt))
         if lengths is None:
             attn = kattention.flash_attention(q, k, v, causal=True)
         else:
             attn = ring.full_attention(q, k, v, causal=True, lengths=lengths)
         attn = attn.reshape(B, T, cfg.d_model)
-        x = x + _dropout(attn @ w["attn_out"][li].to(attn.dtype), rate,
+        x = x + _dropout(attn @ wl["attn_out"].to(attn.dtype), rate,
                          generator)
-        h2 = norm.layer_norm(x, w["ln2"][li], w["ln2_b"][li])
-        x = x + _dropout(_mlp(h2, w["mlp_in"][li], w["mlp_out"][li]), rate,
+        h2 = norm.layer_norm(x, wl["ln2"], wl["ln2_b"])
+        x = x + _dropout(_mlp(h2, wl["mlp_in"], wl["mlp_out"]), rate,
                          generator)
+    if head == "last":
+        x = x[:, -1:]
+    elif head == "gather":
+        idx = gather_pos.long().clamp(0, T - 1).reshape(B, 1, 1)
+        x = x.gather(1, idx.expand(B, 1, x.shape[-1]))
     x = norm.layer_norm(x, params["ln_f"], params["ln_f_b"])
-    return _vocab_logits(x, params)
+    logits = _vocab_logits(x, params)
+    if return_kv:
+        return logits, (torch.stack(ks), torch.stack(vs))
+    return logits
 
 
 def lm_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
@@ -503,6 +562,185 @@ def lm_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
     else:
         mask = torch.ones_like(tok_ce)
     return (tok_ce * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               device=None) -> Dict[str, torch.Tensor]:
+    """The KV arena of the lockstep and slot steps, zeroed: {"k", "v"}
+    each [L, batch, max_len, kv_heads, Dh] in the model dtype, one row
+    per sequence (token-major, the v3 artifact's layout). Runs on the
+    card unless ``device`` says otherwise."""
+    device = place.resolve_device(device)
+    shape = (cfg.n_layers, int(batch), int(max_len), cfg.kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def cache_from_numpy(cache: Dict, cfg: TransformerConfig,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """A ``paddle_tpu`` arena as numpy ({"k", "v"}) as the port's, cast
+    to ``cfg.dtype``."""
+    device = place.resolve_device(device)
+    return {n: torch.from_numpy(np.asarray(cache[n], np.float32).copy())
+            .to(device=device, dtype=cfg.dtype).contiguous()
+            for n in ("k", "v")}
+
+
+def cache_to_numpy(cache: Dict) -> Dict[str, np.ndarray]:
+    """An arena as fp32 numpy arrays (exact for bf16 values)."""
+    return {n: cache[n].detach().to("cpu", torch.float32).numpy()
+            for n in ("k", "v")}
+
+
+def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
+            cache_len: int):
+    """Batched prompt ingestion: tokens [B, T] -> (logits at the last
+    position [B, vocab] fp32, arena {"k", "v"} [L, B, cache_len, Hkv,
+    Dh] holding the prompt's k/v at positions 0..T-1 and zeros after).
+    The training forward's block (kernel 5 for attention) with the
+    ``"last"`` head. Equal-length prompts only: the lockstep decode
+    shares one position across the batch."""
+    T = tokens.shape[1]
+    if T > cache_len:
+        raise ValueError(f"prefill: {T} prompt tokens exceed cache_len "
+                         f"{cache_len}")
+    logits, kv = _forward_impl(params, tokens, cfg, return_kv=True,
+                               head="last")
+    L, B = kv[0].shape[:2]
+    cache = {}
+    for n, t in zip(("k", "v"), kv):
+        c = torch.zeros((L, B, int(cache_len)) + t.shape[3:],
+                        dtype=t.dtype, device=t.device)
+        c[:, :, :T] = t
+        cache[n] = c
+    return logits[:, 0], cache
+
+
+def arena_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                    attend: torch.Tensor) -> torch.Tensor:
+    """One token per arena row attending over its row: q [B, Hkv, G, Dh]
+    (G query heads per kv head), one layer's arena kc/vc [B, max_len,
+    Hkv, Dh], attend [B, max_len] bool -> [B, Hkv, G, Dh] fp32.
+    ``paddle_tpu``'s arena attention, operation for operation (XLA there,
+    outside any Pallas kernel): fp32 q.k / sqrt(Dh) over every position,
+    -1e30 where ``attend`` is false, softmax, p.v in fp32."""
+    s = torch.einsum("bkgd,btkd->bkgt", q.float(), kc.float()) \
+        / math.sqrt(q.shape[-1])
+    s = torch.where(attend[:, None, None, :], s, -1e30)
+    return torch.einsum("bkgt,btkd->bkgd", torch.softmax(s, dim=-1),
+                        vc.float())
+
+
+def _arena_rows(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
+                active: Optional[torch.Tensor], cfg: TransformerConfig):
+    """One token per arena row: tokens [B] int, pos [B] (row b writes
+    and attends at pos[b]), active [B] bool or None (every row writes)
+    -> (logits [B, vocab] fp32, cache, updated in place).
+
+    Each layer writes row b's new k/v at (b, pos[b]) with one indexed
+    write (an inactive row writes back the bytes it reads there, at pos
+    clamped to max_len - 1), then attends to positions <= pos[b] through
+    :func:`arena_attention`, grouped-query in the product, cast to
+    ``cfg.dtype``. No host sync and no data-dependent shape:
+    capturable."""
+    B = tokens.shape[0]
+    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    kvd, G = Hkv * Dh, H // Hkv
+    max_len = cache["k"].shape[2]
+    dev = tokens.device
+    pos = pos.long()
+    x = _embed_rows(params, tokens, cfg)
+    if not cfg.use_rope:
+        # clipped: an inactive row may stand one past the table
+        x = x + params["pos"][pos.clamp(max=params["pos"].shape[0] - 1)
+                              ].to(cfg.dtype)
+    rope_tabs = (_rope_tables(pos, Dh, cfg.rope_theta) if cfg.use_rope
+                 else None)
+    rows = torch.arange(B, device=dev)
+    wpos = pos.clamp(max=max_len - 1)
+    attend = torch.arange(max_len, device=dev)[None, :] <= pos[:, None]
+    keep = active[:, None, None] if active is not None else None
+    for li in range(cfg.n_layers):
+        w = _layer_weights(params["blocks"], li, cfg.dtype)
+        kc, vc = cache["k"][li], cache["v"][li]   # [B, max_len, Hkv, Dh]
+        h = norm.layer_norm(x, w["ln1"], w["ln1_b"])
+        qkv = h @ w["qkv"]
+        q, k, v = torch.split(qkv, [H * Dh, kvd, kvd], dim=-1)
+        if cfg.use_rope:
+            q = _rope_rows(q.reshape(B, H, Dh), rope_tabs).reshape(B, H * Dh)
+            k = _rope_rows(k.reshape(B, Hkv, Dh), rope_tabs).reshape(B, kvd)
+        for dst, new in ((kc, k), (vc, v)):
+            new = new.reshape(B, Hkv, Dh).to(dst.dtype)
+            if keep is not None:
+                new = torch.where(keep, new, dst[rows, wpos])
+            dst[rows, wpos] = new
+        attn = arena_attention(q.reshape(B, Hkv, G, Dh), kc, vc, attend)
+        x = x + attn.reshape(B, cfg.d_model).to(cfg.dtype) @ w["attn_out"]
+        h2 = norm.layer_norm(x, w["ln2"], w["ln2_b"])
+        x = x + _mlp(h2, w["mlp_in"], w["mlp_out"])
+    x = norm.layer_norm(x, params["ln_f"], params["ln_f_b"])
+    return _vocab_logits(x, params), cache
+
+
+def decode_step(params, cache, tokens: torch.Tensor, pos,
+                cfg: TransformerConfig):
+    """One lockstep step: tokens [B] at position ``pos`` (an int, or a
+    0-d tensor on the tokens' device that the caller may advance there)
+    -> (logits [B, vocab] fp32, cache, updated in place). Every row
+    writes its k/v at ``pos`` and attends to positions <= ``pos``; the
+    arithmetic is :func:`decode_step_slots`' element for element, so at
+    equal positions the two give bitwise the same logits and cache.
+    ``params`` may be the int8-weight tree."""
+    B = tokens.shape[0]
+    if isinstance(pos, torch.Tensor):
+        posv = pos.reshape(1).long().expand(B)
+    else:
+        posv = torch.full((B,), int(pos), dtype=torch.long,
+                          device=tokens.device)
+    return _arena_rows(params, cache, tokens, posv, None, cfg)
+
+
+def decode_step_slots(params, cache, tokens: torch.Tensor,
+                      pos: torch.Tensor, active: torch.Tensor,
+                      cfg: TransformerConfig):
+    """One step with per-slot positions: tokens [B] int32, pos [B] int32,
+    active [B] bool -> (logits [B, vocab] fp32, cache, updated in
+    place). The continuous-batching step: every arena row advances at
+    its own position; an inactive row computes, but no byte of the
+    arena changes for it (it writes back what it reads), so admission
+    and recycling never perturb a neighbour. Captured into a CUDA graph
+    by the slot engine (``serving/sampling.engine_step_fns``)."""
+    return _arena_rows(params, cache, tokens, pos, active, cfg)
+
+
+def prefill_into_slot(params, cache, tokens: torch.Tensor, length, slot,
+                      cfg: TransformerConfig):
+    """Prefill ONE request into arena row ``slot``.
+
+    tokens [1, Tb] is the prompt right-padded to its bucket; ``length``
+    (the real prompt length) and ``slot`` are 0-d int32 tensors on the
+    tokens' device (ints are taken too), so one captured program per
+    bucket serves every length and slot. Returns (logits at position
+    ``length - 1`` [1, vocab] fp32, cache): the forward runs with the
+    ``"gather"`` head (causal attention keeps the padding out of the
+    real positions), then the [L, 1, Tb, Hkv, Dh] k/v land in row
+    ``slot`` at positions 0..Tb-1 with one ``index_copy_`` per array;
+    every other row keeps its bytes. The padded positions' k/v are
+    overwritten by decode steps before any mask lets them be read."""
+    if tokens.shape[0] != 1:
+        raise ValueError(f"prefill_into_slot takes one request "
+                         f"([1, Tb] tokens), got {tuple(tokens.shape)}")
+    dev = tokens.device
+    Tb = tokens.shape[1]
+    length = torch.as_tensor(length, dtype=torch.int32, device=dev)
+    slot = torch.as_tensor(slot, device=dev).long().reshape(1)
+    logits, kv = _forward_impl(params, tokens, cfg, return_kv=True,
+                               head="gather",
+                               gather_pos=length.reshape(1) - 1)
+    for n, t in zip(("k", "v"), kv):
+        cache[n][:, :, :Tb].index_copy_(1, slot, t.to(cache[n].dtype))
+    return logits[:, 0], cache
 
 
 def _pool_layer(pool, li: int, kvq: str):
@@ -743,3 +981,110 @@ def prefill_into_blocks(params, pool, tokens: torch.Tensor, length,
     x = norm.layer_norm(x.index_select(0, last), params["ln_f"],
                         params["ln_f_b"])
     return _vocab_logits(x, params), pool
+
+
+def _check_lockstep(what: str, Tp: int, max_new: int,
+                    cfg: TransformerConfig):
+    if max_new < 1:
+        raise ValueError(f"{what}: max_new must be >= 1, got {max_new}")
+    if Tp + max_new > cfg.max_len:
+        raise ValueError(f"{what}: {Tp + max_new} positions exceed "
+                         f"cfg.max_len={cfg.max_len}")
+
+
+def generate(params, prompt: torch.Tensor, cfg: TransformerConfig, *,
+             max_new: int, temperature: float = 0.0,
+             key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Autoregressive generation: prompt [B, Tp] -> [B, Tp + max_new]
+    int32, on the prompt's device. :func:`prefill` fills an arena of
+    ``Tp + max_new`` positions, then ``max_new - 1`` :func:`decode_step`
+    calls extend it in place. ``temperature`` 0 is greedy (the
+    first-index argmax); otherwise each token is
+    ``jax.random.categorical(k, logits / temperature)`` under
+    ``paddle_tpu``'s key chain (``key, k0 = split(key)`` for the first
+    token, ``key, ks = split(key)`` before each step) with ``key`` from
+    ``ops/prng.prng_key``, so the ids are JAX's on the CPU. The chain
+    does not depend on the data: it is computed on the host up front,
+    the noise on the prompt's device, and no step reads the device
+    until the ids are returned. ``params`` may be the int8-weight tree
+    (dequantized a layer at a time; the JAX function dequantizes the
+    whole tree first, to the same bytes)."""
+    B, Tp = prompt.shape
+    _check_lockstep("generate", Tp, max_new, cfg)
+    if temperature > 0 and key is None:
+        raise ValueError("generate: sampling (temperature>0) needs a key")
+    dev = prompt.device
+    keys, temp = [None] * max_new, None
+    if temperature > 0:                 # greedy reads no key
+        chain = key.detach().cpu()
+        for i in range(max_new):
+            chain, keys[i] = prng.split(chain)
+        temp = torch.full((1,), float(temperature), dtype=torch.float32,
+                          device=dev)
+
+    def sample(logits, k):
+        if temp is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return prng.categorical(k, logits / temp).to(torch.int32)
+
+    logits, cache = prefill(params, prompt, cfg, Tp + max_new)
+    toks = [sample(logits, keys[0])]
+    for i in range(max_new - 1):
+        logits, cache = decode_step(params, cache, toks[-1], Tp + i, cfg)
+        toks.append(sample(logits, keys[i + 1]))
+    return torch.cat([prompt.to(torch.int32), torch.stack(toks, dim=1)],
+                     dim=1)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest along the last axis, ties
+    to the lower index (``lax.top_k``'s order; ``torch.topk`` promises
+    none): the head of a stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def beam_search(params, prompt: torch.Tensor, cfg: TransformerConfig, *,
+                max_new: int, beam_size: int = 4):
+    """Beam search over the arena: prompt [B, Tp] -> (tokens [B, K,
+    Tp + max_new] int32, scores [B, K] fp32), best first, K =
+    ``beam_size``. The prefill's log-softmax seeds K hypotheses per row;
+    each step scores the K x V expansions, keeps the top K (ties to the
+    lower index, as ``lax.top_k``), and gathers the arena rows of the
+    surviving hypotheses; the tokens are recovered by walking the
+    survivors' back-pointers. No length penalty: every hypothesis has
+    ``max_new`` tokens. Scores are sums of fp32 log-probabilities."""
+    B, Tp = prompt.shape
+    _check_lockstep("beam_search", Tp, max_new, cfg)
+    if beam_size < 1 or beam_size > cfg.vocab:
+        raise ValueError(f"beam_search: beam_size {beam_size} must be in "
+                         f"[1, vocab={cfg.vocab}]")
+    K, V = int(beam_size), cfg.vocab
+    dev = prompt.device
+    logits, cache = prefill(params, prompt, cfg, Tp + max_new)
+    scores, toks = _top_k(torch.log_softmax(logits, dim=-1), K)
+    cache = {n: c.repeat_interleave(K, dim=1) for n, c in cache.items()}
+    toks = toks.to(torch.int32)
+    base = torch.arange(B, device=dev)[:, None] * K
+    hist = []
+    for i in range(max_new - 1):
+        logits, cache = decode_step(params, cache, toks.reshape(B * K),
+                                    Tp + i, cfg)
+        logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
+        top, idx = _top_k((scores[:, :, None] + logp).reshape(B, K * V), K)
+        src = idx // V
+        flat = (base + src).reshape(B * K)
+        cache = {n: c.index_select(1, flat) for n, c in cache.items()}
+        hist.append((toks, src))
+        toks, scores = (idx % V).to(torch.int32), top
+    # hist[i] holds step i's tokens in the beam order before its
+    # reshuffle and the map from the order after it back to that one:
+    # walk each survivor's pointer back through the maps
+    ptr = torch.arange(K, device=dev)[None].expand(B, K)
+    seq = [toks]
+    for t, src in reversed(hist):
+        ptr = src.gather(1, ptr)
+        seq.append(t.gather(1, ptr))
+    seq = torch.stack(seq[::-1], dim=2)
+    rep = prompt.to(torch.int32)[:, None, :].expand(B, K, Tp)
+    return torch.cat([rep, seq], dim=2), scores

@@ -10,6 +10,8 @@ sampler draws from (``jax._src.prng`` and ``jax._src.random``, with
 - :func:`threefry2x32` — the Threefry-2x32 hash, 20 rounds;
 - :func:`random_bits` — the partitionable layout: the flat index of each
   element split into (hi, lo) counter words, the draw ``bits1 ^ bits2``;
+- :func:`split` — ``jax.random.split``: key ``i`` is the pair of words
+  threefry gives for the counters of index ``i``;
 - :func:`uniform`, :func:`gumbel`, :func:`categorical`.
 
 Every value is bitwise what JAX computes on the CPU. The integer steps
@@ -72,30 +74,42 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32), partitionable layout:
     element ``i`` of the flattened shape hashes the counters
     (i >> 32, i & 0xFFFFFFFF) and draws the xor of the two words.
-    int64 holding uint32, of ``shape``."""
+    int64 holding uint32, of ``shape``, on ``device`` (default: the
+    key's; a key kept on the host draws on the card with no sync)."""
     n = 1
     for d in shape:
         n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    idx = torch.arange(n, dtype=torch.int64,
+                       device=device if device is not None else key.device)
     b0, b1 = threefry2x32(key, idx >> 32, idx & MASK32)
     return (b0 ^ b1).reshape(tuple(shape))
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` under the partitionable threefry:
+    new key ``i`` is the two output words of the counters
+    (i >> 32, i & 0xFFFFFFFF), not their xor. int64 [num, 2] holding
+    uint32 words, on the key's device."""
+    idx = torch.arange(int(num), dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(key, idx >> 32, idx & MASK32)
+    return torch.stack([b0, b1], dim=1)
+
+
 def uniform(key: torch.Tensor, shape, minval: float = TINY,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, device=None) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 bits of each draw
     as the mantissa of a float in [1, 2), minus 1, scaled to
     [minval, maxval) and clamped below at ``minval`` (the Gumbel
     transform's defaults)."""
-    bits = random_bits(key, shape)
+    bits = random_bits(key, shape, device)
     one = (bits >> 9) | 0x3F800000
     f = one.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=bits.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
@@ -105,8 +119,10 @@ def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     product of two floats is exact in float64, the sum is rounded to
     odd in float64 (its error from ``TwoSum``), and rounding that to
     float32 is then correct, since float64 carries more than 24 + 1
-    bits."""
-    b, c = (torch.as_tensor(v, dtype=torch.float32, device=a.device)
+    bits. A number becomes a device fill, not a copy from the host (which
+    would wait for the device)."""
+    b, c = ((v.to(a.device, torch.float32) if isinstance(v, torch.Tensor)
+             else torch.full((), v, dtype=torch.float32, device=a.device))
             .double() for v in (b, c))
     p = a.double() * b
     s = p + c
@@ -148,14 +164,16 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     return t + e * _LOG_Q2
 
 
-def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+def gumbel(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """``jax.random.gumbel`` (``mode="low"``): ``-log(-log(u))`` of
-    :func:`uniform` over [float32 tiny, 1)."""
-    return -xla_log(-xla_log(uniform(key, shape)))
+    :func:`uniform` over [float32 tiny, 1), on ``device`` (default: the
+    key's)."""
+    return -xla_log(-xla_log(uniform(key, shape, device=device)))
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical(key, logits, axis=-1)``: the first-index
-    argmax of Gumbel noise of ``logits``' shape plus the logits."""
-    g = gumbel(key, logits.shape)
+    argmax of Gumbel noise of ``logits``' shape plus the logits, drawn
+    on the logits' device."""
+    g = gumbel(key, logits.shape, device=logits.device)
     return torch.argmax(g + logits.float(), dim=-1)

@@ -1,8 +1,10 @@
-"""Serving: sampling, the block pool, the paged decode engine and its
-speculative-decoding variant, the KV block wire and the spill tiers."""
+"""Serving: sampling, the block pool, the row-arena slot engine, the
+paged decode engine and its speculative-decoding variant, the KV block
+wire and the spill tiers."""
 
-from paddle_tpu_torch.serving.engine import (EngineRequest,
+from paddle_tpu_torch.serving.engine import (DecodeEngine, EngineRequest,
                                              PagedDecodeEngine,
                                              SpecDecodeEngine)
 
-__all__ = ["EngineRequest", "PagedDecodeEngine", "SpecDecodeEngine"]
+__all__ = ["DecodeEngine", "EngineRequest", "PagedDecodeEngine",
+           "SpecDecodeEngine"]

@@ -1,5 +1,14 @@
-"""Continuous-batching LM decode engine over the paged KV pool
-(counterpart of ``paddle_tpu/serving/engine.py``).
+"""Continuous-batching LM decode engines (counterpart of
+``paddle_tpu/serving/engine.py``).
+
+:class:`DecodeEngine` is the row-arena slot engine (the one a format-v3
+artifact loads into): the KV cache is a ``[L, B, cache_len, Hkv, Dh]``
+arena whose B rows are leased to requests. A request queues (FIFO)
+until a row frees, is prefilled into it in one program per prompt
+bucket (``transformer.prefill_into_slot``, the prompt right-padded to
+the smallest bucket that holds it), then decodes one token per step at
+its own position (``transformer.decode_step_slots``) beside whatever
+else is in flight, until EOS or ``max_new`` frees the row for the next.
 
 :class:`PagedDecodeEngine` leases ``batch`` slots to requests. A request
 queues until a slot frees and its worst-case block count can be
@@ -11,10 +20,11 @@ prefix maps them into its page table instead of prefilling them.
 
 The two step functions run as step programs (``core/graphs.py``), the
 counterpart of the JAX engine's jitted programs: on the card one CUDA
-graph per (chunk bucket, page-vector length) for prefill and one for
-decode, captured at the first call with that key and replayed after;
-``compile_counts()`` counts them through the compile tracker, as the JAX
-engine counts its compilations. There is no eager path on the card.
+graph per prompt bucket (slot engine) or per (chunk bucket, page-vector
+length) (paged engine) for prefill and one for decode, captured at the
+first call with that key and replayed after; ``compile_counts()``
+counts them through the compile tracker, as the JAX engine counts its
+compilations. There is no eager path on the card.
 Only ``[B]`` int32 ids (or one id after a prefill) cross to the host per
 step, and that copy is the step's one sync; scheduling state lives in
 numpy and is copied into the programs' static buffers, the page table
@@ -51,9 +61,6 @@ an evicted cached block is demoted to host DRAM or disk
 decoding: a small draft model proposes ``spec_k`` tokens per step, the
 target verifies every slot's window in one pass, and the accept/reject
 tail emits the accepted drafts plus one token of the target's own.
-
-Not ported yet (queued in ROADMAP.md): the row-arena ``DecodeEngine``
-path.
 """
 
 import dataclasses
@@ -96,6 +103,10 @@ _GOODPUT_BUCKETS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
 # latency traffic leaves (and is the only tier preemption may evict)
 VALID_TIERS = ("latency", "batch")
 
+# the slot engine's prompt buckets: one prefill program each, at most ~2x
+# padded prefill work on a mixed workload
+DEFAULT_PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512)
+
 PREFILL = "serving_engine.prefill"
 DECODE = "serving_engine.decode"
 
@@ -112,6 +123,7 @@ class EngineRequest:
     tenant: str = "default"             # token-budget accounting key
     tier: str = "batch"                 # latency | batch (VALID_TIERS)
     # -- lifecycle (filled by the engine) --------------------------------
+    bucket: int = 0                     # slot engine: padded prompt length
     slot: int = -1
     prefix_hit_tokens: int = 0          # prompt tokens served from cache
     block_hashes: Optional[List[bytes]] = None
@@ -186,17 +198,22 @@ class EngineRequest:
 
 
 class DecodeEngine:
-    """Slot-scheduler core: request records, host-side slot state, the
-    batched decode step, token emission and metrics. The paged engine
-    specializes admission and prefill; ``paddle_tpu``'s row-arena path
-    of this class is not ported.
+    """The row-arena slot engine, and the slot-scheduler core the paged
+    engine builds on: request records, host-side slot state, the batched
+    decode step, token emission and metrics. The paged engine
+    specializes submission, admission and prefill.
 
     ``prefill``/``decode`` are step programs (``core/graphs.py``, as
-    ``serving/sampling.paged_step_fns`` makes them) or plain step
-    functions, which the engine wraps into programs under its tracker."""
+    ``serving/sampling.engine_step_fns`` makes them) or plain step
+    functions with their signatures, which the engine wraps into
+    programs under its tracker. Build one with :meth:`from_params`, or
+    from a format-v3 artifact with ``io/lm_serving.LMServer.engine()``.
+    One prefill program per bucket and one decode program
+    (``compile_counts()``)."""
 
     def __init__(self, prefill: Callable, decode: Callable, params, cache,
-                 *, batch: int, cache_len: int, buckets: Sequence[int],
+                 *, batch: int, cache_len: int,
+                 buckets: Sequence[int] = DEFAULT_PREFILL_BUCKETS,
                  device, cfg, seed: Optional[int] = None,
                  tracker: Optional[_ct.CompileTracker] = None,
                  slo: Optional[SloConfig] = None,
@@ -298,6 +315,42 @@ class DecodeEngine:
             "engine_slo_burn_rate", "TTFT SLO burn rate: windowed "
             "violation fraction / error budget (0 without a "
             "configured SLO)")
+
+    @classmethod
+    def from_params(cls, params, cfg, *, batch: int, cache_len: int,
+                    buckets: Sequence[int] = DEFAULT_PREFILL_BUCKETS,
+                    seed: Optional[int] = None, device=None,
+                    tracker: Optional[_ct.CompileTracker] = None,
+                    registry: Optional[_metrics.Registry] = None,
+                    slo: Optional[SloConfig] = None,
+                    decode_flops: Optional[float] = None):
+        """The slot engine over live ``params`` (``transformer.
+        init_params``, ``params_from_numpy`` or the int8-weight
+        ``io/lm_serving.quantize_lm_params``) with a zeroed arena of
+        ``batch`` rows of ``cache_len`` positions and the step programs
+        of ``sampling.engine_step_fns`` under ``tracker`` (default: a
+        fresh one per engine), the TTFT ``slo``, the metrics
+        ``registry`` and the fixed per-step ``decode_flops`` (default:
+        counted from the shapes). Runs on the card unless
+        ``device="cpu"``; ``params`` must already live there."""
+        from paddle_tpu_torch.serving import sampling
+        device = place.resolve_device(device)
+        where = _params_device(params)
+        if where != device:
+            raise ValueError(f"params live on {where}, the engine runs on "
+                             f"{device}")
+        if cache_len > cfg.max_len:
+            raise ValueError(f"cache_len {cache_len} exceeds cfg.max_len "
+                             f"{cfg.max_len}")
+        if tracker is None:
+            tracker = _ct.CompileTracker(storm_threshold=len(buckets) + 2)
+        prefill_fn, decode_fn = sampling.engine_step_fns(cfg,
+                                                         tracker=tracker)
+        cache = transformer.init_cache(cfg, batch, cache_len, device=device)
+        return cls(prefill_fn, decode_fn, params, cache, batch=batch,
+                   cache_len=cache_len, buckets=buckets, device=device,
+                   cfg=cfg, seed=seed, tracker=tracker, slo=slo,
+                   registry=registry, decode_flops=decode_flops)
 
     def _program(self, fn, name: str, context) -> graphs.StepProgram:
         """``fn`` as a step program under this engine's tracker."""
@@ -425,7 +478,11 @@ class DecodeEngine:
 
     # -- request API -------------------------------------------------------
     def _validate_submit(self, rid: int, prompt: np.ndarray, max_new: int,
-                         tier: str):
+                         tier: str, largest_bucket: Optional[int] = None):
+        """Counted rejections for the malformed requests a wire can
+        deliver; ``largest_bucket`` adds the slot engine's
+        ``prompt_too_long`` (no prefill program past it) before the
+        cache check, in the JAX engine's order."""
         if prompt.size < 1:
             raise self._reject(rid, "empty_prompt", "submit: empty prompt")
         if max_new < 1:
@@ -434,10 +491,38 @@ class DecodeEngine:
         if tier not in VALID_TIERS:
             raise self._reject(rid, "bad_tier", f"submit: tier must be one "
                                f"of {VALID_TIERS}, got {tier!r}")
+        if largest_bucket is not None and prompt.size > largest_bucket:
+            raise self._reject(
+                rid, "prompt_too_long", f"submit: prompt length "
+                f"{prompt.size} exceeds the largest prefill bucket "
+                f"{largest_bucket}")
         if prompt.size + max_new > self.cache_len:
             raise self._reject(
                 rid, "exceeds_cache", f"submit: {prompt.size} prompt + "
                 f"{max_new} new tokens exceed cache_len {self.cache_len}")
+
+    def submit(self, prompt, max_new: int, *, temperature: float = 0.0,
+               top_k: int = 0, eos_id: Optional[int] = None,
+               tenant: str = "default", tier: str = "batch",
+               trace: Optional[str] = None) -> EngineRequest:
+        """Queue one request; returns its live record. The prompt must
+        fit the largest bucket and, with ``max_new``, the cache length
+        (``prompt_too_long`` / ``exceeds_cache`` rejections, counted).
+        ``tenant`` and ``tier`` ride into the request log and trace
+        events; the slot engine admits FIFO regardless. ``trace`` adopts
+        a caller's trace id instead of minting ``eng<N>.r<rid>``."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        rid = next(self._ids)
+        self._validate_submit(rid, prompt, max_new, tier,
+                              largest_bucket=self.buckets[-1])
+        req = EngineRequest(
+            rid=rid, prompt=prompt, max_new=int(max_new),
+            temperature=float(temperature), top_k=int(top_k),
+            eos_id=eos_id, tenant=str(tenant), tier=str(tier),
+            bucket=ragged.bucket_length(prompt.size, self.buckets),
+            submit_t=time.perf_counter(),
+            trace_id=str(trace) if trace else "")
+        return self._enqueue(req)
 
     def abort_requests(self, reason: str = "replica_killed") -> int:
         """Close every live request's open trace slices (``queued`` /
@@ -482,6 +567,10 @@ class DecodeEngine:
     @property
     def queue_depth(self) -> int:
         return len(self._queue)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
 
     @property
     def idle(self) -> bool:
@@ -537,9 +626,49 @@ class DecodeEngine:
             return True
         return False
 
+    def _admit_slots(self, finished: List[EngineRequest]):
+        """Prefill queued requests into free rows, FIFO, one prefill
+        program call each (its bucket's graph; ``length``, ``slot`` and
+        the seed are device scalars), and emit each one's first token."""
+        while self._queue and self._free:
+            req = self._queue.popleft()
+            slot = self._free.popleft()
+            now = time.perf_counter()
+            req.prefill_t = now
+            self._m_wait_s.observe(now - req.submit_t)
+            self._ev(req, "queued", "e", now)
+            self._ev(req, "admitted", "n", now, slot=slot,
+                     queue_wait_ms=round(1000 * (now - req.submit_t), 3))
+            self._ev(req, "prefill", "b", now)
+            padded = np.zeros((1, req.bucket), np.int32)
+            padded[0, :req.prompt.size] = req.prompt
+            t0 = time.perf_counter()
+            tok, self.cache = self._prefill_fn(
+                self.params, self.cache, padded, np.int32(req.prompt.size),
+                np.int32(slot), np.asarray([req.temperature], np.float32),
+                np.asarray([req.top_k], np.int32), self._seed())
+            tok = int(tok.cpu()[0])
+            now = time.perf_counter()
+            req.prefill_own_s = now - t0
+            self._m_prefill_s.observe(now - t0)
+            self._m_prefills.inc()
+            self._ev(req, "prefill_chunk", "n", now,
+                     tokens=int(req.prompt.size), bucket=req.bucket)
+            req.slot, req.status = slot, "running"
+            self._slot_req[slot] = req
+            if self._emit(req, tok, now):
+                finished.append(req)    # a one-token request: its row is
+                continue                # already free again
+            self._active[slot] = True
+            self._pos[slot] = req.prompt.size
+            self._last[slot] = tok
+            self._temp[slot] = req.temperature
+            self._topk[slot] = req.top_k
+        self._m_queue.set(len(self._queue))
+
     def _schedule(self, finished: List[EngineRequest]):
         """Admission and prefill work that runs before the decode step."""
-        raise NotImplementedError
+        self._admit_slots(finished)
 
     def _pre_decode(self):
         """Host bookkeeping before a decode step."""

@@ -1,6 +1,7 @@
-"""Token sampling, the speculative accept/reject tails, and the paged
-engine's step functions and speculative-decoding programs (counterpart
-of ``paddle_tpu/serving/sampling.py``)."""
+"""Token sampling, the speculative accept/reject tails, and the step
+functions of the slot engine, the paged engine and its
+speculative-decoding programs (counterpart of
+``paddle_tpu/serving/sampling.py``)."""
 
 import math
 
@@ -82,6 +83,61 @@ def spec_verify_tokens(logits: torch.Tensor, draft: torch.Tensor,
     return X, spec_accept(X, draft, valid)
 
 
+def _programs(fns: dict, tracker, context) -> dict:
+    """``{name: fn}`` as step programs ``serving_engine.<name>`` under
+    one tracker and graph context (new ones when None)."""
+    from paddle_tpu_torch.core import graphs
+    from paddle_tpu_torch.observe import compile_tracker
+    if tracker is None:
+        tracker = compile_tracker.CompileTracker()
+    if context is None:
+        context = graphs.GraphContext()
+    return {name: graphs.StepProgram(fn, f"serving_engine.{name}", tracker,
+                                     context)
+            for name, fn in fns.items()}
+
+
+def engine_step_fns(cfg, *, tracker=None, context=None):
+    """(prefill_fn, decode_fn) of the row-arena slot engine, as step
+    programs under the tracker names ``serving_engine.prefill`` /
+    ``serving_engine.decode`` sharing one graph ``context``, built as
+    :func:`paged_step_fns` builds the paged pair:
+
+    prefill(params, cache, tokens [1, Tb], length, slot, temperature [1],
+            top_k [1], seed) -> (token [1], cache)
+    decode(params, cache, tokens [B], pos [B], active [B] bool,
+           temperature [B], top_k [B], seed) -> (tokens [B] int32, cache)
+
+    ``length``, ``slot`` and ``seed`` are numpy scalars to the programs
+    (0-d device tensors in ``.raw``), so one graph per prompt bucket
+    serves every slot. The prefill (``transformer.prefill_into_slot``,
+    attention through kernel 5) samples its token on kernel 2's
+    threefry stream, ``paddle_tpu``'s ``sample_tokens(logits,
+    PRNGKey(seed), ...)``; the decode step
+    (``transformer.decode_step_slots``) on its hashed stream, the JAX
+    engine's Pallas epilogue. Only int32 ids leave the device; the arena
+    is updated in place and returned. ``params`` may be the int8-weight
+    tree."""
+    from paddle_tpu_torch.models import transformer
+
+    def prefill_fn(params, cache, tokens, length, slot, temperature, top_k,
+                   seed):
+        logits, cache = transformer.prefill_into_slot(
+            params, cache, tokens, length, slot, cfg)
+        return kdecode.fused_sample(logits, seed, temperature, top_k,
+                                    stream="threefry"), cache
+
+    def decode_fn(params, cache, tokens, pos, active, temperature, top_k,
+                  seed):
+        logits, cache = transformer.decode_step_slots(
+            params, cache, tokens, pos, active, cfg)
+        return kdecode.fused_sample(logits, seed, temperature, top_k), cache
+
+    progs = _programs({"prefill": prefill_fn, "decode": decode_fn}, tracker,
+                      context)
+    return progs["prefill"], progs["decode"]
+
+
 def paged_step_fns(cfg, block_size: int, *, tracker=None, context=None):
     """(prefill_fn, decode_fn) of the paged engine, as step programs
     (``core/graphs.StepProgram``, the counterpart of the JAX engine's
@@ -113,7 +169,6 @@ def paged_step_fns(cfg, block_size: int, *, tracker=None, context=None):
     both steps take them as they are (``paddle_tpu``'s ``_prefill_live``
     and ``_decode_live``; the per-layer dequant is in
     ``models/transformer.py``)."""
-    from paddle_tpu_torch.core import graphs
     from paddle_tpu_torch.models import transformer
 
     def prefill_fn(params, pool, tokens, length, pages, temperature,
@@ -130,15 +185,9 @@ def paged_step_fns(cfg, block_size: int, *, tracker=None, context=None):
             block_size=block_size)
         return kdecode.fused_sample(logits, seed, temperature, top_k), pool
 
-    from paddle_tpu_torch.observe import compile_tracker
-    if tracker is None:
-        tracker = compile_tracker.CompileTracker()
-    if context is None:
-        context = graphs.GraphContext()
-    return (graphs.StepProgram(prefill_fn, "serving_engine.prefill",
-                               tracker, context),
-            graphs.StepProgram(decode_fn, "serving_engine.decode", tracker,
-                               context))
+    progs = _programs({"prefill": prefill_fn, "decode": decode_fn}, tracker,
+                      context)
+    return progs["prefill"], progs["decode"]
 
 
 def paged_spec_fns(cfg, draft_cfg, block_size: int, spec_k: int, *,
@@ -177,9 +226,7 @@ def paged_spec_fns(cfg, draft_cfg, block_size: int, spec_k: int, *,
       target prefill's.
 
     Every pool is updated in place and, where returned, returned."""
-    from paddle_tpu_torch.core import graphs
     from paddle_tpu_torch.models import transformer
-    from paddle_tpu_torch.observe import compile_tracker
 
     k = int(spec_k)
     if k < 1:
@@ -219,13 +266,6 @@ def paged_spec_fns(cfg, draft_cfg, block_size: int, spec_k: int, *,
             block_size=block_size)
         return draft_pool
 
-    if tracker is None:
-        tracker = compile_tracker.CompileTracker()
-    if context is None:
-        context = graphs.GraphContext()
-    fns = {"propose": propose_fn, "verify": verify_fn,
-           "draft_verify": draft_verify_fn,
-           "draft_prefill": draft_prefill_fn}
-    return {name: graphs.StepProgram(fn, f"serving_engine.{name}", tracker,
-                                     context)
-            for name, fn in fns.items()}
+    return _programs({"propose": propose_fn, "verify": verify_fn,
+                      "draft_verify": draft_verify_fn,
+                      "draft_prefill": draft_prefill_fn}, tracker, context)

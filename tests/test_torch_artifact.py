@@ -1,5 +1,5 @@
-"""The serving artifact: ``paddle_tpu``'s format-v4/v5 artifacts loaded
-into the port, and the port's own artifacts, on the CPU.
+"""The serving artifact: ``paddle_tpu``'s artifacts of every format
+loaded into the port, and the port's own artifacts, on the CPU.
 
 The JAX artifacts are exported (``paddle_tpu.io.lm_serving.
 save_lm_artifact``) with the Pallas kernels in interpret mode, so the
@@ -16,8 +16,14 @@ fp32; a 1-layer draft from seed 7), blocks of 8, one chunk bucket of 8.
 - A port save followed by a port load is bitwise: every weight (bf16
   leaves as raw words, int8 codes and fp32 scales) and the meta; the
   loaded engine's ids equal an in-process engine's.
-- v1-v3 artifacts, ``generate()`` and non-paged saves raise; an ``.npz``
-  with an ``ml_dtypes.bfloat16`` leaf loads as bf16 with the same words.
+- JAX v1 (plain), v2 (int8 weights) and v3 (slot engine, buckets 8 and
+  16) artifacts: ``LMServer.generate`` gives the JAX server's ids,
+  greedy, seeded and with the ``eos_id`` early exit; ``engine()`` on v3
+  is a ``DecodeEngine`` whose greedy and sampled ids equal the JAX v3
+  engine's; on v1/v2 it raises, and on v3 ``chunk_tokens=`` and
+  ``tiers=`` raise. The port's v1-v3 round trips are bitwise and serve
+  the in-process ids. A v6 artifact raises; an ``.npz`` with an
+  ``ml_dtypes.bfloat16`` leaf loads as bf16 with the same words.
 """
 
 import atexit
@@ -43,7 +49,8 @@ from paddle_tpu_torch.io import lm_serving as tlm
 from paddle_tpu_torch.models import transformer as tt
 from paddle_tpu_torch.observe import metrics
 from paddle_tpu_torch.observe.compile_tracker import CompileTracker
-from paddle_tpu_torch.serving import PagedDecodeEngine, SpecDecodeEngine
+from paddle_tpu_torch.serving import (DecodeEngine, PagedDecodeEngine,
+                                      SpecDecodeEngine)
 
 torch.set_num_threads(1)
 
@@ -54,6 +61,10 @@ EXPORT = dict(batch=3, prompt_len=8, cache_len=32, engine_buckets=(8,),
               engine_paged=True, engine_block_size=BS)
 VARIANTS = {"v4": {}, "v4-int8-pool": {"engine_kv_dtype": "int8"},
             "v4-int8-weights": {"weights_int8": True}, "v5": {"spec": True}}
+# the lockstep and slot-engine formats: batch 3, prompts of 8, 32 positions
+LOCKSTEP = dict(batch=3, prompt_len=8, cache_len=32)
+OLD = {"v1": {}, "v2": {"weights_int8": True},
+       "v3": {"engine_buckets": (8, 16)}}
 _DIR = tempfile.mkdtemp(prefix="artifacts-")
 atexit.register(shutil.rmtree, _DIR, True)
 
@@ -90,6 +101,17 @@ def _jax_artifact(variant: str) -> str:
     path = os.path.join(_DIR, f"jax-{variant}.tar")
     with _pallas_interpret():
         jlm.save_lm_artifact(path, params, cfg, **EXPORT, **kw)
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_old_artifact(variant: str) -> str:
+    """The path of a JAX v1/v2/v3 artifact of ``variant``, exported once
+    (v3's engine modules with the Pallas kernels in interpret mode)."""
+    cfg, params, _, _ = _jax_model()
+    path = os.path.join(_DIR, f"jax-{variant}.tar")
+    with _pallas_interpret():
+        jlm.save_lm_artifact(path, params, cfg, **LOCKSTEP, **OLD[variant])
     return path
 
 
@@ -170,23 +192,106 @@ class TestJaxArtifacts:
             srv.engine(device="cpu")
 
     def test_generate_and_server_surface(self):
-        """``generate()`` (the lockstep path) raises naming ROADMAP A5;
-        ``meta``, ``health()`` and ``metrics_text()`` are the JAX
-        server's."""
-        srv = tlm.load_lm_artifact(_jax_artifact("v4"))
-        with pytest.raises(ValueError, match="A5"):
-            srv.generate(np.zeros((3, 8), np.int32), 4)
+        """``meta``, ``health()`` and ``metrics_text()`` are the JAX
+        server's, before and after a ``generate()`` call, and
+        ``engine()`` hands its registry and tracker to the engine."""
+        path = _jax_artifact("v4")
+        srv = tlm.load_lm_artifact(path)
+        jsrv = jlm.load_lm_artifact(path)
         doc = srv.health()
         assert doc["batch"] == 3 and doc["cache_len"] == 32
         assert doc["requests"] == 0 and doc["tokens_generated"] == 0
-        assert "lm_generate_requests_total" in srv.metrics_text()
+        assert doc["seconds_since_request"] is None
         assert srv.cfg.vocab == 40 and srv.cfg.dtype == torch.float32
-        # engine() hands its registry and tracker to the engine
+        prompt = _prompts(8, 8, 8, 8)
+        got = srv.generate(np.stack(prompt), 5, device="cpu")
+        want = jsrv.generate(np.stack(prompt), 5)
+        np.testing.assert_array_equal(got, want)
+        assert srv.health().keys() == jsrv.health().keys()
+        for name in ("requests", "tokens_generated", "decode_steps"):
+            assert srv.health()[name] == jsrv.health()[name]
+        assert srv.health()["seconds_since_request"] >= 0
+
+        def names(text):
+            return {ln.split()[2] for ln in text.splitlines()
+                    if ln.startswith("# TYPE")}
+
+        assert names(srv.metrics_text()) == names(jsrv.metrics_text())
         reg, tracker = metrics.Registry(), CompileTracker()
         eng = srv.engine(registry=reg, tracker=tracker, chunk_tokens=8,
                          device="cpu")
         assert eng.metrics is reg and eng._tracker is tracker
         assert reg.get("engine_requests_total") is not None
+
+
+class TestJaxLockstepArtifacts:
+    @pytest.mark.parametrize("mode", ["greedy", "seeded", "eos"])
+    @pytest.mark.parametrize("variant", list(OLD))
+    def test_generate_equals_jax_server(self, variant, mode):
+        """``LMServer.generate`` over a JAX v1/v2/v3 artifact: the JAX
+        server's ids, greedy, seeded at temperature 0.8 (host-side
+        ``RandomState`` draws) and with ``eos_id`` (one prompt in every
+        row, so every row emits the eos at the same step and the loop
+        ends early, padded as JAX pads)."""
+        path = _jax_old_artifact(variant)
+        jsrv, srv = jlm.load_lm_artifact(path), tlm.load_lm_artifact(path)
+        assert srv.meta == jsrv.meta
+        assert srv.meta["format_version"] == int(variant[1])
+        kw = {"seeded": dict(temperature=0.8, seed=3)}.get(mode, {})
+        if mode == "eos":
+            prompt = np.stack(_prompts(9, 8) * 3)
+            greedy = jsrv.generate(prompt, 10)
+            kw = dict(eos_id=int(greedy[0, 8 + 2]))
+        else:
+            prompt = np.stack(_prompts(9, 8, 8, 8))
+        want = jsrv.generate(prompt, 10, **kw)
+        got = srv.generate(prompt, 10, device="cpu", **kw)
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+        if mode == "eos":
+            assert got.shape[1] < 18 and (got[:, -1] == kw["eos_id"]).all()
+
+    def test_v3_engine_ids_equal_jax_v3_engine(self):
+        """``engine()`` on a JAX v3 artifact: a ``DecodeEngine`` with the
+        stamped batch, cache length, buckets and decode FLOPs, whose
+        greedy and sampled ids equal the JAX v3 engine's."""
+        path = _jax_old_artifact("v3")
+        jsrv, srv = jlm.load_lm_artifact(path), tlm.load_lm_artifact(path)
+        eng = srv.engine(seed=0, device="cpu")
+        assert type(eng) is DecodeEngine
+        assert (eng.batch, eng.cache_len, eng.buckets) == (3, 32, (8, 16))
+        assert eng.decode_flops == \
+            srv.meta["cost_analysis"]["engine_decode"]["flops"]
+        prompts = _prompts(10, 5, 9, 13, 3)
+        temps = (0.0, 0.8, 0.0, 0.8)
+        with _pallas_interpret():
+            want = _serve(jsrv.engine(seed=0), prompts, temps)
+        assert _serve(eng, prompts, temps) == want
+
+    def test_engine_errors(self):
+        """v1/v2 carry no engine; the row arena takes no chunk grid and no
+        spill tiers: each raises, as the JAX server does."""
+        for variant in ("v1", "v2"):
+            with pytest.raises(ValueError, match="no engine modules"):
+                tlm.load_lm_artifact(_jax_old_artifact(variant)).engine(
+                    device="cpu")
+        srv = tlm.load_lm_artifact(_jax_old_artifact("v3"))
+        with pytest.raises(ValueError, match="chunk_tokens=8"):
+            srv.engine(chunk_tokens=8, device="cpu")
+        with pytest.raises(ValueError, match="tiers="):
+            srv.engine(tiers={"dram_bytes": 1 << 20}, device="cpu")
+
+    def test_generate_checks_raise_as_jax(self):
+        srv = tlm.load_lm_artifact(_jax_old_artifact("v1"))
+        prompt = np.stack(_prompts(11, 8, 8, 8))
+        with pytest.raises(ValueError, match="max_new must be >= 1"):
+            srv.generate(prompt, 0, device="cpu")
+        with pytest.raises(ValueError, match="exported for batch=3"):
+            srv.generate(prompt[:2], 4, device="cpu")
+        with pytest.raises(ValueError, match="exported for batch=3"):
+            srv.generate(prompt[:, :6], 4, device="cpu")
+        with pytest.raises(ValueError, match="exceed the exported cache_len"):
+            srv.generate(prompt, 30, device="cpu")
 
 
 def _write_tar(path, meta, members):
@@ -265,26 +370,64 @@ class TestPortArtifacts:
         assert len(_serve(eng, _prompts(3, 6), (0.0,))[0]) == 8
 
     def test_saves_only_the_paged_formats(self, tmp_path):
+        """The save's checks raise as the JAX package's: a quantized pool
+        or a draft without the paged engine, a paged save without
+        buckets, a block grid that does not divide the chunk."""
         cfg = tt.TransformerConfig(dtype="float32", **KW)
         params = tt.init_params(cfg, torch.Generator().manual_seed(6), "cpu")
-        with pytest.raises(ValueError, match="A5"):
+        with pytest.raises(ValueError, match="engine_kv_dtype needs"):
             tlm.save_lm_artifact(str(tmp_path / "a.tar"), params, cfg,
-                                 batch=3, prompt_len=8, cache_len=32)
+                                 **LOCKSTEP, engine_buckets=(8,),
+                                 engine_kv_dtype="int8")
+        with pytest.raises(ValueError, match="needs engine_paged"):
+            tlm.save_lm_artifact(str(tmp_path / "a.tar"), params, cfg,
+                                 **LOCKSTEP, engine_draft_params=params,
+                                 engine_draft_config=cfg)
+        with pytest.raises(ValueError, match="needs engine_buckets"):
+            tlm.save_lm_artifact(str(tmp_path / "a.tar"), params, cfg,
+                                 **LOCKSTEP, engine_paged=True)
         with pytest.raises(ValueError, match="block_size"):
             tlm.save_lm_artifact(str(tmp_path / "b.tar"), params, cfg,
                                  **dict(EXPORT, engine_block_size=3))
 
-    @pytest.mark.parametrize("version", [1, 2, 3])
-    def test_older_formats_raise(self, version, tmp_path):
-        """v1 (lockstep), v2 (int8 lockstep) and v3 (row arena) carry no
-        paged engine: loading one raises, naming ROADMAP A5."""
-        path = str(tmp_path / f"v{version}.tar")
-        meta = {"format_version": version, "batch": 2, "prompt_len": 4,
-                "cache_len": 16, "config": dict(KW, dtype="float32")}
-        embed = np.zeros((40, 16), np.float32)
-        _write_tar(path, meta, {"params.npz": _npz(embed=embed)})
-        with pytest.raises(ValueError, match="A5"):
-            tlm.load_lm_artifact(path)
+    @pytest.mark.parametrize("variant", list(OLD))
+    def test_lockstep_roundtrip_is_bitwise(self, variant, tmp_path):
+        """A port save of v1 (a bf16 serving tree), v2 (int8 weights of an
+        fp32 tree) or v3 (the bf16 tree with buckets 8 and 16) loaded
+        again: the format number, meta and every leaf's words; the loaded
+        server's greedy ``generate`` equals ``transformer.generate`` on
+        the saved tree, and v3's engine the in-process slot engine's
+        greedy ids."""
+        int8 = variant == "v2"
+        cfg = tt.TransformerConfig(dtype="float32" if int8 else "bfloat16",
+                                   **KW)
+        gen = torch.Generator().manual_seed(8)
+        params = (tt.init_train_params(cfg, gen, "cpu") if int8
+                  else tt.init_params(cfg, gen, "cpu"))
+        path = str(tmp_path / f"{variant}.tar")
+        tlm.save_lm_artifact(path, params, cfg, **LOCKSTEP, **OLD[variant])
+        srv = tlm.load_lm_artifact(path)
+        assert srv.meta["format_version"] == int(variant[1])
+        assert srv.meta["weights_int8"] is int8 and srv.cfg == cfg
+        assert srv.meta.get("engine_buckets") == \
+            (list(OLD[variant]["engine_buckets"]) if variant == "v3"
+             else None)
+        served = tt.params_from_numpy(srv.params, cfg, device="cpu")
+        want = (tlm.quantize_lm_params(params, device="cpu") if int8
+                else params)
+        assert _leaves_equal(served, want)
+        prompt = np.stack(_prompts(12, 8, 8, 8))
+        ids = tt.generate(want, torch.from_numpy(prompt), cfg, max_new=6)
+        np.testing.assert_array_equal(srv.generate(prompt, 6, device="cpu"),
+                                      ids.numpy())
+        if variant != "v3":
+            return
+        prompts = _prompts(13, 5, 11, 16)
+        ref = DecodeEngine.from_params(want, cfg, batch=3, cache_len=32,
+                                       buckets=(8, 16), seed=0,
+                                       device="cpu")
+        assert _serve(srv.engine(seed=0, device="cpu"), prompts,
+                      (0.0,) * 3) == _serve(ref, prompts, (0.0,) * 3)
 
     def test_newer_format_raises(self, tmp_path):
         path = str(tmp_path / "v6.tar")

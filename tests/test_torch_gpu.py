@@ -1178,3 +1178,157 @@ def test_gpu_spec_graphs_replay_the_raw_steps(cuda):
     assert {k: spec[k].graphs for k in ("propose", "verify",
                                         "draft_verify")} == {
         "propose": 1, "verify": 1, "draft_verify": 1}
+
+
+# ---------------------------------------------------------------------------
+# the row-arena slot engine and the lockstep paths
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [16, 32, 200, 512])
+def test_gpu_flash_attention_at_slot_prefill_shapes(cuda, T):
+    """Kernel 5's forward at the slot prefill's shapes (one request, 12
+    heads, D = 64, bf16, causal; T = the buckets below one 64-wide tile,
+    a ragged length and the largest bucket) within 2 bf16 ulps of its
+    plain version, lse within 1e-4."""
+    rng = np.random.RandomState(T)
+    q, k, v, _ = _flash_inputs(rng, 1, 12, 12, T, 64, torch.bfloat16, cuda)
+    out, lse = kattention.flash_attention_fwd(q, k, v, sm_scale=0.125,
+                                              causal=True)
+    want, want_lse = kattention.flash_attention_fwd_plain(
+        q, k, v, sm_scale=0.125, causal=True)
+    assert kattention.bf16_ulps(out, want) <= 2
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+def _arena_on(cfg, B, L, cuda, seed):
+    from paddle_tpu_torch.models import transformer
+    gen = torch.Generator().manual_seed(seed)
+    arena = transformer.init_cache(cfg, B, L, device="cpu")
+    for t in arena.values():
+        t.copy_(torch.randn(t.shape, generator=gen) * 0.5)
+    return {n: t.to(cuda) for n, t in arena.items()}
+
+
+@pytest.mark.gpu
+def test_gpu_slot_graphs_replay_the_raw_steps(cuda):
+    """The slot engine's step programs against their raw functions on
+    the same inputs: ids and every arena byte equal, for a prefill at
+    bucket 64 into two slots, the same bucket replayed with two seeds
+    (each replay draws its own seed's id: the seed is read on the
+    device) and a decode step with greedy, sampled and inactive rows,
+    replayed with a new seed. One graph per bucket, one for decode."""
+    from paddle_tpu_torch.serving import sampling
+    cfg, params = _small_lm(cuda)
+    B, L = 4, 256
+    prefill, decode = sampling.engine_step_fns(cfg)
+    arena_g = _arena_on(cfg, B, L, cuda, 3)
+    arena_r = {n: t.clone() for n, t in arena_g.items()}
+    rng = np.random.RandomState(4)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int32, device=cuda)
+
+    def same():
+        return all(torch.equal(arena_g[n].view(torch.int16),
+                               arena_r[n].view(torch.int16)) for n in arena_g)
+
+    prompt = rng.randint(0, 512, 50)
+    drawn = []
+    for slot, temp, seed in ((1, 0.8, 1), (2, 0.0, 2), (1, 5.0, 3),
+                             (1, 5.0, 4)):
+        toks = np.zeros((1, 64), np.int32)
+        toks[0, :50] = prompt
+        ctl = (np.asarray([temp], np.float32), np.asarray([50], np.int32))
+        got, _ = prefill(params, arena_g, toks, np.int32(50), np.int32(slot),
+                         *ctl, np.int32(seed))
+        got = got.clone()
+        want, _ = prefill.raw(params, arena_r, _gpu(toks, cuda), scalar(50),
+                              scalar(slot), *(_gpu(a, cuda) for a in ctl),
+                              scalar(seed))
+        assert torch.equal(got, want) and same(), seed
+        drawn.append(int(got[0]))
+    assert drawn[2] != drawn[3], drawn  # a graph that froze its seed
+    pos = np.asarray([100, 51, 3, 255], np.int32)
+    active = np.asarray([True, True, False, False])
+    temp = np.asarray([0.0, 0.9, 0.0, 0.9], np.float32)
+    topk = np.asarray([0, 50, 0, 50], np.int32)
+    for seed in (5, 6):
+        toks = rng.randint(0, 512, B).astype(np.int32)
+        got, _ = decode(params, arena_g, toks, pos, active, temp, topk,
+                        np.int32(seed))
+        got = got.clone()
+        want, _ = decode.raw(params, arena_r, _gpu(toks, cuda),
+                             _gpu(pos, cuda), _gpu(active, cuda),
+                             _gpu(temp, cuda), _gpu(topk, cuda),
+                             scalar(seed))
+        assert torch.equal(got, want) and same(), seed
+    assert prefill.graphs == 1 and decode.graphs == 1
+
+
+@pytest.mark.gpu
+def test_gpu_slot_step_bitwise_equals_lockstep_step(cuda):
+    """On the card, at equal positions and equal B, ``decode_step_slots``
+    gives bitwise the logits and arena of ``decode_step``."""
+    from paddle_tpu_torch.models import transformer
+    cfg, params = _small_lm(cuda)
+    arena = _arena_on(cfg, 4, 256, cuda, 5)
+    toks = torch.tensor([3, 7, 11, 13], dtype=torch.int32, device=cuda)
+    c1 = {n: t.clone() for n, t in arena.items()}
+    c2 = {n: t.clone() for n, t in arena.items()}
+    l1, c1 = transformer.decode_step(params, c1, toks, 120, cfg)
+    l2, c2 = transformer.decode_step_slots(
+        params, c2, toks, torch.full((4,), 120, dtype=torch.int32,
+                                     device=cuda),
+        torch.ones(4, dtype=torch.bool, device=cuda), cfg)
+    assert torch.equal(l1, l2)
+    for n in c1:
+        assert torch.equal(c1[n].view(torch.int16), c2[n].view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_gpu_slot_walk_matches_cpu(cuda):
+    """A short fp32 slot walk on the card and on the CPU from the same
+    weights: a slot prefill, three slot decode steps with an inactive
+    row, then ``generate`` and ``beam_search``; logits within 1e-4,
+    greedy ids equal."""
+    from paddle_tpu_torch.models import transformer
+    cfg = transformer.TransformerConfig(vocab=512, d_model=128, n_heads=2,
+                                        n_layers=2, d_ff=256, max_len=256,
+                                        dtype="float32")
+    cpu = transformer.init_params(cfg, torch.Generator().manual_seed(7),
+                                  "cpu")
+    gpu = transformer.params_from_numpy(
+        transformer.params_to_numpy(cpu), cfg, device=cuda)
+    rng = np.random.RandomState(8)
+    padded = np.zeros((1, 64), np.int32)
+    padded[0, :40] = rng.randint(0, 512, 40)
+    out = {}
+    for dev, p in (("cpu", cpu), (cuda, gpu)):
+        arena = transformer.init_cache(cfg, 3, 128, device=dev)
+        lg, arena = transformer.prefill_into_slot(
+            p, arena, _gpu(padded, dev),
+            torch.tensor(40, dtype=torch.int32, device=dev),
+            torch.tensor(1, dtype=torch.int32, device=dev), cfg)
+        logs = [lg[0]]
+        tok = int(lg[0].argmax())
+        for j in range(3):
+            lg, arena = transformer.decode_step_slots(
+                p, arena, torch.tensor([0, tok, 0], dtype=torch.int32,
+                                       device=dev),
+                torch.tensor([0, 40 + j, 5], dtype=torch.int32, device=dev),
+                torch.tensor([False, True, False], device=dev), cfg)
+            logs.append(lg[1])
+            tok = int(lg[1].argmax())
+        prompt = _gpu(rng.randint(0, 512, (2, 9)), dev) if dev == "cpu" \
+            else out["cpu"][2].to(dev)
+        gen = transformer.generate(p, prompt, cfg, max_new=6)
+        beams, scores = transformer.beam_search(p, prompt, cfg, max_new=4,
+                                                beam_size=3)
+        out[str(dev)] = (torch.stack(logs).cpu(), gen.cpu(), prompt.cpu(),
+                         beams.cpu(), scores.cpu())
+    a, b = out["cpu"], out[str(cuda)]
+    assert (a[0] - b[0]).abs().max().item() <= 1e-4
+    assert torch.equal(a[1], b[1]) and torch.equal(a[3], b[3])
+    assert (a[4] - b[4]).abs().max().item() <= 1e-4
