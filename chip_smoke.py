@@ -72,7 +72,16 @@ order it:
    ``kv_rel_l2_budget`` of the bf16 pool's on one prompt, and a
    latency-tier burst preempts batch-tier work in a pool of 8 blocks
    (``preempt:``): both resume modes occur, every request completes,
-   each victim's greedy ids equal its run alone;
+   each victim's greedy ids equal its run alone; after the prefix
+   phase, the fleet's data plane (``fleet:`` line, ``fleet_phase``):
+   the bf16 trace through two ``EngineReplica``s behind the port's
+   ``Router`` (greedy ids equal the single engine's), a prefill and a
+   decode replica (P/D: ids equal, blocks adopted), a replica killed
+   mid-trace (every request completes, requeues counted, ``/healthz``
+   names it), a ``ReplicaServer`` stepping a third engine on its serve
+   thread behind a ``SocketReplica`` (ids equal over TCP; the router's
+   four routes answer) and ``LMServer.serve`` over a v4 artifact;
+   kernels 1–4 count the fleet's launches too;
 8. speculative decoding (``spec:`` line, ``spec_phase``): the repo's
    draft-friendly pair at GPT-2 small widths (a 2-layer draft that is
    the target's first layers, the later layers' residual outputs scaled
@@ -1214,15 +1223,20 @@ def serve_trace(torch, eng, reqs_in):
     return reqs, wall, captures, sum(secs2.values()) - sum(secs.values())
 
 
-def trace_doc(reqs, wall, captures, capture_s) -> dict:
+def served_doc(reqs, wall) -> dict:
+    """Tokens/s and TTFT quantiles of requests served in ``wall`` s."""
     tokens = sum(len(r.tokens) for r in reqs)
     ttft = np.asarray([r.ttft_s for r in reqs])
     return {"requests": len(reqs), "generated_tokens": tokens,
             "wall_s": wall, "tokens_per_s": tokens / wall,
             "ttft_p50_s": float(np.percentile(ttft, 50)),
-            "ttft_p99_s": float(np.percentile(ttft, 99)),
-            "prefix_hit_tokens": reqs[1].prefix_hit_tokens,
-            "captures": captures, "capture_s": capture_s}
+            "ttft_p99_s": float(np.percentile(ttft, 99))}
+
+
+def trace_doc(reqs, wall, captures, capture_s) -> dict:
+    return dict(served_doc(reqs, wall),
+                prefix_hit_tokens=reqs[1].prefix_hit_tokens,
+                captures=captures, capture_s=capture_s)
 
 
 def check_served(label, reqs, reqs_in, vocab):
@@ -1246,7 +1260,8 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
     the trace's distinct (bucket, page-vector length) keys plus one for
     decode, and that the prefix hit equals the cold run in a fresh
     engine; then serve a third trace (seed 2) under the profiler
-    (``<label>_profile:`` line). Returns the timed run's launch counts."""
+    (``<label>_profile:`` line). Returns the timed run's launch counts
+    and each request's ids (trace order)."""
     kw = dict(ENGINE_KW, kv_dtype=kv_dtype)
     # first-use costs of the process (cuBLAS handles, the allocator)
     # stay out of the timing: a throwaway engine serves one request, so
@@ -1329,7 +1344,7 @@ def engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev, params,
     after = eng.compile_counts()
     profile["captures"] = {k: after[k] - before[k] for k in after}
     print(f"{label}_profile: " + json.dumps(profile))
-    return launches
+    return launches, [list(r.tokens) for r in reqs]
 
 
 def track_balance(trace_id) -> list:
@@ -2777,6 +2792,300 @@ def lockstep_phase(torch, tt, tlm, prng, DecodeEngine, cfg, dev, params):
 
 
 # ---------------------------------------------------------------------------
+# the fleet's data plane
+# ---------------------------------------------------------------------------
+
+FLEET_TCP_REQUESTS = 4          # greedy requests of the trace sent over TCP
+
+
+def timed_calls(obj, name, acc: list):
+    """Wrap ``obj.name`` so each call appends its wall seconds to
+    ``acc``."""
+    orig = getattr(obj, name)
+
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kw)
+        finally:
+            acc.append(time.perf_counter() - t0)
+    setattr(obj, name, call)
+
+
+def drive_router(router, reps, deadline_s=300.0) -> dict:
+    """``router.step()`` until idle, timing every step and every engine
+    step inside it (each handle's ``pump``): the host ms a router step
+    adds around its replicas' engine steps."""
+    pumps: list = []
+    for rep in reps:
+        timed_calls(rep, "pump", pumps)
+    steps, engine, done = [], [], []
+    t_end = time.perf_counter() + deadline_s
+    while not router.idle:
+        if time.perf_counter() > t_end:
+            fail(f"fleet: router did not drain in {deadline_s} s "
+                 f"(states {router.replica_states()})")
+        n = len(pumps)
+        t0 = time.perf_counter()
+        done += router.step()
+        steps.append(time.perf_counter() - t0)
+        engine.append(sum(pumps[n:]))
+    over = [s - e for s, e in zip(steps, engine)]
+    return {"router_steps": len(steps),
+            "router_step_ms_p50": 1e3 * float(np.median(steps)),
+            "engine_steps_ms_p50": 1e3 * float(np.median(engine)),
+            "router_overhead_ms_p50": 1e3 * float(np.median(over)),
+            "finished": len(done)}
+
+
+def fleet_check(label, reqs, reqs_in, single, vocab) -> list:
+    """Every request finished with its ``max_new`` ids in the vocabulary;
+    returns the greedy requests whose ids differ from the single engine
+    run's (``single``, by trace index)."""
+    bad = []
+    for i, (r, (_, max_new, temp)) in enumerate(zip(reqs, reqs_in)):
+        ids = np.asarray(r.tokens)
+        if (r.status != "done" or len(ids) != max_new or ids.min() < 0
+                or ids.max() >= vocab):
+            fail(f"fleet {label}: request {i}: status {r.status}, "
+                 f"{len(ids)} of {max_new} tokens")
+        if temp == 0.0 and list(r.tokens) != single[i]:
+            bad.append(i)
+    return bad
+
+
+def fleet_phase(torch, kernels, tlm, PagedDecodeEngine, cfg, dev, params,
+                single):
+    """The ``fleet:`` line: the port's fleet data plane over engines of
+    the engine phase's configuration, all sharing the one weight dict on
+    the card (one pool each), serving the engine phase's trace (seed 0):
+
+    1. colocated: two ``EngineReplica``s behind a ``Router`` — tokens/s,
+       TTFT, placement hit rate, where the shared-prefix pair landed,
+       the median router step beside the engine steps inside it; every
+       greedy request's ids equal the single engine's (``single``);
+    2. P/D: a prefill replica and a decode replica (``prefill=["pf"]``):
+       greedy ids equal, the decode engine imported and hit blocks, the
+       router counted exports; host ms per block exported and imported;
+    3. kill and requeue: ``EngineReplica.kill()`` on the replica holding
+       the most work after 4 router steps; every request completes,
+       greedy ids equal, requeues counted, the router's ``/healthz``
+       names the dead replica;
+    4. TCP: a ``ReplicaServer`` on 127.0.0.1 steps a third engine on its
+       serve thread (its CUDA graphs captured and replayed there) behind
+       a ``SocketReplica`` whose ``health_url`` is that engine's
+       ``serve()``: greedy requests over the wire give the single
+       engine's ids; the router's ``serve()`` answers ``/metrics``,
+       ``/healthz``, ``/requests`` and ``/alerts``;
+    5. ``LMServer.serve``: a v4 artifact of the port saved, loaded and
+       served answers ``/healthz`` and ``/metrics``.
+
+    Returns the kernels' launch counts over gates 1–4."""
+    import threading
+    from paddle_tpu_torch.serving import (EngineReplica, ReplicaServer,
+                                          Router, SocketReplica)
+    from paddle_tpu_torch.serving.router import fleet_keying
+    t_phase = time.perf_counter()
+    reqs_in = trace(np.random.RandomState(0), cfg.vocab)
+    greedy = [i for i, (_, _, temp) in enumerate(reqs_in) if temp == 0.0]
+    bs, chunk = ENGINE_KW["block_size"], ENGINE_KW["chunk_tokens"]
+
+    def make():
+        return PagedDecodeEngine.from_params(params, cfg, device=dev,
+                                             **ENGINE_KW)
+    doc = {"replica_config": dict(ENGINE_KW)}
+    kernels.reset_launches()                # counts of the fleet path
+    # 1. colocated
+    reps = [EngineReplica(make(), f"r{i}") for i in range(2)]
+    router = Router(reps, block_size=bs, chunk_tokens=chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [submit(router, *r) for r in reqs_in]
+    steps = drive_router(router, reps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    colo = served_doc(reqs, wall)
+    colo.update(steps)
+    colo.update({"placement_hit_rate": router.placement_hit_rate(),
+                 "shared_prefix_replicas": [reqs[0].replica,
+                                            reqs[1].replica],
+                 "prefix_scores": [r.prefix_score for r in reqs],
+                 "per_replica": {st.name: sum(1 for r in reqs
+                                              if r.replica == st.name)
+                                 for st in router._all},
+                 "captures": {rep.name: sum(rep.eng.compile_counts()
+                                            .values()) for rep in reps}})
+    colo["greedy_mismatch"] = fleet_check("colocated", reqs, reqs_in,
+                                          single, cfg.vocab)
+    colocated = {i: list(r.tokens) for i, r in enumerate(reqs)}
+    doc["colocated"] = colo
+    router.close()
+    del reps, router
+    # 2. P/D disaggregation
+    pf, dc = EngineReplica(make(), "pf"), EngineReplica(make(), "dc")
+    exp_s, imp_s = [], []
+    timed_calls(pf.eng, "export_prefix", exp_s)
+    timed_calls(dc.eng, "import_prefix", imp_s)
+    router = Router([pf, dc], block_size=bs, chunk_tokens=chunk,
+                    prefill=["pf"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [submit(router, *r) for r in reqs_in]
+    steps = drive_router(router, [pf, dc])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pd = served_doc(reqs, wall)
+    pd.update(steps)
+    exported = pf.eng.metrics.get("engine_kv_blocks_exported_total").value()
+    imported = dc.eng.metrics.get("engine_kv_blocks_imported_total").value()
+    hit = dc.eng.metrics.get("engine_prefix_cache_hit_blocks_total").value()
+    pd.update({"pd_exports": router._m_pd_exports.value(),
+               "pd_blocks_shipped": router._m_pd_blocks.value(),
+               "pd_errors": sum(c.value for c in
+                                router._m_pd_errors.series().values()),
+               "exported_blocks": exported, "imported_blocks": imported,
+               "decode_hit_blocks": hit,
+               "export_ms_per_block": 1e3 * sum(exp_s) / max(exported, 1),
+               "import_ms_per_block": 1e3 * sum(imp_s) / max(imported, 1),
+               "via_prefill": sum(1 for r in reqs
+                                  if r.prefill_replica == "pf")})
+    pd["greedy_mismatch_vs_colocated"] = [
+        i for i in greedy if list(reqs[i].tokens) != colocated[i]]
+    fleet_check("pd", reqs, reqs_in, single, cfg.vocab)
+    doc["pd"] = pd
+    router.close()
+    del pf, dc, router
+    # 3. kill and requeue
+    reps = [EngineReplica(make(), f"k{i}") for i in range(2)]
+    router = Router(reps, block_size=bs, chunk_tokens=chunk)
+    reqs = [submit(router, *r) for r in reqs_in]
+    for _ in range(4):
+        router.step()
+    victim = max(router._all, key=lambda st: st.in_flight)
+    held = victim.in_flight
+    victim.handle.kill()
+    drive_router(router, reps)
+    srv = router.serve()
+    try:
+        code, body = http_get(srv.url + "/healthz")
+    finally:
+        srv.close()
+    health = json.loads(body)
+    kill = {"victim": victim.name, "in_flight_at_kill": held,
+            "requeued": router._m_requeued.value(),
+            "requeued_requests": sum(1 for r in reqs if r.requeues),
+            "states": router.replica_states(),
+            "healthz": {"http": code, "status": health.get("status"),
+                        "victim_state": health["replicas"][victim.name]
+                        ["state"]},
+            "alerts_firing": [a["rule"] for a in router.alerts.firing()]}
+    kill["greedy_mismatch"] = fleet_check("kill", reqs, reqs_in, single,
+                                          cfg.vocab)
+    doc["kill"] = kill
+    router.close()
+    del reps, router
+    # 4. TCP
+    eng = make()
+    health_srv = eng.serve()
+    server = ReplicaServer(eng, host="127.0.0.1", port=0)
+    rc = []
+    serve_thread = threading.Thread(
+        target=lambda: rc.append(server.serve_forever()), daemon=True,
+        name="fleet-replica-serve")
+    serve_thread.start()
+    sock = SocketReplica("tcp0", ("127.0.0.1", server.port),
+                         health_url=health_srv.url)
+    try:
+        keying = fleet_keying([sock])
+        router = Router([sock], block_size=keying[0], chunk_tokens=keying[1])
+        picked = greedy[:FLEET_TCP_REQUESTS]
+        t0 = time.perf_counter()
+        reqs = [submit(router, *reqs_in[i]) for i in picked]
+        t_end = time.perf_counter() + 300
+        while not router.idle:
+            if time.perf_counter() > t_end:
+                fail(f"fleet tcp: no drain in 300 s ({router.health()})")
+            router.step()
+            time.sleep(0.001)
+        wall = time.perf_counter() - t0
+        router._scrape()                # the aggregator's last round
+        srv = router.serve()
+        codes, bodies = {}, {}
+        try:
+            for route in ("/metrics", "/healthz", "/requests", "/alerts"):
+                codes[route], bodies[route] = http_get(srv.url + route)
+        finally:
+            srv.close()
+        tcp = served_doc(reqs, wall)
+        tcp.update({"keying": list(keying), "http": codes,
+                    "ids_equal": [list(r.tokens) == single[i]
+                                  for r, i in zip(reqs, picked)],
+                    "fleet_series": "fleet_engine_requests_total"
+                    in bodies["/metrics"].decode(),
+                    "alerts_rules": len(json.loads(bodies["/alerts"])
+                                        ["rules"]),
+                    "serve_thread_captures": sum(
+                        eng.compile_counts().values())})
+        router.close()
+    finally:
+        server.drain()
+        serve_thread.join(timeout=120)
+        sock.close()
+        health_srv.close()
+    tcp["serve_forever_rc"] = rc
+    doc["tcp"] = tcp
+    launches = kernels.launch_counts()
+    del eng, server
+    # 5. LMServer.serve
+    with tempfile.TemporaryDirectory() as tmp:
+        tlm.save_lm_artifact(
+            f"{tmp}/v4.tar", params, cfg, batch=ENGINE_KW["batch"],
+            prompt_len=chunk, cache_len=ENGINE_KW["cache_len"],
+            engine_buckets=(chunk,), engine_paged=True,
+            engine_block_size=bs)
+        lm = tlm.load_lm_artifact(f"{tmp}/v4.tar")
+    hs = lm.serve()
+    try:
+        h_code, h_body = http_get(hs.url + "/healthz")
+        m_code, m_body = http_get(hs.url + "/metrics")
+    finally:
+        hs.close()
+    lm_health = json.loads(h_body)
+    doc["lm_server"] = {"format_version": lm.meta["format_version"],
+                        "http": {"/healthz": h_code, "/metrics": m_code},
+                        "healthz": lm_health,
+                        "metrics_lines": len(m_body.splitlines())}
+    doc["launches"] = launches
+    doc["phase_s"] = time.perf_counter() - t_phase
+    print("fleet: " + json.dumps(doc))
+    problems = []
+    if colo["greedy_mismatch"] or colo["finished"] != len(reqs_in):
+        problems.append("colocated greedy ids or completions")
+    if (pd["greedy_mismatch_vs_colocated"] or pd["pd_exports"] < 1
+            or imported <= 0 or hit <= 0 or pd["pd_errors"]):
+        problems.append("P/D adoption or ids")
+    if (kill["greedy_mismatch"] or kill["requeued"] <= 0
+            or kill["states"][victim.name] != "dead"
+            or kill["healthz"]["victim_state"] != "dead"
+            or kill["healthz"]["http"] != 200):
+        problems.append("kill and requeue")
+    if (not all(tcp["ids_equal"]) or rc != [0]
+            or any(c != 200 for c in codes.values())
+            or not tcp["fleet_series"]):
+        problems.append("TCP transport or router endpoints")
+    if (h_code, m_code) != (200, 200) or lm_health.get("batch") != \
+            ENGINE_KW["batch"] or lm.meta["format_version"] != 4:
+        problems.append("LMServer.serve")
+    path = [k for k in SERVING_KERNELS] + ["fused_sample.threefry"]
+    missing = [k for k in path if launches[k] <= 0]
+    if missing:
+        problems.append(f"kernels never launched: {missing}")
+    if problems:
+        fail(f"fleet: {problems}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # training phase
 # ---------------------------------------------------------------------------
 
@@ -3017,13 +3326,15 @@ def main():
     cfg = gpt2_small(tt)
     params = tt.init_params(cfg, torch.Generator().manual_seed(0), dev)
     graph_phase(torch, tt, sampling, cfg, params, dev)
-    served = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
-                          params, None, "engine", "")
+    served, single = engine_phase(torch, tt, kernels, PagedDecodeEngine,
+                                  cfg, dev, params, None, "engine", "")
     # (b) int4 pool, bf16 weights
-    served4 = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
-                           params, "int4", "engine_int4", ".int4")
+    served4, _ = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg,
+                              dev, params, "int4", "engine_int4", ".int4")
     preempt_phase(torch, PagedDecodeEngine, cfg, dev, params)
     prefix_phase(torch, kernels, PagedDecodeEngine, cfg, dev, params)
+    fleet_launches = fleet_phase(torch, kernels, tlm, PagedDecodeEngine, cfg,
+                                 dev, params, single)
     spec_launches, rows["fused_spec_verify"] = spec_phase(
         torch, tt, tlm, kd, q8, _build, kernels, sampling, PagedDecodeEngine,
         SpecDecodeEngine, cfg, dev, params)
@@ -3041,8 +3352,8 @@ def main():
     fp32 = tt.init_train_params(cfg, torch.Generator().manual_seed(0), "cpu")
     w8 = tlm.quantize_lm_params(fp32, device=dev)
     del fp32
-    served8 = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg, dev,
-                           w8, "int8", "engine_int8", ".int8")
+    served8, _ = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg,
+                              dev, w8, "int8", "engine_int8", ".int8")
     del w8
     trained = train_phase(torch, tt, topt, kernels, costs, place, cfg, dev)
     launches = {**{k: served[k] for k in SERVING_KERNELS},
@@ -3056,6 +3367,9 @@ def main():
     # the slot engine's trace and the lockstep calls run kernels 2 and 5
     for k in ("fused_sample", "fused_sample.threefry", "flash_attention_fwd"):
         launches[k] += slot_launches[k] + lock_launches[k]
+    # the fleet's replicas run kernels 1-4
+    for k in SERVING_KERNELS + ("fused_sample.threefry",):
+        launches[k] += fleet_launches[k]
 
     out = []
     for name, (src, replaces) in SOURCES.items():

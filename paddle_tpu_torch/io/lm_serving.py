@@ -369,6 +369,14 @@ class LMServer:
                 "batch": self.meta["batch"],
                 "cache_len": self.meta["cache_len"]}
 
+    def serve(self, host: str = "127.0.0.1", port: int = 0):
+        """Start an ``observe.health.HealthServer`` over THIS server's
+        registry (``/metrics``) and ``health()`` (``/healthz``). Returns
+        the server; callers own its ``close()``."""
+        from paddle_tpu_torch.observe.health import HealthServer
+        return HealthServer(registry=self.metrics, health_fn=self.health,
+                            host=host, port=port)
+
     def _params_on(self, device: torch.device):
         """The weights as the port's serving tensors on ``device``,
         converted once per device."""

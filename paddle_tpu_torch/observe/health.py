@@ -1,6 +1,6 @@
 """Health endpoints: a tiny stdlib HTTP server — the port's own copy of
-``paddle_tpu/observe/health.py``'s ``/metrics``, ``/healthz`` and
-``/requests`` routes (the fleet's ``/alerts`` route is not ported).
+``paddle_tpu/observe/health.py``: ``/metrics``, ``/healthz``,
+``/requests`` and ``/alerts``.
 
 - ``/metrics`` — the Prometheus text exposition of a registry (default:
   the process-wide default registry), or of ``metrics_fn()`` when the
@@ -12,7 +12,10 @@
   answers 503;
 - ``/requests`` — present when a ``requests_fn`` is supplied (the
   engines pass theirs): the top-k slowest requests with their
-  attributed latency components (``observe/requests.py``).
+  attributed latency components (``observe/requests.py``);
+- ``/alerts`` — present when an ``alerts_fn`` is supplied (the fleet
+  router passes its evaluator's ``doc``): per-rule state + the recent
+  firing/resolved transition log (``observe/alerts.py``).
 
 ``port=0`` binds an ephemeral port; the server runs on a daemon thread
 and must be ``close()``d. The documents are built on the server's
@@ -31,12 +34,14 @@ class HealthServer:
     def __init__(self, registry=None, health_fn: Optional[Callable[[],
                  dict]] = None, host: str = "127.0.0.1", port: int = 0,
                  requests_fn: Optional[Callable[[], dict]] = None,
-                 metrics_fn: Optional[Callable[[], str]] = None):
+                 metrics_fn: Optional[Callable[[], str]] = None,
+                 alerts_fn: Optional[Callable[[], dict]] = None):
         self.registry = registry if registry is not None \
             else default_registry()
         self.health_fn = health_fn
         self.requests_fn = requests_fn
         self.metrics_fn = metrics_fn
+        self.alerts_fn = alerts_fn
         outer = self
 
         class _Handler(BaseHTTPRequestHandler):
@@ -65,6 +70,11 @@ class HealthServer:
                     elif (path == "/requests"
                           and outer.requests_fn is not None):
                         doc = JsonlSink._clean(outer.requests_fn() or {})
+                        self._send(200, json.dumps(doc).encode(),
+                                   "application/json")
+                    elif (path == "/alerts"
+                          and outer.alerts_fn is not None):
+                        doc = JsonlSink._clean(outer.alerts_fn() or {})
                         self._send(200, json.dumps(doc).encode(),
                                    "application/json")
                     else:

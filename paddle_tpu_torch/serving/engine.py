@@ -1871,10 +1871,14 @@ class PagedDecodeEngine(DecodeEngine):
                     "pool_bytes": self.pool_bytes,
                     "preempted_queued": len(self._preempted),
                     "preemptions": int(self._m_preempts.value())})
-        # decode FLOPs of one token at the full context: the recompute
-        # cost a router weighs against fetching kv_bytes_per_token
-        doc["flops_per_token"] = _costs.decode_step_flops(
-            self.cfg, [self.cache_len - 1])
+        # per-token decode FLOPs: the recompute cost a router weighs
+        # against fetching kv_bytes_per_token — the stamped step's share
+        # per slot, as the JAX engine reports it, else one token at the
+        # full context from the shapes
+        doc["flops_per_token"] = (
+            float(self.decode_flops) / max(self.batch, 1)
+            if self.decode_flops else _costs.decode_step_flops(
+                self.cfg, [self.cache_len - 1]))
         # occupancy and a capped newest-first digest listing per tier,
         # hbm (this pool's prefix cache) included; present without a
         # spill store too

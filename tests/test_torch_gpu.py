@@ -1332,3 +1332,133 @@ def test_gpu_slot_walk_matches_cpu(cuda):
     assert (a[0] - b[0]).abs().max().item() <= 1e-4
     assert torch.equal(a[1], b[1]) and torch.equal(a[3], b[3])
     assert (a[4] - b[4]).abs().max().item() <= 1e-4
+
+
+def _fleet_prompts(seed, n, shared=96, vocab=512):
+    """``n`` prompts sharing a ``shared``-token prefix (one chunk of 64
+    and more), tails of 5 + 7·i tokens."""
+    rng = np.random.RandomState(seed)
+    head = rng.randint(0, vocab, shared)
+    return [np.concatenate([head, rng.randint(0, vocab, 5 + 7 * i)])
+            for i in range(n)]
+
+
+def _fleet_engine(params, cfg, dev):
+    from paddle_tpu_torch.serving import PagedDecodeEngine
+    return PagedDecodeEngine.from_params(params, cfg, batch=2, cache_len=256,
+                                         block_size=16, chunk_tokens=64,
+                                         seed=0, device=dev)
+
+
+def _single_ids(params, cfg, prompts, max_new, dev):
+    eng = _fleet_engine(params, cfg, dev)
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    eng.run_until_idle()
+    return [r.tokens for r in reqs]
+
+
+@pytest.mark.gpu
+def test_gpu_two_replica_fleet_gives_single_engine_ids(cuda):
+    """Two ``EngineReplica``s behind the ``Router``, sharing one weight
+    dict: the shared-prefix trace converges onto one replica and every
+    greedy id equals the single engine's (each replica replays graphs of
+    the single engine's shapes)."""
+    from paddle_tpu_torch.serving import EngineReplica, Router
+    cfg, params = _small_lm(cuda)
+    prompts = _fleet_prompts(21, 4) + [np.random.RandomState(22).randint(
+        0, 512, 70) for _ in range(2)]
+    want = _single_ids(params, cfg, prompts, 12, cuda)
+    reps = [EngineReplica(_fleet_engine(params, cfg, cuda), f"r{i}")
+            for i in range(2)]
+    router = Router(reps, block_size=16, chunk_tokens=64, health_poll_s=0.0)
+    reqs = [router.submit(p, 12) for p in prompts]
+    router.run_until_idle()
+    assert [r.tokens for r in reqs] == want
+    assert len({r.replica for r in reqs[:4]}) == 1
+    assert router.placement_hit_rate() > 0
+    assert all(r.status == "done" for r in reqs)
+
+
+@pytest.mark.gpu
+def test_gpu_pd_replicas_adopt_and_match_colocated(cuda):
+    """P/D on the card: the prefill replica's exported blocks adopt in
+    the decode replica's pool (imported and hit blocks counted, the
+    router's exports counted) and the greedy ids equal the colocated
+    single engine's."""
+    from paddle_tpu_torch.serving import EngineReplica, Router
+    cfg, params = _small_lm(cuda)
+    prompts = _fleet_prompts(23, 3)
+    want = _single_ids(params, cfg, prompts, 10, cuda)
+    pf = EngineReplica(_fleet_engine(params, cfg, cuda), "pf")
+    dc = EngineReplica(_fleet_engine(params, cfg, cuda), "dc")
+    router = Router([pf, dc], block_size=16, chunk_tokens=64,
+                    prefill=["pf"], health_poll_s=0.0)
+    reqs = [router.submit(p, 10) for p in prompts]
+    router.run_until_idle()
+    assert [r.tokens for r in reqs] == want
+    assert all(r.replica == "dc" for r in reqs)
+    assert router._m_pd_exports.value() >= 1
+    assert dc.eng.metrics.get("engine_kv_blocks_imported_total").value() > 0
+    assert dc.eng.metrics.get(
+        "engine_prefix_cache_hit_blocks_total").value() > 0
+
+
+@pytest.mark.gpu
+def test_gpu_serve_thread_graphs_match_the_main_thread(cuda):
+    """A ``ReplicaServer`` steps its engine on its serve thread, where
+    the engine's CUDA graphs are captured and replayed: request by
+    request over TCP it gives the ids, graph counts and pool bytes of a
+    twin engine stepped on the main thread; after the drain the same
+    graphs replay on the main thread, bitwise as the twin's again."""
+    import threading
+    import time
+
+    from paddle_tpu_torch.serving import ReplicaServer, SocketReplica
+    cfg, params = _small_lm(cuda)
+    prompts = _fleet_prompts(25, 3) + [np.random.RandomState(26).randint(
+        0, 512, 40)]
+    served, twin = (_fleet_engine(params, cfg, cuda) for _ in range(2))
+    srv = ReplicaServer(served, port=0)
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(srv.serve_forever()),
+                         daemon=True)
+    t.start()
+    h = SocketReplica("r0", ("127.0.0.1", srv.port))
+    got = []
+    try:
+        for i, p in enumerate(prompts):
+            h.submit({"id": i, "prompt": p.tolist(), "max_new": 8,
+                      "temperature": 0.8 if i % 2 else 0.0, "top_k": 50})
+            docs, deadline = [], time.time() + 120
+            while not docs and time.time() < deadline:
+                docs = h.poll()
+                time.sleep(0.005)
+            assert docs and docs[0]["id"] == i, docs
+            got.append(docs[0]["tokens"])
+    finally:
+        srv.drain()
+        t.join(timeout=60)
+        h.close()
+    assert rc == [0]
+    want = []
+    for i, p in enumerate(prompts):
+        r = twin.submit(p, 8, temperature=0.8 if i % 2 else 0.0, top_k=50)
+        twin.run_until_idle()
+        want.append(r.tokens)
+
+    def same_pools():
+        return all(torch.equal(served.cache[n].view(torch.uint8),
+                               twin.cache[n].view(torch.uint8))
+                   for n in served.cache)
+    assert got == want
+    assert served.compile_counts() == twin.compile_counts()
+    assert same_pools()
+    graphs = served.compile_counts()
+    again = []
+    for eng in (served, twin):          # the main thread replays both
+        reqs = [eng.submit(p, 8) for p in prompts[:2]]
+        eng.run_until_idle()
+        again.append([r.tokens for r in reqs])
+    assert again[0] == again[1] and again[0][0] == want[0]
+    assert served.compile_counts() == graphs == twin.compile_counts()
+    assert same_pools()
