@@ -81,7 +81,17 @@ order it:
    names it), a ``ReplicaServer`` stepping a third engine on its serve
    thread behind a ``SocketReplica`` (ids equal over TCP; the router's
    four routes answer) and ``LMServer.serve`` over a v4 artifact;
-   kernels 1–4 count the fleet's launches too;
+   kernels 1–4 count the fleet's launches too; then the fleet's control
+   plane (``autoscale:`` line, ``autoscale_phase``): in process, a
+   ``FleetController`` heals a killed replica and re-warms it from the
+   survivor, scales one replica up under queue pressure and drains it
+   when idle; two ``serve --port`` replica processes on the card from a
+   v4 artifact serve the trace, one is SIGKILLed and healed; the
+   ``route --autoscale`` CLI serves 4 requests, renders a ``top`` frame
+   and drains on SIGTERM; the native recordio codec round-trips a file
+   byte for byte against the pure-Python path; every greedy id equals
+   the single engine's, nothing is lost, and the in-process gate's
+   launches join the kernel line;
 8. speculative decoding (``spec:`` line, ``spec_phase``): the repo's
    draft-friendly pair at GPT-2 small widths (a 2-layer draft that is
    the target's first layers, the later layers' residual outputs scaled
@@ -2880,7 +2890,8 @@ def fleet_phase(torch, kernels, tlm, PagedDecodeEngine, cfg, dev, params,
     5. ``LMServer.serve``: a v4 artifact of the port saved, loaded and
        served answers ``/healthz`` and ``/metrics``.
 
-    Returns the kernels' launch counts over gates 1–4."""
+    Returns the kernels' launch counts over gates 1–4 and gate 1's
+    figures."""
     import threading
     from paddle_tpu_torch.serving import (EngineReplica, ReplicaServer,
                                           Router, SocketReplica)
@@ -3082,6 +3093,462 @@ def fleet_phase(torch, kernels, tlm, PagedDecodeEngine, cfg, dev, params,
         problems.append(f"kernels never launched: {missing}")
     if problems:
         fail(f"fleet: {problems}")
+    return launches, colo
+
+
+# ---------------------------------------------------------------------------
+# the fleet's control plane and its replica processes
+# ---------------------------------------------------------------------------
+
+AUTOSCALE_CLI_REQUESTS = 4      # greedy requests fed to the route CLI
+
+
+def controlled(router, ctrl, label, done, deadline_s=600.0):
+    """``router.step()`` and ``ctrl.step()`` in turns until ``done()``;
+    fails past the deadline."""
+    t_end = time.perf_counter() + deadline_s
+    while not done():
+        if time.perf_counter() > t_end:
+            fail(f"autoscale {label}: no end in {deadline_s} s "
+                 f"(states {router.replica_states()})")
+        router.step()
+        ctrl.step()
+
+
+def recorded(flight, since: int) -> list:
+    """The controller's decisions the flight recorder holds past its
+    first ``since`` records, without their wall times."""
+    return [{k: v for k, v in rec.items() if k != "t"}
+            for rec in flight.default_flight_recorder().records()[since:]
+            if rec.get("actor") == "fleet_controller"]
+
+
+def fleet_lost(reqs) -> int:
+    return sum(1 for r in reqs if r.status != "done")
+
+
+def recordio_check() -> dict:
+    """The native record codec: built from the checkout's copy, loaded,
+    and writing (and reading) a file byte for byte as the pure-Python
+    path does."""
+    from paddle_tpu_torch.runtime import native, recordio
+    lib = native.get()
+    if lib is None:
+        fail("autoscale: the native recordio codec did not build or load")
+    recs = [{"i": i, "x": list(range(i % 7))} for i in range(500)]
+    with tempfile.TemporaryDirectory() as tmp:
+        recordio.write_records(f"{tmp}/n.rio", recs, chunk_records=64)
+        native._lib = None                  # the pure-Python path
+        try:
+            recordio.write_records(f"{tmp}/p.rio", recs, chunk_records=64)
+            py_read = list(recordio.read_records(f"{tmp}/n.rio"))
+            py_offsets = recordio.chunk_offsets(f"{tmp}/n.rio")
+        finally:
+            native._lib = lib
+        a, b = (Path(f"{tmp}/{n}.rio").read_bytes() for n in ("n", "p"))
+        doc = {"loaded": str(native.lib_path()), "bytes": len(a),
+               "byte_equal": a == b,
+               "native_read_equal": list(recordio.read_records(
+                   f"{tmp}/p.rio")) == recs,
+               "python_read_equal": py_read == recs,
+               "offsets_equal": recordio.chunk_offsets(f"{tmp}/p.rio")
+               == py_offsets}
+    return doc
+
+
+def cli_route_gate(model, reqs_in, single, picked) -> dict:
+    """``python -m paddle_tpu_torch route --model=... --replicas=2
+    --autoscale --health_port=0`` as a process: ``picked`` greedy
+    requests of the trace on its stdin carry back the single engine's
+    ids, one ``top`` frame renders the fleet, and SIGTERM drains it to
+    exit 0."""
+    import queue as _queue
+    import signal
+    import threading
+    root = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "route",
+         f"--model={model}", "--replicas=2", "--autoscale",
+         "--health_port=0"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root)
+    err_lines, out_q = _queue.Queue(), _queue.Queue()
+    threading.Thread(target=lambda: [err_lines.put(x) for x in proc.stderr],
+                     daemon=True).start()
+    threading.Thread(target=lambda: [out_q.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    doc = {}
+    try:
+        url, t_end = None, time.perf_counter() + 600
+        while url is None:
+            try:
+                line = err_lines.get(timeout=1.0)
+            except _queue.Empty:
+                if proc.poll() is not None or time.perf_counter() > t_end:
+                    fail(f"autoscale cli: route never announced its "
+                         f"endpoint (rc {proc.poll()})")
+                continue
+            m = re.search(r"(http://[\d.:]+)/metrics", line)
+            url = m and m.group(1)
+        doc["route_ready_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for i in picked:
+            prompt, max_new, _ = reqs_in[i]
+            proc.stdin.write(json.dumps({"prompt": prompt.tolist(),
+                                         "max_new": max_new}) + "\n")
+        proc.stdin.flush()
+        results = []
+        while len(results) < len(picked):
+            try:
+                results.append(json.loads(out_q.get(timeout=600)))
+            except _queue.Empty:
+                fail(f"autoscale cli: {len(results)} of {len(picked)} "
+                     f"results")
+        doc["requests_s"] = time.perf_counter() - t1
+        by_id = {r["id"]: r for r in results}
+        doc["ids_equal"] = [by_id.get(n, {}).get("tokens") == single[i]
+                            for n, i in enumerate(picked)]
+        doc["replicas_used"] = sorted({r.get("replica") for r in results})
+        top = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch", "top",
+             f"--url={url}", "--top_iterations=1"],
+            capture_output=True, text=True, timeout=120, cwd=root)
+        frame = top.stdout
+        doc["top"] = {"rc": top.returncode,
+                      "fleet_line": frame.splitlines()[0] if frame else "",
+                      "replica_rows": sum(1 for ln in frame.splitlines()
+                                          if ln.startswith("replica")),
+                      "controller_line": "controller: live 2" in frame}
+        t2 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        doc["sigterm_rc"] = proc.wait(timeout=300)
+        doc["sigterm_exit_s"] = time.perf_counter() - t2
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return doc
+
+
+def autoscale_phase(torch, kernels, tlm, PagedDecodeEngine, cfg, dev, params,
+                    single, colocated, t_script):
+    """The ``autoscale:`` line: the fleet's control plane over engines of
+    the engine phase's configuration serving its trace (seed 0), in
+    three gates, every greedy id held to the single engine's
+    (``single``):
+
+    1. in process: an ``InProcessFleet`` of engines on the card (one
+       shared weight dict, one pool each), a ``Router`` and a
+       ``FleetController``:
+       - heal: the router (in-flight cap 1 and always-fetch, so the
+         trace's shared-prefix pair lands on both replicas) loses the
+         prefix's home (``EngineReplica.kill()``) mid-trace; the controller
+         respawns it under its name after its backoff (0.05-0.1 s) and
+         re-warms it from the survivor over the PTKV wire: ``heal_s`` from the
+         death the router sees to the replacement registered,
+         ``rewarm_blocks`` and host ms per block exported and imported,
+         ``requeued``, ``lost`` (0);
+       - scale up: one replica, ``scale_up_queue=1`` held over a 0.25 s
+         hysteresis, ``max_replicas=2``: the second spawns; seconds
+         from the spawn to its first token;
+       - scale down: the idle fleet drains its newest replica down to
+         ``min_replicas=1``; seconds from the controller's
+         ``scale_down`` decision to its ``drained`` one (the replica
+         removed), from the flight recorder's stamps;
+       the kernels' launch counts of this gate are the phase's (the
+       other gates launch inside replica processes, where this process
+       cannot count);
+    2. process fleet: ``ServingFleet`` of two ``python -m
+       paddle_tpu_torch serve`` replicas over a v4 artifact of the same
+       weights, each its own process on the card, behind
+       ``fleet.router()`` and a ``FleetController``: ``replica_ready_s``
+       per process, the trace's tokens/s and TTFT beside the ``fleet:``
+       colocated figure (``colocated``), then the trace again with one
+       replica SIGKILLed after 4 router steps: seconds from SIGKILL to
+       the replacement's ready line, ``requeued``, ``lost`` (0);
+    3. CLI: ``route --model --replicas=2 --autoscale`` as a process
+       (``cli_route_gate``).
+
+    Also checks the native record codec (``recordio_check``). Returns
+    gate 1's launch counts."""
+    from paddle_tpu_torch.observe import flight
+    from paddle_tpu_torch.runtime.master import ServingFleet
+    from paddle_tpu_torch.serving import Router
+    from paddle_tpu_torch.serving.autoscale import (FleetController,
+                                                    InProcessFleet)
+    from paddle_tpu_torch.serving.engine import default_chunk_buckets
+    t_phase = time.perf_counter()
+    engine_kw = ENGINE_KW
+    reqs_in = trace(np.random.RandomState(0), cfg.vocab)
+    greedy = [i for i, (_, _, temp) in enumerate(reqs_in) if temp == 0.0]
+    bs, chunk = engine_kw["block_size"], engine_kw["chunk_tokens"]
+    doc = {"recordio": recordio_check()}
+    exp_s, imp_s, engines = [], [], []
+
+    def make(name):
+        eng = PagedDecodeEngine.from_params(params, cfg, device=dev,
+                                            **engine_kw)
+        timed_calls(eng, "export_prefix", exp_s)
+        timed_calls(eng, "import_prefix", imp_s)
+        engines.append(eng)
+        return eng
+
+    def blocks(what):
+        """Blocks every engine of this gate has exported or imported."""
+        return sum(e.metrics.get(f"engine_kv_blocks_{what}_total").value()
+                   for e in engines)
+
+    kernels.reset_launches()                # counts of gate 1
+    # 1a. heal
+    fleet = InProcessFleet(make)
+    for name in ("a0", "a1"):
+        fleet.spawn(name)
+    router = Router([fleet.handle("a0"), fleet.handle("a1")],
+                    block_size=bs, chunk_tokens=chunk, max_in_flight=1,
+                    fetch_flops_per_byte=0.0)
+    # a short backoff: the survivor must still hold the prefix warm
+    # when the replacement asks for it
+    ctrl = FleetController(router, fleet, scale_up_queue=0,
+                           scale_down_idle_s=1e9, backoff_base=0.05,
+                           backoff_cap=0.1)
+    since = len(flight.default_flight_recorder().records())
+    t_dead, t_healed, rewarmed = [], [], []
+    orig_mark, orig_replace = router._mark_dead, router.replace_replica
+    orig_rewarm = router._on_rewarm
+
+    def mark_dead(st):
+        t_dead.append(time.perf_counter())
+        return orig_mark(st)
+
+    def replace(name, handle):
+        t_healed.append(time.perf_counter())
+        return orig_replace(name, handle)
+
+    def on_rewarm(src, ticket, doc):
+        if doc.get("payload"):
+            rewarmed.append(int(doc.get("blocks") or 0))
+        return orig_rewarm(src, ticket, doc)
+    router._mark_dead, router.replace_replica = mark_dead, replace
+    router._on_rewarm = on_rewarm
+    # the shared prefix's pair first: the first request on its home, the
+    # second (the home at its cap, its fetch empty) on the other replica,
+    # which holds the prefix too once it has prefilled it (its first
+    # token); then the rest of the trace, and the home dies
+    reqs = [submit(router, *r) for r in reqs_in[:2]]
+    controlled(router, ctrl, "heal",
+               lambda: reqs[1].replica not in (None, reqs[0].replica))
+    other = fleet.handle(reqs[1].replica).eng
+    controlled(router, ctrl, "heal",
+               lambda: other.metrics.get("engine_tokens_total").value() > 0)
+    reqs += [submit(router, *r) for r in reqs_in[2:]]
+    victim = reqs[0].replica
+    held = next(st.in_flight for st in router._all if st.name == victim)
+    exp_s.clear()
+    imp_s.clear()
+    exported0, imported0 = blocks("exported"), blocks("imported")
+    fleet.kill_name(victim)
+    controlled(router, ctrl, "heal",
+               lambda: router.idle and router.replica_states()[victim]
+               == "ok" and not any(st.outstanding for st in router._all))
+    # every PTKV hop after the death (the re-warm, and directory fetches
+    # of the requeued shared-prefix request) prices the host's ms a block
+    exported = blocks("exported") - exported0
+    imported = blocks("imported") - imported0
+    decisions = recorded(flight, since)
+    heal = {"victim": victim, "in_flight_at_kill": held,
+            "heal_s": t_healed[0] - t_dead[0] if t_dead and t_healed
+            else None,
+            "backoff_s": next((d.get("delay_s") for d in decisions
+                               if d["action"] == "heal_scheduled"), None),
+            "rewarm_exports": next((d.get("rewarm_exports")
+                                    for d in decisions
+                                    if d["action"] == "healed"), None),
+            "rewarm_blocks": sum(rewarmed),
+            "wire_exported_blocks": exported,
+            "wire_imported_blocks": imported,
+            "export_ms_per_block": 1e3 * sum(exp_s) / max(exported, 1),
+            "import_ms_per_block": 1e3 * sum(imp_s) / max(imported, 1),
+            "rewarm": {"/".join(v for _, v in k): c.value for k, c in
+                       router._m_rewarm.series().items()},
+            "requeued": router._m_requeued.value(),
+            "lost": fleet_lost(reqs),
+            "decisions": [d["action"] for d in decisions]}
+    heal["greedy_mismatch"] = fleet_check("autoscale heal", reqs, reqs_in,
+                                          single, cfg.vocab)
+    doc["heal"] = heal
+    router.close()
+    del fleet, router, ctrl
+    engines.clear()
+    # 1b. scale up, then 1c. scale down
+    spawns = []
+    fleet = InProcessFleet(make)
+    fleet.spawn("s0")
+    spawn = fleet.spawn
+
+    def timed_spawn(name=None):
+        t0 = time.perf_counter()
+        ep = spawn(name)
+        spawns.append((ep["name"], t0, time.perf_counter()))
+        return ep
+    fleet.spawn = timed_spawn
+    router = Router([fleet.handle("s0")], block_size=bs, chunk_tokens=chunk)
+    ctrl = FleetController(router, fleet, min_replicas=1, max_replicas=2,
+                           scale_up_queue=1, hysteresis_s=0.25,
+                           scale_down_idle_s=1e9)
+    since = len(flight.default_flight_recorder().records())
+    t0 = time.perf_counter()
+    reqs = [submit(router, *r) for r in reqs_in]
+    controlled(router, ctrl, "scale up", lambda: router.idle)
+    wall = time.perf_counter() - t0
+    up = served_doc(reqs, wall)
+    new = [n for n, _, _ in spawns]
+    firsts = [r.placed_t + r.replica_ttft_ms / 1e3 for r in reqs
+              if new and r.replica == new[0]]
+    up.update({"spawned": new,
+               "spawn_s": [b - a for _, a, b in spawns],
+               "trigger_to_first_token_s": min(firsts) - spawns[0][1]
+               if firsts else None,
+               "requests_on_new": len(firsts),
+               "replicas": sorted(router.replica_states()),
+               "lost": fleet_lost(reqs)})
+    up["greedy_mismatch"] = fleet_check("autoscale scale up", reqs, reqs_in,
+                                        single, cfg.vocab)
+    ctrl.scale_down_idle_s = 0.5
+    controlled(router, ctrl, "scale down", lambda: len(router._all) == 1)
+    stamps = {rec["action"]: rec["t"] for rec in
+              flight.default_flight_recorder().records()[since:]
+              if rec.get("actor") == "fleet_controller"}
+    down = {"decision_to_removed_s": stamps["drained"] - stamps["scale_down"]
+            if {"drained", "scale_down"} <= set(stamps) else None,
+            "replicas": sorted(router.replica_states()),
+            "summary": ctrl.summary()}
+    decisions = recorded(flight, since)
+    up["decisions"] = [d["action"] for d in decisions]
+    down["drained"] = [d["replica"] for d in decisions
+                       if d["action"] == "drained"]
+    doc["scale_up"], doc["scale_down"] = up, down
+    launches = kernels.launch_counts()
+    router.close()
+    del fleet, router, ctrl
+    # 2. process fleet, and 3. the CLI, over a v4 artifact of the weights
+    with tempfile.TemporaryDirectory() as tmp:
+        # the artifact stamps the engines' chunk buckets: a replica
+        # pads a tail chunk as the single engine does, so its GEMMs run
+        # at the same shapes and its greedy ids are the same bits
+        model = f"{tmp}/v4.tar"
+        tlm.save_lm_artifact(
+            model, params, cfg, batch=engine_kw["batch"], prompt_len=chunk,
+            cache_len=engine_kw["cache_len"],
+            engine_buckets=default_chunk_buckets(chunk), engine_paged=True,
+            engine_block_size=bs)
+        pf = ServingFleet(model, replicas=2, startup_timeout_s=600)
+        launched, ready = {}, []
+        launch, await_ready = pf._launch, pf._await_ready
+
+        def timed_launch(name):
+            launched[name] = time.perf_counter()
+            return launch(name)
+
+        def timed_ready(name, proc, deadline, close_fleet=False):
+            ep = await_ready(name, proc, deadline, close_fleet)
+            ready.append((name, time.perf_counter(),
+                          time.perf_counter() - launched[name]))
+            return ep
+        pf._launch, pf._await_ready = timed_launch, timed_ready
+        router = None
+        try:
+            pf.start()
+            router = pf.router()
+            ctrl = FleetController(router, pf, scale_up_queue=0,
+                                   scale_down_idle_s=1e9)
+            t0 = time.perf_counter()
+            reqs = [submit(router, *r) for r in reqs_in]
+            controlled(router, ctrl, "process fleet", lambda: router.idle)
+            proc = served_doc(reqs, time.perf_counter() - t0)
+            proc.update({"replica_ready_s": {n: s for n, _, s in ready},
+                         "colocated_tokens_per_s":
+                         colocated.get("tokens_per_s"),
+                         "per_replica": {n: sum(1 for r in reqs
+                                                if r.replica == n)
+                                         for n in router.replica_states()},
+                         "lost": fleet_lost(reqs)})
+            proc["greedy_mismatch"] = fleet_check(
+                "autoscale process fleet", reqs, reqs_in, single, cfg.vocab)
+            requeued0 = router._m_requeued.value()
+            reqs = [submit(router, *r) for r in reqs_in]
+            for _ in range(4):
+                router.step()
+            i_victim = max(range(len(router._all)),
+                           key=lambda i: router._all[i].in_flight)
+            victim = router._all[i_victim].name
+            held = router._all[i_victim].in_flight
+            n_ready = len(ready)
+            t_kill = time.perf_counter()
+            pf.kill(i_victim)
+            controlled(router, ctrl, "process kill",
+                       lambda: router.idle and router.replica_states()
+                       [victim] == "ok")
+            respawned = ready[n_ready:]
+            kill = {"victim": victim, "in_flight_at_kill": held,
+                    "sigkill_to_ready_s": respawned[0][1] - t_kill
+                    if respawned else None,
+                    "replacement_ready_s": respawned[0][2]
+                    if respawned else None,
+                    "wall_s": time.perf_counter() - t_kill,
+                    "requeued": router._m_requeued.value() - requeued0,
+                    "heals": ctrl._m_heals.value(result="healed"),
+                    "lost": fleet_lost(reqs),
+                    "states": router.replica_states()}
+            kill["greedy_mismatch"] = fleet_check(
+                "autoscale process kill", reqs, reqs_in, single, cfg.vocab)
+            proc["kill"] = kill
+        finally:
+            procs = list(pf.procs)
+            if router is not None:
+                router.close()
+            pf.close()
+        proc["stopped"] = all(p.poll() is not None for p in procs)
+        doc["process_fleet"] = proc
+        doc["cli"] = cli_route_gate(model, reqs_in, single,
+                                    greedy[:AUTOSCALE_CLI_REQUESTS])
+    doc["launches"] = launches
+    doc["phase_s"] = time.perf_counter() - t_phase
+    doc["script_s"] = time.perf_counter() - t_script
+    print("autoscale: " + json.dumps(doc))
+    problems = []
+    rio = doc["recordio"]
+    if not all(rio[k] for k in ("byte_equal", "native_read_equal",
+                                "python_read_equal", "offsets_equal")):
+        problems.append("native recordio codec")
+    if (heal["greedy_mismatch"] or heal["lost"] or heal["heal_s"] is None
+            or heal["requeued"] <= 0 or heal["rewarm_blocks"] <= 0
+            or "healed" not in heal["decisions"]):
+        problems.append("in-process heal")
+    if (up["greedy_mismatch"] or up["lost"] or len(up["spawned"]) != 1
+            or not up["requests_on_new"]
+            or "scale_up" not in up["decisions"]):
+        problems.append("in-process scale up")
+    if down["replicas"] != ["s0"] or down["drained"] != up["spawned"]:
+        problems.append("in-process scale down")
+    if (proc["greedy_mismatch"] or proc["lost"] or kill["lost"]
+            or kill["greedy_mismatch"] or kill["sigkill_to_ready_s"] is None
+            or kill["heals"] != 1 or kill["requeued"] <= 0
+            or set(kill["states"].values()) != {"ok"}
+            or not proc["stopped"]):
+        problems.append("process fleet")
+    cli = doc["cli"]
+    if (not all(cli["ids_equal"]) or cli["top"]["rc"] != 0
+            or cli["top"]["replica_rows"] != 2
+            or not cli["top"]["controller_line"] or cli["sigterm_rc"] != 0):
+        problems.append("route / top / SIGTERM")
+    if dev.type == "cuda":
+        path = list(SERVING_KERNELS) + ["fused_sample.threefry"]
+        missing = [k for k in path if launches[k] <= 0]
+        if missing:
+            problems.append(f"kernels never launched: {missing}")
+    if problems:
+        fail(f"autoscale: {problems}")
     return launches
 
 
@@ -3268,6 +3735,7 @@ SOURCES["fused_spec_verify"] = ("fused_sample.cu",
 
 
 def main():
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -3333,8 +3801,12 @@ def main():
                               dev, params, "int4", "engine_int4", ".int4")
     preempt_phase(torch, PagedDecodeEngine, cfg, dev, params)
     prefix_phase(torch, kernels, PagedDecodeEngine, cfg, dev, params)
-    fleet_launches = fleet_phase(torch, kernels, tlm, PagedDecodeEngine, cfg,
-                                 dev, params, single)
+    fleet_launches, colocated = fleet_phase(torch, kernels, tlm,
+                                            PagedDecodeEngine, cfg, dev,
+                                            params, single)
+    autoscale_launches = autoscale_phase(torch, kernels, tlm,
+                                         PagedDecodeEngine, cfg, dev, params,
+                                         single, colocated, t_script)
     spec_launches, rows["fused_spec_verify"] = spec_phase(
         torch, tt, tlm, kd, q8, _build, kernels, sampling, PagedDecodeEngine,
         SpecDecodeEngine, cfg, dev, params)
@@ -3367,9 +3839,10 @@ def main():
     # the slot engine's trace and the lockstep calls run kernels 2 and 5
     for k in ("fused_sample", "fused_sample.threefry", "flash_attention_fwd"):
         launches[k] += slot_launches[k] + lock_launches[k]
-    # the fleet's replicas run kernels 1-4
+    # the fleet's replicas run kernels 1-4, in this process (the
+    # replicas of the process fleet and the CLI count in their own)
     for k in SERVING_KERNELS + ("fused_sample.threefry",):
-        launches[k] += fleet_launches[k]
+        launches[k] += fleet_launches[k] + autoscale_launches[k]
 
     out = []
     for name, (src, replaces) in SOURCES.items():

@@ -22,8 +22,15 @@ exists, so a reader can put the two side by side:
                        per-array update rules over parameter trees
 - ``serving/``         sampling, the block pool, the row-arena slot
                        engine and the paged engine with its tiers, tenant budgets and preemption,
-                       the PTKV block wire (``transfer.py``) and the
-                       DRAM/disk spill store (``tiers.py``)
+                       the PTKV block wire (``transfer.py``), the
+                       DRAM/disk spill store (``tiers.py``), and the
+                       fleet: replicas, router and control plane
+                       (``replica.py``, ``router.py``, ``autoscale.py``)
+- ``runtime/``         record IO and its native codec, the data-dispatch
+                       master and the fleet's replica processes
+                       (``master.ServingFleet``), the launcher, the
+                       restart budget
+- ``cli.py``           ``python -m paddle_tpu_torch serve|route|top``
 - ``observe/``         metrics registry, MFU accounting, the compile
                        tracker, SLO windows, the request log, chrome
                        traces, the health server, the flight recorder

@@ -7,7 +7,9 @@ links into a single shared library; ``ctypes`` loads it. The build
 happens at first use, never at import, into ``build/kernels/<key>/``
 at the root of the checkout (``.gitignore`` lists ``build/``), where
 ``<key>`` hashes the sources and flags — an edited source builds
-afresh, an unchanged one loads the library already there.
+afresh, an unchanged one loads the library already there. A process
+compiles only while it holds the directory's build lock, so replicas
+starting together on a cold tree never write the same objects.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
@@ -25,6 +27,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from paddle_tpu_torch.utils.buildlock import build_lock
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("decode_attention.cu", "fused_sample.cu", "chunk_prefill.cu",
@@ -90,16 +94,8 @@ class _Library:
             return self.lib
 
     def _load(self) -> ctypes.CDLL:
-        key = _source_key()
-        out_dir = BUILD_ROOT / key
-        lib_path = out_dir / LIB_NAME
-        t0 = time.perf_counter()
-        if lib_path.exists():
-            self.build_seconds = 0.0
-        else:
-            _compile(out_dir, lib_path)
-            self.build_seconds = time.perf_counter() - t0
-        self.build_dir = out_dir
+        lib_path, self.build_seconds = build()
+        self.build_dir = lib_path.parent
         lib = ctypes.CDLL(str(lib_path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
@@ -109,6 +105,24 @@ class _Library:
 
 
 _LIBRARY = _Library()
+
+
+def build():
+    """``(library path, nvcc seconds)``: the library of the current
+    sources, compiled now if missing (seconds 0.0 when it was there).
+    The first build of a directory holds its build lock
+    (``utils/buildlock.py``), so processes meeting a cold directory
+    together compile once: the others wait, then find the library."""
+    out_dir = BUILD_ROOT / _source_key()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path, 0.0
+    with build_lock(out_dir):
+        if lib_path.exists():           # built while this one waited
+            return lib_path, 0.0
+        t0 = time.perf_counter()
+        _compile(out_dir, lib_path)
+        return lib_path, time.perf_counter() - t0
 
 
 def library() -> ctypes.CDLL:

@@ -1,8 +1,9 @@
 """Serving: sampling, the block pool, the row-arena slot engine, the
 paged decode engine and its speculative-decoding variant, the KV block
-wire, the spill tiers, and the fleet's data plane: the replica handles
+wire, the spill tiers, the fleet's data plane: the replica handles
 and JSONL transports (``replica``) and the prefix-aware router with
-P/D disaggregation (``router``)."""
+P/D disaggregation (``router``), and its control plane: healing,
+wedge kills and elastic capacity (``autoscale``)."""
 
 from paddle_tpu_torch.serving.engine import (DecodeEngine, EngineRequest,
                                              PagedDecodeEngine,

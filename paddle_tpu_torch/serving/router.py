@@ -1318,10 +1318,14 @@ class Router:
         if req.usable:
             # rewarm seed: this prompt's leading chunk-aligned prefix
             # is (about to be) warm here — what a replacement would
-            # want re-imported if this replica dies
+            # want re-imported if this replica dies. One token past the
+            # prefix: an engine counts a prompt's last chunk as computed
+            # there (it makes the logits), so the bare prefix would
+            # export one chunk short (nothing at all for one chunk);
+            # the extra token completes no block, the digests stay
             st.note_recent(
                 tuple(usable),
-                req.prompt[:req.usable * self.block_size].copy())
+                req.prompt[:req.usable * self.block_size + 1].copy())
         self._rev(req, "queue", "e", req.placed_t)
         self._rev(req, "place", "n", req.placed_t, kind="generate",
                   replica=st.name, prefix_score=score,

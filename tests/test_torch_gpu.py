@@ -1462,3 +1462,59 @@ def test_gpu_serve_thread_graphs_match_the_main_thread(cuda):
     assert again[0] == again[1] and again[0][0] == want[0]
     assert served.compile_counts() == graphs == twin.compile_counts()
     assert same_pools()
+
+
+@pytest.mark.gpu
+def test_gpu_process_fleet_sigkill_healed_zero_lost(cuda, tmp_path):
+    """Two ``serve --port`` replica processes on the card (each its own
+    CUDA context, weights, pool and graphs) from a v4 artifact of the
+    small LM, behind the router and the ``FleetController``: one is
+    SIGKILLed while both hold work; the controller respawns it under its
+    name, no request is lost, and every greedy id equals an in-process
+    engine's."""
+    import time
+
+    from paddle_tpu_torch.io import lm_serving
+    from paddle_tpu_torch.runtime.master import ServingFleet
+    from paddle_tpu_torch.serving.autoscale import FleetController
+    from paddle_tpu_torch.serving.engine import default_chunk_buckets
+    cfg, params = _small_lm(cuda)
+    model = str(tmp_path / "lm_v4.tar")
+    # the in-process engine's chunk buckets: the replicas pad a tail
+    # chunk alike, so their GEMMs run at the same shapes
+    lm_serving.save_lm_artifact(model, params, cfg, batch=2, prompt_len=64,
+                                cache_len=256,
+                                engine_buckets=default_chunk_buckets(64),
+                                engine_paged=True, engine_block_size=16)
+    prompts = _fleet_prompts(27, 4) + [np.random.RandomState(28).randint(
+        0, 512, 60 + 9 * i) for i in range(4)]
+    want = _single_ids(params, cfg, prompts, 12, cuda)
+    fleet = ServingFleet(model, replicas=2, startup_timeout_s=300)
+    fleet.start()
+    router = None
+    try:
+        router = fleet.router(max_in_flight=2, health_poll_s=0.05)
+        ctrl = FleetController(router, fleet, backoff_base=0.05,
+                               backoff_cap=0.1, scale_up_queue=0,
+                               scale_down_idle_s=1e9)
+        reqs = [router.submit(p, 12) for p in prompts]
+        deadline = time.time() + 600
+        while not all(st.in_flight for st in router._all):
+            router.step()
+            assert time.time() < deadline
+        old = fleet.procs[1].pid
+        fleet.kill(1)
+        while not (router.idle
+                   and router.replica_states()["replica1"] == "ok"):
+            router.step()
+            ctrl.step()
+            assert time.time() < deadline, router.health()
+        assert [r.status for r in reqs] == ["done"] * len(reqs)
+        assert [r.tokens for r in reqs] == want
+        assert router._m_requeued.value() >= 1
+        assert ctrl._m_heals.value(result="healed") == 1
+        assert fleet.procs[1].pid != old and fleet.proc_alive("replica1")
+    finally:
+        if router is not None:
+            router.close()
+        fleet.close()
