@@ -125,14 +125,30 @@ order it:
    64 new, greedy and sampled), ``beam_search`` (B = 2, K = 4, 16 new)
    and the port's v1 and v3 artifacts saved, loaded and served with
    the in-process ids;
-10. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
+10. the op layer of the v2 framework (``ops:`` line, ``ops_phase``), each
+   group held against the CPU (the port's same function on the same
+   inputs, TF32 off) and timed on the card (CUDA events, median of 10
+   calls after a warm-up): ResNet-50 at batch 128, bf16 compute (the
+   space-to-depth stem against the direct 7x7/s2 conv, its 3x3/s2 SAME
+   max pool, the first bottleneck block of each stage through
+   ``conv_bn_train`` forward and backward with ``save8`` off and on,
+   ``global_avg_pool2d``, ``conv_bn_infer``; parity on 8 images); the
+   LSTM text classifier (batch 64, T = 100, a 30000 x 128 embedding and
+   its scatter-add gradient, ``lstm`` and ``gru`` at hidden 256 and 1280
+   forward and reverse, the sequence pools, ``context_projection`` and
+   ``row_conv`` at D = 512, ``torch.nn.LSTM`` timed as a yardstick);
+   CRF, CTC and ``lambda_rank``; SSD300's priors, matching, box codec,
+   ``nms`` over 8732 boxes and ``roi_pool`` of 128 ROIs with its peak
+   memory; ``beam_search`` and ``greedy_search`` over a GRU decoder
+   (tokens equal to the CPU's except at near-ties, ``beam_gate``);
+11. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
    ten device kernels with the most time, the device's busy share);
-11. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
+12. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
    17 kernels and branches, and ``fused_spec_verify``, kernel 2 at the
    spec trace's verify rows; kernel 2's two streams and kernel 5's bf16
    forward count the slot trace's and the lockstep calls' launches too)
@@ -3553,6 +3569,714 @@ def autoscale_phase(torch, kernels, tlm, PagedDecodeEngine, cfg, dev, params,
 
 
 # ---------------------------------------------------------------------------
+# op layer phase (the v2 framework's ops)
+# ---------------------------------------------------------------------------
+
+# Card-vs-CPU tolerances of the ``ops:`` phase, fixed before its first run:
+# max |card - CPU| over max |CPU|. fp32 paths sum in another order over
+# recursions of up to 400 steps; bf16-compute paths (conv blocks, the
+# recurrent scans) round operands to bf16 at every product, so a value
+# that lands near a rounding boundary rounds the other way and the
+# difference travels through the block or the scan. One bf16 rounding
+# (a conv alone, the pools) is held to 2 bf16 ulps of max(|CPU|, 2^-6).
+# A ResNet block's gradients are held op by op (each conv_bn_train on its
+# own inputs), its forward as a whole: at ReLU's kink a rounding-level
+# difference flips an element of the gradient mask, which no rounding
+# tolerance covers.
+OPS_F32_REL = 1e-4
+OPS_BF16_REL = 2.0 ** -5
+OPS_ULPS = 2
+OPS_CALLS = 10
+
+
+def ops_ms(torch, fn, n=OPS_CALLS) -> float:
+    """Median ms per call of ``fn`` over ``n`` calls after a warm-up call,
+    with CUDA events around each call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def flat_tensors(out) -> list:
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in flat_tensors(o)]
+    return [out]
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| / max |want| in float64 on the CPU (0 if equal)."""
+    g, w = got.double(), want.double()
+    if torch.equal(g, w):
+        return 0.0
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def bf16_ulps(torch, got, want) -> float:
+    """max |got - want| in bf16 ulps of max(|want|, 2^-6)."""
+    g, w = got.double(), want.double()
+    mag = w.abs().clamp_min(2.0 ** -6)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - w).abs() / ulp).max())
+
+
+def run_on(torch, fn, arrays, device, wrt=()):
+    """``fn(device, *tensors)`` on tensors made on ``device`` from
+    ``arrays`` (numpy arrays; other values pass through). Returns (outputs,
+    gradients) as CPU tensors: the gradients of sum(out_i * cot_i) over
+    the outputs that carry one, for cotangents drawn from a seed, with
+    respect to the arguments at ``wrt``."""
+    ts = [torch.from_numpy(a).to(device).requires_grad_(i in wrt)
+          if isinstance(a, np.ndarray) else a for i, a in enumerate(arrays)]
+    outs = flat_tensors(fn(device, *ts))
+    grads = []
+    if wrt:
+        rng = np.random.RandomState(1)
+        loss = sum((o.float() * torch.from_numpy(rng.randn(*o.shape).astype(
+            np.float32)).to(device)).sum() for o in outs if o.requires_grad)
+        grads = torch.autograd.grad(loss, [ts[i] for i in wrt])
+    return ([o.detach().cpu() for o in outs],
+            [g.detach().cpu() for g in grads])
+
+
+def held(torch, label, fn, arrays, dev, wrt=(), rel=OPS_F32_REL, ulps=None):
+    """Run ``fn`` on the CPU and on the card from the same arrays and fail
+    unless every floating output and gradient is within ``rel`` (or
+    ``ulps`` bf16 ulps) and every integer output is equal. Returns the
+    largest error and the card's outputs."""
+    cpu = run_on(torch, fn, arrays, "cpu", wrt)
+    card = run_on(torch, fn, arrays, dev, wrt)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(card[0] + card[1], cpu[0] + cpu[1])):
+        if not b.is_floating_point():
+            if not torch.equal(a, b):
+                fail(f"ops {label}: integer output {i} differs between the "
+                     f"card and the CPU")
+            continue
+        if not torch.isfinite(a.float()).all():
+            fail(f"ops {label}: non-finite values on the card (output {i})")
+        err = (bf16_ulps(torch, a, b) if ulps is not None
+               else rel_err(torch, a, b))
+        if not err <= (ulps if ulps is not None else rel):
+            fail(f"ops {label}: output {i} card vs CPU error {err!r} > "
+                 f"{ulps if ulps is not None else rel!r}"
+                 f"{' ulps' if ulps is not None else ' (relative)'}")
+        worst = max(worst, err)
+    return worst, card[0]
+
+
+def _he(rng, *shape):
+    fan_in = int(np.prod(shape[:-1]))
+    return (rng.randn(*shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
+
+
+# (ch_in, ch_mid, spatial size in, stride) of each stage's first block
+RESNET_STAGES = ((64, 64, 56, 1), (256, 128, 56, 2), (512, 256, 28, 2),
+                 (1024, 512, 14, 2))
+RESNET_BATCH, RESNET_PARITY = 128, 8
+
+
+def bottleneck_params(rng, cin, mid):
+    """{name: [w, gamma, beta]} of a bottleneck block with its projection
+    (ResNet-50 widths: out = 4 x mid)."""
+    out = 4 * mid
+    shapes = {"a": (1, 1, cin, mid), "b": (3, 3, mid, mid),
+              "c": (1, 1, mid, out), "proj": (1, 1, cin, out)}
+    return {n: [_he(rng, *s), (1.0 + 0.1 * rng.randn(s[-1])).astype(
+        np.float32), (0.1 * rng.randn(s[-1])).astype(np.float32)]
+        for n, s in shapes.items()}
+
+
+def bottleneck(torch, cb, x, flat_params, stride, save8):
+    """The first block of a ResNet-50 stage through ``conv_bn_train``:
+    1x1, 3x3 (carrying the stage's stride), 1x1, and the 1x1 projection
+    shortcut, ReLUs between; bf16 activations, fp32 parameters."""
+    names = ("a", "b", "c", "proj")
+    p = {n: flat_params[3 * i:3 * i + 3] for i, n in enumerate(names)}
+
+    def conv_bn(h, name, s, pad):
+        w, g, b = p[name]
+        zeros = torch.zeros_like(g)
+        return cb.conv_bn_train(h, w, g, b, zeros, zeros + 1, stride=s,
+                                padding=pad, save8=save8)[0]
+
+    x = x.to(torch.bfloat16)
+    h = torch.relu(conv_bn(x, "a", 1, 0))
+    h = torch.relu(conv_bn(h, "b", stride, 1))
+    return torch.relu(conv_bn(h, "c", 1, 0) + conv_bn(x, "proj", stride, 0))
+
+
+def ops_resnet(torch, dev) -> dict:
+    """ResNet-50 (``benchmarks/configs/resnet50.py``: batch 128, 224^2,
+    the space-to-depth stem, bf16 compute): the stem conv both ways and
+    its 3x3/s2 SAME max pool, the first bottleneck block of each stage
+    forward and backward with ``save8`` off and on, the global average
+    pool and ``conv_bn_infer``. Parity on 8 images drawn with numpy,
+    times at 128 on inputs drawn on the card from a seed."""
+    from paddle_tpu_torch.ops import conv, conv_bn as cb, pool
+    rng = np.random.RandomState(0)
+    B, P = RESNET_BATCH, RESNET_PARITY
+    doc = {"batch": B, "parity_images": P}
+    x = rng.rand(B, 224, 224, 3).astype(np.float32)
+    w = _he(rng, 7, 7, 3, 64)
+
+    def stem_s2d(d, xa, wa):
+        ws, pads = conv.space_to_depth_conv_transform(wa, 2)
+        return conv.conv2d(conv.space_to_depth(xa, 2), ws, padding=pads)
+
+    def stem_direct(d, xa, wa):
+        return conv.conv2d(xa, wa, stride=2, padding=3)
+
+    err, (stem_card,) = held(torch, "stem (s2d) card vs CPU", stem_s2d,
+                             [x[:P], w], dev, ulps=OPS_ULPS)
+    xt, wt = torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
+    s2d, direct = stem_s2d(dev, xt, wt), stem_direct(dev, xt, wt)
+    s2d_vs_direct = bf16_ulps(torch, s2d.float().cpu(), direct.float().cpu())
+    if not s2d_vs_direct <= OPS_ULPS:
+        fail(f"ops stem: s2d conv vs the direct 7x7/s2 conv "
+             f"{s2d_vs_direct!r} ulps > {OPS_ULPS}")
+    pool_err, _ = held(torch, "max pool 3x3/s2 SAME",
+                       lambda d, a: pool.max_pool2d(
+                           a.to(torch.bfloat16), 3, stride=2, padding="SAME"),
+                       [s2d[:P].float().cpu().numpy()], dev, ulps=0)
+    doc["stem"] = {
+        "shape": list(s2d.shape), "card_vs_cpu_ulps": err,
+        "s2d_vs_direct_ulps": s2d_vs_direct,
+        "s2d_ms": ops_ms(torch, lambda: stem_s2d(dev, xt, wt)),
+        "direct_ms": ops_ms(torch, lambda: stem_direct(dev, xt, wt)),
+        "max_pool_card_vs_cpu_ulps": pool_err,
+        "max_pool_ms": ops_ms(torch, lambda: pool.max_pool2d(
+            s2d, 3, stride=2, padding="SAME"))}
+    del xt, s2d, direct
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stages = []
+    for cin, mid, hw, stride in RESNET_STAGES:
+        xs = rng.randn(P, hw, hw, cin).astype(np.float32)
+        blk = bottleneck_params(rng, cin, mid)
+        prm = [a for v in blk.values() for a in v]
+        ho = hw // stride
+        # each conv_bn_train of the block on its own inputs (ReLU's kink
+        # at 0 would turn a rounding-level difference into a different
+        # gradient mask, so the gradients are held op by op)
+        conv_in = {"a": (xs, 1, 0), "proj": (xs, stride, 0),
+                   "b": (rng.randn(P, hw, hw, mid).astype(np.float32),
+                         stride, 1),
+                   "c": (rng.randn(P, ho, ho, mid).astype(np.float32), 1, 0)}
+        row = {"in": [B, hw, hw, cin], "out_channels": 4 * mid,
+               "stride": stride}
+        for save8 in (False, True):
+            key = "save8" if save8 else "exact"
+
+            def fn(d, xa, *pa, save8=save8, stride=stride):
+                return bottleneck(torch, cb, xa, pa, stride, save8)
+
+            block_err, _ = held(
+                torch, f"stage {len(stages) + 1} block forward ({key})", fn,
+                [xs] + prm, dev, rel=OPS_BF16_REL)
+            conv_err = 0.0
+            for name, (xin, s_, pad) in conv_in.items():
+                def one(d, xa, w, g, b, s_=s_, pad=pad, save8=save8):
+                    zeros = torch.zeros_like(g)
+                    return cb.conv_bn_train(xa.to(torch.bfloat16), w, g, b,
+                                            zeros, zeros + 1, stride=s_,
+                                            padding=pad, save8=save8)
+
+                err, _ = held(torch, f"stage {len(stages) + 1} conv_bn_train "
+                              f"{name} ({key})", one, [xin] + blk[name], dev,
+                              wrt=(0, 1, 2, 3), rel=OPS_BF16_REL)
+                conv_err = max(conv_err, err)
+            xa = torch.randn(B, hw, hw, cin, device=dev, generator=gen,
+                             dtype=torch.bfloat16)
+            pa = [torch.from_numpy(a).to(dev).requires_grad_() for a in prm]
+            cot = torch.randn(B, ho, ho, 4 * mid, device=dev, generator=gen,
+                              dtype=torch.bfloat16)
+
+            def fwd(xa=xa, pa=pa, save8=save8, stride=stride):
+                with torch.no_grad():
+                    return bottleneck(torch, cb, xa, pa, stride, save8)
+
+            def fwd_bwd(xa=xa, pa=pa, save8=save8, stride=stride, cot=cot):
+                out = bottleneck(torch, cb, xa.requires_grad_(), pa, stride,
+                                 save8)
+                torch.autograd.backward(out, cot)
+
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            row[key] = {"block_fwd_card_vs_cpu_rel": block_err,
+                        "conv_bn_fwd_bwd_card_vs_cpu_rel": conv_err,
+                        "fwd_ms": ops_ms(torch, fwd),
+                        "fwd_bwd_ms": ops_ms(torch, fwd_bwd),
+                        "peak_bytes_above_inputs":
+                            torch.cuda.max_memory_allocated() - base}
+            del xa, pa, cot
+        stages.append(row)
+    doc["blocks"] = stages
+
+    gerr, _ = held(torch, "global_avg_pool2d",
+                   lambda d, a: pool.global_avg_pool2d(a.to(torch.bfloat16)),
+                   [rng.randn(P, 7, 7, 2048).astype(np.float32)], dev,
+                   wrt=(0,), ulps=OPS_ULPS)
+    ft = torch.randn(B, 7, 7, 2048, device=dev, generator=gen,
+                     dtype=torch.bfloat16)
+    doc["global_avg_pool"] = {"card_vs_cpu_ulps": gerr,
+                              "ms": ops_ms(torch, lambda: pool.global_avg_pool2d(ft))}
+    xi = rng.randn(P, 56, 56, 64).astype(np.float32)
+    pi = [_he(rng, 3, 3, 64, 64), (1 + 0.1 * rng.randn(64)).astype(np.float32),
+          (0.1 * rng.randn(64)).astype(np.float32),
+          (0.1 * rng.randn(64)).astype(np.float32),
+          (1 + 0.1 * rng.rand(64)).astype(np.float32)]
+    ierr, _ = held(torch, "conv_bn_infer",
+                   lambda d, a, *p: cb.conv_bn_infer(a.to(torch.bfloat16), *p,
+                                                     padding=1),
+                   [xi] + pi, dev, rel=OPS_BF16_REL)
+    xit = torch.randn(B, 56, 56, 64, device=dev, generator=gen,
+                      dtype=torch.bfloat16)
+    pit = [torch.from_numpy(a).to(dev) for a in pi]
+    doc["conv_bn_infer"] = {"card_vs_cpu_rel": ierr, "ms": ops_ms(
+        torch, lambda: cb.conv_bn_infer(xit, *pit, padding=1))}
+    return doc
+
+
+LSTM_BATCH, LSTM_T, LSTM_EMB, LSTM_VOCAB = 64, 100, 128, 30000
+LSTM_HIDDEN = (256, 1280)
+LSTM_PARITY_ROWS = 8
+
+
+def ops_lstm(torch, dev) -> dict:
+    """The LSTM text classifier (``benchmarks/configs/lstm.py``: batch 64,
+    T = 100, emb 128 over a 30000-word table; hidden 256 and 1280):
+    the embedding and its scatter-add gradient, ``lstm`` and ``gru``
+    forward and backward (forward and reverse, lengths 50..100), the
+    sequence pools, ``context_projection`` and ``row_conv`` at D = 512;
+    ``torch.nn.LSTM`` (cuDNN) timed at the same shapes as a yardstick
+    (the port never calls it). Parity on 8 rows, times at 64."""
+    from paddle_tpu_torch.ops import rnn, sequence, sparse
+    rng = np.random.RandomState(1)
+    B, T, E, P = LSTM_BATCH, LSTM_T, LSTM_EMB, LSTM_PARITY_ROWS
+    doc = {"batch": B, "T": T, "emb": E, "parity_rows": P}
+    table = (rng.randn(LSTM_VOCAB, E) * 0.1).astype(np.float32)
+    ids = rng.randint(0, LSTM_VOCAB, (B, T)).astype(np.int32)
+    lengths = rng.randint(T // 2, T + 1, B).astype(np.int32)   # 50..100
+    lengths[0] = T
+    rows = rng.randn(B * T, E).astype(np.float32)
+
+    emb_err, _ = held(torch, "embedding_lookup",
+                      lambda d, tb, i: sparse.embedding_lookup(tb, i),
+                      [table, ids], dev, wrt=(0,))
+    sc_err, _ = held(torch, "scatter_add_rows",
+                     lambda d, tb, i, r: sparse.scatter_add_rows(
+                         tb, i.reshape(-1), r),
+                     [table, ids, rows], dev, wrt=(0, 2))
+    tb = torch.from_numpy(table).to(dev).requires_grad_()
+    it = torch.from_numpy(ids).to(dev)
+    rt = torch.from_numpy(rows).to(dev)
+    ecot = torch.randn(B, T, E, device=dev)
+    doc["embedding"] = {
+        "card_vs_cpu_rel": emb_err, "scatter_add_card_vs_cpu_rel": sc_err,
+        "fwd_ms": ops_ms(torch, lambda: sparse.embedding_lookup(tb, it)),
+        "fwd_bwd_ms": ops_ms(torch, lambda: torch.autograd.grad(
+            sparse.embedding_lookup(tb, it), tb, ecot)),
+        "scatter_add_rows_ms": ops_ms(torch, lambda: sparse.scatter_add_rows(
+            tb.detach(), it.reshape(-1), rt))}
+    x = (rng.randn(B, T, E) * 0.5).astype(np.float32)
+    lt = torch.from_numpy(lengths).to(dev)
+    for kind, gates in (("lstm", 4), ("gru", 3)):
+        fnc = getattr(rnn, kind)
+        for H in LSTM_HIDDEN:
+            w_ih = (rng.randn(E, gates * H) / np.sqrt(E)).astype(np.float32)
+            w_hh = (rng.randn(H, gates * H) / np.sqrt(H)).astype(np.float32)
+            b = (0.1 * rng.randn(gates * H)).astype(np.float32)
+            row = {}
+            for reverse in (False, True):
+                def fn(d, xa, la, *w, reverse=reverse, fnc=fnc):
+                    return fnc(xa, la, *w, reverse=reverse)
+
+                err, _ = held(torch, f"{kind} H={H} reverse={reverse}", fn,
+                              [x[:P], lengths[:P], w_ih, w_hh, b], dev,
+                              wrt=(0, 2, 3, 4), rel=OPS_BF16_REL)
+                xt = torch.from_numpy(x).to(dev).requires_grad_()
+                wt = [torch.from_numpy(a).to(dev).requires_grad_()
+                      for a in (w_ih, w_hh, b)]
+                cot = torch.randn(B, T, H, device=dev)
+
+                def fwd_bwd(xt=xt, wt=wt, cot=cot, reverse=reverse, fnc=fnc):
+                    out = fnc(xt, lt, *wt, reverse=reverse)[0]
+                    torch.autograd.backward(out, cot)
+
+                def fwd(xt=xt, wt=wt, reverse=reverse, fnc=fnc):
+                    with torch.no_grad():
+                        return fnc(xt, lt, *wt, reverse=reverse)
+
+                row["reverse" if reverse else "forward"] = {
+                    "card_vs_cpu_rel": err, "fwd_ms": ops_ms(torch, fwd),
+                    "fwd_bwd_ms": ops_ms(torch, fwd_bwd)}
+            if kind == "lstm":
+                row["cudnn_lstm_fp32"] = cudnn_lstm_ms(torch, dev, B, T, E, H)
+            doc[f"{kind}_h{H}"] = row
+
+    D = 512
+    xs = rng.randn(B, T, D).astype(np.float32)
+    wr = (rng.randn(3, D) * 0.3).astype(np.float32)
+    seq_doc = {}
+    for name, fn in (
+            ("seq_avg", lambda d, a, l: sequence.seq_avg(a, l)),
+            ("seq_max", lambda d, a, l: sequence.seq_max(a, l)),
+            ("seq_last", lambda d, a, l: sequence.seq_last(a, l)),
+            ("context_projection",
+             lambda d, a, l: sequence.context_projection(a, l, 3, -1))):
+        err, _ = held(torch, name, fn, [xs, lengths], dev, wrt=(0,))
+        xt = torch.from_numpy(xs).to(dev)
+        seq_doc[name] = {"card_vs_cpu_rel": err,
+                         "ms": ops_ms(torch, lambda fn=fn: fn(dev, xt, lt))}
+    err, _ = held(torch, "row_conv",
+                  lambda d, a, l, w: sequence.row_conv(a, l, w),
+                  [xs, lengths, wr], dev, wrt=(0, 2))
+    wrt_ = torch.from_numpy(wr).to(dev)
+    seq_doc["row_conv"] = {"card_vs_cpu_rel": err, "ms": ops_ms(
+        torch, lambda: sequence.row_conv(xt, lt, wrt_))}
+    doc[f"sequence_d{D}"] = seq_doc
+    return doc
+
+
+def cudnn_lstm_ms(torch, dev, B, T, E, H) -> dict:
+    """``torch.nn.LSTM`` (cuDNN, fp32, TF32 off) at the same shapes,
+    forward and forward + backward: a yardstick the port never calls."""
+    lstm = torch.nn.LSTM(E, H, batch_first=True).to(dev)
+    x = torch.randn(B, T, E, device=dev, requires_grad=True)
+    cot = torch.randn(B, T, H, device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            return lstm(x)
+
+    def fwd_bwd():
+        torch.autograd.backward(lstm(x)[0], cot)
+
+    return {"fwd_ms": ops_ms(torch, fwd), "fwd_bwd_ms": ops_ms(torch, fwd_bwd)}
+
+
+def ops_structured(torch, dev) -> dict:
+    """The structured losses: ``crf_log_likelihood`` (and its gradient)
+    and ``crf_decode`` at B = 64, T = 100, 64 tags; ``ctc_loss`` with its
+    gradient and ``ctc_greedy_decode`` at B = 32, T = 400 frames, 29
+    classes with the blank, labels up to 100 long; ``lambda_rank`` at
+    B = 64, lists of 50."""
+    from paddle_tpu_torch.ops import crf, ctc, loss
+    rng = np.random.RandomState(2)
+    doc = {}
+    B, T, N = 64, 100, 64
+    emis = rng.randn(B, T, N).astype(np.float32)
+    trans = (0.5 * rng.randn(N + 2, N)).astype(np.float32)
+    tags = rng.randint(0, N, (B, T)).astype(np.int32)
+    lens = rng.randint(50, T + 1, B).astype(np.int32)
+    ll_err, _ = held(torch, "crf_log_likelihood",
+                     lambda d, e, tg, l, w: crf.crf_log_likelihood(e, tg, l, w),
+                     [emis, tags, lens, trans], dev, wrt=(0, 3))
+    dec_err, _ = held(torch, "crf_decode",
+                      lambda d, e, l, w: crf.crf_decode(e, l, w),
+                      [emis, lens, trans], dev)
+    et, tt_, lt, wt = (torch.from_numpy(a).to(dev)
+                       for a in (emis, tags, lens, trans))
+    et.requires_grad_()
+    wt.requires_grad_()
+    doc["crf"] = {
+        "B": B, "T": T, "tags": N, "log_likelihood_card_vs_cpu_rel": ll_err,
+        "decode_tags_equal": True, "decode_score_card_vs_cpu_rel": dec_err,
+        "log_likelihood_fwd_bwd_ms": ops_ms(torch, lambda: torch.autograd.grad(
+            crf.crf_log_likelihood(et, tt_, lt, wt).sum(), (et, wt))),
+        "decode_ms": ops_ms(torch, lambda: crf.crf_decode(et.detach(), lt,
+                                                          wt.detach()))}
+
+    B, T, C, L = 32, 400, 29, 100
+    logits = rng.randn(B, T, C).astype(np.float32)
+    lab_len = rng.randint(50, L + 1, B).astype(np.int32)
+    labels = rng.randint(1, C, (B, L)).astype(np.int32)
+    in_len = rng.randint(300, T + 1, B).astype(np.int32)
+    in_len[0] = T
+
+    def ctc_fn(d, lg, lb, il, ll):
+        return ctc.ctc_loss(torch.log_softmax(lg, -1), lb, il, ll)
+
+    ctc_err, _ = held(torch, "ctc_loss", ctc_fn,
+                      [logits, labels, in_len, lab_len], dev, wrt=(0,))
+    lp = np.log(np.exp(logits) / np.exp(logits).sum(-1, keepdims=True))
+    gd_err, _ = held(torch, "ctc_greedy_decode",
+                     lambda d, a, il: ctc.ctc_greedy_decode(a, il),
+                     [lp.astype(np.float32), in_len], dev)
+    lg, lb, il, ll = (torch.from_numpy(a).to(dev)
+                      for a in (logits, labels, in_len, lab_len))
+    lg.requires_grad_()
+    lpt = torch.log_softmax(lg.detach(), -1)
+    doc["ctc"] = {
+        "B": B, "T": T, "classes": C, "max_label": L,
+        "loss_card_vs_cpu_rel": ctc_err, "greedy_ids_equal": True,
+        "loss_fwd_bwd_ms": ops_ms(torch, lambda: torch.autograd.grad(
+            ctc_fn(dev, lg, lb, il, ll).sum(), lg)),
+        "loss_fwd_ms": ops_ms(torch, lambda: ctc_fn(dev, lg.detach(), lb, il,
+                                                    ll)),
+        "greedy_decode_ms": ops_ms(torch, lambda: ctc.ctc_greedy_decode(
+            lpt, il))}
+
+    B, T = 64, 50
+    scores = rng.randn(B, T).astype(np.float32)
+    rel = rng.randint(0, 5, (B, T)).astype(np.float32)
+    ln = rng.randint(10, T + 1, B).astype(np.int32)
+    lr_err, _ = held(torch, "lambda_rank",
+                     lambda d, s, r, l: loss.lambda_rank(s, r, l),
+                     [scores, rel, ln], dev, wrt=(0,))
+    st, rt, lnt = (torch.from_numpy(a).to(dev) for a in (scores, rel, ln))
+    st.requires_grad_()
+    doc["lambda_rank"] = {
+        "B": B, "list": T, "card_vs_cpu_rel": lr_err,
+        "fwd_bwd_ms": ops_ms(torch, lambda: torch.autograd.grad(
+            loss.lambda_rank(st, rt, lnt).sum(), st))}
+    return doc
+
+
+# SSD300 (Liu et al. 2016): the six feature maps, their min/max sizes and
+# aspect ratios -> 8732 priors
+SSD_MAPS = ((38, 30, 60, (2.0,)), (19, 60, 111, (2.0, 3.0)),
+            (10, 111, 162, (2.0, 3.0)), (5, 162, 213, (2.0, 3.0)),
+            (3, 213, 264, (2.0,)), (1, 264, 315, (2.0,)))
+SSD_PRIORS = 8732
+ROI_N, ROI_OUT, ROI_MAP = 128, 7, (38, 38, 512)
+
+
+def ops_ssd(torch, dev) -> dict:
+    """SSD300 detection: ``prior_boxes`` over the six maps (8732 priors),
+    ``match_priors`` against 10 boxes, ``encode_boxes`` / ``decode_boxes``,
+    ``nms`` over the 8732 decoded boxes (max_out 200), and ``roi_pool`` of
+    128 ROIs to 7x7 over a 38x38x512 fp32 map, with its peak memory."""
+    from paddle_tpu_torch.ops import detection as det
+    rng = np.random.RandomState(3)
+
+    def priors(d):
+        return torch.cat([det.prior_boxes(f, f, 300, 300, lo, hi, ar,
+                                          device=d)
+                          for f, lo, hi, ar in SSD_MAPS])
+
+    perr, (pc,) = held(torch, "prior_boxes", priors, [], dev)
+    n = pc.shape[0]
+    if n != SSD_PRIORS:
+        fail(f"ops prior_boxes: {n} priors, expected {SSD_PRIORS}")
+    pr = pc.numpy()
+    xy = rng.uniform(0.0, 0.7, (10, 2))
+    gt = np.concatenate([xy, xy + rng.uniform(0.05, 0.3, (10, 2))],
+                        1).astype(np.float32)
+    valid = np.ones(10, bool)
+    valid[9] = False
+    merr, (mi, _) = held(torch, "match_priors",
+                         lambda d, p, g, v: det.match_priors(p, g, v),
+                         [pr, gt, valid], dev)
+    matched = int((mi >= 0).sum())
+    # regression targets: the matched box, or the prior itself (background)
+    gt_p = np.where((mi.numpy() >= 0)[:, None],
+                    gt[np.maximum(mi.numpy(), 0)], pr).astype(np.float32)
+    eerr, (loc,) = held(torch, "encode_boxes",
+                        lambda d, g, p: det.encode_boxes(g, p),
+                        [gt_p, pr], dev, wrt=(0,))
+    loc = (loc.numpy() + 0.1 * rng.randn(n, 4)).astype(np.float32)
+    derr, (boxes,) = held(torch, "decode_boxes",
+                          lambda d, l, p: det.decode_boxes(l, p),
+                          [loc, pr], dev, wrt=(0,))
+    scores = rng.rand(n).astype(np.float32)
+    nerr, (sel, _) = held(torch, "nms", lambda d, b, s: det.nms(b, s, 200),
+                          [boxes.numpy(), scores], dev)
+    pt, gtt, vt = (torch.from_numpy(a).to(dev) for a in (pr, gt, valid))
+    bt, st = (torch.from_numpy(a).to(dev) for a in (boxes.numpy(), scores))
+    doc = {"priors": n, "prior_boxes_card_vs_cpu_rel": perr,
+           "prior_boxes_ms": ops_ms(torch, lambda: priors(dev)),
+           "match_equal": True, "matched_priors": matched,
+           "match_priors_ms": ops_ms(torch, lambda: det.match_priors(
+               pt, gtt, vt)),
+           "encode_card_vs_cpu_rel": eerr, "decode_card_vs_cpu_rel": derr,
+           "encode_ms": ops_ms(torch, lambda: det.encode_boxes(
+               torch.from_numpy(gt_p).to(dev), pt)),
+           "decode_ms": ops_ms(torch, lambda: det.decode_boxes(
+               torch.from_numpy(loc).to(dev), pt)),
+           "nms_equal": True, "nms_kept": int((sel >= 0).sum()),
+           "nms_ms": ops_ms(torch, lambda: det.nms(bt, st, 200))}
+
+    H, W, C = ROI_MAP
+    feat = rng.randn(H, W, C).astype(np.float32)
+    xy = rng.uniform(0, 0.8 * W, (ROI_N, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(1, 0.5 * W, (ROI_N, 2))],
+                          1).astype(np.float32)
+    rerr, _ = held(torch, "roi_pool",
+                   lambda d, f, r: det.roi_pool(f, r, ROI_OUT, ROI_OUT),
+                   [feat, rois], dev, wrt=(0,))
+    ft, rt = (torch.from_numpy(a).to(dev) for a in (feat, rois))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    det.roi_pool(ft, rt, ROI_OUT, ROI_OUT)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    doc["roi_pool"] = {
+        "rois": ROI_N, "out": [ROI_OUT, ROI_OUT], "map": list(ROI_MAP),
+        "card_vs_cpu_rel": rerr,
+        "ms": ops_ms(torch, lambda: det.roi_pool(ft, rt, ROI_OUT, ROI_OUT)),
+        "peak_bytes_above_inputs": peak,
+        "reference_dense_mask_bytes": ROI_N * ROI_OUT ** 2 * H * W * C * 4}
+    return doc
+
+
+BEAM_B, BEAM_K, BEAM_V, BEAM_H, BEAM_LEN = 16, 5, 30000, 512, 50
+
+
+def gru_decoder(torch, d, rng):
+    """A GRU decoder cell of hidden 512 over a 30000-word vocabulary
+    (random weights from ``rng``) as a ``beam_search`` step function on
+    ``d``, and its initial state (an encoder context tiled over K)."""
+    from paddle_tpu_torch.ops import math, rnn
+    H, V = BEAM_H, BEAM_V
+    w = {"emb": rng.randn(V, H) * 0.5, "w_ih": rng.randn(H, 3 * H) / np.sqrt(H),
+         "w_hh": rng.randn(H, 3 * H) / np.sqrt(H),
+         "out": rng.randn(H, V) * 3.0 / np.sqrt(H)}
+    w = {k: torch.from_numpy(v.astype(np.float32)).to(d) for k, v in w.items()}
+
+    def step(tok, state):
+        b, k = tok.shape
+        x = w["emb"][tok.long()].reshape(b * k, H)
+        h = rnn.gru_cell(math.matmul(x, w["w_ih"]), state.reshape(b * k, H),
+                         w["w_hh"])
+        logp = torch.log_softmax(math.matmul(h, w["out"]), -1)
+        return logp.reshape(b, k, V), h.reshape(b, k, H)
+
+    return step
+
+
+def beam_records(torch, run):
+    """``run()`` with ``ops.beam``'s top-k recording each step's top K+1
+    candidate scores and flat indices (CPU tensors): the K-th to (K+1)-th
+    margin decides whether a selection could flip."""
+    from paddle_tpu_torch.ops import beam
+    records, orig = [], beam.top_k
+
+    def top_k(x, k):
+        v, i = orig(x, k + 1)
+        records.append((v.detach().cpu(), i.cpu()))
+        return v[..., :k], i[..., :k]
+
+    beam.top_k = top_k
+    try:
+        out = run()
+    finally:
+        beam.top_k = orig
+    return out, records
+
+
+def beam_gate(torch, label, cpu, card, K) -> dict:
+    """Card against CPU per batch row: the rows' selections (flat indices
+    of the top K) must be equal at every step, except from a step where the
+    CPU's candidates K and K+1 (or two of the top K) lie within ``dmax``,
+    the largest |card - CPU| score of the selections that agreed; such a
+    row is reported and not compared further."""
+    (cout, crec), (gout, grec) = cpu, card
+    B = cout[0].shape[0]
+    dmax, diverged = 0.0, {}
+    for t, ((vc, ic), (vg, ig)) in enumerate(zip(crec, grec)):
+        for b in range(B):
+            if b in diverged:
+                continue
+            if torch.equal(ic[b, :K], ig[b, :K]):
+                dmax = max(dmax, float((vc[b, :K] - vg[b, :K]).abs().max()))
+                continue
+            diverged[b] = (t, float((vc[b, :K] - vc[b, 1:K + 1]).min()))
+    if len(crec) != len(grec) and len(diverged) < B:
+        fail(f"ops {label}: {len(grec)} steps on the card, {len(crec)} on "
+             f"the CPU")
+    for b, (t, margin) in diverged.items():
+        print(f"ops {label} divergence: " + json.dumps(
+            {"row": b, "step": t, "margin": margin, "max_abs_dscore": dmax}))
+        if not margin < dmax:
+            fail(f"ops {label}: row {b} diverges from the CPU at step {t} "
+                 f"(margin {margin} vs {dmax})")
+    final_ties = 0
+    for b in range(B):
+        if b in diverged:
+            continue
+        if rel_err(torch, gout[2][b], cout[2][b]) > OPS_F32_REL:
+            fail(f"ops {label}: row {b} scores {gout[2][b].tolist()} vs the "
+                 f"CPU's {cout[2][b].tolist()}")
+        if all(torch.equal(c[b], g[b]) for c, g in zip(cout[:2], gout[:2])):
+            continue
+        # equal selections, another final order: only a near-tie of the
+        # CPU's final scores may reorder them
+        gaps = (cout[2][b][:-1] - cout[2][b][1:]).abs()
+        if not (gaps.numel() and float(gaps.min()) < dmax):
+            fail(f"ops {label}: row {b} tokens differ from the CPU with "
+                 f"equal selections")
+        final_ties += 1
+    return {"rows_equal": B - len(diverged) - final_ties,
+            "rows_diverged_at_near_tie": len(diverged),
+            "rows_reordered_at_final_near_tie": final_ties,
+            "max_abs_dscore": dmax, "steps": len(grec)}
+
+
+def ops_beam(torch, dev) -> dict:
+    """``beam_search`` (B = 16, K = 5, V = 30000, max_len 50) and
+    ``greedy_search`` over a GRU decoder cell of hidden 512, fp32
+    compute: tokens against the CPU's (``beam_gate``) and card times."""
+    from paddle_tpu_torch.ops import beam
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    old = GLOBAL_FLAGS.get("compute_dtype")
+    GLOBAL_FLAGS.set("compute_dtype", "float32")
+    try:
+        doc = {"B": BEAM_B, "K": BEAM_K, "V": BEAM_V, "hidden": BEAM_H,
+               "max_len": BEAM_LEN}
+        ctx = np.random.RandomState(5).randn(BEAM_B, 1, BEAM_H).astype(
+            np.float32)
+        for name, K in (("beam_search", BEAM_K), ("greedy_search", 1)):
+            outs = []
+            for d in ("cpu", dev):
+                step = gru_decoder(torch, d, np.random.RandomState(4))
+                st = torch.from_numpy(np.repeat(ctx, K, 1)).to(d)
+                if K == 1:
+                    run = lambda: beam.greedy_search(step, st, BEAM_B, BEAM_V,
+                                                     1, 2, BEAM_LEN)
+                else:
+                    run = lambda: beam.beam_search(step, st, BEAM_B, K, BEAM_V,
+                                                   1, 2, BEAM_LEN)
+                with torch.no_grad():
+                    out, rec = beam_records(torch, run)
+                outs.append(([o.cpu() if o.dim() > 1 else o.cpu()[:, None]
+                              for o in out], rec))
+                if d != "cpu":
+                    with torch.no_grad():
+                        ms = ops_ms(torch, run)
+            gate = beam_gate(torch, name, outs[0], outs[1], K)
+            doc[name] = {**gate, "ms": ms,
+                         "ms_per_step": ms / max(gate["steps"], 1)}
+    finally:
+        GLOBAL_FLAGS.set("compute_dtype", old)
+    return doc
+
+
+def ops_phase(torch, dev) -> dict:
+    """The ``ops:`` line: the op layer at the repo's CNN/RNN benchmark
+    widths, each group held against the CPU (the port's same function on
+    the same inputs, TF32 off) and timed on the card."""
+    t0 = time.perf_counter()
+    doc = {"resnet50": ops_resnet(torch, dev), "lstm": ops_lstm(torch, dev),
+           "structured": ops_structured(torch, dev), "ssd": ops_ssd(torch, dev),
+           "beam": ops_beam(torch, dev)}
+    doc["phase_s"] = time.perf_counter() - t0
+    print("ops: " + json.dumps(doc))
+    return doc
+
+
+# ---------------------------------------------------------------------------
 # training phase
 # ---------------------------------------------------------------------------
 
@@ -3827,6 +4551,7 @@ def main():
     served8, _ = engine_phase(torch, tt, kernels, PagedDecodeEngine, cfg,
                               dev, w8, "int8", "engine_int8", ".int8")
     del w8
+    ops_phase(torch, dev)
     trained = train_phase(torch, tt, topt, kernels, costs, place, cfg, dev)
     launches = {**{k: served[k] for k in SERVING_KERNELS},
                 "fused_sample.threefry": served["fused_sample.threefry"],

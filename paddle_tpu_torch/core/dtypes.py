@@ -26,3 +26,16 @@ def resolve(name_or_dtype) -> torch.dtype:
 def name(dtype) -> str:
     """Canonical name of a dtype (``torch.bfloat16`` -> ``"bfloat16"``)."""
     return str(resolve(dtype)).replace("torch.", "")
+
+
+def param_dtype() -> torch.dtype:
+    """Parameter dtype: the ``default_dtype`` flag (``float32``)."""
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    return resolve(GLOBAL_FLAGS.get("default_dtype", "float32"))
+
+
+def compute_dtype() -> torch.dtype:
+    """Dtype matmul and conv operands are rounded to: the
+    ``compute_dtype`` flag (``bfloat16``; ``PADDLE_TPU_COMPUTE_DTYPE``)."""
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    return resolve(GLOBAL_FLAGS.get("compute_dtype", "bfloat16"))

@@ -66,6 +66,7 @@ from paddle_tpu_torch.ops import loss as ops_loss
 from paddle_tpu_torch.ops import norm
 from paddle_tpu_torch.ops import prng
 from paddle_tpu_torch.ops import q8
+from paddle_tpu_torch.ops.topk import top_k as _top_k
 from paddle_tpu_torch.ops.kernels import attention as kattention
 from paddle_tpu_torch.ops.kernels import decode as kdecode
 from paddle_tpu_torch.ops.kernels import prefill as kprefill
@@ -1034,14 +1035,6 @@ def generate(params, prompt: torch.Tensor, cfg: TransformerConfig, *,
         toks.append(sample(logits, keys[i + 1]))
     return torch.cat([prompt.to(torch.int32), torch.stack(toks, dim=1)],
                      dim=1)
-
-
-def _top_k(x: torch.Tensor, k: int):
-    """(values, indices) of the ``k`` largest along the last axis, ties
-    to the lower index (``lax.top_k``'s order; ``torch.topk`` promises
-    none): the head of a stable descending sort."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def beam_search(params, prompt: torch.Tensor, cfg: TransformerConfig, *,

@@ -1,7 +1,7 @@
 """Runtime flags — the port's own copy of ``paddle_tpu/utils/flags.py``'s
 typed registry with the flags the port reads (``profile``,
-``flight_dir``); each is overridden by ``PADDLE_TPU_<NAME>`` in the
-environment at import."""
+``flight_dir``, ``default_dtype``, ``compute_dtype``); each is overridden
+by ``PADDLE_TPU_<NAME>`` in the environment at import."""
 
 import os
 import threading
@@ -51,6 +51,14 @@ class FlagRegistry:
     def get(self, name, default=None):
         return self._values.get(name, default)
 
+    def set(self, name, value):
+        with self._lock:
+            if name not in self._specs:
+                raise KeyError(f"unknown flag {name!r}")
+            spec = self._specs[name]
+            self._values[name] = (spec.parser(value) if isinstance(value, str)
+                                  else value)
+
     def describe(self):
         return {n: (self._values[n], s.help) for n, s in self._specs.items()}
 
@@ -62,3 +70,6 @@ GLOBAL_FLAGS.define("flight_dir", "", "directory for flight-recorder "
                     "post-mortem artifacts (also: PADDLE_TPU_FLIGHT_DIR); "
                     "empty = working directory, and crash dumps beyond the "
                     "NaN tripwire stay off")
+GLOBAL_FLAGS.define("default_dtype", "float32", "parameter dtype")
+GLOBAL_FLAGS.define("compute_dtype", "bfloat16", "matmul/conv compute dtype "
+                    "(operands rounded to it, products accumulated in fp32)")

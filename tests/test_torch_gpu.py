@@ -1518,3 +1518,143 @@ def test_gpu_process_fleet_sigkill_healed_zero_lost(cuda, tmp_path):
         if router is not None:
             router.close()
         fleet.close()
+
+
+# -- the op layer (since slice 13): card against CPU, same inputs --------
+# Tolerances: max |card - CPU| over max |CPU|: 1e-4 in fp32 (sums in
+# another order, CTC over 40 frames); 2^-5 where the compute dtype is bf16
+# (conv_bn: operands rounded to bf16 at each product, so a value near a
+# rounding boundary rounds the other way and travels through BN); the
+# pools and ROI pooling's gradient 1e-5 (fp32 window and gradient sums in
+# another order); NMS indices and ROI pooling's outputs (a max) exactly.
+
+def _flat(out) -> list:
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def _card_and_cpu(fn, arrays, cuda, wrt=()):
+    """[(outputs + gradients) on the card, the same on the CPU], CPU
+    tensors: the gradients of sum(out_i * cot_i) over the outputs that
+    carry one, cotangents from a seed."""
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_(i in wrt)
+              for i, a in enumerate(arrays)]
+        outs = _flat(fn(*ts))
+        grads = []
+        if wrt:
+            rng = np.random.RandomState(1)
+            loss = sum((o.float() * torch.from_numpy(rng.randn(
+                *o.shape).astype(np.float32)).to(dev)).sum()
+                for o in outs if o.requires_grad)
+            grads = list(torch.autograd.grad(loss, [ts[i] for i in wrt]))
+        res.append([t.detach().cpu() for t in outs + grads])
+    return res
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("save8", [False, True])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_gpu_conv_bn_train_matches_cpu(cuda, save8, stride):
+    from paddle_tpu_torch.ops import conv_bn
+    rng = np.random.RandomState(0)
+    args = [rng.randn(4, 12, 12, 16).astype(np.float32),
+            (rng.randn(3, 3, 16, 32) * 0.1).astype(np.float32),
+            (rng.rand(32) + 0.5).astype(np.float32),
+            rng.randn(32).astype(np.float32),
+            np.zeros(32, np.float32), np.ones(32, np.float32)]
+
+    def fn(x, w, g, b, rm, rv):
+        return conv_bn.conv_bn_train(x.to(torch.bfloat16), w, g, b, rm, rv,
+                                     stride=stride, padding="SAME",
+                                     save8=save8)
+
+    card, cpu = _card_and_cpu(fn, args, cuda, wrt=(0, 1, 2, 3))
+    for a, b in zip(card, cpu):
+        assert a.dtype == b.dtype
+        assert _rel(a, b) <= 2.0 ** -5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [3, 4])
+@pytest.mark.parametrize("hw", [7, 8])
+def test_gpu_same_pooling_matches_cpu(cuda, k, hw):
+    """XLA's SAME at stride 2 (extra pad bottom/right) on the card."""
+    from paddle_tpu_torch.ops import pool
+    x = np.random.RandomState(1).randn(2, hw, hw + 1, 5).astype(np.float32)
+    for fn in (lambda a: pool.max_pool2d(a, k, stride=2, padding="SAME"),
+               lambda a: pool.avg_pool2d(a, k, stride=2, padding="SAME")):
+        card, cpu = _card_and_cpu(fn, [x], cuda, wrt=(0,))
+        for a, b in zip(card, cpu):
+            assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gpu_lstm_matches_cpu(cuda, reverse):
+    from paddle_tpu_torch.ops import rnn
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    rng = np.random.RandomState(2)
+    args = [rng.randn(4, 9, 8).astype(np.float32),
+            np.array([9, 4, 1, 7], np.int32),
+            (rng.randn(8, 24) * 0.3).astype(np.float32),
+            (rng.randn(6, 24) * 0.3).astype(np.float32),
+            (rng.randn(24) * 0.1).astype(np.float32)]
+    old = GLOBAL_FLAGS.get("compute_dtype")
+    GLOBAL_FLAGS.set("compute_dtype", "float32")
+    try:
+        card, cpu = _card_and_cpu(
+            lambda x, l, *w: rnn.lstm(x, l, *w, reverse=reverse), args, cuda,
+            wrt=(0, 2, 3, 4))
+    finally:
+        GLOBAL_FLAGS.set("compute_dtype", old)
+    for a, b in zip(card, cpu):
+        assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_gpu_ctc_loss_matches_cpu(cuda):
+    from paddle_tpu_torch.ops import ctc
+    rng = np.random.RandomState(3)
+    args = [rng.randn(3, 40, 6).astype(np.float32),
+            rng.randint(1, 6, (3, 10)).astype(np.int32),
+            np.array([40, 31, 25], np.int32), np.array([10, 6, 0], np.int32)]
+    card, cpu = _card_and_cpu(
+        lambda lg, lb, il, ll: ctc.ctc_loss(torch.log_softmax(lg, -1), lb, il,
+                                            ll), args, cuda, wrt=(0,))
+    for a, b in zip(card, cpu):
+        assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_gpu_nms_matches_cpu(cuda):
+    from paddle_tpu_torch.ops import detection
+    rng = np.random.RandomState(4)
+    xy = rng.uniform(0, 0.8, (300, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(0.02, 0.2, (300, 2))],
+                           1).astype(np.float32)
+    scores = rng.rand(300).astype(np.float32)
+    card, cpu = _card_and_cpu(lambda b, s: detection.nms(b, s, 50),
+                              [boxes, scores], cuda)
+    assert torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
+
+
+@pytest.mark.gpu
+def test_gpu_roi_pool_matches_cpu(cuda):
+    from paddle_tpu_torch.ops import detection
+    rng = np.random.RandomState(5)
+    feat = rng.randn(19, 19, 16).astype(np.float32)
+    xy = rng.uniform(0, 15, (24, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(0, 12, (24, 2))],
+                          1).astype(np.float32)
+    card, cpu = _card_and_cpu(lambda f, r: detection.roi_pool(f, r, 7, 7),
+                              [feat, rois], cuda, wrt=(0,))
+    assert torch.equal(card[0], cpu[0])
+    assert _rel(card[1], cpu[1]) <= 1e-5

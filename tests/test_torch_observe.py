@@ -355,7 +355,8 @@ def test_flight_recorder_dump(tmp_path):
     assert [r["step"] for r in doc["last_steps"]] == [2, 3, 4]
     assert doc["last_steps"][-1]["loss"] == "nan"
     assert doc["exception"]["type"] == "RuntimeError"
-    assert set(doc["config"]) == {"profile", "flight_dir"}
+    assert set(doc["config"]) == {"profile", "flight_dir", "default_dtype",
+                                  "compute_dtype"}
     assert rec.dumped_paths == [path]
 
 
