@@ -141,14 +141,35 @@ order it:
    ``nms`` over 8732 boxes and ``roi_pool`` of 128 ROIs with its peak
    memory; ``beam_search`` and ``greedy_search`` over a GRU decoder
    (tokens equal to the CPU's except at near-ties, ``beam_gate``);
-11. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
+11. the v2 layer API (``layers:`` line, ``layers_phase``): three
+   networks built with the port's ``layer`` / ``networks`` calls (the
+   calls of ``models/text.py`` and ``models/seq2seq.py``), parameters
+   from ``parameters.create``, batches through ``DataFeeder``, each held
+   against the CPU (the port's same graph, parameters and rows: outputs,
+   new state and every parameter's gradient) and timed on the card: the
+   LSTM text classifier (batch 64, T = 100, vocab 30000, emb 128, hidden
+   256, bf16; parity and the evaluators' counts on 16 rows, 5 Adam
+   steps whose loss must fall, forward + backward + update ms), VGG-16
+   (3x224x224 flat CHW, 1000 classes, batch 64, bf16, dropout on;
+   parity on 2 images with every dropout mask bit equal, one Momentum
+   step, forward + backward ms, peak memory) and the attention seq2seq
+   (dictionaries 30000, word vectors and both RNNs 512, batch 32,
+   lengths 20..50, fp32; parity on 4 rows, forward + backward ms; beam
+   search, beam 3, max_length 50, batch 16, tokens against the CPU's on
+   4 rows with ``beam_gate``); then both the classifier and the
+   generator saved with ``save_inference_model`` plain and
+   ``weights_int8``, each reloaded in a fresh process on the card that
+   imports no model code (same ids, probabilities within 1e-6), the
+   classifier's ``aot_compile`` + ``call_exported`` bitwise its eager
+   forward, the generator's capture refused (``GraphCaptureError``);
+12. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
    ten device kernels with the most time, the device's busy share);
-12. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
+13. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
    17 kernels and branches, and ``fused_spec_verify``, kernel 2 at the
    spec trace's verify rows; kernel 2's two streams and kernel 5's bf16
    forward count the slot trace's and the lockstep calls' launches too)
@@ -160,6 +181,7 @@ fp32 on the card as on the CPU.
 
 import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -4277,6 +4299,591 @@ def ops_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# layers phase: the v2 layer API at the widths of three models the repo
+# supports, each network held against the CPU (the port's same graph with
+# the same parameters and rows), timed on the card
+# ---------------------------------------------------------------------------
+
+LAYERS_LSTM = {"vocab": 30000, "emb": 128, "hidden": 256, "batch": 64,
+               "T": 100, "parity_rows": 16, "adam_steps": 5, "lr": 2e-3}
+LAYERS_VGG = {"image": 224, "classes": 1000, "batch": 64,
+              "parity_images": 2, "momentum": 0.9, "lr": 0.01}
+LAYERS_S2S = {"vocab": 30000, "emb": 512, "hidden": 512, "batch": 32,
+              "len_lo": 20, "len_hi": 50, "parity_rows": 4, "gen_batch": 16,
+              "beam": 3, "max_length": 50, "gate_rows": 4}
+
+
+def lstm_classifier(T):
+    """The LSTM text classifier (``benchmarks/configs/lstm.py`` through
+    ``models/text.lstm_text_classification``, its calls): embedding 128,
+    ``simple_lstm`` 256, max pooling, a 2-way softmax, with its cost and
+    the two evaluators."""
+    c = LAYERS_LSTM
+    L, dt = T.layer, T.data_type
+    words = L.data("words", dt.integer_value_sequence(c["vocab"]))
+    lbl = L.data("label", dt.integer_value(2))
+    e = L.embedding(words, c["emb"], name="t_emb")
+    h = T.networks.simple_lstm(e, c["hidden"], name="t_lstm0")
+    pooled = L.pool(h, pooling_type=T.pooling.Max(), name="t_pool")
+    out = L.fc(pooled, 2, act=T.activation.Softmax(), name="t_out")
+    cost = L.classification_cost(out, lbl, name="cost")
+    evals = [T.evaluator.classification_error(out, lbl, name="err"),
+             T.evaluator.auc(out, lbl, name="auc")]
+    return out, cost, evals
+
+
+def seq2seq_graphs(T):
+    """``models/seq2seq.py``'s training and generation graphs (its calls,
+    named layers), one parameter set: two ``simple_gru`` encoders, a
+    ``recurrent_group`` over ``gru_decoder_with_attention``, a softmax fc
+    over the target vocabulary, and ``beam_search`` sharing them."""
+    c = LAYERS_S2S
+    L, N, dt = T.layer, T.networks, T.data_type
+    V, E, H = c["vocab"], c["emb"], c["hidden"]
+    pa = T.attr.ParamAttr
+    src = L.data("source_language_word", dt.integer_value_sequence(V))
+    se = L.embedding(src, E, name="src_emb",
+                     param_attr=pa(name="_source_language_embedding"))
+    fwd = N.simple_gru(se, H, name="src_fwd_gru")
+    bwd = N.simple_gru(se, H, reverse=True, name="src_bwd_gru")
+    enc = L.concat([fwd, bwd], name="encoded_vector")
+    proj = L.fc(enc, H, act="linear", bias_attr=False, name="encoded_proj",
+                param_attr=pa(name="_encoded_proj.w"))
+    boot = L.fc(L.first_seq(bwd, name="enc_last"), H, act="tanh",
+                name="decoder_boot", param_attr=pa(name="_decoder_boot.w"))
+
+    def step(e, p, w):
+        g = N.gru_decoder_with_attention(e, p, w, H, boot, name="decoder_gru")
+        return L.fc(g, V, act="softmax", name="decoder_out",
+                    param_attr=pa(name="_decoder_out.w"))
+    statics = [L.StaticInput(enc, is_seq=True),
+               L.StaticInput(proj, is_seq=True)]
+    trg = L.data("target_language_word", dt.integer_value_sequence(V))
+    te = L.embedding(trg, E, name="trg_emb",
+                     param_attr=pa(name="_target_language_embedding"))
+    dec = L.recurrent_group(step, input=statics + [te], name="decoder_group")
+    lbl = L.data("target_language_next_word", dt.integer_value_sequence(V))
+    cost = L.classification_cost(dec, lbl, name="seq2seq_cost")
+    gen = L.beam_search(step, input=statics + [L.GeneratedInput(
+        size=V, embedding_name="_target_language_embedding",
+        embedding_size=E)], bos_id=0, eos_id=1, beam_size=c["beam"],
+        max_length=c["max_length"], name="generated_word")
+    return cost, gen
+
+
+def graph_run(torch, T, topo, params, state, rows, dev, *, is_training=False,
+              key=None, grads=True, extra=()):
+    """One forward (and the gradients of sum(out * cot) over the floating
+    outputs, cotangents from a seed) of ``topo`` on ``dev``, on copies of
+    ``params`` there; rows through ``DataFeeder``. Returns CPU tensors:
+    (outputs, new state, gradients)."""
+    from paddle_tpu_torch.ops import prng
+    types = {l.name: l.data_spec for l in topo.data_layers}
+    feeds = T.data_feeder.DataFeeder(types, device=dev).feed(rows)
+    leaves = {k: v.detach().to(dev).requires_grad_(grads)
+              for k, v in params.items()}
+    st = {k: v.to(dev) for k, v in state.items()}
+    outs, new = topo.compile(extra)(leaves, st, feeds, is_training=is_training,
+                                    dropout_key=None if key is None
+                                    else prng.prng_key(key))
+    g = {}
+    if grads:
+        rng = np.random.RandomState(1)
+        flo = [v.array for _, v in sorted(outs.items())
+               if v.array.is_floating_point()]
+        loss = sum((a.float() * torch.from_numpy(rng.randn(*a.shape).astype(
+            np.float32)).to(dev)).sum() for a in flo)
+        got = torch.autograd.grad(loss, list(leaves.values()),
+                                  allow_unused=True)
+        g = {k: x.detach().cpu() for k, x in zip(leaves, got)
+             if x is not None}
+    return ({k: v.array.detach().cpu() for k, v in outs.items()},
+            {k: v.detach().cpu() for k, v in new.items()}, g)
+
+
+def graph_held(torch, label, cpu, card, rel) -> dict:
+    """Card against CPU, part by part: floating tensors within ``rel``
+    (relative to the CPU's max), integer ones equal. Returns the largest
+    error of outputs, state and gradients."""
+    doc = {}
+    for part, a, b in zip(("outputs", "state", "grads"), card, cpu):
+        worst = 0.0
+        if set(a) != set(b):
+            fail(f"layers {label}: {part} names differ: {sorted(a)} vs "
+                 f"{sorted(b)}")
+        for n in b:
+            if not b[n].is_floating_point():
+                if not torch.equal(a[n], b[n]):
+                    fail(f"layers {label}: {part} {n} differs from the CPU")
+                continue
+            if not torch.isfinite(a[n].float()).all():
+                fail(f"layers {label}: non-finite {part} {n} on the card")
+            err = rel_err(torch, a[n].float(), b[n].float())
+            if not err <= rel:
+                fail(f"layers {label}: {part} {n} card vs CPU relative error "
+                     f"{err!r} > {rel!r}")
+            worst = max(worst, err)
+        doc[f"{part}_rel"] = worst
+    return doc
+
+
+def layerwise_held(torch, T, topo, params, rows, dev, key, rel,
+                   label) -> dict:
+    """Each layer of ``topo`` run on the CPU from the card's inputs to it
+    (forward, training mode, the same dropout key), and the gradients of
+    its parameters from the card's gradient of its output (the card's run:
+    sum(out * cot) over the graph's outputs, cotangents from a seed): every
+    layer's output and parameter gradients held within ``rel`` of the
+    CPU's. Returns the largest errors."""
+    from paddle_tpu_torch.ops import prng
+    from paddle_tpu_torch.topology import ForwardContext, Value
+
+    def ctx():
+        return ForwardContext(is_training=True,
+                              dropout_key=prng.prng_key(key), state_in={})
+
+    def to_cpu(v):
+        mv = lambda x: None if x is None else x.detach().cpu()
+        return Value(mv(v.array), mv(v.lengths), mv(v.sub_lengths),
+                     mv(v.weights), mv(v.pre_act))
+
+    types = {l.name: l.data_spec for l in topo.data_layers}
+    feeds = T.data_feeder.DataFeeder(types, device=dev).feed(rows)
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    values, card_ctx = {}, ctx()
+    for l in topo.layers:
+        values[l.name] = feeds[l.name] if l.is_data else l.fn(
+            leaves, [values[p.name] for p in l.parents], card_ctx)
+        if values[l.name].array.requires_grad:
+            values[l.name].array.retain_grad()
+    rng = np.random.RandomState(1)
+    loss = sum((values[o.name].array.float() * torch.from_numpy(rng.randn(
+        *values[o.name].array.shape).astype(np.float32)).to(dev)).sum()
+        for o in topo.outputs)
+    loss.backward()
+    fwd_worst, grad_worst = 0.0, 0.0
+    for l in topo.layers:
+        if l.is_data:
+            continue
+        lp = {s.name: leaves[s.name].detach().cpu().requires_grad_()
+              for s in l.param_specs}
+        out = l.fn(lp, [to_cpu(values[p.name]) for p in l.parents], ctx())
+        card_out = values[l.name].array
+        err = rel_err(torch, card_out.detach().cpu().float(),
+                      out.array.detach().float())
+        if not err <= rel:
+            fail(f"layers {label}: layer {l.name} from the card's inputs: "
+                 f"card vs CPU relative error {err!r} > {rel!r}")
+        fwd_worst = max(fwd_worst, err)
+        if lp and card_out.grad is not None:
+            got = torch.autograd.grad(out.array, list(lp.values()),
+                                      grad_outputs=card_out.grad.cpu())
+            for name, g in zip(lp, got):
+                err = rel_err(torch, leaves[name].grad.cpu().float(),
+                              g.float())
+                if not err <= rel:
+                    fail(f"layers {label}: gradient of {name} from the "
+                         f"card's upstream gradient: card vs CPU relative "
+                         f"error {err!r} > {rel!r}")
+                grad_worst = max(grad_worst, err)
+    return {"layers": sum(not l.is_data for l in topo.layers),
+            "outputs_rel": fwd_worst, "grads_rel": grad_worst}
+
+
+def cpu_copy(d) -> dict:
+    return {k: v.detach().cpu() for k, v in d.items()}
+
+
+def layers_lstm(torch, T, dev) -> dict:
+    """The classifier at batch 64, T = 100 (lengths 50..100), bf16
+    compute: parity (forward, loss, gradients, the evaluators' counts) on
+    16 rows, 5 Adam steps on the card (finite, falling loss) and the
+    forward + backward + update ms."""
+    from paddle_tpu_torch.utils.rng import KeySource
+    c = LAYERS_LSTM
+    out, cost, evals = lstm_classifier(T)
+    topo = T.topology.Topology([cost] + evals)
+    params = T.parameters.create(topo, KeySource(7), device=dev)
+    rng = np.random.RandomState(2)
+    rows = [(list(rng.randint(0, c["vocab"], n)), int(rng.randint(2)))
+            for n in rng.randint(c["T"] // 2, c["T"] + 1, c["batch"])]
+    rows[0] = (list(rng.randint(0, c["vocab"], c["T"])), 1)
+    P = c["parity_rows"]
+    doc = {k: c[k] for k in ("vocab", "emb", "hidden", "batch", "T",
+                             "parity_rows")}
+    cpu = graph_run(torch, T, topo, cpu_copy(params.values), {}, rows[:P],
+                    "cpu", is_training=True)
+    card = graph_run(torch, T, topo, params.values, {}, rows[:P], dev,
+                     is_training=True)
+    doc["parity"] = graph_held(torch, "lstm", cpu, card, OPS_BF16_REL)
+    doc["evaluators_equal"] = all(torch.equal(card[0][e.name], cpu[0][e.name])
+                                  for e in evals)
+    doc["err_cpu"] = cpu[0]["err"].tolist()
+
+    types = {l.name: l.data_spec for l in topo.data_layers}
+    feeds = T.data_feeder.DataFeeder(types, device=dev).feed(rows)
+    fwd = T.topology.Topology(cost).compile()
+    adam = T.optimizer.Adam(learning_rate=c["lr"])
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.values.items()}
+    st = adam.init_state(leaves)
+    losses = []
+
+    def step(i):
+        nonlocal st
+        o, _ = fwd(leaves, {}, feeds, is_training=True)
+        loss = o["cost"].array.float().mean()
+        loss.backward()
+        grads = {k: v.grad for k, v in leaves.items()}
+        _, st = adam.update(i, grads, leaves, st)
+        for v in leaves.values():
+            v.grad = None
+        return loss
+
+    for i in range(c["adam_steps"]):
+        losses.append(step(i).item())
+    doc["adam_losses"] = losses
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"layers lstm: the loss did not fall over {len(losses)} Adam "
+             f"steps: {losses}")
+    it = iter(range(c["adam_steps"], 10 ** 6))
+    doc["fwd_bwd_update_ms"] = ops_ms(torch, lambda: step(next(it)))
+    with torch.no_grad():
+        doc["fwd_ms"] = ops_ms(torch, lambda: fwd(leaves, {}, feeds))
+    return doc, out, params
+
+
+def layers_vgg(torch, T, dev) -> dict:
+    """VGG-16 (``networks.vgg_16_network``: 3x224x224 fed as flat CHW,
+    1000 classes, batch 64, bf16 compute) in training mode with dropout
+    on: parity on 2 images (outputs, loss and gradients; the dropout
+    masks equal the CPU's on the same key), one Momentum step, the
+    forward + backward ms and peak memory."""
+    from paddle_tpu_torch.utils.rng import KeySource
+    c = LAYERS_VGG
+    L, dt = T.layer, T.data_type
+    d = 3 * c["image"] ** 2
+    img = L.data("image", dt.dense_vector(d))
+    lbl = L.data("label", dt.integer_value(c["classes"]))
+    out = T.networks.vgg_16_network(img, num_channels=3,
+                                    num_classes=c["classes"])
+    cost = L.classification_cost(out, lbl, name="cost")
+    topo = T.topology.Topology(cost)
+    drops = [l for l in topo.layers if l.layer_type == "dropout"]
+    extra = drops + [l.parents[0] for l in drops]
+    t0 = time.perf_counter()
+    params = T.parameters.create(topo, KeySource(3), device=dev)
+    torch.cuda.synchronize()
+    doc = {**c, "params": int(sum(v.numel() for v in params.values.values())),
+           "create_s": time.perf_counter() - t0}
+    rng = np.random.RandomState(3)
+    rows = [(rng.rand(d).astype(np.float32), int(rng.randint(c["classes"])))
+            for _ in range(c["batch"])]
+    P = c["parity_images"]
+    t0 = time.perf_counter()
+    cpu = graph_run(torch, T, topo, cpu_copy(params.values), {}, rows[:P],
+                    "cpu", is_training=True, key=11, extra=extra,
+                    grads=False)
+    card = graph_run(torch, T, topo, params.values, {}, rows[:P], dev,
+                     is_training=True, key=11, extra=extra, grads=False)
+    doc["parity"] = graph_held(torch, "vgg16", cpu, card, OPS_BF16_REL)
+    # gradients op by op, as the ops: phase holds ResNet blocks: through
+    # 16 bf16 layers a rounding-level difference flips ReLU mask bits and
+    # the first layers' gradients (sums with heavy cancellation) drift
+    # far beyond any rounding tolerance, on either device
+    doc["layerwise"] = layerwise_held(torch, T, topo, params.values,
+                                      rows[:P], dev, 11, OPS_BF16_REL,
+                                      "vgg16")
+    doc["cpu_parity_s"] = time.perf_counter() - t0
+    # a dropout mask where both sides' inputs are nonzero (ReLU zeros
+    # carry no mask bit)
+    compared, differ = 0, 0
+    for l in drops:
+        pre = l.parents[0].name
+        live = (cpu[0][pre] != 0) & (card[0][pre] != 0)
+        kc, kg = cpu[0][l.name] != 0, card[0][l.name] != 0
+        compared += int(live.sum())
+        differ += int((live & (kc != kg)).sum())
+    doc["dropout_mask_compared"], doc["dropout_mask_differ"] = compared, differ
+    if differ or not compared:
+        fail(f"layers vgg16: {differ} of {compared} dropout mask bits differ "
+             f"from the CPU's")
+
+    types = {l.name: l.data_spec for l in topo.data_layers}
+    feeds = T.data_feeder.DataFeeder(types, device=dev).feed(rows)
+    fwd = topo.compile()
+    from paddle_tpu_torch.ops import prng
+    leaves = {k: v.detach().requires_grad_() for k, v in params.values.items()}
+    opt = T.optimizer.Momentum(momentum=c["momentum"], learning_rate=c["lr"])
+    st = opt.init_state(leaves)
+    keys = iter(range(10 ** 6))
+
+    def fwd_bwd():
+        o, _ = fwd(leaves, {}, feeds, is_training=True,
+                   dropout_key=prng.prng_key(next(keys)))
+        loss = o["cost"].array.float().mean()
+        loss.backward()
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    loss0 = fwd_bwd()
+    _, st = opt.update(0, {k: v.grad for k, v in leaves.items()}, leaves, st)
+    for v in leaves.values():
+        v.grad = None
+    doc["loss"] = loss0.item()
+    if not np.isfinite(doc["loss"]):
+        fail(f"layers vgg16: non-finite loss {doc['loss']}")
+
+    def timed():
+        fwd_bwd()
+        for v in leaves.values():
+            v.grad = None
+    doc["fwd_bwd_ms"] = ops_ms(torch, timed)
+    doc["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    return doc
+
+
+def layers_seq2seq(torch, T, dev) -> dict:
+    """The attention seq2seq at the book's machine-translation widths
+    (dictionaries 30000, word vectors 512, encoder and decoder 512), fp32
+    compute: teacher-forced training at batch 32 (lengths 20..50; parity
+    on 4 rows, forward + backward ms), and ``beam_search`` generation
+    (beam 3, max_length 50) at batch 16 sharing those parameters: tokens
+    equal to the CPU's on 4 rows except at a near-tie (``beam_gate``)."""
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    from paddle_tpu_torch.utils.rng import KeySource
+    c = LAYERS_S2S
+    old = GLOBAL_FLAGS.get("compute_dtype")
+    GLOBAL_FLAGS.set("compute_dtype", "float32")
+    try:
+        cost, gen = seq2seq_graphs(T)
+        topo, gtopo = T.topology.Topology(cost), T.topology.Topology(gen)
+        params = T.parameters.create(topo, KeySource(5), device=dev)
+        assert {s.name for s in gtopo.param_specs()} <= set(params.values)
+        rng = np.random.RandomState(4)
+        V = c["vocab"]
+
+        def pair():
+            n, m = rng.randint(c["len_lo"], c["len_hi"] + 1, 2)
+            trg = list(rng.randint(2, V, m))
+            return list(rng.randint(2, V, n)), [0] + trg[:-1], trg
+        rows = [pair() for _ in range(c["batch"])]
+        P = c["parity_rows"]
+        doc = {k: c[k] for k in c}
+        cpu = graph_run(torch, T, topo, cpu_copy(params.values), {}, rows[:P],
+                        "cpu", is_training=True)
+        card = graph_run(torch, T, topo, params.values, {}, rows[:P], dev,
+                         is_training=True)
+        doc["parity"] = graph_held(torch, "seq2seq", cpu, card, OPS_F32_REL)
+        types = {l.name: l.data_spec for l in topo.data_layers}
+        feeds = T.data_feeder.DataFeeder(types, device=dev).feed(rows)
+        fwd = topo.compile()
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in params.values.items()}
+
+        def fwd_bwd():
+            o, _ = fwd(leaves, {}, feeds, is_training=True)
+            o["seq2seq_cost"].array.mean().backward()
+            for v in leaves.values():
+                v.grad = None
+        doc["train_T"] = int(feeds["source_language_word"].array.shape[1])
+        doc["fwd_bwd_ms"] = ops_ms(torch, fwd_bwd)
+
+        gfwd = gtopo.compile()
+        gtypes = {l.name: l.data_spec for l in gtopo.data_layers}
+        G = c["gate_rows"]
+        outs = []
+        for d in ("cpu", dev):
+            pv = params.values if d != "cpu" else cpu_copy(params.values)
+            f = T.data_feeder.DataFeeder(gtypes, device=d).feed(
+                [(r[0],) for r in rows[:G]])
+            with torch.no_grad():
+                out, rec = beam_records(torch, lambda: gfwd(pv, {}, f)[0])
+            v = out["generated_word"]
+            outs.append(([v.array.cpu(), v.sub_lengths.cpu(),
+                          v.weights.cpu()], rec))
+        doc["generate_gate"] = beam_gate(torch, "seq2seq generate", outs[0],
+                                         outs[1], c["beam"])
+        gfeeds = T.data_feeder.DataFeeder(gtypes, device=dev).feed(
+            [(r[0],) for r in rows[:c["gen_batch"]]])
+        with torch.no_grad():
+            doc["generate_ms"] = ops_ms(
+                torch, lambda: gfwd(params.values, {}, gfeeds))
+    finally:
+        GLOBAL_FLAGS.set("compute_dtype", old)
+    return doc, gen, params, rows
+
+
+MERGED_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from paddle_tpu_torch.io import merged
+from paddle_tpu_torch.core.graphs import GraphCaptureError
+job = json.load(open(sys.argv[2]))
+doc = {}
+for name, spec in job.items():
+    t0 = time.perf_counter()
+    # the card by default; a CPU rehearsal names its device
+    m = merged.load_inference_model(
+        spec["path"], **({"device": spec["device"]} if "device" in spec
+                         else {}))
+    doc[name] = {"load_s": time.perf_counter() - t0, "device": str(m.device)}
+    feeds = dict(np.load(spec["feeds"]))
+    out = m.infer(feeds)[spec["output"]]
+    np.save(spec["out"], out)
+    if spec.get("capture"):
+        try:
+            m.aot_compile(spec["capture"])
+            doc[name]["capture"] = "captured"
+        except GraphCaptureError as e:
+            doc[name]["capture"] = "GraphCaptureError: " + str(e)[:160]
+bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
+       or k.startswith("paddle_tpu.") or k == "chip_smoke"]
+doc["foreign_modules"] = bad
+print("CHILD " + json.dumps(doc))
+"""
+
+
+def layers_merged(torch, T, dev, clf, clf_params, gen, gen_params,
+                  gen_rows) -> dict:
+    """The classifier and the seq2seq generator saved with
+    ``save_inference_model``, plain and ``weights_int8``; each loaded in a
+    fresh process on the card that imports no model-building code, whose
+    ``infer`` must give the in-process outputs (ids equal, probabilities
+    within 1e-6); ``aot_compile(64)`` + ``call_exported`` of the
+    classifier bitwise its eager forward; the generator's capture refused
+    with ``GraphCaptureError`` (its stop test reads the device)."""
+    from paddle_tpu_torch.io import merged
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    c = LAYERS_LSTM
+    tmp = Path(tempfile.mkdtemp(prefix="layers_merged_"))
+    rng = np.random.RandomState(6)
+    lens = rng.randint(c["T"] // 2, c["T"] + 1, c["batch"]).astype(np.int32)
+    words = np.zeros((c["batch"], 128), np.int32)
+    for i, n in enumerate(lens):
+        words[i, :n] = rng.randint(0, c["vocab"], n)
+    clf_feeds = {"words": words, "words.lengths": lens}
+    gtypes = {"source_language_word":
+              T.data_type.integer_value_sequence(LAYERS_S2S["vocab"])}
+    gv = T.data_feeder.DataFeeder(gtypes, device="cpu").feed(
+        [(r[0],) for r in gen_rows[:LAYERS_S2S["gen_batch"]]])
+    gen_feeds = {"source_language_word": gv["source_language_word"].array
+                 .numpy(), "source_language_word.lengths":
+                 gv["source_language_word"].lengths.numpy()}
+    doc, job, local = {}, {}, {}
+    old = GLOBAL_FLAGS.get("compute_dtype")
+    for name, out, params, feeds, fp32 in (
+            ("classifier", clf, clf_params, clf_feeds, False),
+            ("generator", gen, gen_params, gen_feeds, True)):
+        np.savez(tmp / f"{name}_feeds.npz", **feeds)
+        for q in (False, True):
+            key = f"{name}{'_int8' if q else ''}"
+            path = str(tmp / f"{key}.tar")
+            t0 = time.perf_counter()
+            merged.save_inference_model(path, out, params, weights_int8=q)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            m = merged.load_inference_model(path, device=dev)
+            load_s = time.perf_counter() - t0
+            if fp32:
+                GLOBAL_FLAGS.set("compute_dtype", "float32")
+            try:
+                local[key] = m.infer(feeds)[out.name]
+            finally:
+                GLOBAL_FLAGS.set("compute_dtype", old)
+            doc[key] = {"save_s": save_s, "load_s": load_s,
+                        "bytes": Path(path).stat().st_size}
+            job[key] = {"path": path, "feeds": str(tmp / f"{name}_feeds.npz"),
+                        "output": out.name, "out": str(tmp / f"{key}.npy")}
+            if name == "generator" and not q and dev.type == "cuda":
+                job[key]["capture"] = 2
+            if dev.type != "cuda":
+                job[key]["device"] = str(dev)
+            if name == "classifier" and not q:
+                t0 = time.perf_counter()
+                m.aot_compile(c["batch"])
+                doc[key]["aot_compile_s"] = time.perf_counter() - t0
+                first = m.call_exported(feeds)[out.name]
+                again = m.call_exported(feeds)[out.name]
+                doc[key]["call_exported_bitwise_infer"] = bool(
+                    np.array_equal(first, local[key])
+                    and np.array_equal(again, local[key]))
+                if not doc[key]["call_exported_bitwise_infer"]:
+                    fail("layers merged: call_exported differs from infer")
+                doc[key]["graphs"] = m._programs[c["batch"]].program.graphs
+                doc[key]["call_exported_ms"] = ops_ms(
+                    torch, lambda: m.call_exported(feeds))
+                doc[key]["infer_ms"] = ops_ms(torch, lambda: m.infer(feeds))
+    (tmp / "job.json").write_text(json.dumps(job))
+    env = dict(os.environ)
+    t0 = time.perf_counter()
+    for keys, dtype in ((("classifier", "classifier_int8"), "bfloat16"),
+                        (("generator", "generator_int8"), "float32")):
+        sub = tmp / f"job_{dtype}.json"
+        sub.write_text(json.dumps({k: job[k] for k in keys}))
+        env["PADDLE_TPU_COMPUTE_DTYPE"] = dtype
+        r = subprocess.run([sys.executable, "-c", MERGED_CHILD,
+                            str(Path(__file__).resolve().parent), str(sub)],
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+        line = [ln for ln in r.stdout.splitlines() if ln.startswith("CHILD ")]
+        if r.returncode != 0 or not line:
+            fail(f"layers merged: the fresh process failed: "
+                 f"{r.stderr[-2000:]}")
+        child = json.loads(line[0][6:])
+        if child.pop("foreign_modules"):
+            fail("layers merged: the fresh process imported model code or "
+                 "JAX")
+        for k in keys:
+            doc[k]["fresh_load_s"] = child[k]["load_s"]
+            if child[k]["device"] != str(dev):
+                fail(f"layers merged {k}: loaded on {child[k]['device']}")
+            got = np.load(job[k]["out"])
+            want = local[k]
+            if got.dtype.kind == "f":
+                err = float(np.abs(got - want).max())
+                ids_equal = bool(np.array_equal(got.argmax(-1),
+                                                want.argmax(-1)))
+                doc[k]["fresh_max_abs_err"] = err
+                if not (err <= 1e-6 and ids_equal):
+                    fail(f"layers merged {k}: fresh process differs "
+                         f"({err}, ids equal {ids_equal})")
+            else:
+                ids_equal = bool(np.array_equal(got, want))
+                if not ids_equal:
+                    fail(f"layers merged {k}: fresh-process ids differ")
+            doc[k]["fresh_ids_equal"] = ids_equal
+            if "capture" in child[k]:
+                doc[k]["capture"] = child[k]["capture"]
+                if not child[k]["capture"].startswith("GraphCaptureError"):
+                    fail(f"layers merged {k}: the generator was captured")
+    doc["fresh_processes_s"] = time.perf_counter() - t0
+    return doc
+
+
+def layers_phase(torch, dev) -> dict:
+    """The ``layers:`` line: the LSTM text classifier, VGG-16 and the
+    attention seq2seq through the port's layer API, each against the
+    CPU, timed on the card; then the merged artifacts."""
+    import paddle_tpu_torch as T
+    t0 = time.perf_counter()
+    doc = {}
+    doc["lstm"], clf, clf_params = layers_lstm(torch, T, dev)
+    doc["vgg16"] = layers_vgg(torch, T, dev)
+    torch.cuda.empty_cache()
+    doc["seq2seq"], gen, gen_params, rows = layers_seq2seq(torch, T, dev)
+    doc["merged"] = layers_merged(torch, T, dev, clf, clf_params, gen,
+                                  gen_params, rows)
+    doc["phase_s"] = time.perf_counter() - t0
+    print("layers: " + json.dumps(doc))
+    return doc
+
+
+# ---------------------------------------------------------------------------
 # training phase
 # ---------------------------------------------------------------------------
 
@@ -4552,6 +5159,7 @@ def main():
                               dev, w8, "int8", "engine_int8", ".int8")
     del w8
     ops_phase(torch, dev)
+    layers_phase(torch, dev)
     trained = train_phase(torch, tt, topt, kernels, costs, place, cfg, dev)
     launches = {**{k: served[k] for k in SERVING_KERNELS},
                 "fused_sample.threefry": served["fused_sample.threefry"],

@@ -30,6 +30,13 @@ exists, so a reader can put the two side by side:
                        master and the fleet's replica processes
                        (``master.ServingFleet``), the launcher, the
                        restart budget
+- ``layer.py``, ``networks.py``, ``recurrent.py``, ``projection.py``
+                       the v2 layer API, compiled by ``topology.py`` into
+                       one forward function, with ``parameters.py``,
+                       ``data_feeder.py``, ``evaluator.py``,
+                       ``inference.py`` and ``io/merged.py`` (the
+                       merged-model artifact, replayable in both
+                       packages)
 - ``cli.py``           ``python -m paddle_tpu_torch serve|route|top``
 - ``observe/``         metrics registry, MFU accounting, the compile
                        tracker, SLO windows, the request log, chrome
@@ -40,4 +47,43 @@ Entry points run on the card unless the caller passes ``device="cpu"``;
 ``core.place.default_device()`` raises where there is no card.
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+# Submodules exposed lazily (PEP 562), as ``paddle_tpu`` does, so
+# ``import paddle_tpu_torch`` stays fast and builds no kernel.
+_SUBMODULES = (
+    "utils", "core", "ops", "layer", "activation", "attr", "data_type",
+    "initializer", "networks", "optimizer", "parameters", "pooling",
+    "topology", "event", "inference", "evaluator", "parallel", "models",
+    "io", "runtime", "recurrent", "projection", "observe", "serving",
+    "record", "data_feeder",
+)
+
+# names of ``paddle_tpu``'s surface still to port, with the ROADMAP item
+# that brings each
+_PENDING = {
+    "trainer": "A7c", "reader": "A8", "dataset": "A8", "batch": "A8",
+    "image": "A8", "plot": "A8", "pipeline": "A8", "distributed": "A9",
+}
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        mod = importlib.import_module(f"paddle_tpu_torch.{name}")
+        globals()[name] = mod
+        return mod
+    if name == "infer":
+        from paddle_tpu_torch.inference import infer
+        return infer
+    if name in _PENDING:
+        raise AttributeError(
+            f"paddle_tpu_torch.{name} is not ported yet (ROADMAP "
+            f"{_PENDING[name]})")
+    raise AttributeError(
+        f"module 'paddle_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_SUBMODULES) + ["infer"])

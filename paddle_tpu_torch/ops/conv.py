@@ -135,6 +135,47 @@ def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, *,
     return y.permute(0, 2, 3, 1)
 
 
+def conv3d(x: torch.Tensor, w: torch.Tensor, *, stride=1,
+           padding=((0, 0), (0, 0), (0, 0))) -> torch.Tensor:
+    """3-D convolution in ``x``'s dtype (the layer API's
+    ``lax.conv_general_dilated`` over NDHWC / DHWIO, no compute-dtype
+    cast). x: [N, D, H, W, Cin]; w: [kD, kH, kW, Cin, Cout]; padding:
+    (lo, hi) per spatial axis, applied with ``F.pad`` where asymmetric."""
+    s = (stride,) * 3 if isinstance(stride, int) else tuple(stride)
+    pads = [tuple(p) for p in padding]
+    xc = x.permute(0, 4, 1, 2, 3)
+    if all(lo == hi for lo, hi in pads):
+        sym = tuple(lo for lo, _ in pads)
+    else:
+        xc = F.pad(xc, tuple(v for lo_hi in reversed(pads) for v in lo_hi))
+        sym = (0, 0, 0)
+    y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), stride=s, padding=sym)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def conv3d_transpose(x: torch.Tensor, w: torch.Tensor, *, stride=1,
+                     padding="SAME") -> torch.Tensor:
+    """3-D ``lax.conv_transpose`` (``transpose_kernel=False``) in ``x``'s
+    dtype, NDHWC / DHWIO: :func:`conv2d_transpose`'s construction with a
+    third axis. "SAME" pads are XLA's, asymmetric when the stride exceeds
+    k - 1 (stride 2 and k = 2: (1, 1) of the dilated input, the output
+    dims ``in * stride``)."""
+    s = (stride,) * 3 if isinstance(stride, int) else tuple(stride)
+    k = w.shape[:3]
+    if isinstance(padding, str):
+        pads = [_transpose_pads(k[i], s[i], padding) for i in range(3)]
+    else:
+        pads = [tuple(p) for p in padding]
+    wt = torch.flip(w, dims=(0, 1, 2)).permute(3, 4, 0, 1, 2)
+    y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), wt, stride=s)
+    adj = []
+    for i in (2, 1, 0):
+        adj += [pads[i][0] - (k[i] - 1), pads[i][1] - (k[i] - 1)]
+    if any(adj):
+        y = F.pad(y, tuple(adj))
+    return y.permute(0, 2, 3, 4, 1)
+
+
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     """[N, H, W, C] -> [N, H/b, W/b, C*b*b], channels merged in (dy, dx,
     c) order (the MLPerf ResNet stem layout)."""

@@ -56,6 +56,33 @@ def avg_pool2d(x: torch.Tensor, ksize: IntOr2, *, stride: IntOr2 = None,
     return out.permute(0, 2, 3, 1).to(x.dtype)
 
 
+def _padded3d(x, padding, value):
+    """NDHWC ``x`` as an NCDHW view padded by (lo, hi) per spatial axis."""
+    xc = x.permute(0, 4, 1, 2, 3)
+    flat = tuple(v for lo_hi in reversed(padding) for v in lo_hi)
+    return F.pad(xc, flat, value=value) if any(flat) else xc
+
+
+def max_pool3d(x: torch.Tensor, ksize, *, stride=None,
+               padding=((0, 0), (0, 0), (0, 0))) -> torch.Tensor:
+    """3-D max pooling, NDHWC, over -inf padding (``lax.reduce_window``
+    with ``lax.max``)."""
+    y = F.max_pool3d(_padded3d(x, padding, float("-inf")), tuple(ksize),
+                     tuple(stride or ksize))
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def avg_pool3d(x: torch.Tensor, ksize, *, stride=None,
+               padding=((0, 0), (0, 0), (0, 0))) -> torch.Tensor:
+    """3-D average pooling, NDHWC: the window sum over zero padding
+    divided by the whole window volume (a ``lax.reduce_window`` sum over
+    the product of the window sizes)."""
+    k = tuple(ksize)
+    y = F.avg_pool3d(_padded3d(x, padding, 0.0), k, tuple(stride or k),
+                     divisor_override=1)
+    return (y / float(k[0] * k[1] * k[2])).permute(0, 2, 3, 4, 1)
+
+
 def global_avg_pool2d(x: torch.Tensor) -> torch.Tensor:
     """[N,H,W,C] -> [N,C]; fp32 accumulation."""
     return x.mean(dim=(1, 2), dtype=torch.float32).to(x.dtype)

@@ -12,6 +12,10 @@ sampler draws from (``jax._src.prng`` and ``jax._src.random``, with
   element split into (hi, lo) counter words, the draw ``bits1 ^ bits2``;
 - :func:`split` — ``jax.random.split``: key ``i`` is the pair of words
   threefry gives for the counters of index ``i``;
+- :func:`fold_in` — ``jax.random.fold_in``: the two words threefry
+  gives for the counters (0, data);
+- :func:`randint` — ``jax.random.randint`` for int32: two draws of
+  bits from the split key, folded into the span;
 - :func:`uniform`, :func:`gumbel`, :func:`categorical`.
 
 Every value is bitwise what JAX computes on the CPU. The integer steps
@@ -97,6 +101,33 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     idx = torch.arange(int(num), dtype=torch.int64, device=key.device)
     b0, b1 = threefry2x32(key, idx >> 32, idx & MASK32)
     return torch.stack([b0, b1], dim=1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a non-negative int32
+    ``data``: the two output words of threefry on the counters
+    (0, data). int64 [2] holding uint32 words, on the key's device."""
+    d = torch.tensor([int(data) & MASK32], dtype=torch.int64,
+                     device=key.device)
+    b0, b1 = threefry2x32(key, torch.zeros_like(d), d)
+    return torch.cat([b0, b1])
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32, scalar
+    bounds): the higher and lower bits come from the two keys of
+    ``split(key)``; with ``span = maxval - minval`` (1 when empty) the
+    offset is ``((hi % span) * m + lo % span) % span`` in uint32
+    arithmetic, ``m = (2**16 % span)**2 % span``. int64 holding the
+    int32 values, on ``device`` (default: the key's)."""
+    k1, k2 = split(key)
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, device)
+    span = (maxval - minval) & MASK32 if maxval > minval else 1
+    mult = ((2 ** 16 % span) ** 2) % span
+    off = (((hi % span) * mult) & MASK32) + lo % span
+    return minval + (off & MASK32) % span
 
 
 def uniform(key: torch.Tensor, shape, minval: float = TINY,

@@ -1,7 +1,7 @@
 """Runtime flags — the port's own copy of ``paddle_tpu/utils/flags.py``'s
 typed registry with the flags the port reads (``profile``,
-``flight_dir``, ``default_dtype``, ``compute_dtype``); each is overridden
-by ``PADDLE_TPU_<NAME>`` in the environment at import."""
+``flight_dir``, ``default_dtype``, ``compute_dtype``, ``seed``); each is
+overridden by ``PADDLE_TPU_<NAME>`` in the environment at import."""
 
 import os
 import threading
@@ -70,6 +70,7 @@ GLOBAL_FLAGS.define("flight_dir", "", "directory for flight-recorder "
                     "post-mortem artifacts (also: PADDLE_TPU_FLIGHT_DIR); "
                     "empty = working directory, and crash dumps beyond the "
                     "NaN tripwire stay off")
+GLOBAL_FLAGS.define("seed", 0, "global RNG seed; 0 derives from time")
 GLOBAL_FLAGS.define("default_dtype", "float32", "parameter dtype")
 GLOBAL_FLAGS.define("compute_dtype", "bfloat16", "matmul/conv compute dtype "
                     "(operands rounded to it, products accumulated in fp32)")

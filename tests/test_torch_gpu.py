@@ -1658,3 +1658,165 @@ def test_gpu_roi_pool_matches_cpu(cuda):
                               [feat, rois], cuda, wrt=(0,))
     assert torch.equal(card[0], cpu[0])
     assert _rel(card[1], cpu[1]) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the v2 layer API on the card against the CPU: the same graph, the same
+# parameters and rows; TF32 off, so fp32 products are full fp32 on both
+# ---------------------------------------------------------------------------
+
+def _layer_run(cuda, build, rows, *, is_training=False, key=None, seed=3):
+    """(cpu, card) runs of ``build()``'s graph: outputs, new state and the
+    gradients of sum(out * cot) over the floating outputs."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.ops import prng
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    from paddle_tpu_torch.utils.rng import KeySource
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # fp32 compute on both sides (the card's machine runs this file
+    # without tests/conftest.py, whose environment sets it for the CPU)
+    old = GLOBAL_FLAGS.get("compute_dtype")
+    GLOBAL_FLAGS.set("compute_dtype", "float32")
+    try:
+        return _layer_runs(cuda, build, rows, is_training, key, seed, T,
+                           prng, KeySource)
+    finally:
+        GLOBAL_FLAGS.set("compute_dtype", old)
+
+
+def _layer_runs(cuda, build, rows, is_training, key, seed, T, prng,
+                KeySource):
+    out = build(T)
+    topo = T.topology.Topology(out)
+    fwd = topo.compile()
+    p0 = T.parameters.create(topo, KeySource(seed), device="cpu")
+    types = {l.name: l.data_spec for l in topo.data_layers}
+    res = []
+    for dev in ("cpu", cuda):
+        feeds = T.data_feeder.DataFeeder(types, device=dev).feed(rows)
+        leaves = {k: v.to(dev).requires_grad_() for k, v in p0.values.items()}
+        state = {k: v.to(dev) for k, v in p0.state.items()}
+        outs, new = fwd(leaves, state, feeds, is_training=is_training,
+                        dropout_key=None if key is None else
+                        prng.prng_key(key))
+        rng = np.random.RandomState(0)
+        flo = {n: v.array for n, v in outs.items()
+               if v.array.is_floating_point()}
+        loss = sum((a.float() * torch.from_numpy(rng.randn(*a.shape).astype(
+            np.float32)).to(dev)).sum() for a in flo.values())
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()), allow_unused=True))) \
+            if leaves else {}
+        res.append(({n: v.array.detach().cpu() for n, v in outs.items()},
+                    {n: v.cpu() for n, v in new.items()},
+                    {n: (g.cpu() if g is not None else None)
+                     for n, g in grads.items()}))
+    return res
+
+
+def _layers_close(cpu, card, tol):
+    for part_c, part_g in zip(cpu, card):
+        assert set(part_c) == set(part_g)
+        for n in part_c:
+            a, b = part_g[n], part_c[n]
+            if b is None:
+                continue
+            if not b.is_floating_point():
+                assert torch.equal(a, b), n
+            else:
+                err = float((a.double() - b.double()).abs().max()
+                            / max(1.0, float(b.abs().max())))
+                assert err <= tol, (n, err)
+
+
+@pytest.mark.gpu
+def test_gpu_recurrent_group_matches_cpu(cuda):
+    def build(P):
+        L = P.layer
+
+        def step(x_t):
+            m = L.memory(name="h", size=16)
+            return L.fc([x_t, m], size=16, act="tanh", name="h")
+        x = L.data("x", P.data_type.dense_vector_sequence(8))
+        g = L.recurrent_group(step, input=x, name="grp")
+        return L.fc(L.last_seq(g, name="last"), 4, act="softmax", name="out")
+    rng = np.random.RandomState(0)
+    rows = [(rng.randn(n, 8).astype(np.float32),) for n in (9, 3, 12, 1)]
+    cpu, card = _layer_run(cuda, build, rows)
+    _layers_close(cpu, card, 1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_conv_bn_pool_matches_cpu(cuda):
+    def build(P):
+        L = P.layer
+        img = L.data("im", P.data_type.dense_vector(3 * 16 * 16))
+        c = L.img_conv(img, 3, num_filters=8, num_channels=3, name="c1")
+        c = L.batch_norm(c, act="relu", name="bn1")
+        c = L.img_pool(c, 2, name="p1")
+        return L.fc(c, 5, act="softmax", name="out")
+    rng = np.random.RandomState(1)
+    rows = [(rng.randn(768).astype(np.float32),) for _ in range(4)]
+    cpu, card = _layer_run(cuda, build, rows, is_training=True)
+    _layers_close(cpu, card, 1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_dropout_masks_match_cpu(cuda):
+    def build(P):
+        x = P.layer.data("x", P.data_type.dense_vector(300))
+        return P.layer.dropout(x, 0.4, name="drop")
+    rows = [(np.ones(300, np.float32),)] * 8
+    for key in (0, 17):
+        cpu, card = _layer_run(cuda, build, rows, is_training=True, key=key)
+        assert torch.equal(card[0]["drop"] == 0, cpu[0]["drop"] == 0)
+
+
+@pytest.mark.gpu
+def test_gpu_merged_round_trip(cuda, tmp_path):
+    """An artifact saved from the card loads on the card: ``infer`` equals
+    the in-process forward, ``call_exported`` (a captured CUDA graph)
+    equals ``infer`` bitwise, and a beam-search generator, whose stop test
+    reads the device, refuses capture."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.core.graphs import GraphCaptureError
+    from paddle_tpu_torch.io import merged
+    from paddle_tpu_torch.utils.rng import KeySource
+    L, dt = T.layer, T.data_type
+    words = L.data("w", dt.integer_value_sequence(100))
+    e = L.embedding(words, 16, name="emb")
+    h = T.networks.simple_lstm(e, 16, name="lstm")
+    out = L.fc(L.pool(h, pooling_type=T.pooling.Max(), name="pool"), 2,
+               act="softmax", name="out")
+    params = T.parameters.create(out, KeySource(2), device=cuda)
+    path = str(tmp_path / "m.tar")
+    merged.save_inference_model(path, out, params, export_batch_sizes=(4,))
+    m = merged.load_inference_model(path)
+    assert m.device == cuda
+    feeds = merged.example_feeds(m.topology, 4)
+    rng = np.random.RandomState(0)
+    feeds["w"] = rng.randint(0, 100, feeds["w"].shape).astype(np.int32)
+    feeds["w.lengths"] = np.array([16, 3, 9, 1], np.int32)
+    got = m.infer(feeds)["out"]
+    want = T.infer(out, params, [(list(r[:n]),) for r, n in
+                                 zip(feeds["w"], feeds["w.lengths"])])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    for _ in range(2):
+        np.testing.assert_array_equal(m.call_exported(feeds)["out"], got)
+
+    src = L.data("s", dt.dense_vector(8))
+
+    def step(emb_t):
+        mem = L.memory(name="dh", size=8, boot_layer=src)
+        hh = L.fc([emb_t, mem], size=8, act="tanh", name="dh")
+        return L.fc(hh, size=10, act="softmax", name="dist")
+    gen = L.beam_search(step, input=[L.GeneratedInput(
+        size=10, embedding_name="gemb", embedding_size=4)], bos_id=1,
+        eos_id=0, beam_size=2, max_length=5, name="gen")
+    gpath = str(tmp_path / "g.tar")
+    merged.save_inference_model(gpath, gen, T.parameters.create(
+        gen, KeySource(1), device=cuda))
+    g = merged.load_inference_model(gpath)
+    with pytest.raises(GraphCaptureError):
+        g.aot_compile(2)

@@ -356,7 +356,7 @@ def test_flight_recorder_dump(tmp_path):
     assert doc["last_steps"][-1]["loss"] == "nan"
     assert doc["exception"]["type"] == "RuntimeError"
     assert set(doc["config"]) == {"profile", "flight_dir", "default_dtype",
-                                  "compute_dtype"}
+                                  "compute_dtype", "seed"}
     assert rec.dumped_paths == [path]
 
 
