@@ -162,14 +162,33 @@ order it:
    imports no model code (same ids, probabilities within 1e-6), the
    classifier's ``aot_compile`` + ``call_exported`` bitwise its eager
    forward, the generator's capture refused (``GraphCaptureError``);
-12. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
+12. the models and the single-card trainer (``trainer:`` line,
+   ``trainer_phase``): ResNet-50 at full width
+   (``benchmarks/configs/resnet50.py``'s graph through the port's
+   ``models.resnet``: 3x224x224, 1000 classes, batch 128, the s2d stem,
+   bf16, Momentum) timed by ``cli.measure_time`` (3 warm-up, 20 timed
+   batches: ms/batch, images/s, the counted FLOPs per image, MFU against
+   989 TFLOP/s, peak memory), trained by ``SGD.train`` for 6 batches (the
+   step monitor's feed / dispatch / sync split), two identical steps
+   compared bitwise, the trainer's step against the hand-composed one,
+   one more step under the profiler (the device's busy share), and one
+   fp32 step at batch 4 against the CPU (``TRAINER_*`` tolerances: the
+   loss, the model state and the head's gradients whole, every
+   convolution and batch norm layer by layer against float64 within
+   fp32's rounding bound, ``hold_ops``); the LSTM classifier through ``SGD.train`` and
+   ``SGD.test`` (the loss must fall); CTR wide&deep at its benchmark
+   widths (one fp32 step against the CPU, then 6 Adam steps); GAN and VAE
+   at their config defaults against the CPU; the CLI's ``time``,
+   ``train`` and ``checkgrad`` as processes on the card. No port kernel
+   launches here (their counts are read around the phase);
+13. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
    ten device kernels with the most time, the device's busy share);
-13. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
+14. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
    17 kernels and branches, and ``fused_spec_verify``, kernel 2 at the
    spec trace's verify rows; kernel 2's two streams and kernel 5's bf16
    forward count the slot trace's and the lockstep calls' launches too)
@@ -179,6 +198,7 @@ TF32 is switched off for matmuls and cuDNN, so fp32 products are full
 fp32 on the card as on the CPU.
 """
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -4884,6 +4904,839 @@ def layers_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# trainer phase: the models and the single-card trainer (``trainer.SGD``,
+# ``cli.measure_time``, the CLI's trainer jobs), each network held against
+# the CPU (the port's same graph, parameters and rows)
+# ---------------------------------------------------------------------------
+
+TRAINER_RESNET = {"image": 224, "classes": 1000, "batch": 128, "warmup": 3,
+                  "timed": 20, "train_batches": 6, "momentum": 0.9,
+                  "lr": 0.01, "parity_batch": 4}
+TRAINER_LSTM = {"vocab": 30000, "emb": 128, "hidden": 256, "T": 100,
+                "batch": 64, "batches": 16, "test_batches": 4, "lr": 2e-3}
+TRAINER_CTR = {"wide": 1000000, "vocab": 100000, "emb": 64,
+               "hidden": (128, 64), "batch": 256, "steps": 6, "lr": 1e-3}
+TRAINER_GEN = {"batch": 64, "steps": 3}
+# Card-vs-CPU tolerances of the ``trainer:`` phase (fp32 compute, TF32 off on
+# both sides; max |card - CPU| over max |CPU| per tensor), fixed before its
+# first run: one step's loss 1e-4; CTR's gradients 1e-4 (its Adam's first
+# update is a sign where a gradient is near 0, so its updates are printed,
+# not gated); GAN and VAE losses per step 1e-4 of max(|loss|, 1); the
+# trainer's step against the step composed by hand on the card 1e-5
+# (bitwise printed; ResNet-50 at batch 128, bf16, where two steps from one
+# state are bitwise equal). ResNet-50 (batch 4): the loss and the model
+# state (every batch norm's new statistics) 1e-4, and the gradients of the
+# leaves that no convolution or batch norm takes (the head's fc) 1e-3. Its
+# other gradients are sums that cancel far below their terms at
+# initialisation (batch norm leaves each conv's output gradient zero-mean
+# and uncorrelated with its normalized input), so one fp32 step cannot
+# resolve them against another fp32 step; they are held layer by layer
+# instead (``hold_ops``): every convolution and batch norm of the card's
+# step, from the operands and upstream gradient the card saw, against the
+# same op in float64 on the CPU, each element of its output, batch
+# statistics and gradients within the fp32 rounding bound of ``op_bound``
+# (at most 1); each leaf's gradient is the op's, bitwise; and each update
+# is -lr times the card's gradient (Momentum's first step from zero
+# velocity) within 4 fp32 ulps of |update| + |parameter| per element.
+TRAINER_F32_REL = 1e-4
+TRAINER_RESNET_REL = 1e-3
+TRAINER_HAND_REL = 1e-5
+U32 = 2.0 ** -24          # fp32 unit roundoff
+TINY32 = 2.0 ** -126      # the least normal fp32: what a flushed denormal loses
+
+
+@contextlib.contextmanager
+def compute_dtype(name):
+    """Run with the ``compute_dtype`` flag set to ``name``."""
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    old = GLOBAL_FLAGS.get("compute_dtype")
+    GLOBAL_FLAGS.set("compute_dtype", name)
+    try:
+        yield
+    finally:
+        GLOBAL_FLAGS.set("compute_dtype", old)
+
+
+def recording(opt):
+    """``opt`` with its ``update`` wrapped to keep a CPU copy of the
+    gradients of each call (``opt.seen``)."""
+    inner = opt.update
+    opt.seen = []
+
+    def update(step, grads, params, state):
+        opt.seen.append({k: g.detach().float().cpu() for k, g in
+                         grads.items()})
+        return inner(step, grads, params, state)
+    opt.update = update
+    return opt
+
+
+def op_bound(torch, got, ref, mag, k) -> float:
+    """max over the elements of |got - ref| / (gamma_k * mag + k * 2^-126),
+    gamma_k = k u / (1 - k u), u = 2^-24. At most 1 wherever ``got`` is
+    an fp32 evaluation, in any order, of sums and products of k rounded
+    steps whose exact value is ``ref`` and whose terms' absolute values
+    sum to ``mag`` (Higham, Accuracy and Stability of Numerical
+    Algorithms, 2nd ed., §3.1, eq. 3.5), each flushed denormal costing
+    at most 2^-126: a bound that cancellation in the sum cannot break."""
+    gk = k * U32 / (1 - k * U32)
+    err = (got.detach().cpu().double() - ref).abs()
+    return float((err / (gk * mag + k * TINY32)).max())
+
+
+class OpRecorder:
+    """While entered, wraps the port's ``ops.conv.conv2d`` and
+    ``ops.norm.batch_norm_train`` (and the batch statistics the latter
+    computes): each call's operands, output, statistics, upstream
+    gradient and operand gradients are copied into ``ops``, the
+    gradients by tensor hooks during the step's ``autograd.grad``. Each
+    operand goes in as a view of its own, so the gradient kept is this
+    op's alone."""
+
+    def __init__(self):
+        self.ops = []
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import conv, norm
+        self.saved = (conv.conv2d, norm.batch_norm_train, norm._bn_stats)
+        conv_fn, bn_fn, stats_fn = self.saved
+        ops = self.ops
+
+        def keep(rec, key):
+            def hook(g):
+                rec[key] = g.detach().clone()
+            return hook
+
+        def watched(rec, named):
+            """(views of the operands); each operand copied into ``rec``
+            under its name (``key`` less its ``d``), its gradient kept
+            under ``key``."""
+            views = []
+            for key, t in named:
+                rec[key[1:]] = t.detach().clone()
+                v = t.view_as(t)
+                if v.requires_grad:
+                    v.register_hook(keep(rec, key))
+                views.append(v)
+            return views
+
+        def conv2d(x, w, **kw):
+            rec = {"kind": "conv", "kw": kw, "w_ptr": w.data_ptr()}
+            y = conv_fn(*watched(rec, (("dx", x), ("dw", w))), **kw)
+            rec["y"] = y.detach().clone()
+            y.register_hook(keep(rec, "dy"))
+            ops.append(rec)
+            return y
+
+        def bn_stats(x, axes, eps):
+            mean, var, inv = stats_fn(x, axes, eps)
+            if ops and ops[-1]["kind"] == "bn" and "mean" not in ops[-1]:
+                ops[-1].update(mean=mean.detach().clone(),
+                               var=var.detach().clone(),
+                               inv=inv.detach().clone())
+            return mean, var, inv
+
+        def batch_norm_train(x, gamma, beta, rm, rv, **kw):
+            rec = {"kind": "bn", "kw": kw, "gamma_ptr": gamma.data_ptr(),
+                   "beta_ptr": beta.data_ptr()}
+            ops.append(rec)
+            y, nm, nv = bn_fn(*watched(rec, (("dx", x), ("dgamma", gamma),
+                                             ("dbeta", beta))),
+                              rm, rv, **kw)
+            rec["y"] = y.detach().clone()
+            y.register_hook(keep(rec, "dy"))
+            return y, nm, nv
+
+        conv.conv2d, norm.batch_norm_train, norm._bn_stats = (
+            conv2d, batch_norm_train, bn_stats)
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import conv, norm
+        conv.conv2d, norm.batch_norm_train, norm._bn_stats = self.saved
+
+
+def conv_op_check(torch, op) -> dict:
+    """One recorded convolution: its output, input gradient and weight
+    gradient on the card against the port's ``conv2d`` in float64 on
+    the CPU from the card's operands and upstream gradient (``op_bound``
+    per tensor, k = the sum's length + 1: kH kW Cin for the output, kH
+    kW Cout for the input gradient, N Ho Wo for the weight gradient),
+    beside the same from the CPU's fp32 ``conv2d`` and the card's under
+    ``cudnn.deterministic`` (printed, not gated)."""
+    from paddle_tpu_torch.ops import conv
+    kh, kw_, cin, cout = op["w"].shape
+    n, ho, wo = op["y"].shape[:3]
+    ks = {"y": kh * kw_ * cin + 1, "dx": kh * kw_ * cout + 1,
+          "dw": n * ho * wo + 1}
+
+    def run(x, w, dy):
+        x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = conv.conv2d(x, w, **op["kw"])
+        dx, dw = torch.autograd.grad(y, (x, w), dy)
+        return {"y": y.detach(), "dx": dx, "dw": dw}
+    x, w, dy = op["x"], op["w"], op["dy"]
+    with compute_dtype(torch.float64):
+        ref = run(x.cpu().double(), w.cpu().double(), dy.cpu().double())
+        mag = run(x.cpu().double().abs(), w.cpu().double().abs(),
+                  dy.cpu().double().abs())
+    with compute_dtype("float32"):
+        cpu = run(x.cpu(), w.cpu(), dy.cpu())
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            card_det = run(x, w, dy)
+        finally:
+            torch.backends.cudnn.deterministic = det
+    card = {"y": op["y"], "dx": op.get("dx"), "dw": op["dw"]}
+    out = {}
+    for t in ("y", "dx", "dw"):
+        if card[t] is None:          # the stem's input needs no gradient
+            continue
+        out[t] = {src: op_bound(torch, got[t], ref[t], mag[t], ks[t])
+                  for src, got in (("card", card), ("cpu", cpu),
+                                   ("card_det", card_det))}
+        out[t]["k"] = ks[t]
+    return out
+
+
+def bn_op_check(torch, op) -> dict:
+    """One recorded batch norm: its batch mean and variance, output, input
+    gradient and gamma / beta gradients on the card against float64 on
+    the CPU from the card's operands and upstream gradient (the
+    backward from the statistics the card used), by ``op_bound`` with k
+    = n + 2 (mean), n + 4 (variance, as E[x^2] - E[x]^2 with m = E[x^2]
+    + 3 E[|x|]^2), 6 (output), n + 2 (beta), n + 4 (gamma) and n + 10
+    (input gradient), n = the values per channel; beside the same from
+    the port's fp32 formulas on the CPU (printed, not gated)."""
+    from paddle_tpu_torch.ops import norm
+    x = op["x"].cpu().double()
+    axes = tuple(range(x.dim() - 1))
+    n = x.numel() // x.shape[-1]
+    g, b = op["gamma"].cpu().double(), op["beta"].cpu().double()
+    dy = op["dy"].cpu().double()
+    mean, inv = op["mean"].cpu().double(), op["inv"].cpu().double()
+    xh = (x - mean) * inv
+    s = g * inv / n
+    sdx, sdy = (dy * xh).sum(axes), dy.sum(axes)
+    sdx_m, sdy_m = (dy * xh).abs().sum(axes), dy.abs().sum(axes)
+    e_abs = x.abs().mean(axes)
+    ref = {"mean": x.mean(axes), "var": x.var(axes, unbiased=False),
+           "y": xh * g + b, "dbeta": sdy, "dgamma": sdx,
+           "dx": s * (n * dy - sdy - xh * sdx)}
+    mag = {"mean": e_abs, "var": x.square().mean(axes) + 3 * e_abs ** 2,
+           "y": (x.abs() + mean.abs()) * g.abs() * inv + b.abs(),
+           "dbeta": sdy_m, "dgamma": sdx_m,
+           "dx": s.abs() * (n * dy.abs() + sdy_m + xh.abs() * sdx_m)}
+    ks = {"mean": n + 2, "var": n + 4, "y": 6, "dbeta": n + 2,
+          "dgamma": n + 4, "dx": n + 10}
+    x32, g32 = op["x"].cpu(), op["gamma"].cpu()
+    m32, v32, i32 = norm._bn_stats(x32, axes, op["kw"].get("eps", 1e-5))
+    cmean, cinv = op["mean"].cpu(), op["inv"].cpu()
+    cdx, cdg, cdb = norm.bn_input_grad(op["dy"].cpu(), x32 - cmean, cinv,
+                                       g32, axes)
+    cpu = {"mean": m32, "var": v32, "dx": cdx, "dgamma": cdg, "dbeta": cdb,
+           "y": norm.bn_affine(x32, g32, op["beta"].cpu(), cmean, cinv)}
+    out = {}
+    for t in ks:
+        out[t] = {"card": op_bound(torch, op[t], ref[t], mag[t], ks[t]),
+                  "cpu": op_bound(torch, cpu[t], ref[t], mag[t], ks[t]),
+                  "k": ks[t]}
+    return out
+
+
+def hold_ops(torch, ops, values, tr, dev) -> tuple:
+    """Every convolution and batch norm the card's step ran (``ops``, from
+    an ``OpRecorder``) against float64 on the CPU (``conv_op_check``,
+    ``bn_op_check``): fails where the card's ``op_bound`` passes 1, or a
+    leaf's gradient as the optimizer got it (``tr.optimizer.seen``) is
+    not its op's bitwise (the space-to-depth stem's through its weight
+    transform's gather, from the leaf's value before the step,
+    ``values``). Returns (doc, {leaf: op}) for the leaves so held."""
+    from paddle_tpu_torch.ops import conv
+    seen = tr.optimizer.seen[0]
+    ptr = {v.data_ptr(): k for k, v in tr.parameters.values.items()}
+    held, rows, missed = {}, [], []
+
+    def wire(k, grad, label):
+        if k is None or k in held or not torch.equal(grad.cpu().float(),
+                                                     seen[k]):
+            fail(f"trainer resnet50: leaf {k}'s gradient is not {label}'s "
+                 f"op gradient bitwise (or two ops took it)")
+        held[k] = label
+    for i, op in enumerate(ops):
+        if op["kind"] == "conv":
+            k = ptr.get(op["w_ptr"])
+            if k is not None and values[k].shape == op["w"].shape:
+                label = k
+                wire(k, op["dw"], label)
+            else:                    # the stem: a transform of its leaf
+                label = None
+                for k, v in values.items():
+                    if k in held or v.dim() != 4:
+                        continue
+                    w0 = v.to(dev).clone().requires_grad_()
+                    ws, _ = conv.space_to_depth_conv_transform(w0)
+                    if ws.shape == op["w"].shape and torch.equal(
+                            ws.detach(), op["w"]):
+                        (g,) = torch.autograd.grad(ws, w0, op["dw"])
+                        label = f"{k} (s2d)"
+                        wire(k, g, label)
+                        break
+                if label is None:
+                    fail(f"trainer resnet50: conv op {i}'s weight is no "
+                         f"leaf and no leaf's space-to-depth transform")
+            res = conv_op_check(torch, op)
+        else:
+            label = ptr.get(op["gamma_ptr"])
+            wire(label, op["dgamma"], label)
+            wire(ptr.get(op["beta_ptr"]), op["dbeta"], label)
+            res = bn_op_check(torch, op)
+        for t, r in res.items():
+            rows.append(dict(r, op=label, kind=op["kind"], tensor=t))
+            if not r["card"] <= 1.0:
+                missed.append(f"{label} {t} {r['card']!r}")
+        op.clear()                   # free the op's card copies
+    if missed:
+        fail(f"trainer resnet50: layer by layer, card vs float64 past the "
+             f"fp32 bound: {missed[:8]}")
+
+    def top(key, n=6):
+        return [{k: r[k] for k in ("op", "tensor", "card", "cpu",
+                                   "card_det", "k") if k in r}
+                for r in sorted(rows, key=key, reverse=True)[:n]]
+    ratio = [r for r in rows if r["cpu"] > 0]
+    doc = {"convs": sum(r["kind"] == "conv" and r["tensor"] == "y"
+                        for r in rows),
+           "batch_norms": sum(r["kind"] == "bn" and r["tensor"] == "y"
+                              for r in rows),
+           "leaves_held": len(held), "tensors": len(rows),
+           "max_card": max(r["card"] for r in rows),
+           "max_cpu": max(r["cpu"] for r in rows),
+           "max_card_det": max(r.get("card_det", 0.0) for r in rows),
+           "worst_card": top(lambda r: r["card"]),
+           "card_over_cpu": top(lambda r: r["card"] / r["cpu"]
+                                if r["cpu"] > 0 else 0.0)
+           if ratio else []}
+    return doc, held
+
+
+def trainer_step_parity(torch, T, label, cost, values, state, make_opt, rows,
+                        dev, grad_rel, recorder=None, first_update=None):
+    """One trainer step on the CPU and on the card from the same values,
+    state and rows (fp32): the loss and the model state, card against
+    CPU, and the gradients the optimizer got within ``grad_rel``
+    (printed only where None); each parameter's update is printed.
+    ``recorder``: an ``OpRecorder`` the card's step runs in, whose ops
+    are then held layer by layer (``hold_ops``), and the leaves they hold
+    are left out of the whole-network gradient gate. ``first_update(g)``:
+    the exact update of a parameter whose gradient is ``g``; each of the
+    card's updates is then held against it, from the card's gradient.
+    Returns (doc, card trainer)."""
+    from paddle_tpu_torch.ops import prng
+    doc, missed, runs = {}, [], {}
+    specs = T.topology.Topology(cost).param_specs()
+    for tag, where in (("card", dev), ("cpu", "cpu")):
+        p = T.parameters.Parameters(specs, device=where)
+        p.values = {k: v.detach().to(where).clone() for k, v in values.items()}
+        p.state = {k: v.detach().to(where).clone() for k, v in state.items()}
+        tr = T.trainer.SGD(cost, p, recording(make_opt()))
+        feeds = tr._feeder(None).feed(rows)
+        t0 = time.perf_counter()
+        with (recorder if recorder is not None and tag == "card"
+              else contextlib.nullcontext()):
+            loss, _ = tr._plain_train_step(feeds, 0, prng.prng_key(0))
+            loss = float(loss)
+        runs[tag] = (tr, loss, time.perf_counter() - t0)
+    card, cpu = runs["card"], runs["cpu"]
+    doc["loss"] = [card[1], cpu[1]]
+    doc["loss_rel"] = abs(card[1] - cpu[1]) / max(abs(cpu[1]), 1e-30)
+    doc["cpu_step_s"] = cpu[2]
+    if not doc["loss_rel"] <= TRAINER_F32_REL:
+        fail(f"trainer {label}: loss card vs CPU relative error "
+             f"{doc['loss_rel']!r} > {TRAINER_F32_REL!r}")
+    doc["state_rel"] = 0.0
+    for k in state:
+        err = rel_err(torch, card[0].parameters.state[k].cpu().float(),
+                      cpu[0].parameters.state[k].float())
+        doc["state_rel"] = max(doc["state_rel"], err)
+    if not doc["state_rel"] <= TRAINER_F32_REL:
+        fail(f"trainer {label}: model state card vs CPU relative error "
+             f"{doc['state_rel']!r} > {TRAINER_F32_REL!r}")
+    held = {}
+    if recorder is not None:
+        t0 = time.perf_counter()
+        doc["by_op"], held = hold_ops(torch, recorder.ops, values,
+                                      card[0], dev)
+        doc["by_op"]["s"] = time.perf_counter() - t0
+
+    def update(tr, k, before):
+        return tr.parameters.values[k].detach().cpu().double() - before
+    gworst, hworst, uworst, fworst = (0.0, None), 0.0, 0.0, 0.0
+    gc, gp = card[0].optimizer.seen[0], cpu[0].optimizer.seen[0]
+    for k, v0 in values.items():
+        if not torch.isfinite(gc[k]).all():
+            fail(f"trainer {label}: non-finite gradient {k} on the card")
+        err = rel_err(torch, gc[k], gp[k])
+        if k in held:
+            gworst = max(gworst, (err, k), key=lambda e: e[0])
+        else:
+            hworst = max(hworst, err)
+            if grad_rel is not None and not err <= grad_rel:
+                missed.append(f"gradient {k} {err!r}")
+        before = v0.detach().cpu().double()
+        dp = update(cpu[0], k, before)
+        diff = float((update(card[0], k, before) - dp).abs().max())
+        uworst = max(uworst, diff / max(float(dp.abs().max()), 1e-30)
+                     if diff else 0.0)
+        if first_update is not None:
+            want = first_update(gc[k].double())
+            bound = 4 * U32 * (want.abs() + before.abs()) + TINY32
+            r = float(((update(card[0], k, before) - want).abs()
+                       / bound).max())
+            fworst = max(fworst, r)
+            if not r <= 1.0:
+                missed.append(f"update {k} {r!r} of its bound")
+    doc["grads_rel"] = hworst
+    doc["updates_rel"] = uworst
+    if held:
+        doc["held_grads_rel"] = {"max": gworst[0], "leaf": gworst[1]}
+    if first_update is not None:
+        doc["updates_over_bound"] = fworst
+    if missed:
+        fail(f"trainer {label}: card vs CPU: {missed[:8]} ({doc})")
+    return doc, card[0]
+
+
+def hand_step(torch, T, tr, feeds, key, step, make_opt) -> dict:
+    """The trainer's plain step against the same step composed by hand
+    (forward, ``autograd.grad``, ``optimizer.update``) from the same
+    values, state and optimizer state, on the card."""
+    values = {k: v.detach().clone() for k, v in tr.parameters.values.items()}
+    state = {k: v.detach().clone() for k, v in tr.parameters.state.items()}
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in
+              values.items()}
+    outs, new_state = tr._forward(leaves, state, feeds, is_training=True,
+                                  dropout_key=key)
+    loss = outs[tr.cost.name].array.float().mean()
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
+                                                 allow_unused=True)))
+    loss = loss.detach()
+    opt = make_opt()
+    opt.bind(tr.topology.param_specs())
+    hand = {k: v.detach().clone() for k, v in values.items()}
+    opt_state = {k: tuple(x.clone() for x in s) if isinstance(s, tuple)
+                 else s.clone() for k, s in tr.opt_state.items()}
+    opt.update(step, grads, hand, opt_state)
+    tl, _ = tr._plain_train_step(feeds, step, key)
+    doc = {"loss_rel": abs(float(tl) - float(loss)) / abs(float(loss)),
+           "bitwise": bool(float(tl) == float(loss)) and all(
+               torch.equal(tr.parameters.values[k], hand[k]) for k in hand)
+           and all(torch.equal(tr.parameters.state[k], new_state[k].detach())
+                   for k in new_state)}
+    doc["params_rel"] = max(rel_err(torch, tr.parameters.values[k].cpu(),
+                                    hand[k].cpu()) for k in hand)
+    if not (doc["loss_rel"] <= TRAINER_HAND_REL
+            and doc["params_rel"] <= TRAINER_HAND_REL):
+        fail(f"trainer: the trainer's step differs from the hand-composed "
+             f"step: {doc}")
+    return doc
+
+
+def resnet50_cost(T):
+    """``benchmarks/configs/resnet50.py``'s graph through the port's
+    ``models.resnet``: 3x224x224 fed flat CHW, 1000 classes, the
+    space-to-depth stem, ``fused_bn`` off."""
+    from paddle_tpu_torch.models import resnet
+    c = TRAINER_RESNET
+    L, dt = T.layer, T.data_type
+    img = L.data("image", dt.dense_vector(3 * c["image"] ** 2))
+    lbl = L.data("label", dt.integer_value(c["classes"]))
+    out = resnet.resnet_imagenet(img, depth=50, class_num=c["classes"],
+                                 stem_space_to_depth=True, fused_bn=False)
+    return L.classification_cost(out, lbl, name="cost")
+
+
+def median_of(recs, key):
+    vals = [r[key] for r in recs if r.get(key) is not None]
+    return float(np.median(vals)) if vals else None
+
+
+def trainer_resnet(torch, T, tcli, dev) -> dict:
+    """ResNet-50 at batch 128, bf16: ``cli.measure_time`` (3 warm-up, 20
+    timed batches), ``SGD.train`` over a synthetic reader (the step
+    monitor's records), two identical steps compared bitwise, the
+    trainer's step against the hand-made one and one step under the
+    profiler, then, fp32 at batch 4, one step card vs CPU, layer by layer
+    against float64."""
+    from paddle_tpu_torch.ops import prng
+    from paddle_tpu_torch.utils.rng import KeySource
+    c = TRAINER_RESNET
+    B, d = c["batch"], 3 * c["image"] ** 2
+    cost = resnet50_cost(T)
+    topo = T.topology.Topology(cost)
+    doc = {"params": int(sum(int(np.prod(s.shape))
+                             for s in topo.param_specs())),
+           "bn_layers": sum(l.layer_type == "batch_norm"
+                            for l in topo.layers),
+           "batch": B}
+    rng = np.random.RandomState(0)
+    samples = [(rng.rand(d).astype(np.float32), int(rng.randint(
+        c["classes"]))) for _ in range(2 * B)]
+
+    def momentum():
+        return T.optimizer.Momentum(momentum=c["momentum"],
+                                    learning_rate=c["lr"])
+    cfg = {"cost": cost, "reader": lambda: iter(samples), "batch_size": B,
+           "optimizer": momentum()}
+    T.init(seed=5)
+    t = tcli.measure_time(cfg, time_batches=c["timed"],
+                          warmup_batches=c["warmup"], device=dev)
+    doc["measure_time"] = {
+        "ms_per_batch": t["ms_per_batch"],
+        "images_per_s": t["examples_per_sec"],
+        "flops_per_image": t["flops_per_batch"] / B,
+        "mfu": t["mfu"], "peak_memory_bytes": t["peak_memory_bytes"],
+        "compile_plus_warmup_s": t["compile_plus_warmup_s"],
+        "last_cost": t["last_cost"]}
+    if not np.isfinite(t["last_cost"]):
+        fail(f"trainer resnet50: non-finite cost {t['last_cost']}")
+    torch.cuda.empty_cache()
+
+    # SGD.train over pre-batched columns (two batches, cycled)
+    params = T.parameters.create(topo, KeySource(5), device=dev)
+    init_values = {k: v.detach().cpu().clone()
+                   for k, v in params.values.items()}
+    init_state = {k: v.detach().cpu().clone()
+                  for k, v in params.state.items()}
+    tr = T.trainer.SGD(cost, params, momentum())
+    cols = [(np.stack([s[0] for s in samples[i * B:(i + 1) * B]]),
+             np.array([s[1] for s in samples[i * B:(i + 1) * B]], np.int32))
+            for i in range(2)]
+    recs, costs = [], []
+    T.observe.add_report_handler(recs.append)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        tr.train(lambda: iter([cols[i % 2]
+                               for i in range(c["train_batches"])]),
+                 event_handler=lambda e: costs.append(e.cost) if isinstance(
+                     e, T.event.EndIteration) else None)
+    finally:
+        T.observe.remove_report_handler(recs.append)
+    steps = [r for r in recs if r.get("kind") == "step"]
+    warm = steps[1:]
+    doc["train"] = {
+        "steps": len(steps), "costs": costs,
+        "step_ms_p50": 1e3 * median_of(warm, "wall_time_s"),
+        "images_per_s_p50": median_of(warm, "examples_per_sec"),
+        "mfu_p50": median_of(warm, "mfu"),
+        "first_step_ms": 1e3 * steps[0]["wall_time_s"],
+        "feed_ms_p50": 1e3 * median_of(warm, "feed_s"),
+        "dispatch_ms_p50": 1e3 * median_of(warm, "dispatch_s"),
+        "sync_ms_p50": 1e3 * median_of(warm, "sync_s"),
+        "bottleneck": [r["bottleneck"] for r in warm],
+        "compile_count": steps[-1]["compile_count"],
+        "step_flops": tr._step_flops and next(iter(
+            tr._step_flops.values())),
+        "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated(
+            dev))}
+    if len(steps) != c["train_batches"] or not all(
+            np.isfinite(costs)) or steps[-1]["compile_count"] != 1:
+        fail(f"trainer resnet50: SGD.train ran {len(steps)} steps, costs "
+             f"{costs}, compile_count {steps[-1]['compile_count']}")
+
+    # two identical steps from one state (bitwise?), then the trainer's
+    # step against the step composed by hand from that state
+    feeds = tr._feeder(None).feed(cols[0])
+    key = prng.prng_key(1)
+    snap = ({k: v.clone() for k, v in tr.parameters.values.items()},
+            {k: v.clone() for k, v in tr.parameters.state.items()},
+            {k: tuple(x.clone() for x in s) if isinstance(s, tuple)
+             else s.clone() for k, s in tr.opt_state.items()})
+
+    def restore():
+        for k, v in snap[0].items():
+            tr.parameters.values[k].copy_(v)
+        tr.parameters.state = {k: v.clone() for k, v in snap[1].items()}
+        tr.opt_state = {k: tuple(x.clone() for x in s)
+                        if isinstance(s, tuple) else s.clone()
+                        for k, s in snap[2].items()}
+    outs = []
+    for _ in range(2):
+        restore()
+        loss, _ = tr._plain_train_step(feeds, tr._step, key)
+        outs.append((float(loss), {k: v.clone() for k, v in
+                                   tr.parameters.values.items()}))
+    doc["repeat"] = {
+        "loss_equal": outs[0][0] == outs[1][0],
+        "params_bitwise": all(torch.equal(outs[0][1][k], outs[1][1][k])
+                              for k in outs[0][1]),
+        "params_max_abs_diff": max(float((outs[0][1][k] - outs[1][1][k])
+                                         .abs().max()) for k in outs[0][1]),
+        "cudnn_deterministic": bool(torch.backends.cudnn.deterministic)}
+    del outs
+    restore()
+    doc["hand_step"] = hand_step(torch, T, tr, feeds, key, tr._step,
+                                 momentum)
+    # the device's busy share of one more step, under the profiler
+    restore()
+    doc["profile"] = profile_window(
+        torch, lambda: float(tr._plain_train_step(feeds, tr._step, key)[0]))
+    del tr, params, snap, feeds
+    torch.cuda.empty_cache()
+
+    # fp32 at batch 4: the card against the CPU
+    with compute_dtype("float32"):
+        doc["parity"], _ = trainer_step_parity(
+            torch, T, "resnet50", cost, init_values, init_state, momentum,
+            samples[:c["parity_batch"]], dev, TRAINER_RESNET_REL,
+            recorder=OpRecorder(), first_update=lambda g: -c["lr"] * g)
+    return doc
+
+
+def trainer_lstm(torch, T, dev) -> dict:
+    """The LSTM text classifier at ``benchmarks/configs/lstm.py``'s widths
+    through ``SGD.train`` (one pass of separable synthetic rows: the label
+    picks the half of the vocabulary the tokens come from) with a
+    classification-error evaluator, then ``SGD.test``: the loss must fall.
+    Every other token of a row is one of 50 ids that its label owns (ids
+    0..49 for label 0, 50..99 for label 1), the rest drawn over the whole
+    vocabulary."""
+    from paddle_tpu_torch.utils.rng import KeySource
+    c = TRAINER_LSTM
+    out, cost, evals = lstm_classifier(T)
+    params = T.parameters.create(T.topology.Topology([cost] + evals[:1]),
+                                 KeySource(9), device=dev)
+    tr = T.trainer.SGD(cost, params,
+                       T.optimizer.Adam(learning_rate=c["lr"]),
+                       extra_layers=evals[:1])
+    rng = np.random.RandomState(4)
+
+    def rows(n):
+        out = []
+        for _ in range(n):
+            y = int(rng.randint(2))
+            t = rng.randint(0, c["vocab"], c["T"])
+            t[::2] = 50 * y + rng.randint(0, 50, (c["T"] + 1) // 2)
+            out.append(([int(v) for v in t], y))
+        return out
+    train_rows = rows(c["batch"] * c["batches"])
+    test_rows = rows(c["batch"] * c["test_batches"])
+    recs, costs = [], []
+    T.observe.add_report_handler(recs.append)
+    try:
+        tr.train(T.batch(lambda: iter(train_rows), c["batch"]),
+                 event_handler=lambda e: costs.append(e.cost) if isinstance(
+                     e, T.event.EndIteration) else None)
+    finally:
+        T.observe.remove_report_handler(recs.append)
+    steps = [r for r in recs if r.get("kind") == "step"][1:]
+    res = tr.test(T.batch(lambda: iter(test_rows), c["batch"]))
+    doc = {"steps": len(costs), "first_costs": costs[:4],
+           "last_costs": costs[-4:],
+           "step_ms_p50": 1e3 * median_of(steps, "wall_time_s"),
+           "dispatch_ms_p50": 1e3 * median_of(steps, "dispatch_s"),
+           "sync_ms_p50": 1e3 * median_of(steps, "sync_s"),
+           "test_cost": res.cost, "test_error": float(res.metrics["err"]),
+           "train_error": float(tr.evaluators.result()["err"])}
+    if not (np.all(np.isfinite(costs))
+            and np.mean(costs[-4:]) < np.mean(costs[:4])):
+        fail(f"trainer lstm: the loss did not fall over one pass: {costs}")
+    return doc
+
+
+def trainer_ctr(torch, T, dev) -> dict:
+    """CTR wide&deep at ``benchmarks/configs/ctr.py``'s widths: one step
+    held against the CPU (fp32), then ``SGD.train`` for a few batches with
+    Adam on the card (ms/batch, peak memory)."""
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.utils.rng import KeySource
+    c = TRAINER_CTR
+    out, cost = ctr.ctr_wide_deep(c["wide"], c["vocab"], emb_dim=c["emb"],
+                                  hidden=c["hidden"])
+    topo = T.topology.Topology(cost)
+    params = T.parameters.create(topo, KeySource(7), device=dev)
+    reader = ctr.synthetic_reader(c["wide"], c["vocab"],
+                                  n=c["batch"] * c["steps"])
+    rows = list(reader())
+    doc = {"params": int(sum(v.numel() for v in params.values.values()))}
+
+    def adam():
+        return T.optimizer.Adam(learning_rate=c["lr"])
+    with compute_dtype("float32"):
+        doc["parity"], _ = trainer_step_parity(
+            torch, T, "ctr", cost, params.values, params.state, adam,
+            rows[:c["batch"]], dev, TRAINER_F32_REL)
+    tr = T.trainer.SGD(cost, params, adam())
+    recs, costs = [], []
+    T.observe.add_report_handler(recs.append)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        tr.train(T.batch(lambda: iter(rows), c["batch"]),
+                 event_handler=lambda e: costs.append(e.cost) if isinstance(
+                     e, T.event.EndIteration) else None)
+    finally:
+        T.observe.remove_report_handler(recs.append)
+    steps = [r for r in recs if r.get("kind") == "step"][1:]
+    doc.update({"costs": costs,
+                "step_ms_p50": 1e3 * median_of(steps, "wall_time_s"),
+                "feed_ms_p50": 1e3 * median_of(steps, "feed_s"),
+                "max_memory_allocated_bytes": int(
+                    torch.cuda.max_memory_allocated(dev))})
+    if not np.all(np.isfinite(costs)) or len(costs) != c["steps"]:
+        fail(f"trainer ctr: costs {costs}")
+    return doc
+
+
+def trainer_gen(torch, dev) -> dict:
+    """GAN and VAE at their config defaults, batch 64: the card's trainer
+    and the CPU's from the same weights and keys, each step's losses held
+    within 1e-4 of max(|loss|, 1)."""
+    from paddle_tpu_torch.models import gan, vae
+    from paddle_tpu_torch.ops import prng
+    c = TRAINER_GEN
+    rng = np.random.RandomState(6)
+    doc = {}
+    for name, mod, cfg in (("gan", gan, gan.GANConfig()),
+                           ("vae", vae, vae.VAEConfig())):
+        make = gan.GANTrainer if name == "gan" else vae.VAETrainer
+        cpu = make(cfg, prng.prng_key(0), device="cpu")
+        card = make(cfg, prng.prng_key(0), device=dev)
+        card.params = mod.tree_from_numpy(mod.tree_to_numpy(cpu.params), dev)
+        worst, losses, ms = 0.0, [], []
+        for i in range(c["steps"]):
+            if name == "gan":
+                x = (0.7 + 0.05 * rng.randn(c["batch"], cfg.sample_dim))
+            else:
+                x = rng.rand(c["batch"], cfg.x_dim) > 0.5
+            x = x.astype(np.float32)
+            a = np.atleast_1d(cpu.train_batch(prng.prng_key(10 + i), x))
+            t0 = time.perf_counter()
+            b = np.atleast_1d(card.train_batch(prng.prng_key(10 + i), x))
+            ms.append(1e3 * (time.perf_counter() - t0))
+            err = float(np.max(np.abs(a - b) / np.maximum(np.abs(a), 1.0)))
+            worst = max(worst, err)
+            losses.append(b.tolist())
+        doc[name] = {"losses": losses, "loss_rel": worst,
+                     "step_ms": ms}
+        if not worst <= TRAINER_F32_REL:
+            fail(f"trainer {name}: card vs CPU loss error {worst!r} > "
+                 f"{TRAINER_F32_REL!r}")
+    return doc
+
+
+TRAINER_CLI_SMALLNET = """
+import numpy as np
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch import layer
+from paddle_tpu_torch.models import smallnet
+
+img = layer.data("image", paddle.data_type.dense_vector(3 * 32 * 32))
+lbl = layer.data("label", paddle.data_type.integer_value(10))
+out = smallnet.smallnet(img)
+cost = layer.classification_cost(out, lbl, name="cost")
+batch_size = 64
+_rng = np.random.RandomState(0)
+_data = [(_rng.rand(3 * 32 * 32).astype("float32"), int(_rng.randint(10)))
+         for _ in range(256)]
+
+
+def reader():
+    return iter(_data)
+"""
+
+TRAINER_CLI_FC = """
+import numpy as np
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch import layer
+
+x = layer.data("x", paddle.data_type.dense_vector(16))
+y = layer.data("y", paddle.data_type.integer_value(4))
+h = layer.fc(x, 8, act=paddle.activation.Tanh(), name="cg_h")
+out = layer.fc(h, 4, act=paddle.activation.Softmax(), name="cg_out")
+cost = layer.classification_cost(out, y, name="cost")
+batch_size = 8
+_rng = np.random.RandomState(0)
+_data = [(_rng.rand(16).astype("float32"), int(_rng.randint(4)))
+         for _ in range(32)]
+
+
+def reader():
+    return iter(_data)
+"""
+
+
+def trainer_cli() -> dict:
+    """``python -m paddle_tpu_torch time`` and ``train`` on a smallnet
+    config at CIFAR shapes, and ``checkgrad`` on a small tanh fc net (fp32
+    compute), three processes on the card at once, seed 1; each must exit
+    0."""
+    root = str(Path(__file__).resolve().parent)
+    # a fixed seed: the jobs draw their parameters from the global key
+    env = dict(os.environ, PYTHONPATH=root, PADDLE_TPU_SEED="1")
+    doc = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(tmp, "smallnet.py").write_text(TRAINER_CLI_SMALLNET)
+        Path(tmp, "fc.py").write_text(TRAINER_CLI_FC)
+        jobs = {
+            "time": (["time", "--config=smallnet.py", "--time_batches=10",
+                      "--warmup_batches=2"], env),
+            "train": (["train", "--config=smallnet.py", "--num_passes=1",
+                       "--save_dir=out"], env),
+            # central differences of an fp32 cost: eps 1e-2 keeps their
+            # rounding (~1e-7 of the cost over eps) below the 2e-2 bar
+            "checkgrad": (["checkgrad", "--config=fc.py",
+                           "--checkgrad_eps=1e-2"],
+                          dict(env, PADDLE_TPU_COMPUTE_DTYPE="float32")),
+        }
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch"] + argv, cwd=tmp,
+            env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for k, (argv, e) in jobs.items()}
+        for k, p in procs.items():
+            try:
+                out, err = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            doc[k] = {"rc": p.returncode,
+                      "s": time.perf_counter() - t0,
+                      "last": out.strip().splitlines()[-1:] if out else []}
+            if p.returncode != 0:
+                fail(f"trainer cli: {k} exited {p.returncode}: "
+                     f"{out[-2000:]} {err[-2000:]}")
+        if not Path(tmp, "out", "pass-00000", "params.tar").exists():
+            fail("trainer cli: train wrote no out/pass-00000/params.tar")
+    return doc
+
+
+def trainer_phase(torch, dev) -> dict:
+    """The ``trainer:`` line: ResNet-50, the LSTM classifier, CTR, GAN and
+    VAE through the port's models and trainers, and the CLI's trainer
+    jobs. None of the port's CUDA kernels runs here: their launch counts
+    are read around the phase."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch import cli as tcli
+    from paddle_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    before = kernels.launch_counts()
+    doc = {"resnet50": trainer_resnet(torch, T, tcli, dev)}
+    torch.cuda.empty_cache()
+    doc["lstm"] = trainer_lstm(torch, T, dev)
+    doc["ctr"] = trainer_ctr(torch, T, dev)
+    torch.cuda.empty_cache()
+    doc.update(trainer_gen(torch, dev))
+    doc["cli"] = trainer_cli()
+    after = kernels.launch_counts()
+    doc["port_kernel_launches"] = sum(after[k] - before.get(k, 0)
+                                      for k in after)
+    doc["phase_s"] = time.perf_counter() - t0
+    print("trainer: " + json.dumps(doc))
+    return doc
+
+
+# ---------------------------------------------------------------------------
 # training phase
 # ---------------------------------------------------------------------------
 
@@ -5160,6 +6013,7 @@ def main():
     del w8
     ops_phase(torch, dev)
     layers_phase(torch, dev)
+    trainer_phase(torch, dev)
     trained = train_phase(torch, tt, topt, kernels, costs, place, cfg, dev)
     launches = {**{k: served[k] for k in SERVING_KERNELS},
                 "fused_sample.threefry": served["fused_sample.threefry"],

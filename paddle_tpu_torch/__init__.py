@@ -37,11 +37,23 @@ exists, so a reader can put the two side by side:
                        ``inference.py`` and ``io/merged.py`` (the
                        merged-model artifact, replayable in both
                        packages)
-- ``cli.py``           ``python -m paddle_tpu_torch serve|route|top``
-- ``observe/``         metrics registry, MFU accounting, the compile
-                       tracker, SLO windows, the request log, chrome
-                       traces, the health server, the flight recorder
-- ``utils/``           timers, the runtime flags the port reads, logging
+- ``trainer.py``       ``SGD``: the v2 training loop on one device
+                       (plain and microbatched steps, evaluators,
+                       events, the step monitor's metrics)
+- ``models/``          the model zoo (AlexNet, VGG, GoogLeNet, ResNet,
+                       smallnet, the text models, seq2seq, CTR), GAN
+                       and VAE with their trainers, and the
+                       transformer LM
+- ``reader/``          ``minibatch.batch`` (``paddle_tpu_torch.batch``)
+- ``cli.py``           ``python -m paddle_tpu_torch train|test|time|
+                       infer|checkgrad|serve|route|top
+- ``observe/``         metrics registry and the ``report()`` funnel,
+                       MFU accounting, the compile tracker, SLO
+                       windows, the request log, chrome traces, the
+                       health server, the flight recorder, goodput and
+                       the step bottleneck attribution
+- ``utils/``           timers, the runtime flags the port reads, logging,
+                       memory stats and the timing sync
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 ``core.place.default_device()`` raises where there is no card.
@@ -58,14 +70,14 @@ _SUBMODULES = (
     "initializer", "networks", "optimizer", "parameters", "pooling",
     "topology", "event", "inference", "evaluator", "parallel", "models",
     "io", "runtime", "recurrent", "projection", "observe", "serving",
-    "record", "data_feeder",
+    "record", "data_feeder", "trainer", "reader",
 )
 
 # names of ``paddle_tpu``'s surface still to port, with the ROADMAP item
 # that brings each
 _PENDING = {
-    "trainer": "A7c", "reader": "A8", "dataset": "A8", "batch": "A8",
-    "image": "A8", "plot": "A8", "pipeline": "A8", "distributed": "A9",
+    "dataset": "A8", "image": "A8", "plot": "A8", "pipeline": "A8",
+    "distributed": "A9",
 }
 
 
@@ -77,6 +89,9 @@ def __getattr__(name):
     if name == "infer":
         from paddle_tpu_torch.inference import infer
         return infer
+    if name == "batch":
+        from paddle_tpu_torch.reader.minibatch import batch
+        return batch
     if name in _PENDING:
         raise AttributeError(
             f"paddle_tpu_torch.{name} is not ported yet (ROADMAP "
@@ -86,4 +101,24 @@ def __getattr__(name):
 
 
 def __dir__():
-    return sorted(list(globals()) + list(_SUBMODULES) + ["infer"])
+    return sorted(list(globals()) + list(_SUBMODULES) + ["infer", "batch"])
+
+
+def init(**kwargs):
+    """Global initialisation (counterpart of ``paddle_tpu.init``;
+    reference: paddle.init / initMain, paddle/utils/Flags.cpp,
+    python/paddle/v2/__init__.py:123).
+
+    Sets the flags the port knows (``seed``, ``log_period``,
+    ``metrics_path``, ``debug_nans``, ...) and ignores the rest, as the
+    reference's init did; ``seed`` re-seeds the global key source
+    (``utils/rng.reset_global_seed``). ``debug_nans`` / ``debug_infs``
+    arm the trainer's non-finite-cost tripwire. There is no
+    ``platform`` flag: every entry point takes its device."""
+    from paddle_tpu_torch.utils import flags as _flags
+    from paddle_tpu_torch.utils import rng as _rng
+    for k, v in kwargs.items():
+        _flags.GLOBAL_FLAGS.set_if_known(k, v)
+    if kwargs.get("seed"):
+        _rng.reset_global_seed(int(kwargs["seed"]))
+    return _flags.GLOBAL_FLAGS

@@ -1,6 +1,20 @@
 """The ``paddle_tpu_torch`` command line (counterpart of
-``paddle_tpu/cli.py``): the serving jobs ``serve``, ``route`` and
-``top``, with the reference's flags, names and defaults.
+``paddle_tpu/cli.py``): the trainer jobs ``train``, ``test``, ``time``,
+``infer`` and ``checkgrad`` over a config file, and the serving jobs
+``serve``, ``route`` and ``top``, with the reference's flags, names and
+defaults.
+
+Trainer jobs (reference: paddle/trainer/TrainerMain.cpp:32-64) read a
+Python config file that builds its layers with ``paddle_tpu_torch`` and
+exposes a few names:
+  cost            — required for train/checkgrad/time: the cost LayerOutput
+  reader          — callable() -> iterator of data tuples (train/time)
+  test_reader     — optional, for --job=test and per-pass testing
+  optimizer       — optional port optimizer (default Momentum)
+  batch_size      — optional int (default 64)
+  feeding         — optional dict name->index
+  evaluators      — optional list of evaluator layers
+  outputs         — required for job=infer: list of output LayerOutputs
 
 - ``serve`` — one continuous-batching engine over a v3-v5
   ``lm_serving`` artifact: JSONL requests on stdin, or the fleet
@@ -12,30 +26,337 @@
   ``--autoscale``;
 - ``top`` — a refresh loop over a router's ``/healthz`` + ``/alerts``.
 
-``--device`` (the port's own flag) picks the engine's device: the card
-unless it says otherwise, where the JAX CLI reads ``JAX_PLATFORMS``.
-The trainer jobs (``train``, ``test``, ``time``, ``infer``,
-``checkgrad``) and ``stats`` are not ported yet: they exit 2 naming
-their ROADMAP item.
+``--device`` (the port's own flag) picks the device every job runs on:
+the card unless it says otherwise, where the JAX CLI reads
+``JAX_PLATFORMS``. ``stats`` is not ported yet: it exits 2 naming its
+ROADMAP item.
 
-Run: ``python -m paddle_tpu_torch serve --model=lm.tar --device=cpu``.
+Run: ``python -m paddle_tpu_torch train --config=conf.py --num_passes=2``,
+``python -m paddle_tpu_torch serve --model=lm.tar --device=cpu``.
 """
 
 import argparse
+import os
+import runpy
 import sys
+import time as _time
 
 import numpy as np
 
 # jobs of the reference CLI the port does not run yet, and where they
 # stand in ROADMAP.md
 UNPORTED = {
-    "train": "ROADMAP A7c, the models and the trainer",
-    "test": "ROADMAP A7c, the models and the trainer",
-    "time": "ROADMAP A7c, the models and the trainer",
-    "infer": "ROADMAP A7c, the models and the trainer",
-    "checkgrad": "ROADMAP A7c, the models and the trainer",
     "stats": "ROADMAP A8, the data and runtime remainder",
 }
+
+
+def _load_config(path):
+    return runpy.run_path(path)
+
+
+def _build_trainer(cfg, args):
+    import paddle_tpu_torch as paddle
+    cost = cfg["cost"]
+    params = paddle.parameters.create(cost, device=args.device)
+    if args.init_model_path:
+        with open(args.init_model_path, "rb") as f:
+            params.from_tar_into(f)
+    opt = cfg.get("optimizer") or paddle.optimizer.Momentum(
+        momentum=0.9, learning_rate=0.01)
+    trainer = paddle.trainer.SGD(
+        cost=cost, parameters=params, update_equation=opt,
+        extra_layers=cfg.get("evaluators"))
+    return trainer, params
+
+
+def job_train(cfg, args):
+    import paddle_tpu_torch as paddle
+    trainer, params = _build_trainer(cfg, args)
+    health_srv = None
+    if args.health_port is not None:
+        health_srv = trainer.attach_observability(
+            host=args.health_host, port=args.health_port)
+        print(f"observability: {health_srv.url}/metrics  "
+              f"{health_srv.url}/healthz")
+    batch_size = cfg.get("batch_size", 64)
+    reader = paddle.batch(cfg["reader"], batch_size)
+    test_reader = cfg.get("test_reader")
+    save_dir = args.save_dir
+
+    def handler(ev):
+        if isinstance(ev, paddle.event.EndIteration):
+            if ev.batch_id % args.log_period == 0:
+                print(f"pass {ev.pass_id} batch {ev.batch_id} "
+                      f"cost {ev.cost:.5f} {ev.metrics}")
+        if isinstance(ev, paddle.event.EndPass):
+            if test_reader is not None:
+                res = trainer.test(paddle.batch(test_reader, batch_size),
+                                   feeding=cfg.get("feeding"))
+                print(f"pass {ev.pass_id} test: cost {res.cost:.5f} "
+                      f"{res.metrics}")
+            if save_dir:
+                # per-pass dirs like the reference's save_dir/pass-%05d
+                # (trainer/ParamUtil.cpp)
+                pdir = os.path.join(save_dir, f"pass-{ev.pass_id:05d}")
+                os.makedirs(pdir, exist_ok=True)
+                with open(os.path.join(pdir, "params.tar"), "wb") as f:
+                    trainer.save_parameter_to_tar(f)
+
+    try:
+        trainer.train(reader, num_passes=args.num_passes,
+                      event_handler=handler, feeding=cfg.get("feeding"))
+    finally:
+        if health_srv is not None:
+            health_srv.close()
+    return 0
+
+
+def job_test(cfg, args):
+    import paddle_tpu_torch as paddle
+    trainer, params = _build_trainer(cfg, args)
+    reader = paddle.batch(cfg.get("test_reader") or cfg["reader"],
+                          cfg.get("batch_size", 64))
+    res = trainer.test(reader, feeding=cfg.get("feeding"))
+    print(f"test: cost {res.cost:.5f} {res.metrics}")
+    return 0
+
+
+def measure_time(cfg, batch_size=None, time_batches=20, warmup_batches=3,
+                 init_model_path=None, device=None):
+    """Steady-state train-step timing — the measurement core of job=time
+    (reference protocol: `paddle train --job=time`,
+    benchmark/paddle/image/run.sh:9-17), on ``device`` (default: the
+    card).
+
+    Two batches from the config's reader are fed to the device first and
+    cycled over the run, so host→device copies stay out of the timed
+    window; the steps run back to back and one ``utils/sync.host_sync``
+    ends the window (steps are serial on the device). The step's FLOPs
+    are counted once (``SGD.count_step_flops``) before the window.
+    Returns ms/batch, examples/s, the counted FLOPs per batch and MFU
+    against the device's declared peak (None on the CPU), and the peak
+    device memory of the timed window (None on the CPU)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.ops import prng
+    from paddle_tpu_torch.utils.sync import host_sync
+
+    class _Args:
+        pass
+
+    a = _Args()
+    a.init_model_path = init_model_path
+    a.device = device
+    trainer, params = _build_trainer(cfg, a)
+    batch_size = batch_size or cfg.get("batch_size", 64)
+    reader = paddle.batch(cfg["reader"], batch_size)
+    batches = []
+    for i, b in enumerate(reader()):
+        if i >= 2:
+            break
+        batches.append(b)
+    if not batches:
+        raise ValueError("job=time: reader yielded no batches")
+    feeder = trainer._feeder(cfg.get("feeding"))
+    step = trainer._train_step
+    key = prng.prng_key(0)
+    dev = trainer.device
+    t_start = _time.perf_counter()
+    feeds_list = [feeder.feed(b) for b in batches]
+    flops = trainer.count_step_flops(feeds_list[0], key)
+    nb = len(feeds_list)
+    cost = None
+    with observe.trace_scope("time_job/warmup"):
+        for i in range(warmup_batches):
+            cost, _ = step(feeds_list[i % nb], i, key)
+        if cost is not None:
+            host_sync(params.values, cost)
+    warmup_s = _time.perf_counter() - t_start
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = _time.perf_counter()
+    with observe.trace_scope("time_job/timed"):
+        for i in range(time_batches):
+            cost, _ = step(feeds_list[i % nb], warmup_batches + i, key)
+        if cost is not None:
+            host_sync(params.values, cost)   # one sync for the run
+    elapsed = _time.perf_counter() - t0
+    ms = 1000 * elapsed / time_batches if time_batches else float("nan")
+    peak = observe.costs.device_peak_flops(dev)
+    return {
+        "ms_per_batch": ms,
+        "examples_per_sec": batch_size / (ms / 1000) if time_batches else
+        float("nan"),
+        "batch_size": batch_size,
+        "timed_batches": time_batches,
+        "compile_plus_warmup_s": warmup_s,
+        "flops_per_batch": flops,
+        "mfu": (observe.costs.mfu(flops, ms / 1000, peak)
+                if time_batches else None),
+        "peak_memory_bytes": (int(torch.cuda.max_memory_allocated(dev))
+                              if dev.type == "cuda" else None),
+        "last_cost": float(cost) if cost is not None else None,
+    }
+
+
+def job_time(cfg, args):
+    """Steady-state ms/batch (reference: --job=time,
+    benchmark/paddle/image/run.sh:9)."""
+    r = measure_time(cfg, time_batches=args.time_batches,
+                     warmup_batches=args.warmup_batches,
+                     init_model_path=args.init_model_path,
+                     device=args.device)
+    from paddle_tpu_torch import observe
+    if observe.has_consumers():
+        # --metrics_out promises a JSONL trail for the time job too
+        observe.report(dict(r), kind="time_job")
+    mfu = f"{r['mfu']:.4f}" if r["mfu"] is not None else "n/a"
+    print(f"time job: {r['ms_per_batch']:.2f} ms/batch, "
+          f"{r['examples_per_sec']:.1f} examples/sec, MFU {mfu} "
+          f"(batch_size={r['batch_size']}, "
+          f"{r['timed_batches']} timed batches)")
+    return 0
+
+
+def job_infer(cfg, args):
+    """Forward-only inference (reference: paddle.v2.infer, inference.py:111;
+    capi serving when --model points at a merged artifact).
+
+    Two sources for the model:
+    - --model=artifact.tar  (merged-model file; config only supplies data)
+    - config ``outputs`` + --init_model_path weights
+    Input comes from config ``infer_reader`` (or ``test_reader``/``reader``),
+    yielding the same tuples as training minus the label when ``feeding``
+    maps only input fields. Results print as shapes + optionally save to
+    --output_path (.npz keyed by output layer name).
+    """
+    import paddle_tpu_torch as paddle
+
+    batch_size = cfg.get("batch_size", 64)
+    reader = cfg.get("infer_reader") or cfg.get("test_reader") \
+        or cfg.get("reader")
+    if reader is None:
+        print("config must define infer_reader/test_reader/reader",
+              file=sys.stderr)
+        return 1
+    rows = []
+    for sample in reader():
+        rows.append(sample)
+        if args.infer_limit and len(rows) >= args.infer_limit:
+            break
+
+    if args.model:
+        from paddle_tpu_torch.data_feeder import DataFeeder
+        from paddle_tpu_torch.data_type import InputType, Kind, SeqLevel
+        from paddle_tpu_torch.io import merged
+        m = merged.load_inference_model(args.model, device=args.device)
+        specs = {name: InputType(d, Kind(k), SeqLevel(s))
+                 for name, (d, k, s) in m.meta["data_specs"].items()}
+        feeder = DataFeeder(specs, cfg.get("feeding"), device="cpu")
+        chunks = []
+        for i in range(0, len(rows), batch_size):
+            feeds = feeder.feed(rows[i:i + batch_size])
+            flat = {}
+            for k, v in feeds.items():
+                flat[k] = v.array.numpy()
+                if v.lengths is not None:
+                    flat[f"{k}.lengths"] = v.lengths.numpy()
+            chunks.append(m.infer(flat))
+        outs = {k: np.concatenate([c[k] for c in chunks], axis=0)
+                for k in chunks[0]}
+    else:
+        outputs = cfg.get("outputs")
+        if outputs is None:
+            print("config must define `outputs` for job=infer "
+                  "(or pass --model)", file=sys.stderr)
+            return 1
+        if not args.init_model_path:
+            print("job=infer needs trained weights: pass "
+                  "--init_model_path=params.tar (or --model=artifact.tar)",
+                  file=sys.stderr)
+            return 1
+        outputs = list(outputs) if isinstance(outputs, (list, tuple)) \
+            else [outputs]
+        params = paddle.parameters.create(outputs, device=args.device)
+        with open(args.init_model_path, "rb") as f:
+            params.from_tar_into(f)
+        res = paddle.infer(output_layer=outputs, parameters=params,
+                           input=rows, feeding=cfg.get("feeding"),
+                           batch_size=batch_size)
+        outs = dict(zip([o.name for o in outputs],
+                        res if isinstance(res, list) else [res]))
+
+    for name, arr in outs.items():
+        print(f"infer output {name}: shape {np.asarray(arr).shape}")
+    if args.output_path:
+        np.savez(args.output_path,
+                 **{k: np.asarray(v) for k, v in outs.items()})
+        print(f"saved outputs to {args.output_path}")
+    return 0
+
+
+def job_checkgrad(cfg, args):
+    """Whole-model finite-difference gradient verification (reference:
+    Trainer::checkGradient, trainer/Trainer.cpp:299-377): a few sampled
+    coordinates of every parameter, the autograd gradient of the mean
+    cost against central differences of the cost (fp32 forwards)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+
+    cost = cfg["cost"]
+    params = paddle.parameters.create(cost, device=args.device)
+    batch = next(iter(paddle.batch(cfg["reader"],
+                                   cfg.get("batch_size", 8))()))
+    trainer = paddle.trainer.SGD(
+        cost=cost, parameters=params,
+        update_equation=paddle.optimizer.Momentum(learning_rate=0.0))
+    fwd = trainer._forward
+    feeds = trainer._feeder(cfg.get("feeding"))(batch)
+
+    def loss(vals):
+        outs, _ = fwd(vals, params.state, feeds)
+        return outs[cost.name].array.float().mean()
+
+    leaves = {k: v.detach().requires_grad_()
+              for k, v in params.values.items()}
+    analytic = dict(zip(leaves, torch.autograd.grad(
+        loss(leaves), list(leaves.values()), allow_unused=True)))
+    eps = args.checkgrad_eps
+    rng = np.random.RandomState(0)
+    worst = 0.0
+    for name, t in params.values.items():
+        arr = t.detach().cpu().numpy().astype(np.float64)
+        flat = arr.reshape(-1)
+        g = (np.zeros(flat.size) if analytic[name] is None else
+             analytic[name].detach().cpu().numpy().astype(
+                 np.float64).reshape(-1))
+        # sample a few coordinates per parameter (reference samples too)
+        for idx in rng.choice(flat.size, size=min(4, flat.size),
+                              replace=False):
+            orig = flat[idx]
+            vals = dict(params.values)
+            pert = arr.copy().reshape(-1)
+            with torch.no_grad():
+                pert[idx] = orig + eps
+                vals[name] = torch.from_numpy(pert.reshape(arr.shape).astype(
+                    np.float32)).to(t.device)
+                hi = float(loss(vals))
+                pert[idx] = orig - eps
+                vals[name] = torch.from_numpy(pert.reshape(arr.shape).astype(
+                    np.float32)).to(t.device)
+                lo = float(loss(vals))
+            numeric = (hi - lo) / (2 * eps)
+            denom = max(abs(numeric), abs(g[idx]), 1e-6)
+            rel = abs(numeric - g[idx]) / denom
+            worst = max(worst, rel)
+            status = "OK" if rel < args.checkgrad_tol else "FAIL"
+            print(f"checkgrad {name}[{idx}]: analytic {g[idx]:+.6f} "
+                  f"numeric {numeric:+.6f} rel_err {rel:.2e} {status}")
+    print(f"checkgrad worst rel err: {worst:.2e}")
+    return 0 if worst < args.checkgrad_tol else 1
 
 
 def job_serve(args):
@@ -545,7 +866,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(
         prog="paddle_tpu_torch",
         description="the port's CLI (reference: paddle_trainer, "
-                    "TrainerMain.cpp); serve, route and top run here")
+                    "TrainerMain.cpp)")
     p.add_argument("job", choices=["train", "test", "time", "checkgrad",
                                    "infer", "stats", "serve", "route",
                                    "top"],
@@ -554,11 +875,34 @@ def main(argv=None):
                         "stdio or --port TCP; route fronts N serve "
                         "replicas with the prefix-aware fleet router; "
                         "top is a live status view over a route "
-                        "--health_port; the other jobs are not ported "
-                        "yet and exit 2)")
+                        "--health_port; stats is not ported yet and "
+                        "exits 2)")
+    p.add_argument("--config", default=None,
+                   help="python config file (required for train, test, "
+                        "time, infer and checkgrad)")
+    p.add_argument("--num_passes", type=int, default=1)
+    p.add_argument("--save_dir", default=None)
+    p.add_argument("--init_model_path", default=None)
     p.add_argument("--model", default=None,
-                   help="lm_serving artifact for job=serve, and for "
+                   help="merged-model artifact for job=infer; "
+                        "lm_serving artifact for job=serve, and for "
                         "the replicas job=route spawns")
+    p.add_argument("--output_path", default=None,
+                   help="where job=infer saves outputs (.npz)")
+    p.add_argument("--infer_limit", type=int, default=0,
+                   help="max samples for job=infer (0 = all)")
+    p.add_argument("--log_period", type=int, default=10)
+    p.add_argument("--time_batches", type=int, default=20)
+    p.add_argument("--warmup_batches", type=int, default=3)
+    p.add_argument("--checkgrad_eps", type=float, default=1e-3)
+    p.add_argument("--checkgrad_tol", type=float, default=2e-2)
+    p.add_argument("--metrics_out", default=None,
+                   help="write per-step JSONL metrics here (train/time "
+                        "jobs; same as PADDLE_TPU_METRICS_PATH)")
+    p.add_argument("--trace", default=None,
+                   help="export the run's trace-scope spans as Chrome-"
+                        "trace JSON to this path when a trainer job "
+                        "finishes")
     p.add_argument("--max_new", type=int, default=64,
                    help="default max_new for job=serve/route requests "
                         "that omit it")
@@ -591,7 +935,8 @@ def main(argv=None):
                         "recompute)")
     p.add_argument("--health_port", type=int, default=None,
                    help="serve /metrics + /healthz on this port during "
-                        "job=serve or job=route (0 = ephemeral)")
+                        "job=train, job=serve or job=route (0 = "
+                        "ephemeral)")
     p.add_argument("--health_host", default="127.0.0.1",
                    help="bind address for --health_port (use 0.0.0.0 "
                         "for out-of-pod probes; default loopback)")
@@ -682,9 +1027,10 @@ def main(argv=None):
                         "controller's own /healthz (+ shared "
                         "/metrics) on this port")
     p.add_argument("--device", default=None,
-                   help="job=serve (and the replicas job=route spawns): "
-                        "the device the engine runs on (default: the "
-                        "card; 'cpu' runs the plain PyTorch path)")
+                   help="the device the trainer jobs, job=serve's engine "
+                        "and the replicas job=route spawns run on "
+                        "(default: the card; 'cpu' runs the plain "
+                        "PyTorch path)")
     # an unported job's own flags are not registered: refuse the job
     # by name before any of them could fail the parse
     args, rest = p.parse_known_args(argv)
@@ -700,7 +1046,26 @@ def main(argv=None):
         return job_serve(args)
     if args.job == "route":
         return job_route(args)
-    return job_top(args)
+    if args.job == "top":
+        return job_top(args)
+    jobs = {"train": job_train, "test": job_test, "time": job_time,
+            "checkgrad": job_checkgrad, "infer": job_infer}
+    if not args.config:
+        p.error(f"--config is required for job={args.job}")
+    if args.metrics_out:
+        from paddle_tpu_torch import observe
+        observe.configure(args.metrics_out)
+    cfg = _load_config(args.config)
+    try:
+        rc = jobs[args.job](cfg, args)
+    finally:
+        # export even when the job crashes — a timeline of the steps
+        # leading up to the failure is the trace most worth having
+        if args.trace:
+            from paddle_tpu_torch import observe
+            observe.trace_export(args.trace)
+            print(f"trace written to {args.trace}")
+    return rc
 
 
 if __name__ == "__main__":

@@ -7,14 +7,13 @@ flat dict ``{name: torch.Tensor}``; metadata lives in ``ParamSpec``.
 Initial values come from the JAX package's threefry stream for the same
 seed and name (``ops/prng``): the keys and integer bits are equal, the
 floating transforms agree to rounding (``uniform`` within an ulp,
-``normal`` within XLA's erfinv polynomial), constants exactly.
+``normal`` within 3 ulps, ``ops/prng.normal``), constants exactly.
 """
 
 import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from paddle_tpu_torch.core import dtypes, place
@@ -39,11 +38,8 @@ class ParamAttr:
 
 
 def _normal(key, shape, device) -> torch.Tensor:
-    """``jax.random.normal``: sqrt(2) * erfinv(u), u uniform over
-    (nextafter(-1, 0), 1)."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = prng.uniform(key, shape, lo, 1.0, device=device)
-    return np.float32(math.sqrt(2.0)) * torch.special.erfinv(u)
+    """``jax.random.normal`` (``ops/prng.normal``)."""
+    return prng.normal(key, shape, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,6 +5,7 @@ on :func:`default_device`, the first CUDA card. There is no quiet CPU
 fallback: a caller that wants the CPU (the tests do) says so.
 """
 
+import os
 from typing import Optional
 
 import torch
@@ -44,7 +45,15 @@ def resolve_device(device=None) -> torch.device:
 
 def peak_flops(device=None) -> Optional[float]:
     """Declared peak FLOP/s of a CUDA ``device`` (default: the first
-    card), or None for the CPU and for cards the table does not know."""
+    card), or None for the CPU and for cards the table does not know.
+    ``PADDLE_TPU_PEAK_TFLOPS`` (in TFLOP/s) overrides the table for any
+    device, as in the JAX package."""
+    env = os.environ.get("PADDLE_TPU_PEAK_TFLOPS")
+    if env:
+        try:
+            return float(env) * 1e12
+        except ValueError:
+            pass
     device = resolve_device(device)
     if device.type != "cuda":
         return None

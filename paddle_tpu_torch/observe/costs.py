@@ -1,12 +1,23 @@
 """Model FLOPs and MFU (counterpart of ``paddle_tpu/observe/costs.py``).
 
 The JAX package takes a step's FLOPs from XLA's lowered cost analysis;
-PyTorch runs eagerly and has no such program, so the port counts them
-from the shapes: 2 FLOPs per multiply-add of every weight a token
-touches, plus the attention products over the positions it attends to.
+PyTorch runs eagerly and has no such program. The port counts them two
+ways:
+
+- for the transformer LM, from the shapes: 2 FLOPs per multiply-add of
+  every weight a token touches, plus the attention products over the
+  positions it attends to (``decode_step_flops``, ``train_step_flops``);
+- for the layer API's graphs, by running the computation once under
+  ``torch.utils.flop_counter.FlopCounterMode`` (``counted_flops``): its
+  table counts matmuls and convolutions, forward and backward, at 2 FLOPs
+  per multiply-add (a [M, K] @ [K, N] product is exactly 2MNK, as XLA's
+  cost model counts it); elementwise work is not counted.
+
+MFU divides by the declared peak of ``core/place.py``'s table
+(``device_peak_flops``; ``PADDLE_TPU_PEAK_TFLOPS`` overrides it).
 """
 
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 
 def matmul_params(cfg) -> int:
@@ -48,10 +59,38 @@ def train_step_flops(cfg, batch: int, seq: int) -> float:
     return float(6 * matmul_params(cfg) * tokens + attn)
 
 
+def counted_flops(fn: Callable[[], object]) -> float:
+    """FLOPs of running ``fn()`` once, as ``FlopCounterMode`` counts
+    them (2 per multiply-add of every matmul and convolution the call
+    dispatches, its autograd backward included when ``fn`` takes
+    gradients)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def device_peak_flops(device=None) -> Optional[float]:
+    """Declared peak FLOP/s of ``device`` (default: the first card;
+    ``core/place.py``'s table, ``PADDLE_TPU_PEAK_TFLOPS`` overriding
+    it); None when unknown or when there is no card."""
+    from paddle_tpu_torch.core import place
+    try:
+        return place.peak_flops(device)
+    except RuntimeError:          # no card and no override
+        return None
+
+
+_FIRST_CARD = object()
+
+
 def mfu(flops: Optional[float], seconds: float,
-        peak_flops: Optional[float]) -> Optional[float]:
+        peak_flops=_FIRST_CARD) -> Optional[float]:
     """Model-FLOPs utilisation of one step; None when an input is
-    unknown (the CPU has no declared peak)."""
+    unknown (a ``peak_flops`` of None: the CPU has no declared peak).
+    Without ``peak_flops``, the first card's (``device_peak_flops()``)."""
+    if peak_flops is _FIRST_CARD:
+        peak_flops = device_peak_flops()
     if not flops or not peak_flops or seconds <= 0:
         return None
     return flops / (seconds * peak_flops)

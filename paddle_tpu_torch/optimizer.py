@@ -17,9 +17,15 @@ Unlike the JAX version, ``update`` and ``tree_update`` write the new
 values INTO the parameter leaves (under ``torch.no_grad()``), one leaf
 at a time, so no second copy of the weights is held and tensors that
 require grad stay the leaves autograd fills; the state comes back as
-new tensors, as in JAX. ``bind()`` with per-parameter specs,
-``ModelAverage`` and ``StaticPruning`` need the v2 layer API and are
-not ported yet.
+new tensors, as in JAX.
+
+``bind(specs)`` attaches the layer API's per-parameter attributes
+(``core/param.ParamAttr``): ``is_static`` leaves are skipped (their
+state kept), ``learning_rate`` scales the step, ``l1_rate`` /
+``l2_rate`` replace the global regularization for that leaf.
+``ModelAverage`` keeps a bounded-window average beside training;
+``StaticPruning`` masks the gradients of the hooked leaves and prunes
+them in place after every update.
 """
 
 import dataclasses
@@ -28,6 +34,8 @@ from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch.core.param import ParamSpec
 
 
 def _f32(x) -> torch.Tensor:
@@ -170,6 +178,12 @@ class Optimizer:
                                       learning_rate_args)
         self.regularization = regularization
         self.clip_threshold = gradient_clipping_threshold
+        self.specs: Dict[str, ParamSpec] = {}
+
+    def bind(self, specs):
+        """Attach per-parameter attrs (lr scale, per-param decay, static)."""
+        self.specs = {s.name: s for s in specs}
+        return self
 
     # -- per-array rules, overridden by subclasses -------------------------
     def _init_one(self, p):
@@ -183,15 +197,21 @@ class Optimizer:
     def init_state(self, params: Dict) -> Dict:
         return {k: self._init_one(v.detach()) for k, v in params.items()}
 
-    def _decay(self, g, p):
-        """Regularization as gradient decay: g + l2*p + l1*sign(p)."""
+    def _decay(self, name, g, p):
+        """Regularization as gradient decay: g + l2*p + l1*sign(p), the
+        leaf's bound ``l1_rate`` / ``l2_rate`` over the global rate."""
+        spec = self.specs.get(name)
+        l1 = getattr(spec.attr, "l1_rate", None) if spec else None
+        l2 = getattr(spec.attr, "l2_rate", None) if spec else None
+        if l2 is None and isinstance(self.regularization, L2Regularization):
+            l2 = self.regularization.rate
+        if l1 is None and isinstance(self.regularization, L1Regularization):
+            l1 = self.regularization.rate
         gf = g.float()
-        if isinstance(self.regularization, L2Regularization) \
-                and self.regularization.rate:
-            gf = gf + self.regularization.rate * p.float()
-        if isinstance(self.regularization, L1Regularization) \
-                and self.regularization.rate:
-            gf = gf + self.regularization.rate * torch.sign(p.float())
+        if l2:
+            gf = gf + l2 * p.float()
+        if l1:
+            gf = gf + l1 * torch.sign(p.float())
         return gf
 
     def _clip(self, grads: Dict) -> Dict:
@@ -212,28 +232,46 @@ class Optimizer:
     def update(self, step, grads: Dict, params: Dict, state: Dict):
         """One step on flat dicts. Each leaf's new value is written into
         it as soon as it is computed, so no second copy of the
-        parameters is held; returns (params, new_state)."""
-        lr = self.schedule(step)
+        parameters is held; a static leaf (bound ``is_static``) is left
+        as it is, with its state. Returns (params, new_state)."""
+        lr_t = self.schedule(step)
         grads = self._clip(grads)
         new_s = {}
         for name, p in params.items():
+            spec = self.specs.get(name)
+            if spec is not None and spec.attr.is_static:
+                new_s[name] = state[name]
+                continue
+            lr = lr_t * (spec.attr.learning_rate if spec else 1.0)
             pf = p.float()
-            new, new_s[name] = self._update_one(self._decay(grads[name], p),
-                                                pf, state[name], lr)
+            new, new_s[name] = self._update_one(
+                self._decay(name, grads[name], p), pf, state[name], lr)
             p.copy_(self._after(name, new, pf, lr))
         return params, new_s
 
     # -- nested trees (the transformer's parameter dict) --------------------
     def tree_init_state(self, params) -> Dict:
-        """init_state for a nested parameter dict, keyed by keystr path."""
+        """init_state for a nested parameter dict, keyed by keystr path.
+        Per-parameter attrs bound via ``bind()`` apply only when spec
+        names use that same path format; ``tree_update`` warns if bound
+        specs match no leaf."""
         return self.init_state(dict(tree_leaves(params)))
 
     def tree_update(self, step, grads, params, state):
         """update() for a nested parameter dict and its gradient tree
         (as :func:`take_grads` returns it), the leaves named by keystr
         path; returns (params, new_state)."""
-        _, new_s = self.update(step, dict(tree_leaves(grads)),
-                               dict(tree_leaves(params)), state)
+        pd = dict(tree_leaves(params))
+        unmatched = set(self.specs) - set(pd)
+        if unmatched and not getattr(self, "_warned_spec_mismatch", False):
+            self._warned_spec_mismatch = True
+            from paddle_tpu_torch.utils.logger import get_logger
+            get_logger().warning(
+                "optimizer: bound parameter specs %s match no pytree leaf "
+                "path (leaves look like %s) — their per-parameter rules "
+                "are NOT being applied", sorted(unmatched)[:5],
+                list(pd)[:3])
+        _, new_s = self.update(step, dict(tree_leaves(grads)), pd, state)
         return params, new_s
 
 
@@ -436,3 +474,113 @@ class ProximalAdagrad(Optimizer):
         nacc = acc + g * g
         alr = lr / (torch.sqrt(nacc) + self.eps)
         return _prox(p - alr * g, alr, self.l1, self.l2), nacc
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+class ModelAverage:
+    """Bounded-window parameter averaging (reference: AverageOptimizer,
+    parameter/AverageOptimizer.cpp — window = min(steps * average_window,
+    max_average_window)). A running mean that turns into an EMA with
+    decay 1-1/window once the window fills. Functional, over a (nested)
+    dict of tensors: accumulate beside training, swap in averaged() for
+    eval."""
+
+    def __init__(self, average_window=0.0, max_average_window=10000):
+        self.window = float(max_average_window or 10000)
+
+    @torch.no_grad()
+    def init_state(self, params):
+        avg = _tree_map(lambda p: p.detach().float().clone(), params)
+        dev = tree_leaves(params)[0][1].device if params else "cpu"
+        return {"avg": avg,
+                "count": torch.zeros((), dtype=torch.float32, device=dev)}
+
+    @torch.no_grad()
+    def accumulate(self, params, state):
+        c = state["count"] + 1.0
+        decay = torch.clamp_max((c - 1.0) / c, 1.0 - 1.0 / self.window)
+        return {"avg": _tree_map(
+            lambda a, p: decay * a + (1.0 - decay) * p.detach().float(),
+            state["avg"], params), "count": c}
+
+    def averaged(self, params, state):
+        return _tree_map(lambda a, p: a.to(p.dtype), state["avg"], params)
+
+
+class StaticPruning:
+    """Magnitude pruning mask applied to a trained/initial parameter set and
+    every subsequent update (reference: StaticPruningHook,
+    parameter/ParameterUpdaterHook.cpp:39 — zeroes the smallest
+    ``sparsity_ratio`` fraction of each hooked parameter by |w| and keeps
+    them zero through training).
+
+    Usage: masks = StaticPruning(ratio).make_masks(params, names); wrap
+    the optimizer with .apply(optimizer): each update masks the hooked
+    gradients, writes the new values into the leaves, then prunes the
+    leaves in place."""
+
+    def __init__(self, sparsity_ratio: float):
+        assert 0.0 <= sparsity_ratio < 1.0
+        self.ratio = sparsity_ratio
+        self.masks = {}
+
+    def make_masks(self, params, names=None):
+        """Build {name: 0/1 float32 mask} on each leaf's device from its
+        current magnitudes (the hook ran at init / after load). Exactly
+        the k smallest-|w| entries are pruned (rank-based, so magnitude
+        ties — e.g. zero-initialised tensors — never over-prune)."""
+        self.masks.clear()
+        for name, p in params.items():
+            if names is not None and name not in names:
+                continue
+            mag = np.abs(p.detach().to("cpu", torch.float32).numpy()
+                         ).reshape(-1)
+            k = int(self.ratio * mag.size)
+            mask = np.ones(mag.size, np.float32)
+            if k > 0:
+                mask[np.argpartition(mag, k - 1)[:k]] = 0.0
+            self.masks[name] = torch.from_numpy(
+                mask.reshape(tuple(p.shape))).to(p.device)
+        return self.masks
+
+    @torch.no_grad()
+    def prune(self, params):
+        """Zero the pruned entries of the hooked leaves, in place;
+        returns ``params``."""
+        for k, m in self.masks.items():
+            if k in params:
+                params[k].mul_(m.to(params[k].dtype))
+        return params
+
+    def apply(self, optimizer: Optimizer) -> Optimizer:
+        """Wrap optimizer.update so every step masks the gradients and
+        re-prunes the updated leaves.
+
+        Call make_masks() FIRST: a wrapper without masks would silently
+        train unpruned — apply() refuses it. Re-wrapping the same
+        optimizer also raises (double-masking)."""
+        if not self.masks:
+            raise ValueError(
+                "StaticPruning.apply() before make_masks(): build the "
+                "masks first")
+        if getattr(optimizer, "_pruning_wrapped", False):
+            raise ValueError("optimizer already wrapped by StaticPruning")
+        inner = optimizer.update
+        hook = self
+
+        def update(step, grads, params, state):
+            masks = hook.masks
+            grads = {k: (g * masks[k].to(g.dtype) if k in masks else g)
+                     for k, g in grads.items()}
+            params, new_s = inner(step, grads, params, state)
+            return hook.prune(params), new_s
+
+        optimizer.update = update
+        optimizer._pruning_wrapped = True
+        return optimizer

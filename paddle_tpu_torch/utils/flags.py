@@ -1,7 +1,9 @@
 """Runtime flags — the port's own copy of ``paddle_tpu/utils/flags.py``'s
 typed registry with the flags the port reads (``profile``,
-``flight_dir``, ``default_dtype``, ``compute_dtype``, ``seed``); each is
-overridden by ``PADDLE_TPU_<NAME>`` in the environment at import."""
+``flight_dir``, ``default_dtype``, ``compute_dtype``, ``seed``, and the
+trainer's ``log_period``, ``metrics_path``, ``debug_nans`` and
+``debug_infs``); each is overridden by ``PADDLE_TPU_<NAME>`` in the
+environment at import."""
 
 import os
 import threading
@@ -59,6 +61,12 @@ class FlagRegistry:
             self._values[name] = (spec.parser(value) if isinstance(value, str)
                                   else value)
 
+    def set_if_known(self, name, value):
+        """Silently ignore unknown flags — paddle.init() historically
+        accepted arbitrary gflags (python/paddle/v2/__init__.py:123)."""
+        if name in self._specs:
+            self.set(name, value)
+
     def describe(self):
         return {n: (self._values[n], s.help) for n, s in self._specs.items()}
 
@@ -74,3 +82,11 @@ GLOBAL_FLAGS.define("seed", 0, "global RNG seed; 0 derives from time")
 GLOBAL_FLAGS.define("default_dtype", "float32", "parameter dtype")
 GLOBAL_FLAGS.define("compute_dtype", "bfloat16", "matmul/conv compute dtype "
                     "(operands rounded to it, products accumulated in fp32)")
+GLOBAL_FLAGS.define("log_period", 100, "batches between metric log lines")
+GLOBAL_FLAGS.define("metrics_path", "", "JSONL per-step metrics file (also: "
+                    "PADDLE_TPU_METRICS_PATH); empty = off")
+GLOBAL_FLAGS.define("debug_nans", False, "raise when a training step's cost "
+                    "is NaN (the trainer's non-finite tripwire, with a "
+                    "flight-recorder post-mortem)")
+GLOBAL_FLAGS.define("debug_infs", False, "the same tripwire for an infinite "
+                    "cost")

@@ -1820,3 +1820,164 @@ def test_gpu_merged_round_trip(cuda, tmp_path):
     g = merged.load_inference_model(gpath)
     with pytest.raises(GraphCaptureError):
         g.aot_compile(2)
+
+
+# ---------------------------------------------------------------------------
+# the single-card trainer (trainer.SGD, cli.measure_time, the CLI's train
+# job) on the card
+# ---------------------------------------------------------------------------
+
+def _conv_bn_net(T):
+    L = T.layer
+    img = L.data("im", T.data_type.dense_vector(3 * 16 * 16))
+    lbl = L.data("lbl", T.data_type.integer_value(5))
+    c = L.img_conv(img, 3, num_filters=8, num_channels=3, name="tc1",
+                   bias_attr=False)
+    c = L.batch_norm(c, act="relu", name="tbn1")
+    c = L.img_pool(c, 2, name="tp1")
+    out = L.fc(c, 5, act="softmax", name="tout")
+    return L.classification_cost(out, lbl, name="tcost")
+
+
+def _conv_rows(n, seed=0):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(768).astype(np.float32), int(rng.randint(5)))
+            for _ in range(n)]
+
+
+def _fp32_flags():
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    old = GLOBAL_FLAGS.get("compute_dtype")
+    GLOBAL_FLAGS.set("compute_dtype", "float32")
+    return lambda: GLOBAL_FLAGS.set("compute_dtype", old)
+
+
+@pytest.mark.gpu
+def test_gpu_trainer_step_matches_hand_composed_step(cuda):
+    """The trainer's step on the card against forward + ``autograd.grad``
+    + ``optimizer.update`` composed by hand from the same state."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.ops import prng
+    from paddle_tpu_torch.utils.rng import KeySource
+    restore = _fp32_flags()
+    try:
+        cost = _conv_bn_net(T)
+        p = T.parameters.create(cost, KeySource(1), device=cuda)
+        values = {k: v.clone() for k, v in p.values.items()}
+        state = {k: v.clone() for k, v in p.state.items()}
+        tr = T.trainer.SGD(cost, p, T.optimizer.Momentum(
+            momentum=0.9, learning_rate=0.1))
+        assert tr.device == cuda
+        feeds = tr._feeder(None).feed(_conv_rows(8))
+        assert all(v.array.device == cuda for v in feeds.values())
+        leaves = {k: v.clone().requires_grad_() for k, v in values.items()}
+        outs, new_state = tr._forward(leaves, state, feeds,
+                                      is_training=True,
+                                      dropout_key=prng.prng_key(0))
+        loss = outs["tcost"].array.float().mean()
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        loss = loss.detach()
+        opt = T.optimizer.Momentum(momentum=0.9, learning_rate=0.1)
+        hand = {k: v.clone() for k, v in values.items()}
+        opt.update(0, grads, hand, opt.init_state(hand))
+        tl, _ = tr._plain_train_step(feeds, 0, prng.prng_key(0))
+        assert abs(float(tl) - float(loss)) <= 1e-6 * abs(float(loss))
+        for k in hand:
+            assert torch.allclose(p.values[k], hand[k], rtol=0, atol=1e-6), k
+        for k in new_state:
+            assert torch.allclose(p.state[k], new_state[k], rtol=0,
+                                  atol=1e-6), k
+    finally:
+        restore()
+
+
+@pytest.mark.gpu
+def test_gpu_conv_bn_trainer_matches_cpu(cuda):
+    """Three ``SGD.train`` steps of a small conv-BN net on the card and on
+    the CPU from the same parameters and rows: costs, parameters and the
+    batch-norm statistics within 1e-4."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.utils.rng import KeySource
+    restore = _fp32_flags()
+    try:
+        cost = _conv_bn_net(T)
+        p0 = T.parameters.create(cost, KeySource(2), device="cpu")
+        runs = []
+        for dev in ("cpu", cuda):
+            p = T.parameters.create(cost, KeySource(2), device=dev)
+            # copies: the trainer writes its updates into the values
+            p.values = {k: v.to(dev).clone() for k, v in p0.values.items()}
+            p.state = {k: v.to(dev).clone() for k, v in p0.state.items()}
+            tr = T.trainer.SGD(cost, p, T.optimizer.Momentum(
+                momentum=0.9, learning_rate=0.01))
+            costs = []
+            tr.train(T.batch(lambda: iter(_conv_rows(24, 1)), 8),
+                     event_handler=lambda e: costs.append(e.cost)
+                     if isinstance(e, T.event.EndIteration) else None)
+            runs.append((costs, p))
+        np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=0,
+                                   atol=1e-4)
+        for part in ("values", "state"):
+            for k, v in getattr(runs[0][1], part).items():
+                got = getattr(runs[1][1], part)[k].cpu()
+                assert got.device.type == "cpu"
+                assert float((got - v).abs().max()) <= 1e-4 * max(
+                    1.0, float(v.abs().max())), (part, k)
+    finally:
+        restore()
+
+
+_CLI_CONFIG = """
+import numpy as np
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch import layer
+
+img = layer.data("image", paddle.data_type.dense_vector(16))
+lbl = layer.data("label", paddle.data_type.integer_value(4))
+h = layer.fc(img, 8, act=paddle.activation.Relu(), name="cli_h")
+out = layer.fc(h, 4, act=paddle.activation.Softmax(), name="cli_out")
+cost = layer.classification_cost(out, lbl, name="cost")
+outputs = [out]
+batch_size = 8
+_rng = np.random.RandomState(0)
+_data = [(_rng.rand(16).astype("float32"), int(_rng.randint(4)))
+         for _ in range(32)]
+
+
+def reader():
+    return iter(_data)
+"""
+
+
+@pytest.mark.gpu
+def test_gpu_measure_time(cuda, tmp_path):
+    from paddle_tpu_torch import cli
+    conf = tmp_path / "conf.py"
+    conf.write_text(_CLI_CONFIG)
+    r = cli.measure_time(cli._load_config(str(conf)), time_batches=3,
+                         warmup_batches=1)
+    assert r["ms_per_batch"] > 0 and r["timed_batches"] == 3
+    assert r["flops_per_batch"] == 2 * 8 * (16 * 8 + 8 * 4) \
+        + 2 * 8 * 8 * 4 * 2 + 2 * 8 * 16 * 8
+    assert r["mfu"] is not None and r["peak_memory_bytes"] > 0
+
+
+@pytest.mark.gpu
+def test_gpu_cli_train_job(cuda, tmp_path):
+    """``python -m paddle_tpu_torch train`` in process, on the card (no
+    --device), saving per-pass parameters that load back."""
+    from paddle_tpu_torch import cli
+    import paddle_tpu_torch as T
+    conf = tmp_path / "conf.py"
+    conf.write_text(_CLI_CONFIG)
+    out = tmp_path / "out"
+    assert cli.main(["train", f"--config={conf}", "--num_passes=2",
+                     f"--save_dir={out}"]) == 0
+    tar = out / "pass-00001" / "params.tar"
+    with open(tar, "rb") as f:
+        p = T.parameters.Parameters.from_tar(f)
+    assert p.device == cuda and set(p.names()) == {
+        "cli_h.w", "cli_h.b", "cli_out.w", "cli_out.b"}

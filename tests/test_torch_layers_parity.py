@@ -5,8 +5,9 @@ and the layer with its gradients), row conv, data norm, featmap expand,
 the remaining costs, the pos/neg pair evaluator, the decayed-Adagrad
 and proximal optimizers' first step, the 3-D transposed conv and the
 numeric-gradient cases (here: the port's gradients against
-``jax.grad``). ``test_static_pruning_masks_stick`` waits for ROADMAP
-A7c, which brings the optimizer's ``StaticPruning`` hook.
+``jax.grad``). ``test_static_pruning_masks_stick`` is in
+``tests/test_torch_optimizer_specs.py``, with the optimizer's other
+per-parameter rules.
 
 Tolerances: fp32 forward 1e-5, gradients through the scans 1e-4 (of
 max(1, max|JAX value|)); evaluator counts exact.

@@ -19,12 +19,14 @@ within ``gatol`` (a parameter the port leaves unreached must have a zero
 JAX gradient).
 """
 
+import contextlib
 import importlib
 import io
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import paddle_tpu as J
@@ -38,6 +40,31 @@ for _m in ("layer", "networks", "data_type", "activation", "pooling",
            "topology", "recurrent", "inference", "io.merged"):
     importlib.import_module(f"paddle_tpu.{_m}")     # bind the submodules
     importlib.import_module(f"paddle_tpu_torch.{_m}")
+
+
+@contextlib.contextmanager
+def global_seed_kept():
+    """Restore both packages' ``seed`` flag and global key source on exit:
+    ``init(seed=...)`` sets them for the process, and later tests read
+    them (``KeySource()`` defaults to the flag)."""
+    from paddle_tpu.utils import flags as jflags
+    from paddle_tpu.utils import rng as jrng
+    from paddle_tpu_torch.utils import flags as tflags
+    from paddle_tpu_torch.utils import rng as trng
+    saved = (jflags.GLOBAL_FLAGS.get("seed"), tflags.GLOBAL_FLAGS.get("seed"),
+             jrng._GLOBAL, trng._GLOBAL)
+    try:
+        yield
+    finally:
+        jflags.GLOBAL_FLAGS.set("seed", saved[0])
+        tflags.GLOBAL_FLAGS.set("seed", saved[1])
+        jrng._GLOBAL, trng._GLOBAL = saved[2], saved[3]
+
+
+@pytest.fixture
+def keep_global_seed():
+    with global_seed_kept():
+        yield
 
 
 def carry(jparams, ttopo):
