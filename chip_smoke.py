@@ -181,14 +181,35 @@ order it:
    at their config defaults against the CPU; the CLI's ``time``,
    ``train`` and ``checkgrad`` as processes on the card. No port kernel
    launches here (their counts are read around the phase);
-13. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
+13. the trainer's input pipeline and checkpoints (``input:`` line,
+   ``input_phase``): recordio shards of 2048 uint8 images 256x256x3
+   from a seeded generator, read back by the native ``PrefetchLoader``
+   byte for byte as ``read_records`` reads them (``native_loader``);
+   ResNet-50 (batch 128, bf16) trained through a ``Pipeline`` (seeded
+   chunk order, a random 224 crop, flip and normalize on 4 workers, a
+   512-sample shuffle, ``prefetch=3``; on the card its device stage
+   copies each batch on a side stream) and through the same stream at
+   ``prefetch=0``: images/s of 20 batches after 3 warm-up, the step
+   monitor's feed / dispatch / sync medians, the ring depths, one more
+   pipelined step under the profiler; the same run with checkpoints
+   every 5 batches: bytes, the stall inside the step per save, the
+   writer thread's seconds, a device-to-host bandwidth and the stall's
+   bound from it; the resume gates, an MLP and ResNet-50 trained 12
+   steps, crashed at step 7 (``crash@step``) and resumed from the
+   checkpoint and the pipeline state, bitwise equal in state and batch
+   ids (ResNet-50's gate holds where two uninterrupted runs are
+   bitwise, ``resnet_repeat_bitwise``); a torn multi-process save
+   (``crash@checkpoint:phase=mid_commit``) leaving the previous
+   checkpoint latest and loadable onto the card. No port kernel
+   launches here;
+14. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
    ten device kernels with the most time, the device's busy share);
-14. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
+15. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
    17 kernels and branches, and ``fused_spec_verify``, kernel 2 at the
    spec trace's verify rows; kernel 2's two streams and kernel 5's bf16
    forward count the slot trace's and the lockstep calls' launches too)
@@ -5737,6 +5758,518 @@ def trainer_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# input pipeline and checkpoints phase
+# ---------------------------------------------------------------------------
+
+# ``input:`` phase sizes: 2048 uint8 images 256x256x3 in 4 recordio shards
+# (chunks of 64 records), the 224 crop fed to ResNet-50 (bf16, batch 128,
+# PR 15's ``trainer:`` configuration) through a Pipeline of 4 transform
+# workers, a 512-sample shuffle and a 3-batch staging ring; 3 warm-up and
+# 20 timed batches; checkpoints every 5 batches; the resume gates train 12
+# steps and crash at step 7
+INPUT = {"images": 2048, "side": 256, "crop": 224, "classes": 1000,
+         "shards": 4, "chunk": 64, "batch": 128, "warmup": 3, "timed": 20,
+         "workers": 4, "shuffle": 512, "prefetch": 3, "period": 5,
+         "steps": 12, "crash": 7, "seed": 16}
+# the resume gate's MLP: fully connected layers only (cuBLAS at fixed
+# shapes), 12 batches of 64 an epoch
+INPUT_MLP = {"dims": (784, 512, 512, 10), "batch": 64, "rows": 768,
+             "shuffle": 128, "lr": 0.05}
+# ImageNet's channel mean and standard deviation, on 0..255 pixels
+IMAGE_MEAN = np.array([0.485, 0.456, 0.406], np.float32) * 255.0
+IMAGE_INV_STD = 1.0 / (np.array([0.229, 0.224, 0.225], np.float32) * 255.0)
+
+
+class _Stop(Exception):
+    """Raised from an event handler to end a run at a given step."""
+
+
+def image_shards(tmp, c) -> list:
+    """``c["shards"]`` recordio shards of (uint8 image [side, side, 3],
+    label, id) records drawn from a seeded numpy generator."""
+    from paddle_tpu_torch.runtime import recordio
+    rng = np.random.default_rng(c["seed"])
+    per, side = c["images"] // c["shards"], c["side"]
+    paths = []
+    for s in range(c["shards"]):
+        imgs = rng.integers(0, 256, (per, side, side, 3), dtype=np.uint8)
+        labels = rng.integers(0, c["classes"], per)
+        p = str(Path(tmp, f"img-{s:05d}.rio"))
+        with recordio.Writer(p, records_per_chunk=c["chunk"]) as w:
+            for i in range(per):
+                w.write((imgs[i], int(labels[i]), s * per + i))
+        paths.append(p)
+    return paths
+
+
+def augment(sample, crop: int):
+    """A random ``crop`` x ``crop`` window and a random horizontal flip,
+    drawn from the sample's id (the same output whenever the sample is
+    transformed again, as a resumed pipeline does), then normalized and
+    laid out as flat CHW float32."""
+    img, label, sid = sample
+    r = np.random.default_rng(sid)
+    y, x = r.integers(0, img.shape[0] - crop + 1, 2)
+    v = img[y:y + crop, x:x + crop]
+    if r.random() < 0.5:
+        v = v[:, ::-1]
+    v = (v.astype(np.float32) - IMAGE_MEAN) * IMAGE_INV_STD
+    return (np.ascontiguousarray(v.transpose(2, 0, 1)).reshape(-1), label,
+            sid)
+
+
+def image_pipe(T, shards, c, prefetch=None):
+    """The phase's Pipeline: seeded chunk order, ``augment`` on
+    ``c["workers"]`` threads, a seeded streaming shuffle, batches."""
+    import functools
+    P = T.pipeline
+    return P.Pipeline(
+        P.ShardSource(shards, shuffle_chunks=True, seed=c["seed"]),
+        transform=functools.partial(augment, crop=c["crop"]),
+        transform_workers=c["workers"], shuffle_size=c["shuffle"],
+        seed=c["seed"], batch_size=c["batch"],
+        prefetch=c["prefetch"] if prefetch is None else prefetch)
+
+
+def image_sync_reader(T, shards, c, epochs=2):
+    """The same batch stream as ``image_pipe``'s first ``epochs`` epochs,
+    made on the calling thread (the stages run inline): the reader
+    ``prefetch=0`` feeds from."""
+    P = T.pipeline
+
+    def reader():
+        src = P.ShardSource(shards, shuffle_chunks=True, seed=c["seed"])
+        shuffle = P.ShuffleStage(c["shuffle"], c["seed"])
+        batch = P.BatchStage(c["batch"])
+        for _ in range(epochs):
+            stream = (augment(s, c["crop"]) for s in src)
+            yield from batch.feed(shuffle.feed(stream))
+    return reader
+
+
+def batch_ids(pipe, n) -> list:
+    """The sample ids of ``pipe``'s next ``n`` batches (host batches),
+    across epochs; the pipeline is closed after."""
+    out = []
+    with pipe:
+        while len(out) < n:
+            for b in iter(pipe):
+                out.append([int(s[2]) for s in b])
+                if len(out) == n:
+                    break
+    return out
+
+
+def loader_check(T, shards) -> dict:
+    """The native loader: built, taken, and byte-for-byte the records of
+    ``recordio.read_records`` on one shard."""
+    from paddle_tpu_torch.runtime import loader, native, recordio
+    if native.get() is None:
+        fail("input: runtime.native.get() is None: the native record "
+             "codec did not build")
+    ld = loader.PrefetchLoader(shards[0], num_threads=1)
+    t0 = time.perf_counter()
+    got = list(ld)
+    load_s = time.perf_counter() - t0
+    want = list(recordio.read_records(shards[0]))
+    same = len(got) == len(want) and all(
+        a[0].tobytes() == b[0].tobytes() and a[1:] == b[1:]
+        for a, b in zip(got, want))
+    doc = {"native_loader": ld.path_taken == "native", "records": len(got),
+           "records_equal": same,
+           "loader_mb_per_s": sum(r[0].nbytes for r in got) / load_s / 1e6}
+    if not (doc["native_loader"] and same):
+        fail(f"input: native loader check failed: {doc}")
+    return doc
+
+
+def timed_run(torch, T, tr, reader, c, n_batches, pipe=None) -> dict:
+    """``tr.train(reader)`` for ``n_batches`` (whole passes of the
+    reader); the images/s of the batches after the warm-up, the step
+    monitor's medians and, for a Pipeline, the ring depths seen at each
+    step."""
+    marks, recs, depths = [], [], []
+
+    def h(e):
+        if isinstance(e, T.event.EndIteration):
+            marks.append(time.perf_counter())
+            if pipe is not None and pipe._ring is not None:
+                depths.append((pipe._ring.qsize(), pipe._out.qsize()))
+    T.observe.add_report_handler(recs.append)
+    try:
+        tr.train(reader, num_passes=n_batches // (c["images"] // c["batch"])
+                 if pipe is not None else 1, event_handler=h)
+    finally:
+        T.observe.remove_report_handler(recs.append)
+    w, n = c["warmup"], c["timed"]
+    if len(marks) < w + n:
+        fail(f"input: the run gave {len(marks)} batches, want {w + n}")
+    steps = [r for r in recs if r.get("kind") == "step"][w:w + n]
+    window_s = marks[w + n - 1] - marks[w - 1]
+    feed = [r["feed_s"] for r in steps]
+    doc = {"batches": len(marks),
+           "images_per_s": n * c["batch"] / window_s,
+           "window_s": window_s,
+           "feed_ms_p50": 1e3 * median_of(steps, "feed_s"),
+           "feed_ms_max": 1e3 * max(feed), "feed_s_sum": sum(feed),
+           "steps_s_sum": sum(r["wall_time_s"] for r in steps),
+           "dispatch_ms_p50": 1e3 * median_of(steps, "dispatch_s"),
+           "sync_ms_p50": 1e3 * median_of(steps, "sync_s"),
+           "step_ms_p50": 1e3 * median_of(steps, "wall_time_s")}
+    if depths:
+        ring, out = zip(*depths[w:w + n])
+        doc["ring_depth"] = {"median": float(np.median(ring)),
+                             "min": min(ring), "max": max(ring),
+                             "capacity": pipe.prefetch}
+        doc["device_depth"] = {"median": float(np.median(out)),
+                               "min": min(out), "max": max(out),
+                               "capacity": pipe.device_depth}
+    return doc
+
+
+def d2h_gb_per_s(torch, dev, nbytes=256 << 20) -> float:
+    """Device->host bandwidth into pinned memory (CUDA events, median of
+    5 copies of ``nbytes``)."""
+    src = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    dst = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    ts = []
+    for _ in range(6):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / 1e3)
+    return nbytes / float(np.median(ts[1:])) / 1e9
+
+
+def state_of(tr) -> dict:
+    """A trainer's parameters, optimizer state and model state, cloned."""
+    def c(t):
+        return {k: (tuple(x.clone() for x in v) if isinstance(v, tuple)
+                    else v.clone()) for k, v in t.items()}
+    return {"values": c(tr.parameters.values), "opt": c(tr.opt_state),
+            "state": c(tr.parameters.state)}
+
+
+def states_equal(torch, a, b) -> bool:
+    for g in ("values", "opt", "state"):
+        if set(a[g]) != set(b[g]):
+            return False
+        for k in a[g]:
+            x, y = a[g][k], b[g][k]
+            xs, ys = (x, y) if isinstance(x, tuple) else ((x,), (y,))
+            if not all(torch.equal(p, q) for p, q in zip(xs, ys)):
+                return False
+    return True
+
+
+def train_until(T, tr, pipe, n, ckpt_dir=None) -> None:
+    """Train ``tr`` over ``pipe`` until its step counter reaches ``n``
+    (or a chaos rule fires); the pipeline is closed after."""
+    def h(e):
+        if isinstance(e, T.event.EndIteration) and tr._step >= n:
+            raise _Stop
+    try:
+        tr.train(reader=pipe, num_passes=100, event_handler=h,
+                 checkpoint_dir=ckpt_dir)
+    except _Stop:
+        pass
+    finally:
+        pipe.close()
+
+
+def resume_gate(torch, T, label, make_trainer, make_pipe, c, tmp,
+                repeat=False) -> dict:
+    """The preemption contract on the card: ``c["steps"]`` steps
+    uninterrupted; the same job with checkpoints every ``c["period"]``
+    steps and a ``crash@step`` chaos rule at ``c["crash"]``, resumed in a
+    fresh SGD from the checkpoint dir and the pipeline state. The final
+    parameters, optimizer state and model state must be bitwise equal,
+    and so must the ids of the batch stream (the checkpoint's pipeline
+    state continues the uninterrupted stream). ``repeat``: first check
+    that two uninterrupted runs are bitwise equal; the gate holds only
+    where they are."""
+    from paddle_tpu_torch.io import checkpoint as ckpt_io
+    from paddle_tpu_torch.runtime import chaos
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    n, k, period = c["steps"], c["crash"], c["period"]
+    doc = {"steps": n, "crash_at": k, "period": period}
+    T.init(seed=7)
+    tr = make_trainer()
+    train_until(T, tr, make_pipe(), n)
+    full = state_of(tr)
+    del tr
+    gated = True
+    if repeat:
+        T.init(seed=7)
+        tr = make_trainer()
+        train_until(T, tr, make_pipe(), n)
+        doc["resnet_repeat_bitwise"] = gated = states_equal(
+            torch, full, state_of(tr))
+        del tr
+    d = str(Path(tmp, f"resume_{label}"))
+    old = GLOBAL_FLAGS.get("checkpoint_period")
+    GLOBAL_FLAGS.set("checkpoint_period", period)
+    os.environ[chaos.ENV_VAR] = f"crash@step:step={k}"
+    chaos.reset()
+    try:
+        T.init(seed=7)
+        tr = make_trainer()
+        try:
+            train_until(T, tr, make_pipe(), n, ckpt_dir=d)
+            doc["crashed"] = False
+        except chaos.ChaosError:
+            doc["crashed"] = True
+        doc["crashed_at_step"] = tr._step
+        del tr
+        os.environ.pop(chaos.ENV_VAR)
+        chaos.reset()
+        latest = ckpt_io.latest_checkpoint(d)
+        doc["restored_from"] = Path(latest).name if latest else None
+        T.init(seed=7)
+        tr = make_trainer()
+        t0 = time.perf_counter()
+        train_until(T, tr, make_pipe(), n, ckpt_dir=d)
+        doc["resume_run_s"] = time.perf_counter() - t0
+        doc["restore_s"] = tr._acct.snapshot()["buckets"]["restore"]
+        resumed = state_of(tr)
+        doc["final_step"] = tr._step
+    finally:
+        os.environ.pop(chaos.ENV_VAR, None)
+        chaos.reset()
+        GLOBAL_FLAGS.set("checkpoint_period", old)
+    doc["state_bitwise"] = states_equal(torch, full, resumed)
+    # the stream: the checkpoint's pipeline state continues it exactly
+    want = batch_ids(make_pipe(), n)
+    pipe = make_pipe()
+    pipe.load_state_dict(ckpt_io.load_pipeline_state(latest))
+    got = want[:int(doc["restored_from"][5:])] if latest else []
+    got += batch_ids(pipe, n - len(got))
+    doc["ids_equal"] = got == want
+    ok = (doc["crashed"] and doc["crashed_at_step"] == k
+          and doc["restored_from"] == f"ckpt-{(k // period) * period:08d}"
+          and doc["final_step"] == n and doc["ids_equal"])
+    if not ok or (gated and not doc["state_bitwise"]):
+        fail(f"input: resume gate {label} failed: {doc}")
+    doc["gate"] = "held" if gated else "skipped: two runs differ"
+    return doc
+
+
+def mlp_shards(tmp, c) -> list:
+    """Two recordio shards of (float32[784], label, id) rows."""
+    from paddle_tpu_torch.runtime import recordio
+    m = INPUT_MLP
+    rng = np.random.default_rng(c["seed"] + 1)
+    x = rng.random((m["rows"], m["dims"][0]), dtype=np.float32)
+    y = rng.integers(0, m["dims"][-1], m["rows"])
+    paths, half = [], m["rows"] // 2
+    for s in range(2):
+        p = str(Path(tmp, f"mlp-{s:05d}.rio"))
+        recordio.write_records(p, ((x[i], int(y[i]), i) for i in range(
+            s * half, (s + 1) * half)), chunk_records=c["chunk"])
+        paths.append(p)
+    return paths
+
+
+def mlp_cost(T):
+    L, A, m = T.layer, T.activation, INPUT_MLP
+    h = x = L.data("mlp_x", T.data_type.dense_vector(m["dims"][0]))
+    y = L.data("mlp_y", T.data_type.integer_value(m["dims"][-1]))
+    for i, w in enumerate(m["dims"][1:-1]):
+        h = L.fc(h, w, act=A.Relu(), name=f"mlp_h{i}")
+    out = L.fc(h, m["dims"][-1], act=A.Softmax(), name="mlp_out")
+    return L.classification_cost(out, y, name="mlp_cost")
+
+
+def torn_save_check(torch, tr, tmp) -> dict:
+    """A multi-process save whose second process dies between moving its
+    data files and its manifest (``crash@checkpoint:phase=mid_commit``):
+    the previous checkpoint stays ``latest_checkpoint`` and loads, onto
+    the card, with its own values."""
+    from paddle_tpu_torch.io import checkpoint as ckpt_io
+    from paddle_tpu_torch.runtime import chaos
+    d = str(Path(tmp, "torn"))
+    vals, opt, st = tr.parameters.values, tr.opt_state, tr.parameters.state
+    plus = {k: v + 1 for k, v in vals.items()}
+    for pi in (0, 1):
+        ckpt_io.save_checkpoint(d, 1, vals, opt, st, process_index=pi,
+                                process_count=2)
+    ckpt_io.save_checkpoint(d, 2, plus, opt, st, process_index=0,
+                            process_count=2)
+    os.environ[chaos.ENV_VAR] = "crash@checkpoint:phase=mid_commit"
+    chaos.reset()
+    try:
+        ckpt_io.save_checkpoint(d, 2, plus, opt, st, process_index=1,
+                                process_count=2)
+        fired = False
+    except chaos.ChaosError:
+        fired = True
+    finally:
+        os.environ.pop(chaos.ENV_VAR)
+        chaos.reset()
+    latest = ckpt_io.latest_checkpoint(d)
+    step, p, o, s = ckpt_io.load_checkpoint(latest, vals, opt, st)
+    doc = {"chaos_fired": fired,
+           "torn_complete": ckpt_io.is_complete(str(Path(d,
+                                                         "ckpt-00000002"))),
+           "latest": Path(latest).name, "step": step,
+           "values_equal": all(torch.equal(p[k], vals[k]) for k in vals),
+           "on_device": all(v.device == vals[k].device
+                            for k, v in p.items())}
+    if not (fired and not doc["torn_complete"] and step == 1
+            and doc["latest"] == "ckpt-00000001" and doc["values_equal"]
+            and doc["on_device"]):
+        fail(f"input: torn-save check failed: {doc}")
+    return doc
+
+
+def input_phase(torch, dev, c=INPUT, cost_fn=None) -> dict:
+    """The ``input:`` line: recordio shards of uint8 images; the native
+    loader; ResNet-50 (bf16, batch 128) fed through a Pipeline
+    (``prefetch=3``) against the same stream at ``prefetch=0``; the
+    device's busy share of one more pipelined step; the same run with
+    asynchronous checkpoints; the resume gates (an MLP and ResNet-50,
+    bitwise) and the torn save. No port kernel launches here."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.ops import kernels, prng
+    from paddle_tpu_torch.trainer import adopt
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    from paddle_tpu_torch.utils.rng import KeySource
+    cost_fn = cost_fn or resnet50_cost
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+    cuda = dev.type == "cuda"
+    doc = {}
+    with tempfile.TemporaryDirectory(prefix="input_") as tmp:
+        t0 = time.perf_counter()
+        shards = image_shards(tmp, c)
+        doc["data"] = {"images": c["images"], "shards": len(shards),
+                       "bytes": sum(os.path.getsize(p) for p in shards),
+                       "write_s": time.perf_counter() - t0}
+        doc.update(loader_check(T, shards))
+
+        cost = cost_fn(T)
+        topo = T.topology.Topology(cost)
+
+        def momentum():
+            return T.optimizer.Momentum(momentum=0.9, learning_rate=0.01)
+
+        def trainer():
+            params = T.parameters.create(topo, KeySource(5), device=dev)
+            return T.trainer.SGD(cost, params, momentum())
+        T.init(seed=5)
+        tr = trainer()
+        per_epoch = c["images"] // c["batch"]
+        pipe = image_pipe(T, shards, c)
+        try:
+            doc["pipelined"] = timed_run(
+                torch, T, tr, pipe, c, 2 * per_epoch, pipe=pipe)
+            # one more pipelined step under the profiler, its ring full
+            it = iter(pipe)
+            key = prng.prng_key(1)
+
+            def step():
+                feeds = next(it)
+                adopt(feeds)
+                return float(tr._plain_train_step(feeds, tr._step, key)[0])
+            step()
+            time.sleep(0.5)
+            prof = profile_window(torch, step) if cuda else {}
+            it.close()
+            doc["profile"] = {k: prof.get(k) for k in (
+                "step_ms", "device_busy_ms", "device_busy_share")}
+            doc["profile"]["host_top"] = prof.get("host_top", [])[:5]
+        finally:
+            pipe.close()
+        doc["prefetch0"] = timed_run(
+            torch, T, tr, T.reader.firstn(image_sync_reader(T, shards, c),
+                                          c["warmup"] + c["timed"]),
+            c, c["warmup"] + c["timed"])
+        doc["speedup"] = (doc["pipelined"]["images_per_s"]
+                          / doc["prefetch0"]["images_per_s"])
+
+        # the same pipelined run with asynchronous checkpoints
+        ck_dir = str(Path(tmp, "ckpt"))
+        old = GLOBAL_FLAGS.get("checkpoint_period")
+        GLOBAL_FLAGS.set("checkpoint_period", c["period"])
+        pipe = image_pipe(T, shards, c)
+        try:
+            t0 = time.perf_counter()
+            tr.train(reader=pipe, num_passes=1, checkpoint_dir=ck_dir)
+            run_s = time.perf_counter() - t0
+        finally:
+            pipe.close()
+            GLOBAL_FLAGS.set("checkpoint_period", old)
+        from paddle_tpu_torch.io import checkpoint as ckpt_io
+        latest = ckpt_io.latest_checkpoint(ck_dir)
+        nbytes = sum(f.stat().st_size for f in Path(latest).iterdir())
+        saved = sorted(Path(ck_dir).glob("ckpt-*"))
+        ck = tr.last_checkpointer
+        writes = ck.write_seconds
+        stall = tr._acct.snapshot()["buckets"]["checkpoint_save"]
+        # each save's stall in its parts, timed inside the save: the
+        # pipeline's state_dict, the trees' snapshot (of it the pinned
+        # allocation) and the pickle of the state, all on the host, and
+        # the hand-off to the writer
+        saves = [{(k[:-2] + "_ms" if k.endswith("_s") else k):
+                  (1e3 * v if k.endswith("_s") else v)
+                  for k, v in sorted(parts.items())}
+                 for parts in ck.save_parts]
+        dev_bytes = max(p["device_bytes"] for p in ck.save_parts)
+        bw = d2h_gb_per_s(torch, dev) if cuda else None
+        doc["checkpoint"] = {
+            "saves": len(writes), "bytes_on_disk": nbytes,
+            "saved": [p.name for p in saved],
+            "device_bytes": dev_bytes, "per_save": saves,
+            "params": int(sum(v.numel() for v in
+                              tr.parameters.values.values())),
+            "stall_ms_per_save": 1e3 * stall / max(1, len(writes)),
+            "writer_s_per_save": writes,
+            "d2h_gb_per_s": bw,
+            # the least time the trees' copy off the card can take; the
+            # host's part of the stall (state_dict, pickle) is apart
+            "stall_bound_ms": (1e3 * dev_bytes / (bw * 1e9) if bw
+                               else None),
+            "run_s": run_s, "per_pass_batches": per_epoch}
+        del tr
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # resume gates: (a) the MLP, (b) ResNet-50
+        mshards = mlp_shards(tmp, c)
+        mcost = mlp_cost(T)
+        mtopo = T.topology.Topology(mcost)
+        m = INPUT_MLP
+
+        def mlp_trainer():
+            params = T.parameters.create(mtopo, KeySource(9), device=dev)
+            return T.trainer.SGD(mcost, params, T.optimizer.Momentum(
+                momentum=0.9, learning_rate=m["lr"]))
+
+        def mlp_pipe():
+            P = T.pipeline
+            return P.Pipeline(P.ShardSource(mshards, seed=c["seed"]),
+                              shuffle_size=m["shuffle"], seed=c["seed"],
+                              batch_size=m["batch"], prefetch=3)
+        doc["resume_mlp"] = resume_gate(torch, T, "mlp", mlp_trainer,
+                                        mlp_pipe, c, tmp)
+        tr = mlp_trainer()
+        doc["torn_save"] = torn_save_check(torch, tr, tmp)
+        del tr
+        doc["resume_resnet50"] = resume_gate(
+            torch, T, "resnet50", trainer,
+            lambda: image_pipe(T, shards, c), c, tmp,
+            repeat=True)
+    after = kernels.launch_counts()
+    doc["port_kernel_launches"] = sum(after[k] - before.get(k, 0)
+                                      for k in after)
+    doc["phase_s"] = time.perf_counter() - t_phase
+    print("input: " + json.dumps(doc))
+    return doc
+
+
+# ---------------------------------------------------------------------------
 # training phase
 # ---------------------------------------------------------------------------
 
@@ -6014,6 +6547,8 @@ def main():
     ops_phase(torch, dev)
     layers_phase(torch, dev)
     trainer_phase(torch, dev)
+    torch.cuda.empty_cache()
+    input_phase(torch, dev)
     trained = train_phase(torch, tt, topt, kernels, costs, place, cfg, dev)
     launches = {**{k: served[k] for k in SERVING_KERNELS},
                 "fused_sample.threefry": served["fused_sample.threefry"],

@@ -42,6 +42,7 @@ replay does not run: a capture records each wrapper's launch-count
 delta, and every replay adds it.
 """
 
+import gc
 import time
 from typing import Callable, List, Optional
 
@@ -199,17 +200,26 @@ class _Captured:
             prog.fn(*call)
             before = _launch_counts()
             graph = torch.cuda.CUDAGraph()
-            graph.capture_begin(pool=ctx.pool)
+            # no garbage collection while capturing: a collection that
+            # frees an unreachable graph (an earlier engine's) destroys it
+            # mid-capture, which CUDA refuses and which voids this capture
+            gc_was_on = gc.isenabled()
+            gc.disable()
             try:
-                out = prog.fn(*call)
-            except BaseException as e:
+                graph.capture_begin(pool=ctx.pool)
                 try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass                # the capture is already invalid
-                raise GraphCaptureError(
-                    f"capturing {prog.name} failed: {e}") from e
-            graph.capture_end()
+                    out = prog.fn(*call)
+                except BaseException as e:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass            # the capture is already invalid
+                    raise GraphCaptureError(
+                        f"capturing {prog.name} failed: {e}") from e
+                graph.capture_end()
+            finally:
+                if gc_was_on:
+                    gc.enable()
             after = _launch_counts()
         here.wait_stream(ctx.stream)
         # what one replay launches; the capture itself launched nothing

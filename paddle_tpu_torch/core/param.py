@@ -7,7 +7,7 @@ flat dict ``{name: torch.Tensor}``; metadata lives in ``ParamSpec``.
 Initial values come from the JAX package's threefry stream for the same
 seed and name (``ops/prng``): the keys and integer bits are equal, the
 floating transforms agree to rounding (``uniform`` within an ulp,
-``normal`` within 3 ulps, ``ops/prng.normal``), constants exactly.
+``ops/prng.normal`` bitwise), constants exactly.
 """
 
 import dataclasses

@@ -35,6 +35,8 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core import dtypes, place
+from paddle_tpu_torch.io.checkpoint import (  # shared tree walk
+    _flatten, _host_array)
 from paddle_tpu_torch.observe import costs as _costs
 from paddle_tpu_torch.observe import metrics as _metrics
 from paddle_tpu_torch.ops import q8
@@ -106,22 +108,6 @@ def quantize_lm_params(params, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _flatten(tree, prefix: str = "") -> dict:
-    """Nested dict/list/tuple trees of arrays -> {'/'-joined path: leaf};
-    list and tuple items as ``__<i>`` (the JAX package's checkpoint
-    encoding)."""
-    out = {}
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{prefix}__{i}/"))
-    else:
-        out[prefix.rstrip("/")] = tree
-    return out
-
-
 def _unflatten(flat: dict):
     """The nested tree of '/'-joined paths, with no template: dict nodes
     whose keys are all ``__<i>`` were lists."""
@@ -163,17 +149,6 @@ def _cfg_from_dict(d: dict):
     return TransformerConfig(**d)
 
 
-def _leaf_array(t) -> np.ndarray:
-    """A tree leaf as the numpy array ``np.savez`` writes: bf16 as raw
-    2-byte words (``|V2``), every other dtype as it is."""
-    if isinstance(t, torch.Tensor):
-        t = t.detach().cpu().contiguous()
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view("V2")
-        return t.numpy()
-    return np.asarray(t)
-
-
 def _leaf_tensor(a: np.ndarray):
     """An ``np.load`` leaf: ``|V2`` words as a bf16 tensor with the same
     words; any other array as it is."""
@@ -185,7 +160,7 @@ def _leaf_tensor(a: np.ndarray):
 
 def _npz_bytes(tree) -> bytes:
     buf = _io.BytesIO()
-    np.savez(buf, **{k: _leaf_array(v) for k, v in _flatten(tree).items()})
+    np.savez(buf, **{k: _host_array(v) for k, v in _flatten(tree).items()})
     return buf.getvalue()
 
 

@@ -28,12 +28,12 @@ not a correctly rounded one: :func:`xla_log` repeats its Cephes
 polynomial with the same fused multiply-adds, so the Gumbel noise is
 bitwise JAX's too. ``normal``'s ``erfinv`` (:func:`xla_erfinv`) repeats
 XLA's float32 polynomial (Giles' single-precision erfinv, its Horner
-steps as fused multiply-adds) over ``-log1p(-x^2)``, where ``log1p`` is
-:func:`xla_log` of ``1 + x`` from |x| = sqrt(2) - 1 up, as XLA:CPU's,
-and the correctly rounded value below, where XLA:CPU's own rational
-form differs by an ulp at a few points in a hundred. So the
-normal draws are JAX's to within 3 float32 ulps (2.4e-7 at most;
-0.2 % of 200000 draws differ at all). ``csrc/fused_sample.cu`` repeats these steps on the
+steps as fused multiply-adds) over ``-log1p(-x^2)``, where ``log1p``
+(:func:`xla_log1p`) is XLA:CPU's: :func:`xla_log` of ``1 + x`` from
+|x| = sqrt(2) - 1 up, Cephes' rational form below, and the square root
+of the tail branch is correctly rounded (torch's float32 CPU ``sqrt``
+is not always). So the normal draws are bitwise JAX's as well.
+``csrc/fused_sample.cu`` repeats these steps on the
 card (its threefry stream). The JAX package is not imported: every
 constant is written out here.
 """
@@ -214,17 +214,34 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                -0.00367342844, 0.00573950773, -0.0076224613,
                0.00943887047, 1.00167406, 2.83297682)
 _LOG1P_SMALL = 0.41421356237309504880      # sqrt(2) - 1
+# Cephes' log1p rational form below sqrt(2) - 1, XLA:CPU's small branch:
+# numerator and denominator, highest degree first
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
 
 
 def xla_log1p(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.log1p`` of float32 ``x`` in (-1, 0]: ``xla_log(1 + x)`` where
-    |x| >= sqrt(2) - 1 (XLA:CPU's branch, bitwise), the correctly rounded
-    value below it."""
+    """``jnp.log1p`` of float32 ``x`` in (-1, 0], as XLA:CPU computes it:
+    ``xla_log(1 + x)`` where |x| >= sqrt(2) - 1; below it Cephes' rational
+    form ``x - x^2/2 + x^3 * P(x) / Q(x)``, each polynomial by Horner's
+    rule from 0 in float32 fused multiply-adds."""
     x = x.float()
-    large = xla_log(torch.where(x.abs() < _LOG1P_SMALL,
-                                torch.ones_like(x), x + 1.0))
-    small = torch.log1p(x.double()).float()
-    return torch.where(x.abs() < _LOG1P_SMALL, small, large)
+    near = x.abs() < _LOG1P_SMALL
+    large = xla_log(torch.where(near, torch.ones_like(x), x + 1.0))
+    num = torch.zeros_like(x)
+    for c in _LOG1P_P:
+        num = fma32(num, x, c)
+    den = torch.zeros_like(x)
+    for c in _LOG1P_Q:
+        den = fma32(den, x, c)
+    x2 = x * x
+    small = x + ((-0.5) * x2 + (x * x2) * (num / den))
+    return torch.where(near, small, large)
 
 
 def xla_erfinv(x: torch.Tensor) -> torch.Tensor:
@@ -234,7 +251,10 @@ def xla_erfinv(x: torch.Tensor) -> torch.Tensor:
     x = x.float()
     w = -xla_log1p(-(x * x))
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # float32 sqrt correctly rounded, as XLA's: torch's vectorised CPU
+    # float32 sqrt is an ulp off at times, the float64 root rounded once
+    # is exact
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
 
     def coef(i):
         return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),

@@ -28,9 +28,10 @@ Actions:
     crash  — raise ``ChaosError``: an in-thread software failure
 
 Sites instrumented in the port: ``step`` (trainer batch loop, attrs
-``step``/``rank``/``epoch``). The JAX package also fires
-``checkpoint`` in its checkpoint writer (ROADMAP A8). Anything can add a
-site — it is just a ``maybe_trigger`` call.
+``step``/``rank``/``epoch``) and ``checkpoint`` (``io/checkpoint.py``'s
+commit, attrs ``phase``/``step``; phases ``pre_write``, ``pre_manifest``,
+``pre_commit`` and ``mid_commit``), as in the JAX package. Anything can
+add a site — it is just a ``maybe_trigger`` call.
 
 Stdlib-only; ``maybe_trigger`` is a no-op dict lookup when the env var
 is unset, so instrumented hot paths pay nothing in production.

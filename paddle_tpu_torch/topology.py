@@ -30,6 +30,11 @@ from paddle_tpu_torch.ops import prng
 from paddle_tpu_torch.utils import enforce
 
 
+#: the tensor fields of a feed ``Value``, in order (a feed sets no
+#: ``pre_act`` or ``aux``)
+FEED_FIELDS = ("array", "lengths", "sub_lengths", "weights")
+
+
 @dataclasses.dataclass
 class Value:
     """Runtime value of a layer: a tensor + optional sequence metadata

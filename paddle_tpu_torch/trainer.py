@@ -20,10 +20,14 @@ Dropout masks are the JAX package's for the same seed: the step key is
 ``global_key_source().step("dropout", step)`` and the microbatched step
 splits it with ``ops/prng.split`` (``jax.random.split``).
 
-Paths of the JAX trainer that need modules still to port raise
-``NotImplementedError`` naming their ROADMAP item: ``parallel=`` and the
-elastic supervisor contract (``PADDLE_ELASTIC_DIR``) wait for A9;
-``checkpoint_dir=``, ``prefetch > 0`` and a ``Pipeline`` reader for A8.
+``checkpoint_dir=`` writes ``io/checkpoint`` directories on an
+``AsyncCheckpointer`` and resumes from the newest intact one;
+``prefetch > 0`` or a ``pipeline.Pipeline`` reader feeds through the
+input pipeline, whose device stage (``DeviceTransfer``) copies each
+batch to the card on a stream of its own ahead of the step. Paths of the
+JAX trainer that need the parallel tier raise ``NotImplementedError``
+naming ROADMAP A10: ``parallel=`` and the elastic supervisor contract
+(``PADDLE_ELASTIC_DIR``).
 """
 
 import math
@@ -41,20 +45,19 @@ from paddle_tpu_torch.ops import prng
 from paddle_tpu_torch.optimizer import Optimizer
 from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.runtime import chaos as _chaos
-from paddle_tpu_torch.topology import LayerOutput, Topology, Value
+from paddle_tpu_torch.topology import (FEED_FIELDS, LayerOutput, Topology,
+                                       Value)
 from paddle_tpu_torch.utils.logger import get_logger
 from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
 from paddle_tpu_torch.utils.rng import global_key_source
 
 logger = get_logger("trainer")
 
-_VALUE_FIELDS = ("array", "lengths", "sub_lengths", "weights")
-
 
 def _feed_tensors(feeds) -> List[torch.Tensor]:
     """Every tensor of a feed dict, in sorted-name then field order."""
     return [getattr(feeds[k], f) for k in sorted(feeds)
-            for f in _VALUE_FIELDS if getattr(feeds[k], f) is not None]
+            for f in FEED_FIELDS if getattr(feeds[k], f) is not None]
 
 
 def _feed_signature(feeds):
@@ -66,9 +69,111 @@ def _split_value(v: Value, n: int) -> List[Value]:
     """``v`` cut into ``n`` equal slices along the batch axis."""
     parts = {f: (None if getattr(v, f) is None
                  else torch.chunk(getattr(v, f), n, dim=0))
-             for f in _VALUE_FIELDS}
+             for f in FEED_FIELDS}
     return [Value(*(None if parts[f] is None else parts[f][i]
-                    for f in _VALUE_FIELDS)) for i in range(n)]
+                    for f in FEED_FIELDS)) for i in range(n)]
+
+
+#: sets of pinned feed buffers that rotate in ``DeviceTransfer``: the
+#: pipeline's ``device_depth`` (2) copied batches, the one in the step
+#: and the one being filled. A set is refilled only after its copies'
+#: event, so the count bears on waiting, never on correctness.
+_PINNED_SLOTS = 4
+
+
+class DeviceFeeds(dict):
+    """{slot name: ``Value``} on the device, with ``ready``: the CUDA
+    event after its copies (None when nothing was copied)."""
+
+    ready: Optional["torch.cuda.Event"] = None
+
+
+class DeviceTransfer:
+    """The pipeline's device stage on the card (the JAX trainer's
+    ``jax.device_put`` transfer): pinned host→device copies of feed
+    dicts on a side stream. Runs on the ``pipeline-feed`` thread and,
+    per batch,
+
+    1. waits for the copies that last read its next pinned slot, so a
+       pinned buffer is never refilled before its copy completes;
+    2. fills the slot's pinned host buffers from the converted host feeds;
+    3. copies them to the device with ``non_blocking=True`` on a CUDA
+       stream of its own, and records an event after the copies.
+
+    The result is a :class:`DeviceFeeds` that the consumer hands to
+    :func:`adopt` before its step. A failing copy raises on the feed
+    thread and re-raises at the pipeline's ``next()``; there is no
+    fallback that feeds from the host."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"DeviceTransfer copies to a CUDA device, "
+                             f"got {self.device}")
+        self._pinned: List[Dict] = [dict() for _ in range(_PINNED_SLOTS)]
+        self._done: List[Optional["torch.cuda.Event"]] = \
+            [None] * _PINNED_SLOTS
+        self._next = 0
+        self._stream: Optional["torch.cuda.Stream"] = None
+
+    def _pin(self, bufs: Dict, key, t: torch.Tensor) -> torch.Tensor:
+        buf = bufs.get(key)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = bufs[key] = torch.empty(t.shape, dtype=t.dtype,
+                                          pin_memory=True)
+        buf.copy_(t)
+        return buf
+
+    def __call__(self, feeds: Dict[str, Value]) -> DeviceFeeds:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        i = self._next
+        self._next = (i + 1) % _PINNED_SLOTS
+        if self._done[i] is not None:
+            # the copies that last read this slot's pinned buffers
+            self._done[i].synchronize()
+        bufs = self._pinned[i]
+        out = DeviceFeeds()
+        with torch.cuda.stream(self._stream):
+            for name, v in feeds.items():
+                fields = []
+                for f in FEED_FIELDS:
+                    t = getattr(v, f)
+                    if t is None:
+                        fields.append(None)
+                        continue
+                    if t.device.type != "cpu":
+                        raise ValueError(
+                            f"DeviceTransfer: feed {name!r}.{f} is "
+                            f"already on {t.device}; convert must give "
+                            f"host tensors")
+                    pin = self._pin(bufs, (name, f), t)
+                    fields.append(pin.to(self.device, non_blocking=True))
+                out[name] = Value(*fields)
+            ev = torch.cuda.Event()
+            ev.record(self._stream)
+        self._done[i] = ev
+        out.ready = ev
+        return out
+
+
+def adopt(feeds) -> None:
+    """Make ``feeds`` (a :class:`DeviceFeeds`) safe to use on the current
+    stream of their device: wait for their copies and tie their memory to
+    that stream. A no-op for feeds that carry no event (host feeds)."""
+    ev = getattr(feeds, "ready", None)
+    if ev is None:
+        return
+    stream = None
+    for v in feeds.values():
+        for f in FEED_FIELDS:
+            t = getattr(v, f)
+            if t is None or t.device.type != "cuda":
+                continue
+            if stream is None:
+                stream = torch.cuda.current_stream(t.device)
+                stream.wait_event(ev)
+            t.record_stream(stream)
 
 
 def _state_bytes(s) -> int:
@@ -256,7 +361,7 @@ class SGD:
                  is_local: bool = True, parallel=None,
                  grad_accum_steps: int = 1):
         """parallel: sharding over a mesh (a JAX ``DistConfig``) needs
-        the parallel tier and raises (ROADMAP A9).
+        the parallel tier and raises (ROADMAP A10).
 
         grad_accum_steps: split every batch into this many microbatches:
         activations live for one microbatch at a time while fp32
@@ -273,7 +378,7 @@ class SGD:
             raise NotImplementedError(
                 "SGD(parallel=...): sharded training over a mesh needs "
                 "the parallel tier (parallel/spmd.py), which is not "
-                "ported yet — ROADMAP A9")
+                "ported yet — ROADMAP A10")
         self.grad_accum_steps = int(grad_accum_steps)
         self.cost = cost
         self.parameters = parameters
@@ -410,12 +515,17 @@ class SGD:
         return sum(v.numel() * (4 if accum else v.element_size())
                    for v in self.parameters.values.values())
 
-    def _feeder(self, feeding):
-        key = tuple(sorted(feeding.items())) if feeding else None
+    def _feeder(self, feeding, device=None):
+        """The DataFeeder for ``feeding``, placing on ``device`` (default:
+        the trainer's; the pipeline's host-side convert asks for the
+        CPU)."""
+        device = self.device if device is None else torch.device(device)
+        key = (tuple(sorted(feeding.items())) if feeding else None,
+               str(device))
         if key not in self._feeder_cache:
             dtypes = {l.name: l.data_spec for l in self.topology.data_layers}
             self._feeder_cache[key] = DataFeeder(dtypes, feeding,
-                                                 device=self.device)
+                                                 device=device)
         return self._feeder_cache[key]
 
     def count_step_flops(self, feeds, dropout_key=None) -> float:
@@ -474,7 +584,7 @@ class SGD:
         snapshot (counters + gauges; histograms don't aggregate), its
         raw step window for the pooled gang quantiles, and the goodput
         accountant's buckets. All O(registry) dict work, no device
-        sync. (The distributed barrier window joins with ROADMAP A9.)"""
+        sync. (The distributed barrier window joins with ROADMAP A10.)"""
         snap = {name: doc for name, doc in
                 observe.default_registry().snapshot().items()
                 if doc.get("kind") in ("counter", "gauge")}
@@ -498,31 +608,63 @@ class SGD:
               checkpoint_dir: Optional[str] = None,
               prefetch: int = 0):
         """Train ``num_passes`` passes over ``reader`` (a zero-arg
-        callable yielding batches), firing the v2 events. The chaos knob
-        (PADDLE_TPU_CHAOS, site ``step``) is honored at the top of every
-        batch.
+        callable yielding batches), firing the v2 events.
 
-        checkpoint_dir, prefetch > 0 and a ``pipeline.Pipeline`` reader
-        need the checkpoint writer and the input pipeline (ROADMAP A8);
-        the elastic supervisor contract (PADDLE_ELASTIC_DIR) needs the
-        gang supervisor (A9): each raises ``NotImplementedError``."""
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "SGD.train(checkpoint_dir=...): async checkpoints "
-                "(io/checkpoint.py) are not ported yet — ROADMAP A8")
-        if (prefetch and int(prefetch) > 0) \
-                or type(reader).__name__ == "Pipeline":
-            raise NotImplementedError(
-                "SGD.train(prefetch>0) / a Pipeline reader: the async "
-                "input pipeline (pipeline/) is not ported yet — ROADMAP "
-                "A8")
+        checkpoint_dir: when set, checkpoints (params + optimizer state +
+        model state, and the pipeline's stream position) are written
+        asynchronously every ``checkpoint_period`` batches (flag; 0 = once
+        per pass), and training resumes from the latest intact checkpoint
+        found there (reference: ParamUtil per-pass dirs +
+        --init_model_path/--start_pass, trainer/ParamUtil.cpp).
+
+        prefetch: >0 feeds through the async input pipeline
+        (``paddle_tpu_torch.pipeline``) with a staging ring of that many
+        batches — conversion and the host→device copy run on pipeline
+        threads, so step N+1's feeds are on the device while step N
+        executes. ``reader`` may also BE a ``pipeline.Pipeline``
+        (prefetch implied), which makes resume exact: the pipeline's
+        stream position rides inside every checkpoint, and a restore
+        continues mid-epoch on the exact next batch. 0 keeps the
+        synchronous one-batch-lookahead path.
+
+        The chaos knob (PADDLE_TPU_CHAOS, site ``step``) is honored at
+        the top of every batch. The elastic supervisor contract
+        (PADDLE_ELASTIC_DIR) needs the gang supervisor (ROADMAP A10) and
+        raises ``NotImplementedError``."""
         if os.environ.get("PADDLE_ELASTIC_DIR"):
             raise NotImplementedError(
                 "PADDLE_ELASTIC_DIR is set: the elastic supervisor "
                 "contract (runtime/supervisor.py heartbeats and fencing) "
-                "is not ported yet — ROADMAP A9")
+                "is not ported yet — ROADMAP A10")
         event_handler = event_handler or (lambda e: None)
         feeder = self._feeder(feeding)
+        from paddle_tpu_torch.pipeline import Pipeline
+        pipe, own_pipe = None, False
+        if isinstance(reader, Pipeline):
+            pipe = reader
+        elif prefetch and int(prefetch) > 0:
+            # without a checkpoint dir the wrapped pipeline's state can
+            # never be consumed — skip the per-batch snapshot entirely
+            pipe = Pipeline(reader, prefetch=int(prefetch),
+                            track_state=checkpoint_dir is not None)
+            own_pipe = True
+        if pipe is not None:
+            if self.device.type == "cuda":
+                # convert on the host, copy on the feed thread's stream
+                pipe.attach(convert=self._feeder(feeding, "cpu").feed,
+                            transfer=DeviceTransfer(self.device))
+            else:
+                pipe.attach(convert=feeder.feed)
+        try:
+            self._train_with(reader, num_passes, event_handler, feeder,
+                             checkpoint_dir, pipe)
+        finally:
+            if own_pipe:
+                pipe.close()   # user-passed pipelines stay open: their
+                               # state_dict/resume lifecycle is theirs
+
+    def _train_with(self, reader, num_passes, event_handler, feeder,
+                    checkpoint_dir, pipe):
         ks = global_key_source()
         log_period = GLOBAL_FLAGS.get("log_period", 100)
         # flag-driven JSONL metrics sink (PADDLE_TPU_METRICS_PATH or
@@ -541,11 +683,33 @@ class SGD:
         # goodput accounting for this run: the accountant's birth is the
         # "startup ends here" mark
         self._acct = observe.StepAccountant()
+        ckpt = None
+        if checkpoint_dir is not None:
+            from paddle_tpu_torch.io import checkpoint as ckpt_io
+            t_restore0 = time.perf_counter()
+            latest = ckpt_io.latest_checkpoint(checkpoint_dir)
+            if latest:
+                self._restore(ckpt_io, latest)
+                if pipe is not None and pipe.track_state:
+                    ps = ckpt_io.load_pipeline_state(latest)
+                    if ps is not None:
+                        # continue the data stream mid-epoch on the
+                        # exact next batch (shuffle RNG, shard cursor,
+                        # in-flight samples all restored)
+                        pipe.load_state_dict(ps)
+                logger.info("resumed from %s (step %d)", latest, self._step)
+                self._acct.add("restore",
+                               time.perf_counter() - t_restore0)
+            ckpt = ckpt_io.AsyncCheckpointer(checkpoint_dir)
+        # the run's writer stays readable after it closes (write_seconds)
+        self.last_checkpointer = ckpt
         recorder = observe.default_flight_recorder()
         dumps_before = len(recorder.dumped_paths)
         try:
             self._train_passes(reader, num_passes, event_handler, feeder,
-                               ks, log_period)
+                               ks, log_period, ckpt,
+                               GLOBAL_FLAGS.get("checkpoint_period", 0),
+                               pipe=pipe)
         except Exception as e:
             # post-mortem for any crash escaping the loop — but only
             # when a flight dir is explicitly configured, and not when
@@ -555,6 +719,40 @@ class SGD:
                     and len(recorder.dumped_paths) == dumps_before):
                 recorder.dump(reason="exception in training loop", exc=e)
             raise
+        finally:
+            if ckpt is not None:
+                ckpt.close()
+
+    def _restore(self, ckpt_io, path):
+        """Adopt the checkpoint at ``path``: the step counter, the
+        parameters (copied into the existing tensors, in place), the
+        optimizer state and the model state, on this trainer's device in
+        its dtypes."""
+        step, values, opt_state, state = ckpt_io.load_checkpoint(
+            path, self.parameters.values, self.opt_state,
+            self.parameters.state)
+        with torch.no_grad():
+            for k, v in values.items():
+                self.parameters.values[k].copy_(v)
+        self._step = int(step)
+        self.opt_state = opt_state
+        self.parameters.state = state
+
+    def _save_checkpoint(self, ckpt, pipe, acct):
+        """Hand the current state to the async writer; only the
+        synchronous part (the pipeline's state, the snapshot + enqueue)
+        is checkpoint overhead — the write overlaps the next steps. The
+        save's entry in ``ckpt.save_parts`` gains ``state_dict_s``, the
+        seconds taken by the pipeline's ``state_dict()``."""
+        save_t0 = time.perf_counter()
+        state = (pipe.state_dict() if pipe is not None and pipe.track_state
+                 else None)
+        state_s = time.perf_counter() - save_t0
+        parts = ckpt.save(self._step, self.parameters.values,
+                          self.opt_state, self.parameters.state,
+                          pipeline_state=state)
+        parts["state_dict_s"] = state_s
+        acct.add("checkpoint_save", time.perf_counter() - save_t0)
 
     def _prefetch_feeds(self, reader, feeder):
         """One-batch-lookahead feed pipeline: batch N+1 is fed (converted
@@ -587,7 +785,7 @@ class SGD:
             yield prev
 
     def _train_passes(self, reader, num_passes, event_handler, feeder, ks,
-                      log_period):
+                      log_period, ckpt=None, period=0, pipe=None):
         monitor = _StepMonitor(
             opt_state_bytes=self.opt_state_bytes_per_device(),
             grad_bytes=self.grad_bytes_per_device(),
@@ -603,17 +801,22 @@ class SGD:
             self.evaluators.reset()
             pass_t0 = time.perf_counter()
             pass_examples = 0
-            feed_iter = self._prefetch_feeds(reader, feeder)
+            # pipelined mode: one iter() == one epoch, resuming mid-epoch
+            # after a restore; feeds arrive converted and on the device
+            feed_iter = (iter(pipe) if pipe is not None
+                         else self._prefetch_feeds(reader, feeder))
             batch_id = -1
             while True:
                 # feed wait timed explicitly: the input component of the
-                # step's bottleneck attribution (convert + H2D of the
-                # NEXT batch)
+                # step's bottleneck attribution (sync path: convert + H2D
+                # of the NEXT batch; pipelined: the staging-ring get)
                 feed_t0 = time.perf_counter()
                 try:
                     feeds = next(feed_iter)
                 except StopIteration:
                     break
+                # the step's stream waits for the feeds' side-stream copy
+                adopt(feeds)
                 feed_s = time.perf_counter() - feed_t0
                 batch_id += 1
                 # chaos site 'step': kill/hang/crash BEFORE the step
@@ -686,6 +889,10 @@ class SGD:
                 event_handler(events.EndIteration(
                     pass_id, batch_id, cost, self.evaluators,
                     wall_time_s=step_dt, examples_per_sec=eps))
+                if ckpt is not None and period and self._step % period == 0:
+                    self._save_checkpoint(ckpt, pipe, acct)
+            if ckpt is not None and not period:
+                self._save_checkpoint(ckpt, pipe, acct)
             monitor.update_memory_gauges()
             pass_dt = time.perf_counter() - pass_t0
             if observe.has_consumers():

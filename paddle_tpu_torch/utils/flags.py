@@ -1,8 +1,8 @@
 """Runtime flags — the port's own copy of ``paddle_tpu/utils/flags.py``'s
 typed registry with the flags the port reads (``profile``,
 ``flight_dir``, ``default_dtype``, ``compute_dtype``, ``seed``, and the
-trainer's ``log_period``, ``metrics_path``, ``debug_nans`` and
-``debug_infs``); each is overridden by ``PADDLE_TPU_<NAME>`` in the
+trainer's ``log_period``, ``checkpoint_period``, ``metrics_path``,
+``debug_nans`` and ``debug_infs``); each is overridden by ``PADDLE_TPU_<NAME>`` in the
 environment at import."""
 
 import os
@@ -83,6 +83,7 @@ GLOBAL_FLAGS.define("default_dtype", "float32", "parameter dtype")
 GLOBAL_FLAGS.define("compute_dtype", "bfloat16", "matmul/conv compute dtype "
                     "(operands rounded to it, products accumulated in fp32)")
 GLOBAL_FLAGS.define("log_period", 100, "batches between metric log lines")
+GLOBAL_FLAGS.define("checkpoint_period", 0, "batches between async checkpoints (0=per pass)")
 GLOBAL_FLAGS.define("metrics_path", "", "JSONL per-step metrics file (also: "
                     "PADDLE_TPU_METRICS_PATH); empty = off")
 GLOBAL_FLAGS.define("debug_nans", False, "raise when a training step's cost "

@@ -875,6 +875,79 @@ def test_gpu_capture_failure_names_the_operation(cuda):
 
 
 @pytest.mark.gpu
+def test_gpu_capture_runs_with_garbage_collection_off(cuda):
+    """A collection during a capture could destroy an unreachable graph
+    (an earlier engine's), which CUDA refuses mid-capture and which voids
+    the capture: the program turns collection off for the capture only
+    (the warm-up run before it, and everything after, keep it)."""
+    import gc
+    from paddle_tpu_torch.core import graphs
+    seen = []
+
+    def step(x):
+        seen.append(gc.isenabled())
+        return x * 2 + 1
+
+    assert gc.isenabled()
+    prog = graphs.StepProgram(step, "gc_step")
+    x = torch.ones(8, device=cuda)
+    out = prog(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((8,), 3.0, device=cuda))
+    assert seen == [True, False] and gc.isenabled()
+
+
+@pytest.mark.gpu
+def test_gpu_capture_survives_a_collectable_earlier_graph(cuda):
+    """The failing case itself: an earlier program's captured graph is
+    garbage in a reference cycle when a new capture begins, and collection
+    runs at every allocation (``gc.set_threshold(1)``). The cycle is made
+    inside the step, so it is young and the capture's own allocations
+    would collect it, destroying the earlier graph mid-capture. The new
+    capture succeeds and replays right; the earlier program is freed once
+    the capture is over."""
+    import gc
+    import weakref
+    from paddle_tpu_torch.core import graphs
+
+    earlier = graphs.StepProgram(lambda x: x + 1, "earlier_step")
+    x = torch.ones(8, device=cuda)
+    earlier(x)
+    torch.cuda.synchronize()
+    gone = weakref.ref(earlier)
+    olds = [earlier]
+    del earlier
+    calls = []
+
+    def step(x):
+        calls.append(len(calls))
+        if len(calls) == 2 and olds:         # the capturing call
+            cycle = [olds.pop()]
+            cycle.append(cycle)
+            del cycle
+            junk = [[i] for i in range(256)]  # allocations that collect
+            del junk
+        return x * 2 + 1
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        prog = graphs.StepProgram(step, "new_step")
+        out = prog(x)
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.full((8,), 3.0, device=cuda))
+        x.mul_(2)                   # a resident input: same tensor
+        out = prog(x)
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.full((8,), 5.0, device=cuda))
+    finally:
+        gc.set_threshold(*threshold)
+    assert calls == [0, 1] and not olds
+    gc.collect()
+    assert gone() is None
+
+
+@pytest.mark.gpu
 def test_gpu_engine_preempts_remap_and_replay(cuda):
     """A pool of 8 blocks and 2 slots: a latency arrival preempts a
     batch victim that resumes by remap; a second one whose worst case is
@@ -1981,3 +2054,122 @@ def test_gpu_cli_train_job(cuda, tmp_path):
         p = T.parameters.Parameters.from_tar(f)
     assert p.device == cuda and set(p.names()) == {
         "cli_h.w", "cli_h.b", "cli_out.w", "cli_out.b"}
+
+
+# ---------------------------------------------------------------------------
+# the input pipeline's device stage and the checkpoint snapshot
+# ---------------------------------------------------------------------------
+
+def _host_batches(n, rows=64, dim=4096):
+    """``n`` pre-batched (features, labels) host batches, each its own
+    seeded draw."""
+    for i in range(n):
+        r = np.random.RandomState(i)
+        yield (r.randn(rows, dim).astype(np.float32),
+               r.randint(0, 10, rows).astype(np.int32))
+
+
+@pytest.mark.gpu
+def test_gpu_pipeline_transfer_matches_sync_copy(cuda):
+    """50 batches through ``DeviceTransfer`` at ``prefetch=3`` equal a
+    synchronous ``.to(device)`` of the same arrays. The consumer delays
+    its stream, then overwrites each batch's inputs in place and drops
+    them: memory handed back to the copy stream too early, or a pinned
+    buffer refilled before its copy ended, would corrupt a later batch."""
+    from paddle_tpu_torch import data_type, pipeline
+    from paddle_tpu_torch.data_feeder import DataFeeder
+    from paddle_tpu_torch.trainer import DeviceTransfer, adopt
+    feeder = DataFeeder({"x": data_type.dense_vector(4096),
+                         "y": data_type.integer_value(10)}, device="cpu")
+    want = list(_host_batches(50))
+    got = []
+    with pipeline.Pipeline(lambda: _host_batches(50), prefetch=3,
+                           convert=feeder.feed,
+                           transfer=DeviceTransfer(cuda)) as pipe:
+        for feeds in iter(pipe):
+            adopt(feeds)
+            x, y = feeds["x"].array, feeds["y"].array
+            assert x.device == cuda and y.device == cuda
+            got.append((x.clone(), y.clone()))
+            torch.cuda._sleep(2_000_000)        # hold the stream a while
+            x.fill_(-1.0)                       # the step overwrites
+            y.fill_(-1)
+            del feeds, x, y
+    torch.cuda.synchronize()
+    assert len(got) == 50
+    for (gx, gy), (wx, wy) in zip(got, want):
+        assert torch.equal(gx, torch.from_numpy(wx).to(cuda))
+        assert torch.equal(gy, torch.from_numpy(wy).to(cuda))
+
+
+@pytest.mark.gpu
+def test_gpu_async_checkpoint_snapshot_precedes_in_place_update(
+        cuda, tmp_path):
+    """A save followed at once by an in-place update on the card (as the
+    trainer's next step does) writes the values from before it."""
+    from paddle_tpu_torch.io import checkpoint as ck
+    w = torch.arange(1 << 22, dtype=torch.float32, device=cuda)
+    m = (torch.ones(1 << 20, device=cuda, dtype=torch.bfloat16),)
+    ac = ck.AsyncCheckpointer(str(tmp_path))
+    try:
+        for step in range(1, 4):
+            want = (w.cpu(), m[0].cpu())
+            ac.save(step, {"w": w}, {"m": m})
+            w.add_(1.0)
+            m[0].mul_(2.0)
+            ac.wait()
+            _, p, o, _ = ck.load_checkpoint(ck.latest_checkpoint(
+                str(tmp_path)), {"w": w}, {"m": m})
+            assert torch.equal(p["w"].cpu(), want[0])
+            assert torch.equal(o["m"][0].cpu(), want[1])
+    finally:
+        ac.close()
+
+
+@pytest.mark.gpu
+def test_gpu_load_checkpoint_places_on_the_template_device(cuda, tmp_path):
+    from paddle_tpu_torch.io import checkpoint as ck
+    path = ck.save_checkpoint(str(tmp_path), 3,
+                              {"a": torch.arange(6.0), "b": torch.ones(2)},
+                              {"a": (torch.zeros(6),)}, {"s": torch.ones(1)})
+    tmpl = {"a": torch.zeros(6, device=cuda),
+            "b": torch.zeros(2, device=cuda, dtype=torch.bfloat16)}
+    step, p, o, s = ck.load_checkpoint(
+        path, tmpl, {"a": (torch.ones(6, device=cuda),)},
+        {"s": torch.zeros(1, device=cuda)})
+    assert step == 3
+    for t in (p["a"], p["b"], o["a"][0], s["s"]):
+        assert t.device == cuda
+    assert p["b"].dtype == torch.bfloat16 and p["a"].dtype == torch.float32
+    assert p["a"].cpu().tolist() == [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
+
+
+@pytest.mark.gpu
+def test_gpu_trainer_prefetch_matches_sync(cuda):
+    """``SGD.train(prefetch=3)`` (host convert, side-stream copies) trains
+    bitwise equal to the synchronous feed on the card."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.utils.rng import KeySource
+    L, A = T.layer, T.activation
+    x = L.data("gp_x", T.data_type.dense_vector(256))
+    y = L.data("gp_y", T.data_type.integer_value(10))
+    h = L.fc(x, 128, act=A.Relu(), name="gp_h")
+    cost = L.classification_cost(L.fc(h, 10, act=A.Softmax(), name="gp_o"),
+                                 y, name="gp_c")
+    rng = np.random.RandomState(0)
+    rows = [(rng.randn(256).astype(np.float32), int(rng.randint(10)))
+            for _ in range(640)]
+    runs = []
+    for kw in ({}, {"prefetch": 3}):
+        params = T.parameters.create(cost, KeySource(4), device=cuda)
+        tr = T.trainer.SGD(cost, params, T.optimizer.Momentum(
+            momentum=0.9, learning_rate=0.05))
+        costs = []
+        tr.train(T.batch(lambda: iter(rows), 32), num_passes=2,
+                 event_handler=lambda e: costs.append(e.cost)
+                 if isinstance(e, T.event.EndIteration) else None, **kw)
+        runs.append((costs, {k: v.clone() for k, v in
+                             params.values.items()}))
+    assert runs[0][0] == runs[1][0] and len(runs[0][0]) == 40
+    for k, v in runs[0][1].items():
+        assert torch.equal(runs[1][1][k], v), k

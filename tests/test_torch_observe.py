@@ -357,7 +357,8 @@ def test_flight_recorder_dump(tmp_path):
     assert doc["exception"]["type"] == "RuntimeError"
     assert set(doc["config"]) == {"profile", "flight_dir", "default_dtype",
                                   "compute_dtype", "seed", "log_period",
-                                  "metrics_path", "debug_nans", "debug_infs"}
+                                  "checkpoint_period", "metrics_path",
+                                  "debug_nans", "debug_infs"}
     assert rec.dumped_paths == [path]
 
 

@@ -9,8 +9,9 @@ value|); fp32 compute on both sides, as ``tests/conftest.py`` sets it),
 evaluator results equal; the microbatched step (``grad_accum_steps``)
 against JAX's and against the port's plain step; the ragged tail, the
 one-batch lookahead, the events, ``test``, ``save_parameter_to_tar``
-loaded by the JAX package, and the paths that raise until ROADMAP A8 /
-A9. ``test_checkpoint_roundtrip`` waits for A8 (``io/checkpoint.py``).
+loaded by the JAX package, and the paths that raise until ROADMAP A10.
+``test_checkpoint_roundtrip`` and the checkpoint and pipeline paths are
+in ``tests/test_torch_trainer_resume.py``.
 """
 
 
@@ -297,29 +298,40 @@ def test_events_order_matches_jax():
 
 
 class TestPendingPaths:
-    """Paths that need modules still to port raise, naming the item."""
+    """Paths that need modules still to port raise, naming the item; the
+    A8 paths that raised before the input pipeline and checkpoints were
+    ported now run (kept under their names)."""
 
     def _trainer(self):
         return _pair(TestGradAccum()._plain_net)[1]
 
     def test_parallel_raises_a9(self):
+        """The parallel tier's multi-rank half is ROADMAP A10 now."""
         _, cost = TestGradAccum()._plain_net(T)
         p = T.parameters.create(cost, device="cpu")
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="A10"):
             T.trainer.SGD(cost, p, T.optimizer.SGD(), parallel=object())
 
     def test_checkpoint_dir_raises_a8(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="A8"):
-            self._trainer().train(lambda: iter([]),
-                                  checkpoint_dir=str(tmp_path))
+        """Ported: an empty pass with a checkpoint dir writes the pass's
+        checkpoint (step 0) instead of raising."""
+        tr = self._trainer()
+        tr.train(lambda: iter([]), checkpoint_dir=str(tmp_path))
+        from paddle_tpu_torch.io import checkpoint as ck
+        assert ck.latest_checkpoint(str(tmp_path)).endswith("ckpt-00000000")
 
     def test_prefetch_raises_a8(self):
-        with pytest.raises(NotImplementedError, match="A8"):
-            self._trainer().train(lambda: iter([]), prefetch=2)
+        """Ported: ``prefetch=2`` feeds through the input pipeline."""
+        events = []
+        self._trainer().train(lambda: iter([]), prefetch=2,
+                              event_handler=lambda e: events.append(
+                                  type(e).__name__))
+        assert events == ["BeginPass", "EndPass"]
 
     def test_elastic_contract_raises_a9(self, monkeypatch, tmp_path):
+        """The elastic supervisor contract is ROADMAP A10 now."""
         monkeypatch.setenv("PADDLE_ELASTIC_DIR", str(tmp_path))
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="A10"):
             self._trainer().train(lambda: iter([]))
 
 
