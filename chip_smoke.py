@@ -202,14 +202,33 @@ order it:
    (``crash@checkpoint:phase=mid_commit``) leaving the previous
    checkpoint latest and loadable onto the card. No port kernel
    launches here;
-14. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
+14. the v2 book chapters (``book:`` line, ``book_phase``): the nine
+   chapters of ``tests/test_book.py`` as ``tests/torch_book_chapters.py``
+   builds them (fit-a-line, word2vec, the recommender, the LSTM
+   sentiment classifier, ResNet-32 on CIFAR-10 shapes, SRL with a CRF,
+   the attention seq2seq at wmt14's 30000-word dictionaries and 512
+   wide, learn-to-rank, quick-start's bag of words) each read
+   from ``paddle_tpu_torch.dataset.<set>`` (synthetic fallbacks), batched
+   by ``paddle_tpu_torch.batch`` and trained 20 batches by ``SGD.train``
+   on the card, fp32: step ms p50 (min, max), examples/s, first and last
+   cost, peak memory; the first step's gradients (relative L2) and the
+   first 2 batches' costs (the second after one Adam update) against the
+   port's same steps on the CPU from the same weights (within 1e-4
+   relative), the cost of the chapter's first 4 batches falling between
+   before and after
+   training; ``dataset.cifar.convert`` to recordio and
+   ``reader.creator.recordio`` over it equal to the in-memory readers
+   (MB/s of both); ``python -m paddle_tpu_torch stats --metrics_file``
+   over the sentiment chapter's JSONL (rc 0, its 20 steps counted) and
+   ``stats --trace``. No port kernel launches here;
+15. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
    ten device kernels with the most time, the device's busy share);
-15. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
+16. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
    17 kernels and branches, and ``fused_spec_verify``, kernel 2 at the
    spec trace's verify rows; kernel 2's two streams and kernel 5's bf16
    forward count the slot trace's and the lockstep calls' launches too)
@@ -221,6 +240,8 @@ fp32 on the card as on the CPU.
 
 import contextlib
 import importlib.util
+import io
+import itertools
 import json
 import os
 import re
@@ -5166,14 +5187,15 @@ def bn_op_check(torch, op) -> dict:
     return out
 
 
-def hold_ops(torch, ops, values, tr, dev) -> tuple:
+def hold_ops(torch, ops, values, tr, dev, where) -> tuple:
     """Every convolution and batch norm the card's step ran (``ops``, from
     an ``OpRecorder``) against float64 on the CPU (``conv_op_check``,
     ``bn_op_check``): fails where the card's ``op_bound`` passes 1, or a
     leaf's gradient as the optimizer got it (``tr.optimizer.seen``) is
     not its op's bitwise (the space-to-depth stem's through its weight
     transform's gather, from the leaf's value before the step,
-    ``values``). Returns (doc, {leaf: op}) for the leaves so held."""
+    ``values``). Returns (doc, {leaf: op}) for the leaves so held;
+    ``where`` names the run in a failure."""
     from paddle_tpu_torch.ops import conv
     seen = tr.optimizer.seen[0]
     ptr = {v.data_ptr(): k for k, v in tr.parameters.values.items()}
@@ -5182,7 +5204,7 @@ def hold_ops(torch, ops, values, tr, dev) -> tuple:
     def wire(k, grad, label):
         if k is None or k in held or not torch.equal(grad.cpu().float(),
                                                      seen[k]):
-            fail(f"trainer resnet50: leaf {k}'s gradient is not {label}'s "
+            fail(f"{where}: leaf {k}'s gradient is not {label}'s "
                  f"op gradient bitwise (or two ops took it)")
         held[k] = label
     for i, op in enumerate(ops):
@@ -5205,7 +5227,7 @@ def hold_ops(torch, ops, values, tr, dev) -> tuple:
                         wire(k, g, label)
                         break
                 if label is None:
-                    fail(f"trainer resnet50: conv op {i}'s weight is no "
+                    fail(f"{where}: conv op {i}'s weight is no "
                          f"leaf and no leaf's space-to-depth transform")
             res = conv_op_check(torch, op)
         else:
@@ -5219,7 +5241,7 @@ def hold_ops(torch, ops, values, tr, dev) -> tuple:
                 missed.append(f"{label} {t} {r['card']!r}")
         op.clear()                   # free the op's card copies
     if missed:
-        fail(f"trainer resnet50: layer by layer, card vs float64 past the "
+        fail(f"{where}: layer by layer, card vs float64 past the "
              f"fp32 bound: {missed[:8]}")
 
     def top(key, n=6):
@@ -5243,7 +5265,8 @@ def hold_ops(torch, ops, values, tr, dev) -> tuple:
 
 
 def trainer_step_parity(torch, T, label, cost, values, state, make_opt, rows,
-                        dev, grad_rel, recorder=None, first_update=None):
+                        dev, grad_rel, recorder=None, first_update=None,
+                        feeding=None):
     """One trainer step on the CPU and on the card from the same values,
     state and rows (fp32): the loss and the model state, card against
     CPU, and the gradients the optimizer got within ``grad_rel``
@@ -5253,7 +5276,8 @@ def trainer_step_parity(torch, T, label, cost, values, state, make_opt, rows,
     are left out of the whole-network gradient gate. ``first_update(g)``:
     the exact update of a parameter whose gradient is ``g``; each of the
     card's updates is then held against it, from the card's gradient.
-    Returns (doc, card trainer)."""
+    ``feeding``: the rows' slots by data layer. Returns (doc, card
+    trainer)."""
     from paddle_tpu_torch.ops import prng
     doc, missed, runs = {}, [], {}
     specs = T.topology.Topology(cost).param_specs()
@@ -5262,7 +5286,7 @@ def trainer_step_parity(torch, T, label, cost, values, state, make_opt, rows,
         p.values = {k: v.detach().to(where).clone() for k, v in values.items()}
         p.state = {k: v.detach().to(where).clone() for k, v in state.items()}
         tr = T.trainer.SGD(cost, p, recording(make_opt()))
-        feeds = tr._feeder(None).feed(rows)
+        feeds = tr._feeder(feeding).feed(rows)
         t0 = time.perf_counter()
         with (recorder if recorder is not None and tag == "card"
               else contextlib.nullcontext()):
@@ -5288,7 +5312,7 @@ def trainer_step_parity(torch, T, label, cost, values, state, make_opt, rows,
     if recorder is not None:
         t0 = time.perf_counter()
         doc["by_op"], held = hold_ops(torch, recorder.ops, values,
-                                      card[0], dev)
+                                      card[0], dev, f"trainer {label}")
         doc["by_op"]["s"] = time.perf_counter() - t0
 
     def update(tr, k, before):
@@ -6270,6 +6294,269 @@ def input_phase(torch, dev, c=INPUT, cost_fn=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# book chapters phase
+# ---------------------------------------------------------------------------
+
+# ``book:`` phase: the nine chapters of ``tests/test_book.py``, as
+# ``tests/torch_book_chapters.py`` builds them (the networks the CPU tests
+# hold against the JAX package), trained on the card from the port's
+# dataset readers (the synthetic fallbacks unless the corpora are under
+# ``PADDLE_TPU_DATA_HOME``), fp32 compute with TF32 off, ``batches``
+# batches each (a reader shorter than that is read again). ResNet-32 on
+# CIFAR-10 shapes at batch 128 and the LSTM classifier at hidden 256 / emb
+# 128 over imdb's dictionary run at their model functions' defaults;
+# seq2seq at ``LAYERS_S2S``'s widths (wmt14's 30000-word dictionaries, 512
+# wide; its function's default is 32), batch 32; the rest as the test
+# makes them.
+# The port's same first ``cpu_batches`` steps run on the CPU from the same
+# weights, and their costs (the second after one Adam update on each side)
+# are held within ``rel``. Not more batches: Adam's first steps act on the
+# gradients' signs, so the fp32 rounding the two devices differ by grows
+# about tenfold a step (ResNet-32's fourth cost 1.0e-3 apart, the first
+# 8.2e-8, on an NVIDIA H100 80GB HBM3 at 700.00 W). Costs cannot show a
+# gradient's scale, which Adam divides out, so the first batch's step is
+# also held as ``trainer_step_parity`` holds the trainer phase's: each
+# gradient the optimizer gets within ``rel`` of its max; ResNet-32's
+# convolutions and batch norms op by op against float64 within fp32's
+# summation bound (``OpRecorder``, ``hold_ops``: a whole-network gradient
+# of a ResNet at initialisation cancels, its relative L2 on the card 1.8e-3
+# from the CPU's there), its other leaves within ``TRAINER_RESNET_REL``.
+# The cost of the chapter's first ``held`` batches (``SGD.test``) must
+# fall between before and after training (the per-batch training costs of
+# 20 batches are too noisy for the recommender's and word2vec's to show
+# it).
+BOOK = {"batches": 20, "held": 4, "cpu_batches": 2, "seed": 17,
+        "rel": 1e-4, "resnet_depth": 32, "image_batch": 128,
+        "lstm_hidden": 256, "lstm_emb": 128, "wmt_dict": 30000,
+        "wmt_dim": 512, "wmt_batch": 32}
+
+
+def book_module():
+    """``tests/torch_book_chapters.py``, loaded from its file (it imports
+    neither package; the chapters take the port as an argument)."""
+    name = "torch_book_chapters"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, Path(__file__).resolve().parent / "tests" / f"{name}.py")
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
+def book_chapters(T, c) -> dict:
+    """name -> the port's chapter at the widths in ``c``; learn-to-rank's
+    reader keeps its seeded shuffle's first pass (each call of a shuffled
+    reader draws a new order, and the card's run and the CPU's must read
+    the same batches)."""
+    book = book_module()
+    ch = {n: book.chapter(n, T, c) for n in book.BUILDERS}
+    order = list(ch["learn_to_rank"].reader())
+    ch["learn_to_rank"].reader = lambda: iter(order)
+    return ch
+
+
+def cycled(reader, n):
+    """The first ``n`` samples of ``reader`` read over and over."""
+    def gen():
+        left = n
+        while left:
+            got = 0
+            for s in itertools.islice(reader(), left):
+                got += 1
+                yield s
+            if not got:
+                fail("book: a chapter's reader is empty")
+            left -= got
+    return gen
+
+
+def book_train(T, ch, params, n, dev, held=0) -> tuple:
+    """``SGD.train`` of ``n`` batches of ``ch`` from ``params`` (values and
+    state copied to ``dev``): (costs, step records, trainer, the test cost
+    of the first ``held`` batches before and after training)."""
+    topo = T.topology.Topology([ch.cost] + ch.extra)
+    p = T.parameters.Parameters(topo.param_specs(),
+                                state_specs=topo.state_specs(), device=dev)
+    # copies: the trainer writes its updates into the values
+    p.values = {k: v.to(dev).clone() for k, v in params.values.items()}
+    p.state = {k: v.to(dev).clone() for k, v in params.state.items()}
+    tr = T.trainer.SGD(ch.cost, p, ch.opt(), extra_layers=ch.extra)
+    first = T.batch(cycled(ch.reader, held * ch.batch), ch.batch)
+    tests = [tr.test(first, feeding=ch.feeding).cost] if held else []
+    recs, costs = [], []
+    T.observe.add_report_handler(recs.append)
+    try:
+        tr.train(T.batch(cycled(ch.reader, n * ch.batch), ch.batch),
+                 feeding=ch.feeding,
+                 event_handler=lambda e: costs.append(e.cost) if isinstance(
+                     e, T.event.EndIteration) else None)
+    finally:
+        T.observe.remove_report_handler(recs.append)
+    if held:
+        tests.append(tr.test(first, feeding=ch.feeding).cost)
+    return costs, [r for r in recs if r.get("kind") == "step"], tr, tests
+
+
+def book_data(T, tmp) -> dict:
+    """``dataset.cifar.convert`` (recordio through ``common.convert``),
+    then ``reader.creator.recordio`` over its files against the in-memory
+    readers, sample by sample; MB/s of both steps."""
+    D = T.dataset
+    t0 = time.perf_counter()
+    paths = D.cifar.convert(tmp)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    t0 = time.perf_counter()
+    got = list(T.reader.creator.recordio(paths)())
+    read_s = time.perf_counter() - t0
+    n = 0
+    for split in (D.cifar.train10, D.cifar.test10, D.cifar.train100,
+                  D.cifar.test100):
+        for x, y in split()():
+            if n >= len(got):
+                fail(f"book: recordio holds {len(got)} samples, the "
+                     f"readers more")
+            gx, gy = got[n]
+            if not (gx.dtype == x.dtype and gx.tobytes() == x.tobytes()
+                    and gy == y and type(gy) is type(y)):
+                fail(f"book: recordio sample {n} differs from the reader's")
+            n += 1
+    if n != len(got):
+        fail(f"book: recordio holds {len(got)} samples, the readers {n}")
+    return {"files": len(paths), "samples": n, "bytes": nbytes,
+            "convert_mb_per_s": nbytes / 1e6 / write_s,
+            "recordio_read_mb_per_s": nbytes / 1e6 / read_s,
+            "samples_equal": True}
+
+
+def book_stats(T, tcli, jsonl, steps, tmp) -> dict:
+    """``python -m paddle_tpu_torch stats --metrics_file`` over one
+    chapter's JSONL in a process, and ``stats --trace`` of this process's
+    spans."""
+    root = str(Path(__file__).resolve().parent)
+    p = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch", "stats",
+         f"--metrics_file={jsonl}"], cwd=tmp, capture_output=True,
+        text=True, timeout=120, env=dict(os.environ, PYTHONPATH=root))
+    m = re.search(r"\((\d+) steps", p.stdout)
+    counted = int(m.group(1)) if m else None
+    if p.returncode != 0 or counted != steps:
+        fail(f"book: stats --metrics_file rc {p.returncode}, counted "
+             f"{counted} steps of {steps}: {p.stdout[-2000:]} "
+             f"{p.stderr[-2000:]}")
+    out = str(Path(tmp, "book_trace.json"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = tcli.main(["stats", "--trace", out])
+    trace = json.loads(Path(out).read_text())
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    if rc != 0 or not any(e["name"] == "train_step" for e in spans):
+        fail(f"book: stats --trace rc {rc}, {len(spans)} spans")
+    return {"metrics_file_rc": p.returncode, "steps_counted": counted,
+            "summary": p.stdout.strip().splitlines()[:2],
+            "trace_rc": rc, "trace_spans": len(spans)}
+
+
+def book_phase(torch, dev, c=BOOK) -> dict:
+    """The ``book:`` line: the nine chapters trained on ``dev`` from the
+    port's dataset readers (per chapter: step ms p50, min and max after the
+    first step, examples/s, first and last cost, peak memory above what
+    was allocated before the chapter, the first batches' costs and the
+    first step against the CPU's), the CIFAR recordio path and the CLI's
+    ``stats``. The cost of the chapter's first batches must fall between
+    before and after training. No port kernel launches here."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch import cli as tcli
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
+    from paddle_tpu_torch.utils.rng import KeySource
+    t_phase = time.perf_counter()
+    before = kernels.launch_counts()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.zeros(1, device=dev)      # the context, for the memory stats
+    old = GLOBAL_FLAGS.get("compute_dtype")
+    GLOBAL_FLAGS.set("compute_dtype", "float32")
+    doc = {"chapters": {}}
+    try:
+        with tempfile.TemporaryDirectory(prefix="book_") as tmp:
+            doc["data"] = book_data(T, tmp)
+            chapters = book_chapters(T, c)
+            jsonl = str(Path(tmp, "sentiment.jsonl"))
+            for i, (name, ch) in enumerate(chapters.items()):
+                t0 = time.perf_counter()
+                # drawn on ``dev``: seq2seq's 53M parameters take ~60 s
+                # to draw on the CPU
+                params = T.parameters.create(
+                    T.topology.Topology([ch.cost] + ch.extra),
+                    KeySource(c["seed"] + i), device=dev)
+                cpu_costs, *_ = book_train(T, ch, params, c["cpu_batches"],
+                                           "cpu")
+                rows = next(iter(T.batch(cycled(ch.reader, ch.batch),
+                                         ch.batch)()))
+                parity, _ = trainer_step_parity(
+                    torch, T, f"book {name}", ch.cost, params.values,
+                    params.state, ch.opt, rows, dev,
+                    TRAINER_RESNET_REL if name == "image" else c["rel"],
+                    recorder=OpRecorder() if name == "image" else None,
+                    feeding=ch.feeding)
+                if cuda:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    base = torch.cuda.memory_allocated(dev)
+                if name == "sentiment":
+                    T.observe.configure(jsonl)
+                try:
+                    costs, steps, tr, tests = book_train(
+                        T, ch, params, c["batches"], dev, c["held"])
+                finally:
+                    if name == "sentiment":
+                        T.observe.configure(None)
+                walls = [1e3 * r["wall_time_s"] for r in steps[1:]]
+                p50 = float(np.median(walls))
+                rels = [abs(a - b) / abs(b) for a, b in zip(costs, cpu_costs)]
+                doc["chapters"][name] = {
+                    "batch": ch.batch, "batches": len(costs),
+                    "step_ms_p50": p50, "step_ms_min": min(walls),
+                    "step_ms_max": max(walls),
+                    "examples_per_s": ch.batch * 1e3 / p50,
+                    "first_cost": costs[0], "last_cost": costs[-1],
+                    "held_cost_before": tests[0],
+                    "held_cost_after": tests[1],
+                    "cpu_costs": cpu_costs, "cpu_rel": rels,
+                    "step_parity": parity,
+                    "peak_bytes": (int(torch.cuda.max_memory_allocated(dev))
+                                   - base if cuda else None),
+                    "device": str(next(iter(
+                        tr.parameters.values.values())).device),
+                    "s": time.perf_counter() - t0}
+                if len(costs) != c["batches"] or not np.all(
+                        np.isfinite(costs)):
+                    fail(f"book {name}: costs {costs}")
+                if not tests[1] < tests[0]:
+                    fail(f"book {name}: the cost of the first "
+                         f"{c['held']} batches did not fall: {tests} "
+                         f"(training costs {costs})")
+                if len(cpu_costs) != c["cpu_batches"] or not max(
+                        rels) <= c["rel"]:
+                    fail(f"book {name}: the first batches' costs "
+                         f"{costs[:len(cpu_costs)]!r} on {dev}, {cpu_costs!r}"
+                         f" on the CPU: relative errors {rels!r} > "
+                         f"{c['rel']!r}")
+                del tr, params
+            doc["stats"] = book_stats(T, tcli, jsonl, c["batches"], tmp)
+    finally:
+        GLOBAL_FLAGS.set("compute_dtype", old)
+    after = kernels.launch_counts()
+    doc["port_kernel_launches"] = sum(after[k] - before.get(k, 0)
+                                      for k in after)
+    if doc["port_kernel_launches"]:
+        fail(f"book: port kernels launched: {before} -> {after}")
+    doc["phase_s"] = time.perf_counter() - t_phase
+    print("book: " + json.dumps(doc))
+    return doc
+
+
+# ---------------------------------------------------------------------------
 # training phase
 # ---------------------------------------------------------------------------
 
@@ -6549,6 +6836,8 @@ def main():
     trainer_phase(torch, dev)
     torch.cuda.empty_cache()
     input_phase(torch, dev)
+    torch.cuda.empty_cache()
+    book_phase(torch, dev)
     trained = train_phase(torch, tt, topt, kernels, costs, place, cfg, dev)
     launches = {**{k: served[k] for k in SERVING_KERNELS},
                 "fused_sample.threefry": served["fused_sample.threefry"],

@@ -44,9 +44,17 @@ exists, so a reader can put the two side by side:
                        smallnet, the text models, seq2seq, CTR), GAN
                        and VAE with their trainers, and the
                        transformer LM
-- ``reader/``          ``minibatch.batch`` (``paddle_tpu_torch.batch``)
+- ``reader/``          ``minibatch.batch`` (``paddle_tpu_torch.batch``),
+                       the reader creators and decorators
+- ``dataset/``         the v2 datasets (mnist, cifar, uci_housing, imdb,
+                       imikolov, sentiment, movielens, conll05, wmt14,
+                       mq2007, voc2012, flowers): local files under
+                       ``PADDLE_TPU_DATA_HOME``, else seeded synthetic
+                       data of the same schema; nothing downloads
+- ``image.py``, ``plot.py``, ``version.py``  host-side image transforms,
+                       the cost-curve plotter, the version fields
 - ``cli.py``           ``python -m paddle_tpu_torch train|test|time|
-                       infer|checkgrad|serve|route|top
+                       infer|checkgrad|stats|serve|route|top
 - ``observe/``         metrics registry and the ``report()`` funnel,
                        MFU accounting, the compile tracker, SLO
                        windows, the request log, chrome traces, the
@@ -61,7 +69,7 @@ Entry points run on the card unless the caller passes ``device="cpu"``;
 
 import importlib
 
-__version__ = "0.1.0"
+from paddle_tpu_torch.version import __version__  # noqa: F401
 
 # Submodules exposed lazily (PEP 562), as ``paddle_tpu`` does, so
 # ``import paddle_tpu_torch`` stays fast and builds no kernel.
@@ -70,14 +78,13 @@ _SUBMODULES = (
     "initializer", "networks", "optimizer", "parameters", "pooling",
     "topology", "event", "inference", "evaluator", "parallel", "models",
     "io", "runtime", "recurrent", "projection", "observe", "serving",
-    "record", "data_feeder", "trainer", "reader", "pipeline",
+    "record", "data_feeder", "trainer", "reader", "pipeline", "dataset",
+    "image", "plot", "version",
 )
 
 # names of ``paddle_tpu``'s surface still to port, with the ROADMAP item
 # that brings each
-_PENDING = {
-    "dataset": "A8", "image": "A8", "plot": "A8", "distributed": "A10",
-}
+_PENDING = {"distributed": "A10"}
 
 
 def __getattr__(name):

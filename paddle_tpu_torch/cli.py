@@ -1,8 +1,8 @@
 """The ``paddle_tpu_torch`` command line (counterpart of
 ``paddle_tpu/cli.py``): the trainer jobs ``train``, ``test``, ``time``,
-``infer`` and ``checkgrad`` over a config file, and the serving jobs
-``serve``, ``route`` and ``top``, with the reference's flags, names and
-defaults.
+``infer`` and ``checkgrad`` over a config file, the observability
+snapshot ``stats``, and the serving jobs ``serve``, ``route`` and
+``top``, with the reference's flags, names and defaults.
 
 Trainer jobs (reference: paddle/trainer/TrainerMain.cpp:32-64) read a
 Python config file that builds its layers with ``paddle_tpu_torch`` and
@@ -24,15 +24,21 @@ exposes a few names:
   endpoints, or over a fleet of ``serve --port`` processes it spawns
   (``--model`` + ``--replicas``), with the fleet controller under
   ``--autoscale``;
-- ``top`` — a refresh loop over a router's ``/healthz`` + ``/alerts``.
+- ``top`` — a refresh loop over a router's ``/healthz`` + ``/alerts``;
+- ``stats`` — summarize and tail a JSONL step log (``--metrics_file``,
+  ``--last``), export this process's span buffer as Chrome-trace JSON
+  (``--trace``) or merge per-rank exports into one (``--merge`` with
+  ``--trace``), list the slowest requests of the request log
+  (``--requests``), else render the metrics registry (``--format``
+  ``pretty`` or ``prom``).
 
 ``--device`` (the port's own flag) picks the device every job runs on:
 the card unless it says otherwise, where the JAX CLI reads
-``JAX_PLATFORMS``. ``stats`` is not ported yet: it exits 2 naming its
-ROADMAP item.
+``JAX_PLATFORMS``.
 
 Run: ``python -m paddle_tpu_torch train --config=conf.py --num_passes=2``,
-``python -m paddle_tpu_torch serve --model=lm.tar --device=cpu``.
+``python -m paddle_tpu_torch serve --model=lm.tar --device=cpu``,
+``python -m paddle_tpu_torch stats --metrics_file=train.jsonl --last=3``.
 """
 
 import argparse
@@ -45,9 +51,7 @@ import numpy as np
 
 # jobs of the reference CLI the port does not run yet, and where they
 # stand in ROADMAP.md
-UNPORTED = {
-    "stats": "ROADMAP A8, the data and runtime remainder",
-}
+UNPORTED = {}
 
 
 def _load_config(path):
@@ -862,6 +866,149 @@ def job_top(args):
         return 0
 
 
+def _pct(sorted_vals, q):
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, int(q * (len(sorted_vals) - 1) + 0.5))
+    return sorted_vals[i]
+
+
+def job_stats(args):
+    """Observability snapshot: with --metrics_file, summarize + tail a
+    JSONL per-step metrics log written by the trainer/bench
+    (`observe.JsonlSink`); with --trace, export the in-process span
+    buffer as Chrome-trace JSON; otherwise render the current process's
+    default metrics registry (--format=prom gives the Prometheus text
+    exposition)."""
+    from paddle_tpu_torch import observe
+
+    if args.requests:
+        log = observe.default_request_log()
+        slow = log.slowest(args.requests, by="ttft_s")
+        summary = log.summary()
+        print(f"request log: {summary['count']} records "
+              f"(capacity {summary['capacity']}, "
+              f"{summary['evicted']} evicted) — by dominant component: "
+              + (", ".join(f"{k}={v}" for k, v in sorted(
+                  summary["by_dominant_component"].items())) or "none"))
+        for r in slow:
+            a = r["attribution"]
+            comps = " ".join(
+                f"{c[:-2]} {1000 * a['components'][c]:.1f}ms"
+                for c in observe.requests.COMPONENTS)
+            ttft_ms = 1000 * (r.get('ttft_s') or 0)
+            print(f"  r{r.get('rid')} ttft {ttft_ms:.1f}ms "
+                  f"latency {1000 * (r.get('latency_s') or 0):.1f}ms "
+                  f"tokens {r.get('tokens')} "
+                  f"cache_hit {r.get('cache_hit_frac', 0):.0%} "
+                  f"[{comps}] -> dominated by {a['dominant']} "
+                  f"({r.get('finish_reason')})")
+        if not slow:
+            print("  (no completed requests recorded in this process)")
+        if not args.trace and not args.metrics_file:
+            return 0
+
+    if args.merge:
+        import json as _json
+        if not args.trace:
+            print("stats: --merge needs --trace OUT.json for the "
+                  "merged timeline", file=sys.stderr)
+            return 1
+        docs = []
+        for path in args.merge:
+            try:
+                with open(path) as f:
+                    docs.append(_json.load(f))
+            except (OSError, ValueError) as e:
+                print(f"stats: cannot read trace {path}: {e}",
+                      file=sys.stderr)
+                return 1
+        merged = observe.merge_traces(docs, path=args.trace)
+        offs = merged["otherData"]["offsets_s"]
+        print(f"merged {len(docs)} traces "
+              f"({len(merged['traceEvents'])} events) into {args.trace}"
+              f" — clock offsets vs first: "
+              + ", ".join(f"{k}={v:+.6f}s" for k, v in offs.items()))
+        return 0
+
+    if args.trace:
+        trace = observe.trace_export(args.trace)
+        n = sum(1 for e in trace["traceEvents"] if e.get("ph") == "X")
+        names = {e["name"] for e in trace["traceEvents"]
+                 if e.get("ph") == "X"}
+        print(f"wrote {n} spans ({len(names)} distinct) to {args.trace} "
+              f"— open in chrome://tracing or https://ui.perfetto.dev")
+        if not args.metrics_file and args.format == "pretty":
+            return 0
+
+    if args.metrics_file:
+        try:
+            recs = observe.read_jsonl(args.metrics_file)
+        except OSError as e:
+            print(f"stats: cannot read {args.metrics_file}: {e}",
+                  file=sys.stderr)
+            return 1
+        if not recs:
+            print(f"stats: no records in {args.metrics_file}")
+            return 1
+        steps = [r for r in recs if r.get("kind") == "step"]
+        passes = [r for r in recs if r.get("kind") == "pass"]
+        other = len(recs) - len(steps) - len(passes)
+        print(f"{args.metrics_file}: {len(recs)} records "
+              f"({len(steps)} steps, {len(passes)} passes"
+              + (f", {other} other" if other else "") + ")")
+        if steps:
+            walls = sorted(float(r["wall_time_s"]) for r in steps
+                           if isinstance(r.get("wall_time_s"), (int, float)))
+            eps = [float(r["examples_per_sec"]) for r in steps
+                   if isinstance(r.get("examples_per_sec"), (int, float))]
+            losses = [float(r["loss"]) for r in steps
+                      if isinstance(r.get("loss"), (int, float))]
+            recompiles = sum(1 for r in steps if r.get("recompile"))
+            print(f"  step wall ms: p50 {_pct(walls, .5)*1e3:.2f}  "
+                  f"p90 {_pct(walls, .9)*1e3:.2f}  "
+                  f"max {walls[-1]*1e3:.2f}" if walls else "")
+            if eps:
+                print(f"  examples/sec: last {eps[-1]:.1f}  "
+                      f"mean {sum(eps)/len(eps):.1f}")
+            if losses:
+                print(f"  loss: first {losses[0]:.5f}  last {losses[-1]:.5f}")
+            print(f"  recompiles tagged: {recompiles}")
+        for r in passes:
+            print(f"  pass {r.get('pass_id')}: {r.get('examples')} examples "
+                  f"in {r.get('wall_time_s')}s "
+                  f"({r.get('examples_per_sec')} ex/s) "
+                  f"metrics {r.get('metrics', {})}")
+        if args.last:
+            print(f"--- last {args.last} records ---")
+            import json as _json
+            for r in recs[-args.last:]:
+                print(_json.dumps(r))
+        return 0
+
+    reg = observe.default_registry()
+    if args.format == "prom":
+        print(reg.render_prometheus(), end="")
+        return 0
+    snap = reg.snapshot()
+    if not snap:
+        print("stats: default registry is empty (pass --metrics_file=... "
+              "to inspect a JSONL metrics log)")
+        return 0
+    for name, m in snap.items():
+        print(f"{name} ({m['kind']})" + (f" — {m['help']}" if m['help']
+                                         else ""))
+        for s in m["series"]:
+            lbl = ",".join(f"{k}={v}" for k, v in s["labels"].items())
+            lbl = f"{{{lbl}}}" if lbl else ""
+            if m["kind"] == "histogram":
+                print(f"  {lbl} count {s['count']} avg {s['avg']:.6f} "
+                      f"min {s['min']:.6f} max {s['max']:.6f}")
+            else:
+                print(f"  {lbl} {s['value']}")
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="paddle_tpu_torch",
@@ -875,11 +1022,27 @@ def main(argv=None):
                         "stdio or --port TCP; route fronts N serve "
                         "replicas with the prefix-aware fleet router; "
                         "top is a live status view over a route "
-                        "--health_port; stats is not ported yet and "
-                        "exits 2)")
+                        "--health_port; stats renders an observability "
+                        "snapshot)")
     p.add_argument("--config", default=None,
                    help="python config file (required for train, test, "
                         "time, infer and checkgrad)")
+    p.add_argument("--metrics_file", default=None,
+                   help="JSONL metrics log to summarize (job=stats)")
+    p.add_argument("--last", type=int, default=0,
+                   help="also dump the trailing N raw records (job=stats)")
+    p.add_argument("--format", choices=["pretty", "prom"], default="pretty",
+                   help="registry render format (job=stats)")
+    p.add_argument("--requests", type=int, default=0,
+                   help="job=stats: print the N slowest requests of "
+                        "this process's request log with attributed "
+                        "latency components (0 = off)")
+    p.add_argument("--merge", nargs="+", default=None,
+                   metavar="TRACE.json",
+                   help="job=stats: merge N per-rank Chrome-trace "
+                        "exports into ONE aligned gang timeline at "
+                        "--trace (clock offsets solved from the "
+                        "barrier alignment stamps in each file)")
     p.add_argument("--num_passes", type=int, default=1)
     p.add_argument("--save_dir", default=None)
     p.add_argument("--init_model_path", default=None)
@@ -902,7 +1065,8 @@ def main(argv=None):
     p.add_argument("--trace", default=None,
                    help="export the run's trace-scope spans as Chrome-"
                         "trace JSON to this path when a trainer job "
-                        "finishes")
+                        "finishes (job=stats: export the buffer "
+                        "immediately)")
     p.add_argument("--max_new", type=int, default=64,
                    help="default max_new for job=serve/route requests "
                         "that omit it")
@@ -1040,6 +1204,8 @@ def main(argv=None):
         return 2
     if rest:
         p.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.job == "stats":
+        return job_stats(args)
     if args.job == "serve":
         if not args.model:
             p.error("--model=lm.tar is required for job=serve")

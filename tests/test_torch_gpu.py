@@ -24,6 +24,9 @@ sides widen each code with one fp32 multiply by its row scale, so only
 the order of the sums differs; the four-array span write byte for byte.
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -2173,3 +2176,77 @@ def test_gpu_trainer_prefetch_matches_sync(cuda):
     assert runs[0][0] == runs[1][0] and len(runs[0][0]) == 40
     for k, v in runs[0][1].items():
         assert torch.equal(runs[1][1][k], v), k
+
+
+def _book_chapters():
+    """``tests/torch_book_chapters.py``, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_book_chapters",
+        os.path.join(os.path.dirname(__file__), "torch_book_chapters.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_gpu_book_chapter_matches_cpu(cuda):
+    """Four ``SGD.train`` steps of the semantic-role chapter, read from
+    ``dataset.conll05.train()``, on the card and on the CPU from the same
+    parameters: per-step costs within 1e-4 relative."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.utils.rng import KeySource
+    restore = _fp32_flags()
+    try:
+        ch = _book_chapters().chapter("srl", T)
+        p0 = T.parameters.create(ch.cost, KeySource(3), device="cpu")
+        reader = T.reader.firstn(ch.reader, 4 * ch.batch)
+        runs = []
+        for dev in ("cpu", cuda):
+            p = T.parameters.create(ch.cost, KeySource(3), device=dev)
+            p.values = {k: v.to(dev).clone() for k, v in p0.values.items()}
+            tr = T.trainer.SGD(ch.cost, p, ch.opt())
+            costs = []
+            tr.train(T.batch(reader, ch.batch), feeding=ch.feeding,
+                     event_handler=lambda e: costs.append(e.cost)
+                     if isinstance(e, T.event.EndIteration) else None)
+            runs.append(costs)
+        assert len(runs[0]) == len(runs[1]) == 4
+        for a, b in zip(runs[1], runs[0]):
+            assert abs(a - b) <= 1e-4 * abs(b), runs
+    finally:
+        restore()
+
+
+@pytest.mark.gpu
+def test_gpu_convert_recordio_trains_as_the_reader(cuda, tmp_path):
+    """``dataset.uci_housing.convert`` writes recordio; the port's
+    ``reader.creator.recordio`` over it yields the in-memory reader's
+    samples, and the fit-a-line chapter trains from it on the card
+    bitwise as from the in-memory reader."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.utils.rng import KeySource
+    paths = T.dataset.uci_housing.convert(str(tmp_path), line_count=128)
+    train = [p for p in paths if "uci_housing_train" in p]
+    rio = T.reader.creator.recordio(train)
+    mem = T.dataset.uci_housing.train()
+    got, want = list(rio()), list(mem())
+    assert len(got) == len(want) == 404
+    for (gx, gy), (wx, wy) in zip(got, want):
+        assert np.array_equal(gx, wx) and np.array_equal(gy, wy)
+    L = T.layer
+    x = L.data("gf_x", T.data_type.dense_vector(13))
+    y = L.data("gf_y", T.data_type.dense_vector(1))
+    cost = L.square_error_cost(L.fc(x, 1, act=None, name="gf_fc"), y,
+                               name="gf_cost")
+    runs = []
+    for reader in (rio, mem):
+        p = T.parameters.create(cost, KeySource(6), device=cuda)
+        tr = T.trainer.SGD(cost, p, T.optimizer.Adam(learning_rate=5e-2))
+        costs = []
+        tr.train(T.batch(reader, 32), num_passes=2,
+                 event_handler=lambda e: costs.append(e.cost)
+                 if isinstance(e, T.event.EndIteration) else None)
+        assert p.values["gf_fc.w"].device == cuda
+        runs.append(costs)
+    assert runs[0] == runs[1] and len(runs[0]) == 24
+    assert np.mean(runs[0][-3:]) < np.mean(runs[0][:3])

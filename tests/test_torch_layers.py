@@ -417,9 +417,13 @@ def test_lazy_names_and_pending_items():
     assert "paddle_tpu_torch.layer" in sys.modules
     assert T.infer is T.inference.infer
     assert "layer" in dir(T)
-    for name, item in (("dataset", "A8"), ("distributed", "A10")):
-        with pytest.raises(AttributeError, match=item):
-            getattr(T, name)
+    assert T._PENDING == {"distributed": "A10"}
+    with pytest.raises(AttributeError, match="A10"):
+        T.distributed
+    for name in ("dataset", "image", "plot", "version"):
+        assert getattr(T, name).__name__ == f"paddle_tpu_torch.{name}"
+        assert name in dir(T)
+    assert T.dataset.mnist.train().provenance in ("real", "synthetic")
     assert T.pipeline.Pipeline is T.pipeline.core.Pipeline
     assert T.trainer.SGD and T.batch is T.reader.minibatch.batch
     assert not any(m.startswith("paddle_tpu_torch.ops.kernels.")
