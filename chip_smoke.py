@@ -221,14 +221,35 @@ order it:
    (MB/s of both); ``python -m paddle_tpu_torch stats --metrics_file``
    over the sentiment chapter's JSONL (rc 0, its 20 steps counted) and
    ``stats --trace``. No port kernel launches here;
-15. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
+15. the single-card parallel tier (``q8:``, ``remat:`` and ``moe:``
+   lines, ``a9_phase``): each q8 block (the entry, conv_q8 at stride 1
+   and 2 with and without its input ReLU, add_q8, the exit) at batch 4,
+   fp32, against the same Function on the CPU from the same operands
+   (stash codes equal but for counted one-step flips after a
+   convolution, everything else within ``OPS_F32_REL``); ResNet-50 as
+   the ``trainer:`` phase builds it under ``fused_bn`` off, "q8",
+   "defer" and "q8sr" (``cli.measure_time``, 2 warm-up and 10 timed
+   batches; ``SGD.train`` over one batch repeated, whose cost must fall
+   and whose ``q_scale`` state must move; one profiled step); the
+   ``train:`` recipe under ``remat`` "none", "bf16" and "q8" (the first
+   loss bitwise "none"'s, the gradients within 0.02 / 0.08 of its, the
+   forward + backward peaks ordered q8 < bf16 < none, 3 timed steps,
+   kernel 5 twice a layer a step under remat and kernel 6 once); GPT-2
+   small with every FFN a Switch layer of 8 experts (top-1, capacity
+   1.25, aux 0.01): 2 + 5 Adam steps (the loss falls, aux > 0), the
+   engine trace through a fresh ``PagedDecodeEngine`` (kernels 1-4 each
+   launched, the prefix hit against the prompt cold under the near-tie
+   rule), a v4 artifact saved, loaded and serving the in-process ids,
+   and two small fp32 MoE models (top-1, top-2) card vs CPU within 1e-4;
+   their launches join the kernel line;
+16. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
    ten device kernels with the most time, the device's busy share);
-16. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
+17. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
    17 kernels and branches, and ``fused_spec_verify``, kernel 2 at the
    spec trace's verify rows; kernel 2's two streams and kernel 5's bf16
    forward count the slot trace's and the lockstep calls' launches too)
@@ -239,6 +260,7 @@ fp32 on the card as on the CPU.
 """
 
 import contextlib
+import dataclasses
 import importlib.util
 import io
 import itertools
@@ -5388,17 +5410,17 @@ def hand_step(torch, T, tr, feeds, key, step, make_opt) -> dict:
     return doc
 
 
-def resnet50_cost(T):
+def resnet50_cost(T, fused_bn=False):
     """``benchmarks/configs/resnet50.py``'s graph through the port's
     ``models.resnet``: 3x224x224 fed flat CHW, 1000 classes, the
-    space-to-depth stem, ``fused_bn`` off."""
+    space-to-depth stem, ``fused_bn`` off (or the given mode)."""
     from paddle_tpu_torch.models import resnet
     c = TRAINER_RESNET
     L, dt = T.layer, T.data_type
     img = L.data("image", dt.dense_vector(3 * c["image"] ** 2))
     lbl = L.data("label", dt.integer_value(c["classes"]))
     out = resnet.resnet_imagenet(img, depth=50, class_num=c["classes"],
-                                 stem_space_to_depth=True, fused_bn=False)
+                                 stem_space_to_depth=True, fused_bn=fused_bn)
     return L.classification_cost(out, lbl, name="cost")
 
 
@@ -6563,6 +6585,550 @@ def book_phase(torch, dev, c=BOOK) -> dict:
 TRAIN_BATCH, TRAIN_SEQ, WARMUP, TIMED = 8, 1024, 2, 10
 
 
+# ---------------------------------------------------------------------------
+# the single-card parallel tier (ROADMAP A9): the q8 ResNet recipes, the
+# transformer's layer remat and the Switch-8 MoE LM
+
+
+A9 = {"q8_modes": ("off", "q8", "defer", "q8sr"), "q8_warmup": 2,
+      "q8_timed": 10, "q8_train_batches": 4, "block_batch": 4,
+      "remat_modes": ("none", "bf16", "q8"), "remat_timed": 3,
+      "remat_tol": {"bf16": 0.02, "q8": 0.08},
+      "moe_experts": 8, "moe_warmup": 2, "moe_timed": 5,
+      "moe_artifact_requests": 4}
+# a stash code after a convolution may differ between cuDNN and oneDNN by
+# one step where the value before the round lies at a half
+Q8_FLIP_SHARE = 5e-3
+
+
+def q8_codes_check(torch, label, card, cpu, after_conv) -> int:
+    """Codes that differ between the card's stash and the CPU's: none
+    where no convolution precedes the stash, else each one step (one
+    bf16 ulp) and at most ``Q8_FLIP_SHARE`` of them."""
+    a, b = card.cpu(), cpu.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        fail(f"q8 {label}: stash {a.dtype}{tuple(a.shape)} on the card vs "
+             f"{b.dtype}{tuple(b.shape)} on the CPU")
+    diff = a != b
+    n = int(diff.sum())
+    if n == 0:
+        return 0
+    if not after_conv:
+        fail(f"q8 {label}: {n} stash codes differ where no convolution "
+             f"precedes the stash")
+    if a.is_floating_point():
+        step = (a.float() - b.float()).abs()[diff] / b.float().abs()[
+            diff].clamp_min(2.0 ** -126)
+        ok = bool((step <= 2.0 ** -7).all())
+    else:
+        ok = int((a.int() - b.int()).abs().max()) <= 1
+    if not ok or n > Q8_FLIP_SHARE * a.numel():
+        fail(f"q8 {label}: {n} of {a.numel()} stash codes differ, or by "
+             f"more than one step")
+    return n
+
+
+def q8_blocks(torch, dev) -> dict:
+    """Each q8 block on the card against the port's same Function on the
+    CPU from the same operands (batch 4, fp32 compute, TF32 off, ResNet-50
+    res2 / res3 widths): the entry; conv_q8 3x3 at stride 1 and 2, with
+    and without the input ReLU; add_q8 (one branch's ReLU deferred); the
+    exit. The stash codes (``q8_codes_check``), every other output and
+    every input gradient (from seeded cotangents on the carrier and the
+    statistics) within ``OPS_F32_REL`` of the CPU's."""
+    from paddle_tpu_torch.ops import q8
+    N = A9["block_batch"]
+    rng = np.random.RandomState(21)
+
+    def vec(c, lo, hi):
+        return rng.uniform(lo, hi, c).astype(np.float32)
+
+    def codes(*shape):
+        return rng.randint(-127, 128, shape).astype(np.int8)
+
+    cases = {}
+    x = rng.randn(N, 56, 56, 64).astype(np.float32)
+    cases["entry"] = (lambda d, x_, m, s: q8.make_entry("int8")(x_, m, s),
+                      [x, vec(64, -0.1, 0.1), vec(64, 0.02, 0.04)], (0,),
+                      1, False)
+    for stride in (1, 2):
+        for relu in (False, True):
+            ops = [np.zeros((N, 56, 56, 64), np.float32), codes(N, 56, 56, 64),
+                   (rng.randn(3, 3, 64, 64) * 0.05).astype(np.float32),
+                   vec(64, 0.8, 1.2), vec(64, -0.1, 0.1),
+                   vec(64, -0.1, 0.1), vec(64, 0.015, 0.025),
+                   vec(64, -0.1, 0.1), vec(64, 0.06, 0.1)]
+
+            def conv(d, *a, stride=stride, relu=relu):
+                a = list(a)
+                a[1] = a[1].to(torch.int8)
+                return q8.make_conv_q8(stride, 1, relu)(*a)
+            cases[f"conv_s{stride}{'_relu' if relu else ''}"] = (
+                conv, ops, (0, 2, 3, 4), 1, True)
+
+    def add(d, ya, qa, Ma, Ba, ma, sa, yb, qb, Mb, Bb, mb, sb, mo, so):
+        return q8.make_add_q8(False, True)(
+            ya, qa.to(torch.int8), Ma, Ba, ma, sa, yb, qb.to(torch.int8),
+            Mb, Bb, mb, sb, mo, so)
+    shape = (N, 28, 28, 256)
+    cases["add"] = (add, [np.zeros(shape, np.float32), codes(*shape),
+                          vec(256, 0.8, 1.2), vec(256, -0.1, 0.1),
+                          vec(256, -0.1, 0.1), vec(256, 0.02, 0.03),
+                          np.zeros(shape, np.float32), codes(*shape),
+                          vec(256, 0.8, 1.2), vec(256, -0.1, 0.1),
+                          vec(256, -0.1, 0.1), vec(256, 0.02, 0.03),
+                          np.zeros(256, np.float32), vec(256, 0.05, 0.07)],
+                    (0, 2, 3, 6, 8, 9), 1, False)
+
+    def exit_(d, y, q_, M, B, m, s):
+        return q8.make_exit(True)(y, q_.to(torch.int8), M, B, m, s)
+    cases["exit"] = (exit_, [np.zeros(shape, np.float32), codes(*shape),
+                             vec(256, 0.8, 1.2), vec(256, -0.1, 0.1),
+                             vec(256, -0.1, 0.1), vec(256, 0.02, 0.03)],
+                     (0, 2, 3), None, False)
+    doc = {}
+    with compute_dtype("float32"):
+        for label, (fn, arrays, wrt, code_i, after_conv) in cases.items():
+            cpu = run_on(torch, fn, arrays, "cpu", wrt)
+            card = run_on(torch, fn, arrays, dev, wrt)
+            flips = (q8_codes_check(torch, label, card[0][code_i],
+                                    cpu[0][code_i], after_conv)
+                     if code_i is not None else 0)
+            worst = 0.0
+            for i, (a, b) in enumerate(zip(card[0] + card[1],
+                                           cpu[0] + cpu[1])):
+                if i == code_i or not b.is_floating_point():
+                    continue
+                if not torch.isfinite(a.float()).all():
+                    fail(f"q8 {label}: non-finite output {i} on the card")
+                err = rel_err(torch, a, b)
+                if not err <= OPS_F32_REL:
+                    fail(f"q8 {label}: output {i} card vs CPU {err!r} > "
+                         f"{OPS_F32_REL!r}")
+                worst = max(worst, err)
+            doc[label] = {"max_rel_err": worst, "code_flips": flips}
+    return doc
+
+
+def q8_resnet(torch, T, tcli, dev, mode) -> dict:
+    """ResNet-50 (``resnet50_cost``, batch 128, bf16, the s2d stem) under
+    ``fused_bn`` ``mode`` ("off" is PR 15's mode, beside in the same
+    run): ``cli.measure_time`` (images/s, ms/batch, peak memory), then
+    ``SGD.train`` over one batch repeated (its cost must fall and, on the
+    q8 pipeline, a stash site's ``q_scale`` must move off 1), and one more
+    step under the profiler."""
+    from paddle_tpu_torch.ops import prng
+    from paddle_tpu_torch.utils.rng import KeySource
+    c, a = TRAINER_RESNET, A9
+    B, d = c["batch"], 3 * c["image"] ** 2
+    cost = resnet50_cost(T, False if mode == "off" else mode)
+    topo = T.topology.Topology(cost)
+    rng = np.random.RandomState(0)
+    samples = [(rng.rand(d).astype(np.float32), int(rng.randint(
+        c["classes"]))) for _ in range(2 * B)]
+
+    def momentum():
+        return T.optimizer.Momentum(momentum=c["momentum"],
+                                    learning_rate=c["lr"])
+    T.init(seed=5)
+    t = tcli.measure_time({"cost": cost, "reader": lambda: iter(samples),
+                           "batch_size": B, "optimizer": momentum()},
+                          time_batches=a["q8_timed"],
+                          warmup_batches=a["q8_warmup"], device=dev)
+    doc = {"ms_per_batch": t["ms_per_batch"],
+           "images_per_s": t["examples_per_sec"], "mfu": t["mfu"],
+           "peak_memory_bytes": t["peak_memory_bytes"],
+           "stash_sites": sum(l.layer_type in ("q8_entry", "img_conv_bn_q8",
+                                               "addto_q8")
+                              for l in topo.layers)}
+    torch.cuda.empty_cache()
+    params = T.parameters.create(topo, KeySource(5), device=dev)
+    tr = T.trainer.SGD(cost, params, momentum())
+    col = (np.stack([s[0] for s in samples[:B]]),
+           np.array([s[1] for s in samples[:B]], np.int32))
+    costs = []
+    tr.train(lambda: iter([col] * a["q8_train_batches"]),
+             event_handler=lambda e: costs.append(e.cost) if isinstance(
+                 e, T.event.EndIteration) else None)
+    doc["train_costs"] = costs
+    if not (all(np.isfinite(costs)) and costs[-1] < costs[0]):
+        fail(f"q8 {mode}: SGD.train costs {costs} did not fall")
+    if mode != "off":
+        s = tr.parameters.state["res2_0_a_q8.q_scale"]
+        doc["q_scale_moved"] = float((s - 1.0).abs().max())
+        if not doc["q_scale_moved"] > 1e-3:
+            fail(f"q8 {mode}: the delayed scale did not move")
+    feeds = tr._feeder(None).feed(col)
+    key = prng.prng_key(1)
+    prof = profile_window(torch, lambda: float(
+        tr._plain_train_step(feeds, tr._step, key)[0]))
+    doc["profile"] = {k: prof.get(k) for k in (
+        "step_ms", "device_busy_ms", "device_busy_share", "device_kernels")}
+    doc["profile"]["top"] = prof.get("top", [])[:5]
+    del tr, params, feeds
+    torch.cuda.empty_cache()
+    return doc
+
+
+def remat_phase(torch, tt, topt, kernels, cfg, dev) -> tuple:
+    """GPT-2 small widths, the ``train:`` recipe (B = 8 x T = 1024, bf16,
+    flash attention, Adam 1e-4), under ``remat`` "none", "bf16" and "q8",
+    each from the same seed-0 weights: the first step's loss (bitwise
+    "none"'s) and gradients (worst leaf within ``A9["remat_tol"]`` of
+    "none"'s), the peak memory of that forward + backward (q8 < bf16 <
+    none), then ``remat_timed`` Adam steps timed (p50) with kernels 5 and
+    6 counted (2 and 1 launches a layer a step under remat, 1 and 1
+    without). Returns (doc, the timed steps' launches summed)."""
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(dev)
+    targets = tokens.roll(-1, 1)
+    doc, ref, total = {}, None, {}
+    for mode in A9["remat_modes"]:
+        mcfg = dataclasses.replace(cfg, remat=mode)
+        params = tt.init_train_params(cfg, torch.Generator().manual_seed(0),
+                                      dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = tt.lm_loss(params, tokens, targets, mcfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        grads = topt.take_grads(params)
+        flat = dict(topt.tree_leaves(grads))
+        row = {"first_loss": loss.item(), "peak_bytes_above_weights": peak}
+        if ref is None:
+            ref = (loss.detach(), flat)
+        else:
+            row["loss_bitwise_none"] = bool(torch.equal(loss.detach(),
+                                                        ref[0]))
+            row["worst_grad_rel"] = max(
+                float((flat[k] - g).abs().max() / g.abs().max()
+                      .clamp_min(1e-30)) for k, g in ref[1].items())
+        adam = topt.Adam(learning_rate=1e-4)
+        state = adam.tree_init_state(params)
+        params, state = adam.tree_update(0, grads, params, state)
+        del grads, flat
+        times = []
+        kernels.reset_launches()
+        for i in range(1, 1 + A9["remat_timed"]):
+            t0 = time.perf_counter()
+            loss = tt.lm_loss(params, tokens, targets, mcfg)
+            loss.backward()
+            params, state = adam.tree_update(i, topt.take_grads(params),
+                                             params, state)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = kernels.launch_counts()
+        steps = A9["remat_timed"]
+        row.update({"step_ms_p50": 1e3 * float(np.median(times)),
+                    "step_ms_min": 1e3 * min(times),
+                    "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * steps
+                    / sum(times), "last_loss": loss.item(),
+                    "flash_fwd_per_step": launches["flash_attention_fwd"]
+                    / steps,
+                    "flash_bwd_per_step": launches["flash_attention_bwd"]
+                    / steps})
+        for k in TRAINING_KERNELS:
+            total[k] = total.get(k, 0) + launches[k]
+        doc[mode] = row
+        del params, state, adam, loss
+        torch.cuda.empty_cache()
+    print("remat: " + json.dumps(doc))
+    L = cfg.n_layers
+    for mode, row in doc.items():
+        fwd = 2 * L if mode != "none" else L
+        if (row["flash_fwd_per_step"], row["flash_bwd_per_step"]) != (fwd, L):
+            fail(f"remat {mode}: kernels 5 / 6 launched "
+                 f"{row['flash_fwd_per_step']} / {row['flash_bwd_per_step']}"
+                 f" a step, expected {fwd} / {L}")
+        if mode == "none":
+            continue
+        if not row["loss_bitwise_none"]:
+            fail(f"remat {mode}: the first loss is not 'none''s bitwise")
+        if not row["worst_grad_rel"] < A9["remat_tol"][mode]:
+            fail(f"remat {mode}: worst gradient {row['worst_grad_rel']!r} "
+                 f"off 'none''s (limit {A9['remat_tol'][mode]})")
+    peaks = [doc[m]["peak_bytes_above_weights"] for m in ("q8", "bf16",
+                                                          "none")]
+    if not peaks[0] < peaks[1] < peaks[2]:
+        fail(f"remat: peak memory q8 / bf16 / none {peaks} not ordered")
+    return doc, total
+
+
+def moe_config(cfg):
+    """GPT-2 small widths with every FFN a Switch layer of 8 experts
+    (Switch-Base-8's expert count, Fedus et al. 2021) at the JAX
+    config's MoE defaults: top-1, capacity factor 1.25, aux weight
+    0.01."""
+    return dataclasses.replace(cfg, moe_experts=A9["moe_experts"])
+
+
+def moe_train(torch, tt, topt, kernels, costs, place, mcfg, dev) -> tuple:
+    """The ``train:`` recipe on the MoE model: 2 warm-up and 5 timed Adam
+    steps: step ms, tokens/s, peak memory, the losses (falling) and the
+    aux loss of the last weights (> 0); kernels 5 and 6 once a layer a
+    step. Returns (doc, launches)."""
+    params = tt.init_train_params(mcfg, torch.Generator().manual_seed(0),
+                                  dev)
+    adam = topt.Adam(learning_rate=1e-4)
+    state = adam.tree_init_state(params)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(
+        0, mcfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(dev)
+    targets = tokens.roll(-1, 1)
+
+    def step(i):
+        nonlocal params, state
+        loss = tt.lm_loss(params, tokens, targets, mcfg)
+        loss.backward()
+        params, state = adam.tree_update(i, topt.take_grads(params), params,
+                                         state)
+        torch.cuda.synchronize()
+        return loss.item()
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(i) for i in range(A9["moe_warmup"])]
+    kernels.reset_launches()
+    times = []
+    for i in range(A9["moe_warmup"], A9["moe_warmup"] + A9["moe_timed"]):
+        t0 = time.perf_counter()
+        losses.append(step(i))
+        times.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    with torch.no_grad():
+        _, aux = tt.forward(params, tokens, mcfg, return_aux=True)
+    p50 = float(np.median(times))
+    flops = costs.train_step_flops(mcfg, TRAIN_BATCH, TRAIN_SEQ)
+    doc = {"step_ms_p50": 1e3 * p50, "step_ms_min": 1e3 * min(times),
+           "step_ms_max": 1e3 * max(times),
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * len(times) / sum(times),
+           "active_flops_mfu": costs.mfu(flops, p50, place.peak_flops(dev)),
+           "params": sum(int(v.numel()) for _, v in
+                         topt.tree_leaves(params)),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "losses": losses, "aux": aux.item(),
+           "launches": {k: launches[k] for k in TRAINING_KERNELS}}
+    del params, state, adam
+    torch.cuda.empty_cache()
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"moe training: losses {losses} did not fall")
+    if not doc["aux"] > 0:
+        fail(f"moe training: aux loss {doc['aux']}")
+    for k in TRAINING_KERNELS:
+        if launches[k] != mcfg.n_layers * len(times):
+            fail(f"moe training: {k} launched {launches[k]} times in "
+                 f"{len(times)} steps")
+    return doc, launches
+
+
+def moe_step_parity(torch, tt, top_k) -> dict:
+    """``step_parity``'s walk (two prefill chunks and a decode step) on a
+    small fp32 MoE model (4 experts, ``top_k``): the card against the
+    CPU, logits and pool within 1e-4."""
+    cfg = tt.TransformerConfig(vocab=256, d_model=128, n_heads=4,
+                               n_kv_heads=2, n_layers=2, d_ff=256,
+                               max_len=128, dtype="float32", moe_experts=4,
+                               moe_top_k=top_k)
+    bs, nb = 16, 16
+    rng = np.random.RandomState(7)
+    prompt = rng.randint(0, 256, 40).astype(np.int32)
+    pages = np.asarray([3, 9, 4, 0], np.int32)
+
+    def walk(d):
+        params = tt.init_params(cfg, torch.Generator().manual_seed(5), d)
+        pool = tt.init_block_pool(cfg, nb, bs, device=d)
+        out = []
+        for off, c in ((0, 32), (32, 8)):
+            bucket = 32 if c > 16 else 16
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :c] = prompt[off:off + c]
+            pv = pages[:off // bs + bucket // bs]
+            lg, _ = tt.prefill_into_blocks(
+                params, pool, torch.from_numpy(padded).to(d), c,
+                torch.from_numpy(pv.copy()).to(d), cfg, block_size=bs)
+            out.append(lg.cpu())
+        tok = torch.tensor([int(out[-1].argmax()), 5], dtype=torch.int32)
+        lg, _ = tt.decode_step_paged(
+            params, pool, tok.to(d),
+            torch.tensor([40, 3], dtype=torch.int32).to(d),
+            torch.tensor([True, False]).to(d),
+            torch.from_numpy(np.stack([pages, pages])).to(d), cfg,
+            block_size=bs)
+        out.append(lg.cpu())
+        return out, {n: t.cpu() for n, t in pool.items()}
+
+    cpu, card = walk("cpu"), walk("cuda")
+    err = max((a - b).abs().max().item() for a, b in zip(cpu[0], card[0]))
+    pool_err = max((cpu[1][n] - card[1][n]).abs().max().item()
+                   for n in ("k", "v"))
+    if not (err <= 1e-4 and pool_err <= 1e-4):
+        fail(f"moe top-{top_k}: fp32 steps card vs CPU logits {err!r} "
+             f"pool {pool_err!r} > 1e-4")
+    return {"logits_max_abs_err": err, "pool_max_abs_err": pool_err}
+
+
+def moe_batch_dlogit(torch, tt, cfg, params, dev, prompt) -> float:
+    """Max |logit difference| of one slot's decode step on the MoE model
+    alone in the batch (the other 7 rows inactive, token 0) against the
+    same step beside 7 active rows of other tokens: where the experts'
+    slots shift with the batch's routing (ROADMAP C4). The prefix gate's
+    near-tie bound."""
+    bs = ENGINE_KW["block_size"]
+    P = ENGINE_KW["cache_len"] // bs
+    B = ENGINE_KW["batch"]
+    pool = tt.init_block_pool(cfg, P + 1, bs, device=dev)
+    pages = np.arange(1, P + 1, dtype=np.int32)
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    C, off, n = ENGINE_KW["chunk_tokens"], 0, len(prompt)
+    while off < n:
+        c = min(n - off, C)
+        padded = np.zeros((1, C), np.int32)
+        padded[0, :c] = prompt[off:off + c]
+        lg, _ = tt.prefill_into_blocks(params, pool, T(padded), c,
+                                       T(pages[:off // bs + C // bs]), cfg,
+                                       block_size=bs)
+        off += c
+    table = np.zeros((B, P), np.int32)
+    table[0] = pages
+    rng = np.random.RandomState(5)
+    out = []
+    for others in (False, True):
+        toks = rng.randint(0, cfg.vocab, B).astype(np.int32) if others \
+            else np.zeros(B, np.int32)
+        toks[0] = int(lg[0].argmax())
+        pos = np.full(B, 3, np.int32)
+        pos[0] = n
+        active = np.zeros(B, bool)
+        active[0] = True
+        active[1:] = others
+        snap = {k: v.clone() for k, v in pool.items()}
+        out.append(tt.decode_step_paged(params, snap, T(toks), T(pos),
+                                        T(active), T(table), cfg,
+                                        block_size=bs)[0][0])
+    return (out[0] - out[1]).abs().max().item()
+
+
+def moe_serve(torch, tt, tlm, kernels, PagedDecodeEngine, mcfg, dev) -> tuple:
+    """The engine trace (seed 0, 16 requests) through a fresh
+    ``PagedDecodeEngine`` over the MoE model's seed-0 serving weights:
+    tokens/s, TTFT, captures, kernels 1-4's launches (each > 0); the
+    prefix hit against the prompt cold in a fresh engine (a divergence
+    only below the batch's logit difference, ``greedy_gate``); then a v4
+    artifact of the weights saved, loaded and served: 4 greedy requests'
+    ids equal to a fresh in-process engine's. Returns (doc, launches)."""
+    params = tt.init_params(mcfg, torch.Generator().manual_seed(0), dev)
+    warm_eng = PagedDecodeEngine.from_params(params, mcfg, device=dev,
+                                             **ENGINE_KW)
+    submit(warm_eng, np.arange(40) % mcfg.vocab, 4, 0.0)
+    warm_eng.run_until_idle()
+    del warm_eng
+    eng = PagedDecodeEngine.from_params(params, mcfg, device=dev,
+                                        **ENGINE_KW)
+    reqs_in = trace(np.random.RandomState(0), mcfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    reqs, wall, captures, capture_s = serve_trace(torch, eng, reqs_in)
+    launches = kernels.launch_counts()
+    doc = trace_doc(reqs, wall, captures, capture_s)
+    doc.update({"max_memory_allocated_bytes":
+                torch.cuda.max_memory_allocated(),
+                "launches": {k: launches[k] for k in SERVING_KERNELS
+                             + ("fused_sample.threefry",)}})
+    check_served("moe", reqs, reqs_in, mcfg.vocab)
+    missing = [k for k in SERVING_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"moe serving: kernels never launched: {missing}")
+    cold_eng = PagedDecodeEngine.from_params(params, mcfg, device=dev,
+                                             **ENGINE_KW)
+    cold = submit(cold_eng, *reqs_in[1])
+    cold_eng.run_until_idle()
+    del cold_eng
+    dmax = moe_batch_dlogit(torch, tt, mcfg, params, dev, reqs_in[1][0])
+    divs = greedy_gate(
+        [(reqs[1], cold.tokens)], dmax,
+        lambda req, ids, i: target_margin(torch, tt, mcfg, params, dev,
+                                          eng.buckets, reqs_in[1][0], ids,
+                                          i),
+        "moe prefix", "the cold prompt")
+    doc["prefix"] = {"hit_tokens": reqs[1].prefix_hit_tokens,
+                     "identical": cold.tokens == reqs[1].tokens,
+                     "batch_dlogit": dmax, "divergences": divs}
+    greedy = [r for r in reqs_in if r[2] == 0.0][
+        :A9["moe_artifact_requests"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tlm.save_lm_artifact(
+            f"{tmp}/moe.tar", params, mcfg, batch=ENGINE_KW["batch"],
+            prompt_len=ENGINE_KW["chunk_tokens"],
+            cache_len=ENGINE_KW["cache_len"], engine_buckets=eng.buckets,
+            engine_paged=True, engine_block_size=ENGINE_KW["block_size"])
+        save_s = time.perf_counter() - t0
+        srv = tlm.load_lm_artifact(f"{tmp}/moe.tar")
+        a_eng = srv.engine(seed=0, device=dev)
+        load_s = time.perf_counter() - t0 - save_s
+    a_reqs, _, _, _ = serve_trace(torch, a_eng, greedy)
+    ref_eng = PagedDecodeEngine.from_params(params, mcfg, device=dev,
+                                            **ENGINE_KW)
+    r_reqs, _, _, _ = serve_trace(torch, ref_eng, greedy)
+    same = [a.tokens == r.tokens for a, r in zip(a_reqs, r_reqs)]
+    doc["artifact"] = {"format_version": srv.meta["format_version"],
+                       "save_s": save_s, "load_s": load_s,
+                       "ids_equal": same}
+    if not all(same):
+        fail(f"moe artifact: ids differ from the in-process engine's "
+             f"({same})")
+    del eng, a_eng, ref_eng, params, srv
+    torch.cuda.empty_cache()
+    return doc, launches
+
+
+def a9_phase(torch, tt, topt, tlm, kernels, costs, place, PagedDecodeEngine,
+             cfg, dev) -> dict:
+    """The ``q8:``, ``remat:`` and ``moe:`` lines; returns the launches of
+    kernels 1-6 the phase's main paths made (MoE serving 1-4, remat and
+    MoE training 5-6)."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch import cli as tcli
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    doc = {"blocks": q8_blocks(torch, dev)}
+    for mode in A9["q8_modes"]:
+        doc[mode] = q8_resnet(torch, T, tcli, dev, mode)
+    q8_launches = kernels.launch_counts()
+    if any(q8_launches.values()):
+        fail(f"q8: the ResNet recipes launched port kernels: "
+             f"{ {k: v for k, v in q8_launches.items() if v} }")
+    doc["phase_s"] = time.perf_counter() - t0
+    print("q8: " + json.dumps(doc))
+    t1 = time.perf_counter()
+    _, remat_launches = remat_phase(torch, tt, topt, kernels, cfg, dev)
+    mcfg = moe_config(cfg)
+    t2 = time.perf_counter()
+    mdoc = {"config": {"experts": mcfg.moe_experts, "top_k": mcfg.moe_top_k,
+                       "capacity_factor": mcfg.moe_capacity_factor,
+                       "aux_weight": mcfg.moe_aux_weight},
+            "remat_phase_s": t2 - t1}
+    mdoc["train"], train_launches = moe_train(torch, tt, topt, kernels,
+                                              costs, place, mcfg, dev)
+    mdoc["serve"], serve_launches = moe_serve(torch, tt, tlm, kernels,
+                                              PagedDecodeEngine, mcfg, dev)
+    mdoc["parity"] = {f"top{k}": moe_step_parity(torch, tt, k)
+                      for k in (1, 2)}
+    mdoc["phase_s"] = time.perf_counter() - t2
+    print("moe: " + json.dumps(mdoc))
+    out = {k: remat_launches[k] + train_launches[k]
+           for k in TRAINING_KERNELS}
+    out.update({k: serve_launches[k] for k in SERVING_KERNELS
+                + ("fused_sample.threefry",)})
+    return out
+
+
+
+
 def train_phase(torch, tt, topt, kernels, costs, place, cfg, dev):
     """``benchmarks/transformer_bench.py``'s ``_run_variant`` on the
     port: bf16, flash attention, dropout 0, Adam(1e-4), one batch from
@@ -6838,6 +7404,10 @@ def main():
     input_phase(torch, dev)
     torch.cuda.empty_cache()
     book_phase(torch, dev)
+    torch.cuda.empty_cache()
+    a9 = a9_phase(torch, tt, topt, tlm, kernels, costs, place,
+                  PagedDecodeEngine, cfg, dev)
+    torch.cuda.empty_cache()
     trained = train_phase(torch, tt, topt, kernels, costs, place, cfg, dev)
     launches = {**{k: served[k] for k in SERVING_KERNELS},
                 "fused_sample.threefry": served["fused_sample.threefry"],
@@ -6854,6 +7424,9 @@ def main():
     # replicas of the process fleet and the CLI count in their own)
     for k in SERVING_KERNELS + ("fused_sample.threefry",):
         launches[k] += fleet_launches[k] + autoscale_launches[k]
+    # the MoE engine runs kernels 1-4, remat and MoE training 5 and 6
+    for k, n in a9.items():
+        launches[k] += n
 
     out = []
     for name, (src, replaces) in SOURCES.items():

@@ -45,10 +45,8 @@ FORMAT_VERSION = 5      # the newest format this loader reads
 POOL_LAYOUT = "head_major"
 
 # JAX config fields the serving port does not read; each must hold its
-# JAX default (the port refuses experts and ring attention itself)
-_JAX_ONLY_FIELDS = {"cp_mode": "ring", "use_flash_attention": False,
-                    "moe_top_k": 1, "moe_capacity_factor": 1.25,
-                    "moe_aux_weight": 0.01}
+# JAX default (the port refuses ring attention itself)
+_JAX_ONLY_FIELDS = {"cp_mode": "ring", "use_flash_attention": False}
 
 # the big matmul weights, each with the axis its consumer contracts over
 # (the scale's reduce axis): blocks.* are [L, in, out] (axis -2); embed
@@ -84,7 +82,14 @@ def quantize_lm_params(params, device=None):
 
     Only the fp32 tree is accepted: the serving dict of ``init_params``
     holds the matmul weights already rounded to ``cfg.dtype``, and
-    quantizing those gives other bytes than ``paddle_tpu`` does."""
+    quantizing those gives other bytes than ``paddle_tpu`` does. An
+    expert tree is refused, as ``paddle_tpu``'s ``_W8_LEAVES`` refuses
+    it (its rules name ``mlp_in`` / ``mlp_out``, which an MoE tree does
+    not hold, and no expert leaf)."""
+    if "moe_w_in" in params.get("blocks", {}):
+        raise KeyError("quantize_lm_params: an expert tree has no int8 "
+                       "rule (paddle_tpu's _W8_LEAVES name blocks.mlp_in "
+                       "and blocks.mlp_out, which it does not hold)")
     device = place.resolve_device(device)
     out = {}
     for name, leaf in params.items():

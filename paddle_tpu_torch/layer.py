@@ -491,20 +491,95 @@ def img_conv_bn(input, filter_size, num_filters: int,
 
 
 # ---------------------------------------------------------------------------
-# q8 training pipeline layers: they wait for ROADMAP A9, with the rest of
-# ops/q8.py's training recipe. Each keeps its signature and raises.
+# q8 training pipeline layers (ops/q8.py): activations stored as int8
 # ---------------------------------------------------------------------------
 
-def _q8_pending(api: str):
-    raise NotImplementedError(
-        f"layer.{api}: the q8 training pipeline (ops/q8.py's training "
-        f"recipe) is not ported yet — ROADMAP A9")
+def _q8_state_specs(name, ch):
+    """Delayed-scaling state of one stash site: the previous step's
+    per-channel center and scale."""
+    mean_s = ParamSpec(f"{name}.q_mean", (ch,),
+                       attr=ParamAttr(initializer="constant",
+                                      initial_value=0.0))
+    scale_s = ParamSpec(f"{name}.q_scale", (ch,),
+                        attr=ParamAttr(initializer="constant",
+                                       initial_value=1.0))
+    return mean_s, scale_s
+
+
+def _q8_parent_fold(parent_info, params, aux, q8_mod):
+    """(M, B, relu_in) of a consumer's prologue from the producer's
+    deferred BN / activation (build-time info + this step's batch
+    statistics)."""
+    bn_name, act_name, eps = parent_info
+    enforce.enforce(act_name in (None, "linear", "relu"),
+                    f"q8 pipeline supports relu/None deferred activations, "
+                    f"got {act_name!r}")
+    relu_in = act_name == "relu"
+    if bn_name is None:
+        M, B = q8_mod.fold_identity(aux["mu"])
+        return M, B, relu_in
+    M, B = q8_mod.fold_bn_affine(aux["mu"], aux["var"],
+                                 params[f"{bn_name}.gamma"],
+                                 params[f"{bn_name}.beta"], eps=eps)
+    return M, B, relu_in
+
+
+def _q8_key(ctx, name: str, stochastic: bool):
+    """The trailing key of the stochastic-rounding blocks:
+    ``ctx.layer_key(name)``, the JAX package's raw key data for the
+    layer and step."""
+    if not stochastic:
+        return ()
+    key = ctx.layer_key(name)
+    enforce.enforce(
+        key is not None,
+        f"q8 layer {name!r}: stochastic rounding needs the per-step "
+        f"dropout_key threaded into forward (trainer.SGD provides it)")
+    return (key,)
+
+
+def _q8_info(lo: LayerOutput):
+    info = getattr(lo, "_q8", None)
+    enforce.enforce(info is not None,
+                    f"layer {lo.name!r} is not a q8 producer — q8 layers "
+                    f"can only consume q8_entry / img_conv_bn_q8 / "
+                    f"addto_q8 outputs")
+    return info
 
 
 def q8_entry(input, name: Optional[str] = None, num_channels=None,
              stash: str = "int8", stochastic: bool = False):
-    """Quantize a dense activation into the q8 pipeline (ROADMAP A9)."""
-    _q8_pending("q8_entry")
+    """Quantize a dense activation into the q8 pipeline (ops/q8.py):
+    until ``q8_exit`` an activation is kept only as a centered int8
+    stash under delayed scaling (``stash="bf16"``: the same deferral
+    with a bf16 stash, the "defer" recipe). Training only; eval runs
+    the exact dense math."""
+    from paddle_tpu_torch.ops import q8 as ops_q8
+
+    name = name or auto_name("q8_entry")
+    cin = num_channels or getattr(input, "_out_channels", None)
+    enforce.enforce(cin is not None, f"q8_entry {name}: unknown channels")
+    mean_s, scale_s = _q8_state_specs(name, cin)
+
+    def fwd(params, parents, ctx):
+        v = parents[0]
+        if not ctx.is_training:
+            ctx.state_out[mean_s.name] = ctx.state_in[mean_s.name]
+            ctx.state_out[scale_s.name] = ctx.state_in[scale_s.name]
+            return v
+        yhat, q, mu, amax = ops_q8.make_entry(stash, stochastic)(
+            v.array, ctx.state_in[mean_s.name], ctx.state_in[scale_s.name],
+            *_q8_key(ctx, name, stochastic))
+        ctx.state_out[mean_s.name] = mu
+        ctx.state_out[scale_s.name] = ops_q8.scale_from_amax(amax)
+        return Value(yhat, aux={"q": q, "mu": mu})
+
+    lo = LayerOutput(name, "q8_entry", [input], fwd, [],
+                     size=input.size, state_specs=[mean_s, scale_s])
+    lo._out_channels = cin
+    lo._img_shape = getattr(input, "_img_shape", None)
+    lo._q8 = (None, None, 1e-5)   # (deferred bn name, deferred act, eps)
+    return lo
 
 
 def img_conv_bn_q8(input, filter_size, num_filters: int,
@@ -515,20 +590,166 @@ def img_conv_bn_q8(input, filter_size, num_filters: int,
                    conv_name: Optional[str] = None,
                    bn_name: Optional[str] = None, stash: str = "int8",
                    stochastic: bool = False):
-    """Conv→BN block on the q8 pipeline (ROADMAP A9)."""
-    _q8_pending("img_conv_bn_q8")
+    """Conv -> BN block on the q8 pipeline (ops/q8.py): reads the
+    producer's stash (dequantize, the producer's BN affine and
+    activation, in its prologue) and writes its own (centered,
+    quantized). Its OWN batch-norm affine and activation are deferred to
+    the q8 layer that consumes it. Parameter and state names are the
+    dense img_conv + batch_norm pair's, so checkpoints interchange."""
+    from paddle_tpu_torch.ops import q8 as ops_q8
+
+    name = name or auto_name("img_conv_bn_q8")
+    conv_name = conv_name or name
+    bn_name = bn_name or name
+    act_name = act_mod.resolve(act)
+    k = (filter_size, filter_size) if isinstance(filter_size, int) \
+        else tuple(filter_size)
+    enforce.enforce(k[0] == k[1], "img_conv_bn_q8: square kernels only")
+    cin = num_channels or getattr(input, "_out_channels", None)
+    enforce.enforce(cin is not None, f"img_conv_bn_q8 {name}: channels?")
+    a = _param_attr(param_attr or ParamAttr(initializer="msra"),
+                    f"{conv_name}.w")
+    wspec = ParamSpec(a.name, (k[0], k[1], cin, num_filters), attr=a,
+                      fan_in=k[0] * k[1] * cin)
+    ga = _param_attr(bn_param_attr if isinstance(bn_param_attr, ParamAttr)
+                     else ParamAttr(initializer="constant",
+                                    initial_value=1.0), f"{bn_name}.gamma")
+    ba = _param_attr(bn_bias_attr if isinstance(bn_bias_attr, ParamAttr)
+                     else ParamAttr(initializer="constant",
+                                    initial_value=0.0), f"{bn_name}.beta")
+    gamma = ParamSpec(ga.name, (num_filters,), attr=ga)
+    beta = ParamSpec(ba.name, (num_filters,), attr=ba)
+    rmean_s = ParamSpec(f"{bn_name}.mean", (num_filters,),
+                        attr=ParamAttr(initializer="constant",
+                                       initial_value=0.0))
+    rvar_s = ParamSpec(f"{bn_name}.var", (num_filters,),
+                       attr=ParamAttr(initializer="constant",
+                                      initial_value=1.0))
+    qmean_s, qscale_s = _q8_state_specs(name, num_filters)
+    parent_name = input.name
+    parent_info = _q8_info(input)
+    ih, iw = _infer_img_shape(input, cin, None)
+    s = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    oh = _conv_out_dim(ih, k[0], s[0], padding)
+    ow = _conv_out_dim(iw, k[1], s[1], padding)
+
+    def fwd(params, parents, ctx):
+        v = parents[0]
+        mom = moving_average_fraction
+        if not ctx.is_training:
+            # exact dense eval: conv -> BN(running stats) -> own act
+            y = ops_conv.conv2d(v.array, params[wspec.name], stride=stride,
+                                padding=padding)
+            y = ops_norm.batch_norm_infer(
+                y, params[gamma.name], params[beta.name],
+                ctx.state_in[rmean_s.name], ctx.state_in[rvar_s.name],
+                eps=epsilon)
+            for spec in (rmean_s, rvar_s, qmean_s, qscale_s):
+                ctx.state_out[spec.name] = ctx.state_in[spec.name]
+            return _apply_act(Value(y), act_name)
+        M, B, relu_in = _q8_parent_fold(parent_info, params, v.aux, ops_q8)
+        blk = ops_q8.make_conv_q8(stride, padding, relu_in, stash,
+                                  stochastic)
+        yhat, q, mu, var, amax = blk(
+            v.array, v.aux["q"], params[wspec.name], M, B,
+            ctx.state_in[f"{parent_name}.q_mean"],
+            ctx.state_in[f"{parent_name}.q_scale"],
+            ctx.state_in[qmean_s.name], ctx.state_in[qscale_s.name],
+            *_q8_key(ctx, name, stochastic))
+        ctx.state_out[qmean_s.name] = mu
+        ctx.state_out[qscale_s.name] = ops_q8.scale_from_amax(amax)
+        ctx.state_out[rmean_s.name] = (
+            mom * ctx.state_in[rmean_s.name] + (1 - mom) * mu)
+        ctx.state_out[rvar_s.name] = (
+            mom * ctx.state_in[rvar_s.name] + (1 - mom) * var)
+        return Value(yhat, aux={"q": q, "mu": mu, "var": var})
+
+    lo = LayerOutput(name, "img_conv_bn_q8", [input], fwd,
+                     [wspec, gamma, beta],
+                     size=oh * ow * num_filters if oh and ow else None,
+                     activation=act_name,
+                     state_specs=[rmean_s, rvar_s, qmean_s, qscale_s])
+    lo._out_channels = num_filters
+    lo._img_shape = (oh, ow)
+    lo._q8 = (bn_name, act_name, epsilon)
+    return lo
 
 
 def addto_q8(input: Sequence[LayerOutput], act=None,
              name: Optional[str] = None, stash: str = "int8",
              stochastic: bool = False):
-    """Residual add on the q8 pipeline (ROADMAP A9)."""
-    _q8_pending("addto_q8")
+    """Residual add on the q8 pipeline: applies both producers' deferred
+    BN affines and activations, adds, and stashes the sum centered
+    before the activation; this layer's own activation is deferred to
+    its consumers."""
+    from paddle_tpu_torch.ops import q8 as ops_q8
+
+    name = name or auto_name("addto_q8")
+    act_name = act_mod.resolve(act)
+    inputs = list(input)
+    enforce.enforce(len(inputs) == 2, "addto_q8 takes exactly two inputs")
+    cin = getattr(inputs[0], "_out_channels", None)
+    enforce.enforce(cin is not None, f"addto_q8 {name}: unknown channels")
+    p_names = [p.name for p in inputs]
+    p_infos = [_q8_info(p) for p in inputs]
+    qmean_s, qscale_s = _q8_state_specs(name, cin)
+
+    def fwd(params, parents, ctx):
+        va, vb = parents
+        if not ctx.is_training:
+            ctx.state_out[qmean_s.name] = ctx.state_in[qmean_s.name]
+            ctx.state_out[qscale_s.name] = ctx.state_in[qscale_s.name]
+            return _apply_act(Value(va.array + vb.array), act_name)
+        Ma, Ba, relu_a = _q8_parent_fold(p_infos[0], params, va.aux, ops_q8)
+        Mb, Bb, relu_b = _q8_parent_fold(p_infos[1], params, vb.aux, ops_q8)
+        blk = ops_q8.make_add_q8(relu_a, relu_b, stash, stochastic)
+        yhat, q, mu, amax = blk(
+            va.array, va.aux["q"], Ma, Ba,
+            ctx.state_in[f"{p_names[0]}.q_mean"],
+            ctx.state_in[f"{p_names[0]}.q_scale"],
+            vb.array, vb.aux["q"], Mb, Bb,
+            ctx.state_in[f"{p_names[1]}.q_mean"],
+            ctx.state_in[f"{p_names[1]}.q_scale"],
+            ctx.state_in[qmean_s.name], ctx.state_in[qscale_s.name],
+            *_q8_key(ctx, name, stochastic))
+        ctx.state_out[qmean_s.name] = mu
+        ctx.state_out[qscale_s.name] = ops_q8.scale_from_amax(amax)
+        return Value(yhat, aux={"q": q, "mu": mu})
+
+    lo = LayerOutput(name, "addto_q8", inputs, fwd, [],
+                     size=inputs[0].size, activation=act_name,
+                     state_specs=[qmean_s, qscale_s])
+    lo._out_channels = cin
+    lo._img_shape = getattr(inputs[0], "_img_shape", None)
+    lo._q8 = (None, act_name, 1e-5)
+    return lo
 
 
 def q8_exit(input, name: Optional[str] = None):
-    """Leave the q8 pipeline (ROADMAP A9)."""
-    _q8_pending("q8_exit")
+    """Leave the q8 pipeline: dequantize the producer's stash, apply its
+    deferred BN affine and activation, return a dense Value in the
+    compute dtype."""
+    from paddle_tpu_torch.ops import q8 as ops_q8
+
+    name = name or auto_name("q8_exit")
+    parent_name = input.name
+    parent_info = _q8_info(input)
+
+    def fwd(params, parents, ctx):
+        v = parents[0]
+        if not ctx.is_training:
+            return v
+        M, B, relu_in = _q8_parent_fold(parent_info, params, v.aux, ops_q8)
+        out = ops_q8.make_exit(relu_in)(
+            v.array, v.aux["q"], M, B,
+            ctx.state_in[f"{parent_name}.q_mean"],
+            ctx.state_in[f"{parent_name}.q_scale"])
+        return Value(out)
+
+    lo = LayerOutput(name, "q8_exit", [input], fwd, [], size=input.size)
+    lo._out_channels = getattr(input, "_out_channels", None)
+    lo._img_shape = getattr(input, "_img_shape", None)
+    return lo
 
 
 # ---------------------------------------------------------------------------

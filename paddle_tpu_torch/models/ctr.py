@@ -11,7 +11,7 @@ On one card the wide weight [wide_dim, 2] and the embedding table
 [vocab, emb_dim] are dense tensors; lookups are gathers, and the
 row-sparse gradient materialises through the scatter-add in the
 gather's backward. Sharding them over a mesh (``ctr_dist_rules``)
-comes with the parallel tier (ROADMAP A9).
+comes with the multi-rank parallel tier (ROADMAP A10).
 """
 
 from typing import Sequence
@@ -53,10 +53,10 @@ def ctr_wide_deep(wide_dim: int, vocab_size: int, emb_dim: int = 64,
 def ctr_dist_rules(name: str = "ctr"):
     """Sharding rules for the high-dim tables (the sparse_remote_update
     slot): embedding over vocab, wide weight over its input dim. The
-    rules and the mesh they act on come with ROADMAP A9."""
+    rules and the mesh they act on come with ROADMAP A10."""
     raise NotImplementedError(
         "ctr_dist_rules: sharding rules need the parallel tier "
-        "(parallel/spmd.py), which is not ported yet — ROADMAP A9")
+        "(parallel/spmd.py), which is not ported yet — ROADMAP A10")
 
 
 def synthetic_reader(wide_dim: int, vocab_size: int, n: int = 512,

@@ -12,17 +12,14 @@ carry across through ``Parameters.to_tar``.
 from paddle_tpu_torch import activation, layer, pooling
 
 
-# the JAX package's deferral recipes (``_stash_for``): they stand on the q8
-# training pipeline, which is not ported yet
-_DEFERRAL_MODES = ("q8", "defer", "q8sr")
-
-
-def _refuse_deferral(fused):
-    if isinstance(fused, str) and fused in _DEFERRAL_MODES:
-        raise NotImplementedError(
-            f"fused_bn={fused!r}: the q8/defer recipes run on the q8 "
-            f"training pipeline (ops/q8.py), which is not ported yet — "
-            f"ROADMAP A9")
+def _stash_for(fused):
+    """(stash dtype, stochastic rounding) of a deferral recipe, None for
+    any other mode: "q8" an int8 stash, "defer" a bf16 one, "q8sr" int8
+    with unbiased stochastic rounding."""
+    if not isinstance(fused, str):
+        return None
+    return {"q8": ("int8", False), "defer": ("bf16", False),
+            "q8sr": ("int8", True)}.get(fused)
 
 
 def conv_bn_layer(input, ch_out, filter_size, stride, padding, active_type,
@@ -30,13 +27,24 @@ def conv_bn_layer(input, ch_out, filter_size, stride, padding, active_type,
     """(reference: resnet.py conv_bn_layer). ``fused=True`` runs the
     single-op conv→BN path (``layer.img_conv_bn``, ops/conv_bn.py:
     closed-form BN VJP); ``fused="int8"`` additionally stashes the
-    backward's saved activations as int8. ``"full"`` was retired by the
-    JAX package and is refused; the deferral recipes raise (A9)."""
+    backward's saved activations as int8. ``fused="q8"`` runs the q8
+    pipeline (ops/q8.py: activations stored as int8, the BN affine and
+    activation deferred into the consumer's prologue); ``"defer"`` the
+    same with a bf16 stash, ``"q8sr"`` with stochastic rounding.
+    ``"full"`` was retired by the JAX package and is refused."""
     if fused == "full":
         raise ValueError(
             "fused='full' (the retired conv backward kernels) is not a "
             "mode; use True, 'int8' or the q8/defer recipes")
-    _refuse_deferral(fused)
+    if _stash_for(fused):
+        stash, sr = _stash_for(fused)
+        return layer.img_conv_bn_q8(
+            input, filter_size=filter_size, num_filters=ch_out,
+            num_channels=ch_in, stride=stride, padding=padding,
+            act=active_type, name=f"{name}_q8" if name else None,
+            conv_name=f"{name}_conv" if name else None,
+            bn_name=f"{name}_bn" if name else None,
+            stash=stash, stochastic=sr)
     if fused:
         # explicit integer padding (not "SAME", which pads asymmetrically
         # at stride 2); param names mirror the unfused pair so
@@ -64,6 +72,14 @@ def shortcut(input, ch_in, ch_out, stride, name=None, fused=False):
     return input
 
 
+def _addto(inputs, act, name, fused):
+    if _stash_for(fused):
+        stash, sr = _stash_for(fused)
+        return layer.addto_q8(inputs, act=act, name=name,
+                              stash=stash, stochastic=sr)
+    return layer.addto(inputs, act=act, name=name)
+
+
 def bottleneck_block(input, ch_in, ch_out, stride, name=None, fused=False):
     """1x1 -> 3x3 -> 1x1(x4) with identity/projection shortcut
     (reference: resnet.py bottleneck_block)."""
@@ -75,8 +91,8 @@ def bottleneck_block(input, ch_in, ch_out, stride, name=None, fused=False):
                           name=f"{name}_b" if name else None, fused=fused)
     conv3 = conv_bn_layer(conv2, ch_out * 4, 1, 1, 0, None,
                           name=f"{name}_c" if name else None, fused=fused)
-    return layer.addto([conv3, short], act=activation.Relu(),
-                       name=f"{name}_add" if name else None)
+    return _addto([conv3, short], activation.Relu(),
+                  f"{name}_add" if name else None, fused)
 
 
 def basic_block(input, ch_in, ch_out, stride, name=None, fused=False):
@@ -85,8 +101,8 @@ def basic_block(input, ch_in, ch_out, stride, name=None, fused=False):
                           name=f"{name}_a" if name else None, fused=fused)
     conv2 = conv_bn_layer(conv1, ch_out, 3, 1, 1, None,
                           name=f"{name}_b" if name else None, fused=fused)
-    return layer.addto([conv2, short], act=activation.Relu(),
-                       name=f"{name}_add" if name else None)
+    return _addto([conv2, short], activation.Relu(),
+                  f"{name}_add" if name else None, fused)
 
 
 _DEPTH_CFG = {
@@ -105,8 +121,10 @@ def resnet_imagenet(input, depth=50, class_num=1000, img_size=224,
     space-to-depth input (numerically identical;
     ``layer.space_to_depth_conv``).
     fused_bn: False, True or "int8" (``conv_bn_layer``; the stem keeps
-    the unfused path); "q8", "defer" and "q8sr" raise (ROADMAP A9)."""
-    _refuse_deferral(fused_bn)
+    the unfused path), or a deferral recipe ("q8", "defer", "q8sr"):
+    the residual trunk between ``res_q8_entry`` and ``res_q8_exit``
+    keeps its activations as stashes with deferred BN / ReLU; the stem
+    and head stay dense."""
     kind, counts = _DEPTH_CFG[depth]
     block = bottleneck_block if kind == "bottleneck" else basic_block
     expansion = 4 if kind == "bottleneck" else 1
@@ -125,12 +143,18 @@ def resnet_imagenet(input, depth=50, class_num=1000, img_size=224,
 
     ch_in = 64
     tmp = pool1
+    if _stash_for(fused_bn):
+        stash, sr = _stash_for(fused_bn)
+        tmp = layer.q8_entry(tmp, name="res_q8_entry",
+                             stash=stash, stochastic=sr)
     for stage, (n, ch_out) in enumerate(zip(counts, [64, 128, 256, 512])):
         for i in range(n):
             stride = 2 if (i == 0 and stage > 0) else 1
             tmp = block(tmp, ch_in, ch_out, stride,
                         name=f"res{stage+2}_{i}", fused=fused_bn)
             ch_in = ch_out * expansion
+    if _stash_for(fused_bn):
+        tmp = layer.q8_exit(tmp, name="res_q8_exit")
     pool = layer.img_pool(tmp, pool_size=7, stride=1,
                           pool_type=pooling.Avg(), name="res_gap")
     return layer.fc(pool, class_num, act=activation.Softmax(), name="res_fc")
@@ -141,11 +165,14 @@ def resnet_cifar10(input, depth=32, class_num=10, fused_bn=False,
     """(reference: v1_api_demo/model_zoo resnet cifar variant).
     fused_bn: as ``resnet_imagenet``; the stem stays dense.
     width: base channel count (stages run width/2·width/4·width)."""
-    _refuse_deferral(fused_bn)
     n = (depth - 2) // 6
     conv1 = conv_bn_layer(input, width, 3, 1, 1, activation.Relu(),
                           ch_in=3, name="rc_conv1")
     tmp = conv1
+    if _stash_for(fused_bn):
+        stash, sr = _stash_for(fused_bn)
+        tmp = layer.q8_entry(tmp, name="rc_q8_entry", stash=stash,
+                             stochastic=sr)
     ch_in = width
     for stage, ch_out in enumerate([width, 2 * width, 4 * width]):
         for i in range(n):
@@ -153,6 +180,8 @@ def resnet_cifar10(input, depth=32, class_num=10, fused_bn=False,
             tmp = basic_block(tmp, ch_in, ch_out, stride,
                               name=f"rc{stage}_{i}", fused=fused_bn)
             ch_in = ch_out
+    if _stash_for(fused_bn):
+        tmp = layer.q8_exit(tmp, name="rc_q8_exit")
     pool = layer.img_pool(tmp, pool_size=8, stride=1,
                           pool_type=pooling.Avg(), name="rc_gap")
     return layer.fc(pool, class_num, act=activation.Softmax(), name="rc_fc")

@@ -70,16 +70,16 @@ from paddle_tpu_torch.ops.topk import top_k as _top_k
 from paddle_tpu_torch.ops.kernels import attention as kattention
 from paddle_tpu_torch.ops.kernels import decode as kdecode
 from paddle_tpu_torch.ops.kernels import prefill as kprefill
-from paddle_tpu_torch.parallel import ring
+from paddle_tpu_torch.parallel import moe, ring
 
 MATMUL_WEIGHTS = ("qkv", "attn_out", "mlp_in", "mlp_out")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The fields of ``paddle_tpu``'s config that the serving and
-    training slices read. Experts, ring attention and remat are not
-    ported: setting them raises ``NotImplementedError``."""
+    """``paddle_tpu``'s config. Ring attention (``use_ring_attention``,
+    with its ``cp_mode``) is the multi-rank parallel tier: setting it
+    raises ``NotImplementedError`` (ROADMAP A10)."""
     vocab: int
     d_model: int = 512
     n_heads: int = 8
@@ -92,18 +92,46 @@ class TransformerConfig:
     use_rope: bool = False             # rotary q/k instead of learned
     rope_theta: float = 10000.0        # absolute positions
     use_ring_attention: bool = False
-    remat: str = "none"
-    moe_experts: int = 0
+    remat: str = "none"                # "none" | "bf16" | "q8": layer-
+                                       # granular recompute; autograd
+                                       # saves one (quantized) copy of
+                                       # each block's input instead of
+                                       # its intermediates
+                                       # (ops/q8.q8_remat)
+    moe_experts: int = 0               # >0: every FFN is a top-k MoE
+                                       # over this many experts
+                                       # (parallel/moe); 0 = dense mlp
+    moe_top_k: int = 1                 # 1 = Switch; 2 = GShard top-2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01       # load-balance loss weight (added
+                                       # to lm_loss per layer)
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", dtypes.resolve(self.dtype))
-        if self.moe_experts:
-            raise NotImplementedError("moe_experts: not ported")
         if self.use_ring_attention:
-            raise NotImplementedError("use_ring_attention: not ported")
-        if self.remat != "none":
-            raise NotImplementedError(f"remat={self.remat!r}: not ported")
+            raise NotImplementedError(
+                "use_ring_attention: context parallelism over a mesh is "
+                "the multi-rank parallel tier, not ported yet — ROADMAP "
+                "A10")
+        if self.remat not in ("none", "bf16", "q8"):
+            raise ValueError(f"remat must be 'none', 'bf16' or 'q8', got "
+                             f"{self.remat!r}")
         _ = self.kv_heads                   # validates the head split
+
+    def moe_cfg(self):
+        """The ``parallel/moe.MoEConfig`` this FFN runs under."""
+        return moe.MoEConfig(
+            d_model=self.d_model, d_ff=self.d_ff,
+            num_experts=self.moe_experts,
+            capacity_factor=self.moe_capacity_factor,
+            aux_loss_weight=self.moe_aux_weight, top_k=self.moe_top_k)
+
+    def serving_moe_cfg(self):
+        """The MoE config of the serving steps: capacity factor E / k,
+        so no token drops (every expert has room for every row)."""
+        return dataclasses.replace(
+            self.moe_cfg(),
+            capacity_factor=float(self.moe_experts) / self.moe_top_k)
 
     @property
     def head_dim(self) -> int:
@@ -146,7 +174,11 @@ def _trainable(tree: Dict, device) -> Dict:
 
 
 def _draw(cfg: TransformerConfig, generator) -> Dict:
-    """fp32 CPU parameters with ``paddle_tpu``'s shapes and scales."""
+    """fp32 CPU parameters with ``paddle_tpu``'s shapes and scales: an
+    MoE config draws ``gate`` [L, D, E], ``moe_w_in`` [L, E, D, F] and
+    ``moe_w_out`` [L, E, F, D] in place of ``mlp_in`` / ``mlp_out`` (the
+    three stay fp32 in the serving dict too: the JAX package's MoE
+    products are fp32)."""
     D, F_, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab
     kvd = cfg.kv_heads * cfg.head_dim
     s = 1.0 / math.sqrt(D)
@@ -154,6 +186,16 @@ def _draw(cfg: TransformerConfig, generator) -> Dict:
     def nrm(shape, scale):
         return torch.randn(shape, generator=generator) * scale
 
+    if cfg.moe_experts:
+        E = cfg.moe_experts
+        ffn = {"gate": nrm((L, D, E), s),
+               "moe_w_in": nrm((L, E, D, F_), s),
+               "moe_w_out": nrm((L, E, F_, D),
+                                1.0 / math.sqrt(F_) / math.sqrt(2 * L))}
+    else:
+        ffn = {"mlp_in": nrm((L, D, F_), s),
+               "mlp_out": nrm((L, F_, D),
+                              1.0 / math.sqrt(F_) / math.sqrt(2 * L))}
     tree = {
         "embed": nrm((V, D), 1.0 / math.sqrt(D)),
         # rope computes positions analytically: a 1-row stub keeps the
@@ -167,8 +209,7 @@ def _draw(cfg: TransformerConfig, generator) -> Dict:
             "attn_out": nrm((L, D, D), s / math.sqrt(2 * L)),
             "ln2": torch.ones((L, D)),
             "ln2_b": torch.zeros((L, D)),
-            "mlp_in": nrm((L, D, F_), s),
-            "mlp_out": nrm((L, F_, D), 1.0 / math.sqrt(F_) / math.sqrt(2 * L)),
+            **ffn,
         },
         "ln_f": torch.ones((D,)),
         "ln_f_b": torch.zeros((D,)),
@@ -437,6 +478,19 @@ def _mlp(h2, w_in, w_out):
     return ff @ w_out.to(ff.dtype)
 
 
+def _moe_weights(w):
+    return {"gate": w["gate"], "w_in": w["moe_w_in"],
+            "w_out": w["moe_w_out"]}
+
+
+def _serve_ffn(w, h2, cfg: TransformerConfig):
+    """The FFN of a serving step over rows h2 [N, D]: the dense mlp, or
+    the MoE at the serving capacity (``serving_moe_cfg``: no drops)."""
+    if not cfg.moe_experts:
+        return _mlp(h2, w["mlp_in"], w["mlp_out"])
+    return moe.moe_ffn(_moe_weights(w), h2, cfg.serving_moe_cfg())[0]
+
+
 def _dropout(h: torch.Tensor, rate: float,
              generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate
@@ -451,17 +505,20 @@ def _dropout(h: torch.Tensor, rate: float,
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
             lengths: Optional[torch.Tensor] = None,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            return_aux: bool = False):
     """tokens [B, T] int -> logits [B, T, vocab] fp32: the JAX forward
     with ``head="all"``. ``lengths`` [B] masks keys at or past each
     row's length (plain attention then, as in the JAX package);
     ``generator`` enables inverted dropout at ``cfg.dropout`` on the
     embedding and both residual branches of every block, drawn on the
-    tokens' device — omit it for a deterministic forward. The serving
-    heads and the stacked k/v are :func:`_forward_impl`'s (through
-    :func:`prefill` and :func:`prefill_into_slot`)."""
+    tokens' device — omit it for a deterministic forward.
+    ``return_aux=True`` also returns the summed MoE load-balance loss
+    (zero for dense configs): (logits, aux). The serving heads and the
+    stacked k/v are :func:`_forward_impl`'s (through :func:`prefill` and
+    :func:`prefill_into_slot`)."""
     return _forward_impl(params, tokens, cfg, lengths=lengths,
-                         generator=generator)
+                         generator=generator, return_aux=return_aux)
 
 
 HEADS = ("all", "last", "gather")
@@ -471,7 +528,8 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
                   lengths: Optional[torch.Tensor] = None,
                   return_kv: bool = False, head: str = "all",
                   gather_pos: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  return_aux: bool = False):
     """The forward of :func:`forward` with the JAX package's serving
     options. ``head`` picks the positions that feed the vocab head:
     ``"all"`` ([B, T, V]), ``"last"`` (position -1, [B, 1, V]: the
@@ -480,10 +538,16 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     prefill of a right-padded prompt, whose causal attention keeps the
     padding out of the real positions). ``return_kv`` also returns each
     layer's k and v after RoPE, stacked [L, B, T, Hkv, Dh] in
-    ``cfg.dtype``: (logits, (k, v)). ``params`` may be the int8-weight
-    tree (module docstring): its layers dequantize one at a time and its
-    embedding rows gather as codes; the serving dict and the training
-    tree run the JAX forward's operations, casts at use included."""
+    ``cfg.dtype``: (logits, (k, v)); ``return_aux`` also returns the
+    summed MoE load-balance loss (a 0-d fp32 tensor, 0 for a dense
+    config), last. ``params`` may be the int8-weight tree (module
+    docstring): its layers dequantize one at a time and its embedding
+    rows gather as codes; the serving dict and the training tree run the
+    JAX forward's operations, casts at use included. ``cfg.remat``
+    "bf16" / "q8" wraps each block in ``ops/q8.q8_remat`` when no k/v
+    is returned; ``cfg.moe_experts`` makes every FFN the MoE at the
+    training capacity (``cfg.moe_cfg()``), as the JAX forward does in
+    its lockstep and slot prefills too."""
     if head not in HEADS:
         raise ValueError(f"head {head!r}: one of {HEADS}")
     if not 0.0 <= cfg.dropout < 1.0:
@@ -509,9 +573,7 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
 
         def layer(li):
             return {k: t[li] for k, t in w.items()}
-    ks, vs = [], []
-    for li in range(cfg.n_layers):
-        wl = layer(li)
+    def block(x, wl):
         h = norm.layer_norm(x, wl["ln1"], wl["ln1_b"])
         qkv = h @ wl["qkv"].to(h.dtype)
         q, k, v = torch.split(qkv, [H * Dh, kvd, kvd], dim=-1)
@@ -520,9 +582,7 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         v = v.reshape(B, T, Hkv, Dh)
         if cfg.use_rope:
             q, k = _rope(q, rope_tabs), _rope(k, rope_tabs)
-        if return_kv:
-            ks.append(k.to(dt))
-            vs.append(v.to(dt))
+        kv = (k.to(dt), v.to(dt)) if return_kv else None
         if lengths is None:
             attn = kattention.flash_attention(q, k, v, causal=True)
         else:
@@ -531,8 +591,40 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         x = x + _dropout(attn @ wl["attn_out"].to(attn.dtype), rate,
                          generator)
         h2 = norm.layer_norm(x, wl["ln2"], wl["ln2_b"])
+        if cfg.moe_experts:
+            out, aux = moe.moe_ffn(_moe_weights(wl),
+                                   h2.reshape(B * T, cfg.d_model),
+                                   cfg.moe_cfg())
+            x = x + _dropout(out.reshape(B, T, cfg.d_model).to(x.dtype),
+                             rate, generator)
+            return x, kv, aux
         x = x + _dropout(_mlp(h2, wl["mlp_in"], wl["mlp_out"]), rate,
                          generator)
+        return x, kv, None
+
+    if cfg.remat != "none" and not return_kv:
+        # layer-granular recompute: the backward rebuilds each block from
+        # a (quantized) copy of its input, redrawing its dropout masks
+        # (k/v-returning calls are serving-only: no backward)
+        remat = q8.q8_remat(lambda x_, w_: block(x_, w_)[::2],
+                            stash="int8" if cfg.remat == "q8" else "bf16")
+
+        def run(x, wl):
+            x, aux = remat(x, wl, generator=generator if rate > 0.0
+                           else None)
+            return x, None, aux
+    else:
+        run = block
+    ks, vs, auxs = [], [], []
+    for li in range(cfg.n_layers):
+        x, kv, aux = run(x, layer(li))
+        if return_kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
+        if aux is not None:
+            auxs.append(aux)
+    aux_total = (torch.stack(auxs).sum() if auxs else
+                 torch.zeros((), dtype=torch.float32, device=x.device))
     if head == "last":
         x = x[:, -1:]
     elif head == "gather":
@@ -540,9 +632,12 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         x = x.gather(1, idx.expand(B, 1, x.shape[-1]))
     x = norm.layer_norm(x, params["ln_f"], params["ln_f_b"])
     logits = _vocab_logits(x, params)
+    out = (logits,)
     if return_kv:
-        return logits, (torch.stack(ks), torch.stack(vs))
-    return logits
+        out += ((torch.stack(ks), torch.stack(vs)),)
+    if return_aux:
+        out += (aux_total,)
+    return out[0] if len(out) == 1 else out
 
 
 def lm_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
@@ -550,11 +645,10 @@ def lm_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
             lengths: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Mean next-token cross-entropy over the valid positions (all of
-    them, or those before each row's ``lengths``): a 0-d fp32 tensor.
-    The JAX loss adds the MoE load-balance term, which is 0 for the
-    dense configs the port runs."""
-    logits = forward(params, tokens, cfg, lengths=lengths,
-                     generator=generator)
+    them, or those before each row's ``lengths``), plus the MoE
+    load-balance loss (0 for a dense config): a 0-d fp32 tensor."""
+    logits, aux = forward(params, tokens, cfg, lengths=lengths,
+                          generator=generator, return_aux=True)
     tok_ce = ops_loss.softmax_cross_entropy(logits, targets)
     if lengths is not None:
         T = tokens.shape[1]
@@ -562,7 +656,7 @@ def lm_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
                 < lengths.to(tok_ce.device)[:, None]).float()
     else:
         mask = torch.ones_like(tok_ce)
-    return (tok_ce * mask).sum() / mask.sum().clamp_min(1.0)
+    return (tok_ce * mask).sum() / mask.sum().clamp_min(1.0) + aux
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -679,7 +773,7 @@ def _arena_rows(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
         attn = arena_attention(q.reshape(B, Hkv, G, Dh), kc, vc, attend)
         x = x + attn.reshape(B, cfg.d_model).to(cfg.dtype) @ w["attn_out"]
         h2 = norm.layer_norm(x, w["ln2"], w["ln2_b"])
-        x = x + _mlp(h2, w["mlp_in"], w["mlp_out"])
+        x = x + _serve_ffn(w, h2, cfg)
     x = norm.layer_norm(x, params["ln_f"], params["ln_f_b"])
     return _vocab_logits(x, params), cache
 
@@ -833,7 +927,7 @@ def _paged_rows(params, pool, tokens: torch.Tensor, pos: torch.Tensor,
             row_pos, block_size=bs, **kvkw)
         x = x + attn.reshape(N, cfg.d_model).to(cfg.dtype) @ w["attn_out"]
         h2 = norm.layer_norm(x, w["ln2"], w["ln2_b"])
-        x = x + _mlp(h2, w["mlp_in"], w["mlp_out"])
+        x = x + _serve_ffn(w, h2, cfg)
     x = norm.layer_norm(x, params["ln_f"], params["ln_f_b"])
     return _vocab_logits(x, params), pool
 
@@ -970,7 +1064,7 @@ def prefill_into_blocks(params, pool, tokens: torch.Tensor, length,
         spans["v"][li, :, :C] = vck.transpose(0, 1)
         x = x + attn.reshape(C, cfg.d_model).to(cfg.dtype) @ w["attn_out"]
         h2 = norm.layer_norm(x, w["ln2"], w["ln2_b"])
-        x = x + _mlp(h2, w["mlp_in"], w["mlp_out"])
+        x = x + _serve_ffn(w, h2, cfg)
     if kvq != "none":
         spans["k"], spans["k_scale"] = q8.quantize_kv(spans["k"], kvq)
         spans["v"], spans["v_scale"] = q8.quantize_kv(spans["v"], kvq)

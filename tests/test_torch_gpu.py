@@ -2250,3 +2250,117 @@ def test_gpu_convert_recordio_trains_as_the_reader(cuda, tmp_path):
         runs.append(costs)
     assert runs[0] == runs[1] and len(runs[0]) == 24
     assert np.mean(runs[0][-3:]) < np.mean(runs[0][:3])
+
+
+# ---------------------------------------------------------------------------
+# the single-card parallel tier: q8 blocks, layer remat, MoE serving
+
+
+@pytest.mark.gpu
+def test_gpu_q8_blocks_match_cpu(cuda):
+    """The q8 blocks (entry, a stride-2 conv_q8 with the input ReLU,
+    add_q8, the exit) on the card against the same Functions on the CPU
+    from the same operands, fp32: codes equal but for counted one-step
+    flips after the convolution (at most 0.5 %), the other outputs and
+    every gradient within 1e-4 of max|CPU value|."""
+    from paddle_tpu_torch.ops import q8
+    restore = _fp32_flags()
+    try:
+        rng = np.random.RandomState(0)
+        x = rng.randn(4, 16, 16, 32).astype(np.float32)
+        w = (rng.randn(3, 3, 32, 32) * 0.1).astype(np.float32)
+        M = rng.uniform(0.8, 1.2, 32).astype(np.float32)
+        B = rng.uniform(-0.1, 0.1, 32).astype(np.float32)
+
+        def run(dev):
+            t = {k: torch.from_numpy(v).to(dev).requires_grad_()
+                 for k, v in (("x", x), ("w", w), ("M", M), ("B", B))}
+            z, o = torch.zeros(32, device=dev), torch.ones(32, device=dev)
+            yh, q, mu, _ = q8.entry_stash(t["x"], z, o * 0.03)
+            yh2, q2, mu2, v2, _ = q8.make_conv_q8(2, 1, True)(
+                yh, q, t["w"], t["M"], t["B"], z, o * 0.03, z, o * 0.05)
+            yh3, q3, mu3, _ = q8.make_add_q8(True, False)(
+                yh2, q2, *q8.fold_bn_affine(mu2, v2, o, z), z, o * 0.05,
+                yh2, q2, o, z, z, o * 0.05, z, o * 0.06)
+            out = q8.make_exit(True)(yh3, q3, o, z, z, o * 0.06)
+            g = torch.autograd.grad((out ** 2).sum(), list(t.values()))
+            return [q.cpu(), q2.cpu(), q3.cpu()], [out.detach().cpu()] + [
+                a.cpu() for a in g]
+
+        (qc, fc), (qg, fg) = run("cpu"), run(cuda)
+        assert torch.equal(qc[0], qg[0])                 # no conv before
+        for a, b in zip(qg[1:], qc[1:]):
+            d = (a.int() - b.int()).abs()
+            assert int(d.max()) <= 1 and int((d > 0).sum()) <= 5e-3 * \
+                a.numel()
+        if torch.equal(qc[1], qg[1]) and torch.equal(qc[2], qg[2]):
+            for a, b in zip(fg, fc):
+                assert float((a - b).abs().max()) <= 1e-4 * max(
+                    1.0, float(b.abs().max()))
+    finally:
+        restore()
+
+
+@pytest.mark.gpu
+def test_gpu_remat_forward_exact_and_launches(cuda):
+    """Layer remat on the card: the first loss bitwise the plain one;
+    kernel 5 launches twice a layer a step (the forward under no_grad and
+    the backward's recompute), kernel 6 once."""
+    from paddle_tpu_torch.models import transformer
+    base = dict(vocab=512, d_model=128, n_heads=2, n_layers=2, d_ff=256,
+                max_len=128)
+    toks = _gpu(np.random.RandomState(6).randint(0, 512, (2, 100)), cuda)
+    losses = {}
+    for mode in ("none", "bf16", "q8"):
+        cfg = transformer.TransformerConfig(remat=mode, **base)
+        params = transformer.init_train_params(
+            cfg, torch.Generator().manual_seed(0), cuda)
+        before = (kattention.flash_attention_fwd.launches["bf16"],
+                  kattention.flash_attention_bwd.launches["bf16"])
+        loss = transformer.lm_loss(params, toks, toks.roll(-1, 1), cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        fwd = kattention.flash_attention_fwd.launches["bf16"] - before[0]
+        bwd = kattention.flash_attention_bwd.launches["bf16"] - before[1]
+        assert (fwd, bwd) == ((2, 2) if mode == "none" else (4, 2)), mode
+        losses[mode] = loss.detach()
+    assert torch.equal(losses["bf16"], losses["none"])
+    assert torch.equal(losses["q8"], losses["none"])
+
+
+@pytest.mark.gpu
+def test_gpu_moe_engine_matches_cpu_engine(cuda):
+    """A small fp32 top-2 MoE model served by the paged engine on the
+    card (its steps captured as CUDA graphs: the routing reads nothing
+    on the host) and on the CPU: the greedy ids equal, and kernels 1-4
+    launched."""
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import PagedDecodeEngine
+    cfg = transformer.TransformerConfig(
+        vocab=256, d_model=64, n_heads=2, n_layers=2, d_ff=128,
+        max_len=256, dtype="float32", moe_experts=4, moe_top_k=2)
+    restore = _fp32_flags()
+    try:
+        ids = {}
+        for dev in ("cpu", cuda):
+            params = transformer.init_params(
+                cfg, torch.Generator().manual_seed(1), dev)
+            eng = PagedDecodeEngine.from_params(
+                params, cfg, batch=4, cache_len=128, block_size=16,
+                chunk_tokens=32, seed=0, device=dev)
+            kernels.reset_launches()
+            rng = np.random.RandomState(2)
+            reqs = [eng.submit(rng.randint(0, 256, n), 12, temperature=0.0)
+                    for n in (5, 40, 23)]
+            eng.run_until_idle()
+            ids[str(dev)] = [list(r.tokens) for r in reqs]
+            if dev != "cpu":
+                counts = kernels.launch_counts()
+                assert all(counts[k] > 0 for k in (
+                    "flash_decode_attention", "fused_sample",
+                    "flash_chunk_prefill", "paged_span_write"))
+                assert sum(eng.compile_counts().values()) > 0
+        assert ids["cpu"] == ids[str(cuda)]
+    finally:
+        restore()

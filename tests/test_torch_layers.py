@@ -461,18 +461,38 @@ def test_printer_prints_the_jax_text(capsys):
 
 
 def test_q8_layers_wait_for_a9():
-    """The four q8 layers keep their signatures and raise, naming ROADMAP
-    A9; ``Topology``'s q8 build checks are the reference's."""
+    """The four q8 layers (ported with the q8 pipeline) keep the JAX
+    package's signatures, build, and train one step as the JAX layers
+    do: a dense stem, ``q8_entry``, a stride-2 ``img_conv_bn_q8``, an
+    ``addto_q8`` of it with a 1x1 stride-2 projection and ``q8_exit``,
+    held by ``tests/torch_q8_util.Q8Net`` (codes with counted flips, then
+    the cost, the new state and every gradient within 1e-4).
+    ``Topology``'s q8 build checks are the reference's."""
     import inspect
-    x = T.layer.data("x", T.data_type.dense_vector(4))
+    from tests.torch_q8_util import Q8Net
     for name in ("q8_entry", "img_conv_bn_q8", "addto_q8", "q8_exit"):
         assert list(inspect.signature(getattr(T.layer, name)).parameters) \
             == list(inspect.signature(getattr(J.layer, name)).parameters)
-        with pytest.raises(NotImplementedError, match="A9"):
-            getattr(T.layer, name)(*([[x, x]] if name == "addto_q8"
-                                     else [x, 3, 4][:{"q8_entry": 1,
-                                                      "q8_exit": 1}.get(
-                                                          name, 3)]))
+
+    def build(P):
+        L, act = P.layer, P.activation
+        img = L.data("img", P.data_type.dense_vector(4 * 8 * 8))
+        stem = L.img_conv(img, 3, 8, num_channels=4, padding=1,
+                          act=act.Relu(), bias_attr=False, name="ql_stem",
+                          img_size=8)
+        ent = L.q8_entry(stem, name="ql_entry")
+        c = L.img_conv_bn_q8(ent, 3, 8, stride=2, padding=1,
+                             act=act.Relu(), name="ql_c")
+        pr = L.img_conv_bn_q8(ent, 1, 8, stride=2, padding=0, name="ql_p")
+        add = L.addto_q8([c, pr], act=act.Relu(), name="ql_add")
+        return L.q8_exit(add, name="ql_exit")
+
+    net = Q8Net(build, seed=2)
+    x = np.random.RandomState(0).rand(4, 4 * 8 * 8).astype(np.float32)
+    jf, tf = both_values({"img": x})
+    net.check(jf, tf, is_training=True, grad=True, atol=1e-4, gatol=1e-4)
+    assert set(net.flips) == {"ql_entry", "ql_c", "ql_p", "ql_add"}
+    x = T.layer.data("x", T.data_type.dense_vector(4))
     prod = T.layer.fc(x, 4, name="q8_like")
     prod._q8 = (None, None, 1e-5)
     with pytest.raises(tenforce.EnforceError, match="graph output"):

@@ -7,7 +7,7 @@ gradients) within 1e-4 of max(1, max|JAX value|), the JAX package's
 parameters carried across (``tests/torch_layers_util.py``); the train
 steps of ``tests/test_models.py`` through both trainers; and the
 single-card cases of ``tests/test_seq2seq.py`` and ``tests/test_ctr.py``.
-``test_ctr.py::test_sharded_matches_single_device`` waits for ROADMAP A9
+``test_ctr.py::test_sharded_matches_single_device`` waits for ROADMAP A10
 (``ctr_dist_rules`` raises until then).
 """
 
@@ -215,12 +215,42 @@ def test_lstm_text_model_train(rng):
 class TestResnetModes:
     @pytest.mark.parametrize("mode", ["q8", "defer", "q8sr"])
     def test_deferral_modes_raise_a9(self, mode):
-        with pytest.raises(NotImplementedError, match="A9"):
+        """The deferral recipes (ported since the q8 pipeline): ResNet-50
+        in each mode has the JAX package's parameter and state specs (53
+        conv/BN pairs, every stash site's ``q_mean`` / ``q_scale``), and
+        a CIFAR ResNet-8 at width 8 trains one step in both packages
+        from the same parameters (q8sr from the same dropout key, so the
+        same stochastic draws): every stash's codes equal but for counted
+        one-step flips after a convolution (``tests/torch_q8_util.py``),
+        then the cost, the new state and every gradient within 1e-4 of
+        max(1, max|JAX value|)."""
+        from tests.torch_q8_util import Q8Net
+        tt = _same_specs(
+            J.models.resnet.resnet_imagenet(_image(J, 3 * 224 * 224),
+                                            fused_bn=mode),
             T.models.resnet.resnet_imagenet(_image(T, 3 * 224 * 224),
-                                            fused_bn=mode)
-        with pytest.raises(NotImplementedError, match="A9"):
-            T.models.resnet.resnet_cifar10(_image(T, 3 * 32 * 32),
-                                           fused_bn=mode)
+                                            fused_bn=mode))
+        q8 = sum(1 for l in tt.layers if l.layer_type == "img_conv_bn_q8")
+        assert q8 == 52, q8             # the stem stays dense
+        assert 24e6 < _n_params(tt) < 27e6
+
+        def build(P):
+            img = _image(P, 3 * 32 * 32)
+            lbl = P.layer.data("label", P.data_type.integer_value(10))
+            out = P.models.resnet.resnet_cifar10(img, depth=8,
+                                                 fused_bn=mode, width=8)
+            return P.layer.classification_cost(out, lbl, name="cost")
+
+        net = Q8Net(build, seed=3)
+        rng = np.random.RandomState(0)
+        jf, tf = both_values({
+            "image": rng.rand(4, 3 * 32 * 32).astype(np.float32),
+            "label": rng.randint(0, 10, 4).astype(np.int32)})
+        net.check(jf, tf, is_training=True, grad=True, key=7, atol=TOL,
+                  gatol=TOL)
+        # every stash site read: the entry, 3 blocks' a/b (+2 projections)
+        # and their adds
+        assert len(net.flips) == 12, net.flips
 
     def test_full_mode_refused(self):
         with pytest.raises(ValueError, match="full"):
@@ -376,6 +406,6 @@ class TestCtrWideDeep:
         assert np.abs(emb_g[seen]).sum() > 0
         np.testing.assert_array_equal(emb_g[unseen], 0.0)
 
-    def test_dist_rules_raise_a9(self):
-        with pytest.raises(NotImplementedError, match="A9"):
+    def test_dist_rules_raise_a10(self):
+        with pytest.raises(NotImplementedError, match="A10"):
             T.models.ctr.ctr_dist_rules()

@@ -14,6 +14,8 @@ vocab head — observed about 1e-6); pool rows the step writes straight
 from a projection agree to the same bound; untouched rows are equal.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,10 +115,23 @@ def test_dtype_names_round_trip():
 
 
 def test_config_rejects_unported_fields():
-    for kw in ({"moe_experts": 4}, {"use_ring_attention": True},
-               {"remat": "bf16"}):
-        with pytest.raises(NotImplementedError):
-            tt.TransformerConfig(vocab=8, **kw)
+    """Ring attention still raises (ROADMAP A10); experts and remat are
+    ported: their configs build, and the forward and loss match JAX's
+    (the full parity cases are ``tests/test_torch_moe.py`` and
+    ``tests/test_torch_remat.py``)."""
+    with pytest.raises(NotImplementedError, match="A10"):
+        tt.TransformerConfig(vocab=8, use_ring_attention=True)
+    with pytest.raises(ValueError, match="remat"):
+        tt.TransformerConfig(vocab=8, remat="fp8")
+    toks = np.random.RandomState(0).randint(0, 64, (2, 8)).astype(np.int32)
+    for kw in ({"moe_experts": 4}, {"remat": "bf16"}, {"remat": "q8"}):
+        jcfg, tcfg = (dataclasses.replace(c, **kw)
+                      for c in _cfgs(False, False))
+        jp, tp = _params(jcfg, tcfg)
+        want = jt.lm_loss(jp, jnp.asarray(toks), jnp.asarray(toks), jcfg)
+        got = tt.lm_loss(tp, torch.from_numpy(toks), torch.from_numpy(toks),
+                         tcfg)
+        _close(got, want)
     # quantized pools are ported: int8 codes beside fp32 scale tables
     pool = tt.init_block_pool(_cfgs(False, False)[1], 2, BS, kv_dtype="int8",
                               device="cpu")
