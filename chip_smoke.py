@@ -242,16 +242,35 @@ order it:
    rule), a v4 artifact saved, loaded and serving the in-process ids,
    and two small fp32 MoE models (top-1, top-2) card vs CPU within 1e-4;
    their launches join the kernel line;
-16. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
+16. the multi-rank tier at world 1 (``parallel:`` line,
+   ``parallel_phase``; ~30 s): ``distributed.init()`` from the env
+   contract (NCCL on ``cuda:0``, a (data, seq, model) = (1, 1, 1) mesh,
+   barrier times, one NCCL all-reduce); ResNet-50 as the ``trainer:`` phase builds it (batch
+   128, bf16) through ``SGD(parallel=data_parallel(mesh, zero=z))`` for
+   z in {0, 3} against ``parallel=None`` from the same parameters (2
+   warm-up and 5 timed batches each; costs and final parameters bitwise,
+   no collective issued over the mesh's axes of one rank, the step
+   records' opt-state bytes); GPT-2 small under ``param_shardings`` (the
+   ``train:`` recipe, 3 Adam steps) bitwise its unsharded step, with no
+   collective either; the flash ring's schedule at P = 4 and 8 virtual
+   ranks (B = 2, H = 12, D = 64, T = 4096, bf16, causal) against kernels
+   5/6 over the whole sequence and against their plain versions in the
+   same schedule, the masked blocks' backward exactly 0 in both, the
+   int8 hop's
+   codes against the CPU's, kernels 5/6 at the all-to-all layout, the
+   launches (P² of each), and rows 5r / 6r (kernels 5/6 at the ring's
+   off-diagonal block, timed beside SDPA);
+17. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
    ten device kernels with the most time, the device's busy share);
-17. prints the card line, a ``{"kernels": [...]}`` line (18 entries: the
-   17 kernels and branches, and ``fused_spec_verify``, kernel 2 at the
-   spec trace's verify rows; kernel 2's two streams and kernel 5's bf16
+18. prints the card line, a ``{"kernels": [...]}`` line (20 entries: the
+   17 kernels and branches, ``fused_spec_verify``, kernel 2 at the
+   spec trace's verify rows, and kernels 5/6 at the ring's block shape,
+   ``flash_attention_{fwd,bwd}.ring``; kernel 2's two streams and kernel 5's bf16
    forward count the slot trace's and the lockstep calls' launches too)
    and, last, the ``{"ok": true, ...}`` line.
 
@@ -7259,6 +7278,351 @@ def train_profile(torch, step, i):
 # ---------------------------------------------------------------------------
 
 
+# the parallel tier's phase (ROADMAP A10a)
+PARALLEL_SGD = {"warmup": 2, "timed": 5}
+PARALLEL_LM_STEPS = 3
+# GPT-2 small's attention widths over a 4096-token sequence
+PARALLEL_RING = {"B": 2, "H": 12, "D": 64, "T": 4096, "P": (4, 8)}
+# Tolerances of the ring's schedule, fixed before its first run: against
+# kernels 5/6 over the whole sequence, out within 8e-3 of max |out| (bf16
+# outputs: each block's out is rounded to bf16 before the fp32 fold), lse
+# within 1e-4 absolute (fp32 on both sides), gradients within 1e-2 of
+# their max (each block's bf16 dq/dk/dv is summed over P blocks); the
+# same against the plain versions run in the same schedule; the int8 hop
+# within 0.05 of max |out| (the JAX package's wire tolerance).
+RING_OUT_TOL, RING_LSE_TOL, RING_GRAD_TOL, RING_WIRE_TOL = 8e-3, 1e-4, \
+    1e-2, 0.05
+
+
+def parallel_dist(torch, dev) -> tuple:
+    """``distributed.init()`` from the launcher's env contract at world
+    1: NCCL on ``cuda:0`` (no PADDLE_PLATFORM), a (data, seq, model) =
+    (1, 1, 1) mesh, barrier times, one NCCL all-reduce on the card (the
+    port's own collectives skip axes of one rank)."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.parallel import spmd
+    from paddle_tpu_torch.runtime import launch
+    os.environ.update(PADDLE_COORDINATOR=f"127.0.0.1:{launch.free_port()}",
+                      PADDLE_NUM_PROCESSES="1", PADDLE_PROCESS_ID="0")
+    os.environ.pop("PADDLE_PLATFORM", None)
+    t0 = time.perf_counter()
+    distributed.init()
+    init_s = time.perf_counter() - t0
+    if distributed.backend() != "nccl":
+        fail(f"parallel: distributed.init chose {distributed.backend()}")
+    mesh = place.make_mesh((1, 1, 1), ("data", "seq", "model"))
+    barrier_ms = [distributed.barrier("parallel") * 1e3 for _ in range(5)]
+    x = torch.ones(4, device=dev)
+    tdist.all_reduce(x, group=mesh.get_group("data"))
+    if spmd.all_reduce(x, mesh, ("data", "seq", "model")) is not x:
+        fail("parallel: an all-reduce over axes of one rank was not skipped")
+    if x.device != dev or not bool((x == 1).all()):
+        fail(f"parallel: the NCCL all-reduce gave {x} on {x.device}")
+    return mesh, {"backend": "nccl", "world": distributed.process_count(),
+                  "device": str(x.device), "init_s": init_s,
+                  "mesh": place.mesh_shape(mesh),
+                  "barrier_ms_median": float(np.median(barrier_ms)),
+                  "barrier_ms": barrier_ms}
+
+
+def parallel_sgd(torch, T, dev, mesh) -> dict:
+    """ResNet-50 as the ``trainer:`` phase builds it (batch 128, bf16)
+    through ``SGD(parallel=data_parallel(mesh, zero=z))`` for z in {0, 3}
+    and ``parallel=None``, from the same parameters: 2 warm-up and 5
+    timed batches each; costs and final parameters must be bitwise
+    equal at world 1, where the mesh path issues no collective (axes of
+    one rank are skipped); the step records' opt-state bytes."""
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.parallel import spmd
+    from paddle_tpu_torch.utils.rng import KeySource
+    c = TRAINER_RESNET
+    B, d = c["batch"], 3 * c["image"] ** 2
+    n = PARALLEL_SGD["warmup"] + PARALLEL_SGD["timed"]
+    cost = resnet50_cost(T)
+    T.init(seed=5)
+    base = T.parameters.create(cost, KeySource(5), device=dev)
+    rng = np.random.RandomState(0)
+    samples = [(rng.rand(d).astype(np.float32),
+                int(rng.randint(c["classes"]))) for _ in range(B)]
+    tmp = tempfile.mkdtemp(prefix="parallel-sgd-")
+    runs = {}
+    for label, z in (("none", None), ("zero0", 0), ("zero3", 3)):
+        params = T.parameters.create(cost, KeySource(5), device=dev)
+        with torch.no_grad():
+            for k in params.values:
+                params.values[k].copy_(base.values[k])
+            for k in params.state:
+                params.state[k].copy_(base.state[k])
+        par = None if z is None else spmd.data_parallel(mesh, zero=z)
+        tr = T.trainer.SGD(cost=cost, parameters=params,
+                           update_equation=T.optimizer.Momentum(
+                               momentum=c["momentum"], learning_rate=c["lr"]),
+                           parallel=par)
+        costs, walls = [], []
+        mpath = os.path.join(tmp, f"{label}.jsonl")
+        observe.configure(mpath)
+        with spmd.record_collectives() as rec:
+            tr.train(reader=T.batch(lambda: itertools.islice(
+                itertools.cycle(samples), B * n), B), num_passes=1,
+                event_handler=lambda e: (costs.append(e.cost),
+                                         walls.append(e.wall_time_s))
+                if isinstance(e, T.event.EndIteration) else None)
+        observe.sink().flush()
+        observe.configure(None)
+        recs = [r for r in observe.read_jsonl(mpath)
+                if r.get("kind") == "step"]
+        timed = walls[PARALLEL_SGD["warmup"]:]
+        runs[label] = {
+            "costs": costs,
+            "values": {k: spmd.full(v).detach().clone()
+                       for k, v in tr.parameters.values.items()},
+            "doc": {"ms_per_batch": float(np.mean(timed)) * 1e3,
+                    "ms_per_batch_median": float(np.median(timed)) * 1e3,
+                    "opt_state_bytes": sorted({r["opt_state_bytes"]
+                                               for r in recs}),
+                    "param_bytes": tr.param_bytes_per_device(),
+                    "collectives": len([r for r in rec
+                                        if r["kind"] != "parameter"])}}
+        del tr, params
+        torch.cuda.empty_cache()
+    doc = {"batch": B, "warmup": PARALLEL_SGD["warmup"],
+           "timed": PARALLEL_SGD["timed"]}
+    ref = runs["none"]
+    for label in ("none", "zero0", "zero3"):
+        r = runs[label]
+        doc[label] = r["doc"]
+        if label == "none":
+            continue
+        same_costs = r["costs"] == ref["costs"]
+        same_params = all(torch.equal(r["values"][k], ref["values"][k])
+                          for k in ref["values"])
+        dmax = max((r["values"][k] - ref["values"][k]).abs().max().item()
+                   for k in ref["values"])
+        doc[label].update(costs_bitwise=same_costs,
+                          params_bitwise=same_params,
+                          max_abs_param_diff=dmax)
+        if not (same_costs and same_params):
+            fail(f"parallel sgd {label}: not bitwise parallel=None at "
+                 f"world 1 (costs {r['costs']} vs {ref['costs']}, max "
+                 f"|dparam| {dmax})")
+        if r["doc"]["collectives"]:
+            fail(f"parallel sgd {label}: {r['doc']['collectives']} "
+                 f"collectives over axes of one rank")
+    if not all(np.isfinite(ref["costs"])):
+        fail(f"parallel sgd: non-finite costs {ref['costs']}")
+    doc["costs"] = ref["costs"]
+    return doc
+
+
+def parallel_lm(torch, tt, topt, dev, cfg, mesh) -> dict:
+    """GPT-2 small (the ``train:`` recipe: B=8, T=1024, bf16, Adam 1e-4)
+    for 3 steps under ``param_shardings`` on the world-1 mesh against
+    the unsharded step from the same parameters: losses and parameters
+    bitwise, no collective issued (axes of one rank are skipped);
+    ``step_ms_p50`` of both."""
+    from paddle_tpu_torch.parallel import spmd
+    base = tt.init_train_params(cfg, torch.Generator().manual_seed(0), dev)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(dev)
+    targets = tokens.roll(-1, 1)
+
+    def run(sharded):
+        p = {k: v.detach().clone().requires_grad_() for k, v in base.items()
+             if k != "blocks"}
+        p["blocks"] = {k: v.detach().clone().requires_grad_()
+                       for k, v in base["blocks"].items()}
+        if sharded:
+            p = tt.shard_params(p, cfg, mesh, trainable=True)
+        adam = topt.Adam(learning_rate=1e-4)
+        state = adam.tree_init_state(p)
+        losses, times = [], []
+        with spmd.record_collectives() as rec:
+            for i in range(PARALLEL_LM_STEPS):
+                t0 = time.perf_counter()
+                loss = tt.lm_loss(p, tokens, targets, cfg,
+                                  mesh=mesh if sharded else None)
+                loss.backward()
+                grads = topt.take_grads(p)
+                if sharded:
+                    grads = tt.sync_grads(grads, cfg, mesh)
+                p, state = adam.tree_update(i, grads, p, state)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(loss.item())
+        return losses, p, times, len(rec)
+
+    l0, p0, t0_, _ = run(False)
+    l1, p1, t1_, ncoll = run(True)
+
+    def leaves(t):
+        return [(k, v) for k, v in t.items() if k != "blocks"] + \
+            [("blocks/" + k, v) for k, v in t["blocks"].items()]
+    d1 = dict(leaves(p1))
+    same = all(torch.equal(v, d1[k]) for k, v in leaves(p0))
+    dmax = max((v - d1[k]).abs().max().item() for k, v in leaves(p0))
+    doc = {"steps": PARALLEL_LM_STEPS, "losses": l1, "unsharded_losses": l0,
+           "losses_bitwise": l0 == l1, "params_bitwise": same,
+           "max_abs_param_diff": dmax, "collectives": ncoll,
+           "step_ms_p50": float(np.median(t1_)) * 1e3,
+           "unsharded_step_ms_p50": float(np.median(t0_)) * 1e3}
+    if not (l0 == l1 and same):
+        fail(f"parallel lm: the sharded step is not the unsharded one at "
+             f"world 1: {doc}")
+    if ncoll:
+        fail(f"parallel lm: {ncoll} collectives over axes of one rank")
+    return doc
+
+
+def parallel_ring(torch, ka, kernels, q8, timer, build, dev) -> tuple:
+    """The flash ring's schedule at P = 4 and 8 virtual ranks on the
+    card (``parallel.ring.ring_flash_schedule``: the loops
+    ``ring_flash_attention`` runs, the hop a rotation of the rank list)
+    at GPT-2 small's attention widths over T = 4096, bf16, causal:
+    forward and backward against kernels 5/6 over the whole sequence
+    and against their plain versions in the same schedule; the masked
+    blocks' backward exactly 0; the int8 hop's codes against the CPU's;
+    kernels 5/6 at the all-to-all layout [B*H/P, T, D]; the launches;
+    and rows 5r / 6r (kernels 5/6 at the ring's block shape, timed)."""
+    from paddle_tpu_torch.parallel import ring
+    c = PARALLEL_RING
+    B, H, D, T = c["B"], c["H"], c["D"], c["T"]
+    g = torch.Generator(device=dev).manual_seed(4096)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+
+    def rows(x):
+        return x.transpose(1, 2).reshape(B * H, T, D).contiguous()
+    scale = D ** -0.5
+    w_out, w_lse = ka.flash_attention_fwd(rows(q), rows(k), rows(v),
+                                          sm_scale=scale, causal=True)
+    w_grads = ka.flash_attention_bwd(rows(q), rows(k), rows(v), w_out,
+                                     w_lse, rows(do), sm_scale=scale,
+                                     causal=True)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    doc = {"B": B, "H": H, "D": D, "T": T, "dtype": "bfloat16",
+           "causal": True}
+    launches = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    for P in c["P"]:
+        masked = {e: {"blocks": 0, "nonzero": 0, "nonfinite": 0}
+                  for e in ("kernel", "plain")}
+
+        def on_block(engine):
+            def see(phase, r, src, outs):
+                if src > r:
+                    m = masked[engine]
+                    m["blocks"] += 1
+                    m["nonzero"] += sum(int((x != 0).sum()) for x in outs)
+                    m["nonfinite"] += sum(int((~torch.isfinite(x)).sum())
+                                          for x in outs)
+            return see
+        kernels.reset_launches()
+        out, lse, dq, dk, dv = ring.ring_flash_schedule(
+            q, k, v, P, causal=True, do=do, on_block=on_block("kernel"))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for name in launches:
+            launches[name] += counts[name]
+        pl = ring.ring_flash_schedule(q, k, v, P, causal=True, do=do,
+                                      engine="plain",
+                                      on_block=on_block("plain"))
+        got = {"out": rows(out), "dq": rows(dq), "dk": rows(dk),
+               "dv": rows(dv)}
+        whole = {"out": w_out, "dq": w_grads[0], "dk": w_grads[1],
+                 "dv": w_grads[2]}
+        plain = {"out": rows(pl[0]), "dq": rows(pl[2]), "dk": rows(pl[3]),
+                 "dv": rows(pl[4])}
+        d = {"T_local": T // P, "masked_blocks": masked,
+             "launches": {n: counts[n] for n in launches},
+             "lse_abs_err": (lse - w_lse).abs().max().item(),
+             "lse_abs_err_plain": (lse - pl[1]).abs().max().item()}
+        for name in got:
+            d[f"{name}_rel_err"] = rel(got[name], whole[name])
+            d[f"{name}_rel_err_plain"] = rel(got[name], plain[name])
+        # the int8 hop: the card's codes against the CPU's for each
+        # rotating K block, and the schedule's output over that wire
+        blk = k[:, :T // P]
+        cq, cs = q8.wire_encode(blk)
+        hq, hs = q8.wire_encode(blk.cpu())
+        d["wire_codes_equal"] = bool(torch.equal(cq.cpu(), hq)) and \
+            float(cs) == float(hs)
+        wired = ring.ring_flash_schedule(
+            q, k, v, P, causal=True,
+            hop=lambda x: q8.wire_decode(*q8.wire_encode(x), x.dtype))
+        d["wire_out_rel_err"] = rel(rows(wired[0]), w_out)
+        want = P * P
+        doc[f"P{P}"] = d
+        print(f"check ring P={P}: " + json.dumps(d))
+        bad = [n for n in got if d[f"{n}_rel_err"] > (
+            RING_OUT_TOL if n == "out" else RING_GRAD_TOL)
+            or d[f"{n}_rel_err_plain"] > (
+            RING_OUT_TOL if n == "out" else RING_GRAD_TOL)]
+        if bad or max(d["lse_abs_err"], d["lse_abs_err_plain"]) > \
+                RING_LSE_TOL:
+            fail(f"ring P={P}: disagrees ({bad}): {d}")
+        if any(m["nonzero"] or m["nonfinite"] or
+               m["blocks"] != P * (P - 1) // 2 for m in masked.values()):
+            fail(f"ring P={P}: masked blocks not exactly 0: {masked}")
+        if not d["wire_codes_equal"] or d["wire_out_rel_err"] > \
+                RING_WIRE_TOL:
+            fail(f"ring P={P}: the int8 hop: {d}")
+        if counts["flash_attention_fwd"] != want or \
+                counts["flash_attention_bwd"] != want:
+            fail(f"ring P={P}: launches {counts}, expected {want} each")
+        # the all-to-all layout: kernels 5/6 at [B*H/P, T, D]
+        a_err, a_ulps, a_rep, _ = check_flash(
+            torch, timer, ka, build, dev, 1, T, B * H // P, B * H // P, D,
+            torch.bfloat16, True, False)
+        doc[f"alltoall_P{P}"] = {"BH": B * H // P, "err": a_err,
+                                 "bf16_ulps": a_ulps, "bitwise_repeat": a_rep}
+        if max(a_ulps.values()) > FLASH_BF16_ULPS or not a_rep:
+            fail(f"all-to-all layout P={P}: {doc[f'alltoall_P{P}']}")
+    # rows 5r / 6r: the ring's off-diagonal block (P = 4: T_local 1024,
+    # full attention), timed with the library call at the same shape
+    err, ulps, rep, times = check_flash(torch, timer, ka, build, dev, B,
+                                        T // c["P"][0], H, H, D,
+                                        torch.bfloat16, False, True)
+    out_rows = {}
+    for part in ("fwd", "bwd"):
+        if ulps[part] > FLASH_BF16_ULPS or not rep:
+            fail(f"ring block flash_attention_{part}: {ulps} {rep}")
+        out_rows[f"flash_attention_{part}.ring"] = (
+            max(err[part]), {"bf16_ulps": ulps[part], "bitwise_repeat": rep,
+                             "shape": [B * H, T // c["P"][0], D],
+                             "causal": False}, times[part])
+    return doc, out_rows, launches
+
+
+def parallel_phase(torch, T, tt, topt, ka, kernels, q8, build, cfg,
+                   dev) -> tuple:
+    """The ``parallel:`` line (ROADMAP A10a): ``dist``, ``sgd``, ``lm``
+    and ``ring`` (module docstring, item 16). Returns the ring rows and
+    the ring run's kernel 5/6 launches."""
+    from paddle_tpu_torch import distributed
+    t_phase = time.perf_counter()
+    timer = Timer(torch)
+    mesh, dist_doc = parallel_dist(torch, dev)
+    try:
+        doc = {"dist": dist_doc}
+        doc["sgd"] = parallel_sgd(torch, T, dev, mesh)
+        torch.cuda.empty_cache()
+        doc["lm"] = parallel_lm(torch, tt, topt, dev, cfg, mesh)
+        torch.cuda.empty_cache()
+        doc["ring"], ring_rows, ring_launches = parallel_ring(
+            torch, ka, kernels, q8, timer, build, dev)
+    finally:
+        distributed.shutdown()
+    doc["phase_s"] = time.perf_counter() - t_phase
+    print("parallel: " + json.dumps(doc))
+    return ring_rows, ring_launches
+
+
 SOURCES = {
     "flash_decode_attention": ("decode_attention.cu",
                                "paddle_tpu/ops/pallas/decode.py:382"),
@@ -7302,6 +7666,12 @@ SOURCES["flash_chunk_prefill.fp32"] = (
 # that reaches it there (its launches: the spec trace's)
 SOURCES["fused_spec_verify"] = ("fused_sample.cu",
                                 "paddle_tpu/ops/pallas/decode.py:589")
+# kernels 5 and 6 at the flash ring's block shapes, through the block
+# entries the ring drives (their launches: the ring schedule's)
+SOURCES["flash_attention_fwd.ring"] = ("flash_attn_fwd.cu",
+                                       "paddle_tpu/ops/pallas/attention.py:330")
+SOURCES["flash_attention_bwd.ring"] = ("flash_attn_bwd.cu",
+                                       "paddle_tpu/ops/pallas/attention.py:341")
 
 
 def main():
@@ -7408,6 +7778,11 @@ def main():
     a9 = a9_phase(torch, tt, topt, tlm, kernels, costs, place,
                   PagedDecodeEngine, cfg, dev)
     torch.cuda.empty_cache()
+    import paddle_tpu_torch as T
+    ring_rows, ring_launches = parallel_phase(torch, T, tt, topt, ka,
+                                              kernels, q8, _build, cfg, dev)
+    rows.update(ring_rows)
+    torch.cuda.empty_cache()
     trained = train_phase(torch, tt, topt, kernels, costs, place, cfg, dev)
     launches = {**{k: served[k] for k in SERVING_KERNELS},
                 "fused_sample.threefry": served["fused_sample.threefry"],
@@ -7416,7 +7791,8 @@ def main():
                 **{k: trained[k] for k in TRAINING_KERNELS},
                 **{k: parity[k] for k in FP32_BRANCHES},
                 **{k + ".fp32": fp32_steps[k] for k in PAGED_FP32},
-                "fused_spec_verify": spec_launches["fused_spec_verify"]}
+                "fused_spec_verify": spec_launches["fused_spec_verify"],
+                **{k + ".ring": n for k, n in ring_launches.items()}}
     # the slot engine's trace and the lockstep calls run kernels 2 and 5
     for k in ("fused_sample", "fused_sample.threefry", "flash_attention_fwd"):
         launches[k] += slot_launches[k] + lock_launches[k]

@@ -14,7 +14,14 @@ exists, so a reader can put the two side by side:
 - ``ops/kernels/``     the hand-written Hopper kernels (CUDA C++ under
                        ``csrc/``) that replace ``paddle_tpu/ops/pallas/``,
                        each beside its plain PyTorch version
-- ``parallel/ring.py`` the plain single-device attention reference
+- ``distributed.py``   joining the process group (NCCL on the card,
+                       gloo on the CPU), barriers, hybrid meshes
+- ``parallel/``        the multi-rank tier: ``spmd.py`` (sharding
+                       rules, ZeRO 0-3, the explicit collectives),
+                       ``compat.shard_map``, ring and all-to-all
+                       attention (``ring.py``), the MoE's expert
+                       parallelism (``moe.py``), GPipe and interleaved
+                       pipelines (``pipeline.py``)
 - ``models/transformer.py``  the decoder-only LM's serving (paged and
                        arena steps, ``generate``, ``beam_search``) and
                        training paths
@@ -79,12 +86,12 @@ _SUBMODULES = (
     "topology", "event", "inference", "evaluator", "parallel", "models",
     "io", "runtime", "recurrent", "projection", "observe", "serving",
     "record", "data_feeder", "trainer", "reader", "pipeline", "dataset",
-    "image", "plot", "version",
+    "image", "plot", "version", "distributed",
 )
 
 # names of ``paddle_tpu``'s surface still to port, with the ROADMAP item
 # that brings each
-_PENDING = {"distributed": "A10"}
+_PENDING = {}
 
 
 def __getattr__(name):

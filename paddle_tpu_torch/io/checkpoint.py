@@ -25,8 +25,10 @@ bounded-memory chunks.
   multi-process file layout: each process writes its own npz
   (``params.p{K}.npz``) and manifest; load merges every process file
   present, reassembling ``@@i`` shard entries from their index metadata.
-  Writing shards of a sharded tensor waits for the parallel tier
-  (ROADMAP A10) and raises.
+  A sharded tensor (a ``DTensor`` of the parallel tier, or an array
+  exposing ``addressable_shards``) is written as this process's shards
+  with their index metadata; a parallel trainer's ``AsyncCheckpointer``
+  has each rank write its own file set.
 
 Crash-consistent commit protocol: every file is written to a hidden
 tempdir, fsync'd, and published atomically — single-process by one
@@ -112,6 +114,20 @@ def _host_array(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+class _HostShards:
+    """A sharded leaf's host copy: this process's [(index slices, host
+    tensor)] and the whole array's shape (``_local_shards`` reads it)."""
+
+    def __init__(self, shards, shape):
+        self.shards, self.shape = shards, tuple(shape)
+
+
+def _dtensor_index(t):
+    from paddle_tpu_torch.parallel import spmd
+    lay = spmd.Layout(t.device_mesh, spmd.spec_of(t))
+    return lay.local_slices(tuple(t.shape))
+
+
 def _snapshot(tree, parts: Optional[Dict[str, float]] = None):
     """({path: host copy}, [CUDA events]): a copy of every leaf taken
     NOW, so later in-place updates cannot reach it. CPU tensors are
@@ -124,6 +140,10 @@ def _snapshot(tree, parts: Optional[Dict[str, float]] = None):
     out, devices = {}, []
     alloc_s, nbytes = 0.0, 0
     for k, v in _flatten(tree).items():
+        shard_of = None
+        if type(v).__name__ == "DTensor":
+            shard_of = (_dtensor_index(v), tuple(v.shape))
+            v = v.to_local()
         if isinstance(v, torch.Tensor):
             v = v.detach()
             if v.device.type == "cuda":
@@ -137,6 +157,8 @@ def _snapshot(tree, parts: Optional[Dict[str, float]] = None):
                 out[k] = host
             else:
                 out[k] = v.clone()
+            if shard_of is not None:
+                out[k] = _HostShards([(shard_of[0], out[k])], shard_of[1])
         else:
             out[k] = np.array(v, copy=True)
     events = []
@@ -187,15 +209,26 @@ def _file_md5(path):
 
 
 def _local_shards(arr):
-    """[(None, full_array)]: a tensor of one device is written whole.
-    Shards of a sharded tensor need the parallel tier."""
-    if getattr(arr, "addressable_shards", None) is not None \
-            or type(arr).__name__ == "DTensor":
-        raise NotImplementedError(
-            "save_checkpoint(sharded=True) of a sharded tensor: writing "
-            "per-shard entries needs the parallel tier, which is not "
-            "ported yet — ROADMAP A10")
-    return [(None, arr)]
+    """[(index slices, shard)] of what this process holds of a sharded
+    leaf (a DTensor's local shard, a snapshot's ``_HostShards``, or an
+    array's ``addressable_shards``, replicas written once); a single
+    [(None, arr)] for a whole tensor or array."""
+    if isinstance(arr, _HostShards):
+        return arr.shards
+    if type(arr).__name__ == "DTensor":
+        return [(_dtensor_index(arr), arr.to_local())]
+    shards = getattr(arr, "addressable_shards", None)
+    fully_local = getattr(arr, "is_fully_addressable", True)
+    if shards is None or (fully_local and len(shards) <= 1):
+        return [(None, arr)]
+    seen, out = set(), []
+    for sh in shards:
+        key = tuple((sl.start, sl.stop, sl.step) for sl in sh.index)
+        if key in seen:
+            continue            # replicated across devices: write once
+        seen.add(key)
+        out.append((sh.index, sh.data))
+    return out
 
 
 def _write_tree(tmp, fname, tree, manifest, sharded, host_trees=None):
@@ -203,14 +236,15 @@ def _write_tree(tmp, fname, tree, manifest, sharded, host_trees=None):
     path = os.path.join(tmp, fname + ".npz")
     entries, index_meta = {}, {}
     for key, arr in flat.items():
-        if not sharded:
+        if not sharded and not isinstance(arr, _HostShards) \
+                and type(arr).__name__ != "DTensor":
             entries[key] = _host_array(arr)
             continue
         for i, (idx, shard) in enumerate(_local_shards(arr)):
             if idx is None:
                 entries[key] = _host_array(shard)
             else:
-                entries[f"{key}@@{i}"] = shard
+                entries[f"{key}@@{i}"] = _host_array(shard)
                 index_meta.setdefault(key, {})[str(i)] = [
                     [sl.start, sl.stop] for sl in idx]
     with open(path, "wb") as raw:
@@ -218,7 +252,8 @@ def _write_tree(tmp, fname, tree, manifest, sharded, host_trees=None):
     manifest["files"][fname] = _file_md5(path)
     if index_meta:
         manifest.setdefault("shards", {})[fname] = {
-            "full_shapes": {k: list(np.shape(v)) for k, v in flat.items()},
+            "full_shapes": {k: [int(n) for n in np.shape(v)]
+                            for k, v in flat.items()},
             "index": index_meta}
 
 
@@ -598,13 +633,17 @@ class AsyncCheckpointer:
     ``save_parts`` what each ``save()`` spent on the caller's thread."""
 
     def __init__(self, save_dir: str, keep: int = 3, max_pending: int = 2,
-                 fence=None):
+                 fence=None, process_index: int = 0,
+                 process_count: int = 1):
         """``fence``: commit gate checked by the worker thread right
         before each publish (see ``_write_single``) — a fenced save
-        surfaces as ``CheckpointFencedError`` on the next save()/wait()."""
+        surfaces as ``CheckpointFencedError`` on the next save()/wait().
+        ``process_index`` / ``process_count``: the multi-process layout
+        (each process writes its own shards and manifest)."""
         self.save_dir = save_dir
         self.keep = keep
         self.fence = fence
+        self.process_index, self.process_count = process_index, process_count
         self._q = queue.Queue(maxsize=max_pending)
         self._err = None
         self.write_seconds: List[float] = []
@@ -635,7 +674,9 @@ class AsyncCheckpointer:
         _write_single(self.save_dir, step,
                       {base: None for base in host_trees}, self.keep,
                       host_trees=host_trees, blobs=blobs, meta=meta,
-                      fence=self.fence)
+                      fence=self.fence, sharded=self.process_count > 1,
+                      process_index=self.process_index,
+                      process_count=self.process_count)
 
     def save(self, step: int, params: Dict, opt_state=None,
              model_state=None, pipeline_state=None, meta=None):

@@ -10,8 +10,8 @@ pservers; math/SparseRowMatrix.h row-sparse grads). BASELINE config 5.
 On one card the wide weight [wide_dim, 2] and the embedding table
 [vocab, emb_dim] are dense tensors; lookups are gathers, and the
 row-sparse gradient materialises through the scatter-add in the
-gather's backward. Sharding them over a mesh (``ctr_dist_rules``)
-comes with the multi-rank parallel tier (ROADMAP A10).
+gather's backward. ``ctr_dist_rules`` shards them over a mesh's
+``model`` axis (``SGD(parallel=DistConfig(mesh, ctr_dist_rules()))``).
 """
 
 from typing import Sequence
@@ -52,11 +52,12 @@ def ctr_wide_deep(wide_dim: int, vocab_size: int, emb_dim: int = 64,
 
 def ctr_dist_rules(name: str = "ctr"):
     """Sharding rules for the high-dim tables (the sparse_remote_update
-    slot): embedding over vocab, wide weight over its input dim. The
-    rules and the mesh they act on come with ROADMAP A10."""
-    raise NotImplementedError(
-        "ctr_dist_rules: sharding rules need the parallel tier "
-        "(parallel/spmd.py), which is not ported yet — ROADMAP A10")
+    slot): embedding over vocab, wide weight over its input dim."""
+    from paddle_tpu_torch.parallel import spmd
+    return [
+        spmd.embedding_vocab_rule(rf"^{name}_emb\.w$"),
+        spmd.fc_row_rule(rf"^{name}_out\.w0$"),   # wide [wide_dim, 2]
+    ]
 
 
 def synthetic_reader(wide_dim: int, vocab_size: int, n: int = 512,

@@ -51,6 +51,13 @@ does (a no-op on the serving dict, whose weights are already in
 backward are the flash kernels; with ``lengths`` (which the flash
 kernels do not take, in the JAX package either) the plain
 :func:`parallel.ring.full_attention`.
+
+With a ``mesh`` (:func:`forward` / :func:`lm_loss`), every rank runs its
+block of one SPMD step over the :func:`param_shardings` layout: tokens
+split over the batch axes and ``seq`` (ring or all-to-all attention
+under ``use_ring_attention``), heads, FFN and vocab over ``model``,
+experts over ``expert``; :func:`sync_grads` sums the gradients over
+the token axes.
 """
 
 import dataclasses
@@ -70,16 +77,18 @@ from paddle_tpu_torch.ops.topk import top_k as _top_k
 from paddle_tpu_torch.ops.kernels import attention as kattention
 from paddle_tpu_torch.ops.kernels import decode as kdecode
 from paddle_tpu_torch.ops.kernels import prefill as kprefill
-from paddle_tpu_torch.parallel import moe, ring
+from paddle_tpu_torch.parallel import compat, moe, ring, spmd
 
 MATMUL_WEIGHTS = ("qkv", "attn_out", "mlp_in", "mlp_out")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """``paddle_tpu``'s config. Ring attention (``use_ring_attention``,
-    with its ``cp_mode``) is the multi-rank parallel tier: setting it
-    raises ``NotImplementedError`` (ROADMAP A10)."""
+    """``paddle_tpu``'s config. ``use_ring_attention`` runs attention as
+    context parallelism over a mesh's ``seq`` axis (``forward(mesh=)``):
+    ``cp_mode`` "ring" rotates K/V around the ring (kernels 5/6 per
+    step for packed batches), "alltoall" reshuffles sequence and heads
+    (the seq axis must divide the head counts)."""
     vocab: int
     d_model: int = 512
     n_heads: int = 8
@@ -92,6 +101,7 @@ class TransformerConfig:
     use_rope: bool = False             # rotary q/k instead of learned
     rope_theta: float = 10000.0        # absolute positions
     use_ring_attention: bool = False
+    cp_mode: str = "ring"              # "ring" | "alltoall"
     remat: str = "none"                # "none" | "bf16" | "q8": layer-
                                        # granular recompute; autograd
                                        # saves one (quantized) copy of
@@ -108,11 +118,10 @@ class TransformerConfig:
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", dtypes.resolve(self.dtype))
-        if self.use_ring_attention:
-            raise NotImplementedError(
-                "use_ring_attention: context parallelism over a mesh is "
-                "the multi-rank parallel tier, not ported yet — ROADMAP "
-                "A10")
+        if self.cp_mode not in ("ring", "alltoall"):
+            raise ValueError(
+                f"cp_mode must be 'ring' or 'alltoall', got "
+                f"{self.cp_mode!r}")
         if self.remat not in ("none", "bf16", "q8"):
             raise ValueError(f"remat must be 'none', 'bf16' or 'q8', got "
                              f"{self.remat!r}")
@@ -504,6 +513,7 @@ def _dropout(h: torch.Tensor, rate: float,
 
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
+            mesh=None,
             lengths: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None,
             return_aux: bool = False):
@@ -516,15 +526,21 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     ``return_aux=True`` also returns the summed MoE load-balance loss
     (zero for dense configs): (logits, aux). The serving heads and the
     stacked k/v are :func:`_forward_impl`'s (through :func:`prefill` and
-    :func:`prefill_into_slot`)."""
-    return _forward_impl(params, tokens, cfg, lengths=lengths,
+    :func:`prefill_into_slot`).
+
+    With a ``mesh`` every rank runs its block of the step (SPMD, see
+    :func:`param_shardings`): ``params`` in their stored layout (this
+    rank's shards, DTensors, or whole leaves it slices), ``tokens`` and
+    ``lengths`` global; the global logits come back on every rank."""
+    return _forward_impl(params, tokens, cfg, mesh=mesh, lengths=lengths,
                          generator=generator, return_aux=return_aux)
 
 
-HEADS = ("all", "last", "gather")
+HEADS = ("all", "last", "gather", "shard")
 
 
 def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
+                  mesh=None,
                   lengths: Optional[torch.Tensor] = None,
                   return_kv: bool = False, head: str = "all",
                   gather_pos: Optional[torch.Tensor] = None,
@@ -536,32 +552,63 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     lockstep prefill) or ``"gather"`` (position ``gather_pos[b]`` of row
     b, a [B] device tensor read on the device, [B, 1, V]: the slot
     prefill of a right-padded prompt, whose causal attention keeps the
-    padding out of the real positions). ``return_kv`` also returns each
-    layer's k and v after RoPE, stacked [L, B, T, Hkv, Dh] in
-    ``cfg.dtype``: (logits, (k, v)); ``return_aux`` also returns the
-    summed MoE load-balance loss (a 0-d fp32 tensor, 0 for a dense
-    config), last. ``params`` may be the int8-weight tree (module
-    docstring): its layers dequantize one at a time and its embedding
-    rows gather as codes; the serving dict and the training tree run the
-    JAX forward's operations, casts at use included. ``cfg.remat``
-    "bf16" / "q8" wraps each block in ``ops/q8.q8_remat`` when no k/v
-    is returned; ``cfg.moe_experts`` makes every FFN the MoE at the
-    training capacity (``cfg.moe_cfg()``), as the JAX forward does in
-    its lockstep and slot prefills too."""
+    padding out of the real positions); ``"shard"`` is this rank's
+    block of the logits under a ``mesh`` ([b, t, V / model]: the input
+    of :func:`lm_loss`'s vocab-parallel cross-entropy), ``"all"``
+    without one. ``return_kv`` also returns each layer's k and v after
+    RoPE, stacked [L, B, T, Hkv, Dh] in ``cfg.dtype``: (logits, (k, v));
+    ``return_aux`` also returns the summed MoE load-balance loss (a 0-d
+    fp32 tensor, 0 for a dense config), last. ``params`` may be the
+    int8-weight tree (module docstring): its layers dequantize one at a
+    time and its embedding rows gather as codes; the serving dict and
+    the training tree run the JAX forward's operations, casts at use
+    included. ``cfg.remat`` "bf16" / "q8" wraps each block in
+    ``ops/q8.q8_remat`` when no k/v is returned; ``cfg.moe_experts``
+    makes every FFN the MoE at the training capacity
+    (``cfg.moe_cfg()``), as the JAX forward does in its lockstep and
+    slot prefills too.
+
+    With a ``mesh`` (:func:`forward`) the same block runs on this rank's
+    tokens (:class:`_Split`): Megatron's f/g around the split regions
+    (``spmd.copy_to``: identity forward, all-reduce backward;
+    ``spmd.reduce_from``: all-reduce forward), the qkv columns gathered
+    on use (the [q|k|v] column shards are not head-aligned), ring or
+    all-to-all attention over ``seq``, the embedding and the vocab head
+    vocab-parallel over ``model``, the MoE over the gathered global
+    tokens with experts over ``expert``. Each collective is the identity
+    where its axes span one rank, so a mesh of one rank runs the
+    unsharded operations."""
     if head not in HEADS:
         raise ValueError(f"head {head!r}: one of {HEADS}")
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"cfg.dropout must be in [0, 1), got {cfg.dropout}")
     rate = cfg.dropout if generator is not None else 0.0
     B, T = tokens.shape
-    H, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
-    kvd = Hkv * Dh
+    sp = _Split.of(mesh, cfg, B, T)
+    if mesh is not None:
+        if generator is not None:
+            raise ValueError("dropout under a mesh is not supported: the "
+                             "port's masks are per-device draws")
+        if q8.is_quantized_weight(params["embed"]) or \
+                _blocks_quantized(params):
+            raise ValueError("the mesh path takes the float parameter tree")
+        if return_kv or head not in ("all", "shard"):
+            raise ValueError("the mesh path has the \"all\" and \"shard\" "
+                             "heads and returns no k/v")
+        params = _local_params(params, cfg, mesh)
+    b, t = sp.b, sp.t
+    H, Dh, Hkv, D = cfg.n_heads, cfg.head_dim, cfg.kv_heads, cfg.d_model
+    Hl, Hkvl = H // sp.nm, Hkv // sp.nm
     dt = cfg.dtype
-    x = _embed_rows(params, tokens, cfg)
+    tok = tokens[sp.rows, sp.cols]
+    len_l = lengths[sp.rows] if lengths is not None else None
+    x = _embed(params, tok, cfg, sp)
+    pos0 = sp.isq * t
     if not cfg.use_rope:
-        x = x + params["pos"][:T].to(dt)[None]
+        x = x + params["pos"][pos0:pos0 + t].to(dt)[None]
     x = _dropout(x, rate, generator)
-    rope_tabs = (_rope_tables(torch.arange(T, device=tokens.device), Dh,
+    rope_tabs = (_rope_tables(torch.arange(pos0, pos0 + t,
+                                           device=tokens.device), Dh,
                               cfg.rope_theta) if cfg.use_rope else None)
     if _blocks_quantized(params):
         def layer(li):
@@ -569,43 +616,47 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     else:
         # one unbind per stacked leaf: its backward stacks the layers'
         # gradients once instead of adding L full-size zero tensors
-        w = {k: t.unbind(0) for k, t in params["blocks"].items()}
+        w = {k: v.unbind(0) for k, v in params["blocks"].items()}
 
         def layer(li):
-            return {k: t[li] for k, t in w.items()}
+            return {k: v[li] for k, v in w.items()}
+
     def block(x, wl):
         h = norm.layer_norm(x, wl["ln1"], wl["ln1_b"])
-        qkv = h @ wl["qkv"].to(h.dtype)
-        q, k, v = torch.split(qkv, [H * Dh, kvd, kvd], dim=-1)
-        q = q.reshape(B, T, H, Dh)
-        k = k.reshape(B, T, Hkv, Dh)
-        v = v.reshape(B, T, Hkv, Dh)
+        h = spmd.copy_to(h, mesh, sp.model)
+        qkv = h @ _qkv_columns(wl["qkv"], cfg, sp).to(h.dtype)
+        q, k, v = torch.split(qkv, [Hl * Dh, Hkvl * Dh, Hkvl * Dh], dim=-1)
+        q = q.reshape(b, t, Hl, Dh)
+        k = k.reshape(b, t, Hkvl, Dh)
+        v = v.reshape(b, t, Hkvl, Dh)
         if cfg.use_rope:
             q, k = _rope(q, rope_tabs), _rope(k, rope_tabs)
         kv = (k.to(dt), v.to(dt)) if return_kv else None
-        if lengths is None:
-            attn = kattention.flash_attention(q, k, v, causal=True)
-        else:
-            attn = ring.full_attention(q, k, v, causal=True, lengths=lengths)
-        attn = attn.reshape(B, T, cfg.d_model)
-        x = x + _dropout(attn @ wl["attn_out"].to(attn.dtype), rate,
-                         generator)
+        attn = _attention(q, k, v, cfg, sp, len_l)
+        attn = attn.reshape(b, t, Hl * Dh)
+        y = spmd.reduce_from(attn @ wl["attn_out"].to(attn.dtype), mesh,
+                             sp.model)
+        x = x + _dropout(y, rate, generator)
         h2 = norm.layer_norm(x, wl["ln2"], wl["ln2_b"])
         if cfg.moe_experts:
-            out, aux = moe.moe_ffn(_moe_weights(wl),
-                                   h2.reshape(B * T, cfg.d_model),
-                                   cfg.moe_cfg())
-            x = x + _dropout(out.reshape(B, T, cfg.d_model).to(x.dtype),
-                             rate, generator)
+            # routing capacity is over the GLOBAL tokens, as in the JAX
+            # forward: gather them (the gather's backward reduce-scatters)
+            hg = _gathered_tokens(h2, mesh, sp.bax, sp.seq)
+            out, aux = moe.moe_ffn(_moe_weights(wl), hg.reshape(B * T, D),
+                                   cfg.moe_cfg(), mesh=mesh)
+            out = out.reshape(B, T, D)[sp.rows, sp.cols]
+            x = x + _dropout(out.to(x.dtype), rate, generator)
             return x, kv, aux
-        x = x + _dropout(_mlp(h2, wl["mlp_in"], wl["mlp_out"]), rate,
-                         generator)
-        return x, kv, None
+        h2 = spmd.copy_to(h2, mesh, sp.model)
+        y = spmd.reduce_from(_mlp(h2, wl["mlp_in"], wl["mlp_out"]), mesh,
+                             sp.model)
+        return x + _dropout(y, rate, generator), kv, None
 
     if cfg.remat != "none" and not return_kv:
-        # layer-granular recompute: the backward rebuilds each block from
-        # a (quantized) copy of its input, redrawing its dropout masks
-        # (k/v-returning calls are serving-only: no backward)
+        # layer-granular recompute: the backward rebuilds each block,
+        # its collectives included, from a (quantized) copy of its
+        # input, redrawing its dropout masks (k/v-returning calls are
+        # serving-only: no backward)
         remat = q8.q8_remat(lambda x_, w_: block(x_, w_)[::2],
                             stash="int8" if cfg.remat == "q8" else "bf16")
 
@@ -631,7 +682,9 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         idx = gather_pos.long().clamp(0, T - 1).reshape(B, 1, 1)
         x = x.gather(1, idx.expand(B, 1, x.shape[-1]))
     x = norm.layer_norm(x, params["ln_f"], params["ln_f_b"])
-    logits = _vocab_logits(x, params)
+    logits = _vocab_logits(spmd.copy_to(x, mesh, sp.model), params)
+    if head == "all":
+        logits = sp.gather_logits(logits)
     out = (logits,)
     if return_kv:
         out += ((torch.stack(ks), torch.stack(vs)),)
@@ -641,22 +694,310 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
 
 
 def lm_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: TransformerConfig, *,
+            cfg: TransformerConfig, *, mesh=None,
             lengths: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Mean next-token cross-entropy over the valid positions (all of
     them, or those before each row's ``lengths``), plus the MoE
-    load-balance loss (0 for a dense config): a 0-d fp32 tensor."""
-    logits, aux = forward(params, tokens, cfg, lengths=lengths,
-                          generator=generator, return_aux=True)
-    tok_ce = ops_loss.softmax_cross_entropy(logits, targets)
-    if lengths is not None:
-        T = tokens.shape[1]
-        mask = (torch.arange(T, device=tok_ce.device)[None, :]
-                < lengths.to(tok_ce.device)[:, None]).float()
+    load-balance loss (0 for a dense config): a 0-d fp32 tensor.
+
+    With a ``mesh`` (:func:`forward`): the global loss on every rank,
+    the vocab head's cross-entropy vocab-parallel over ``model``. Its
+    backward leaves each rank the gradient of its own tokens' share:
+    :func:`sync_grads` sums them over the batch and sequence axes."""
+    B, T = tokens.shape
+    sp = _Split.of(mesh, cfg, B, T)
+    logits, aux = _forward_impl(params, tokens, cfg, mesh=mesh,
+                                lengths=lengths, generator=generator,
+                                head="shard", return_aux=True)
+    tgt = targets[sp.rows, sp.cols]
+    if sp.nm == 1:
+        # the whole vocab is here: the unsharded loss's own operations
+        ce = ops_loss.softmax_cross_entropy(logits, tgt)
     else:
-        mask = torch.ones_like(tok_ce)
-    return (tok_ce * mask).sum() / mask.sum().clamp_min(1.0) + aux
+        # vocab-parallel cross-entropy over this rank's vocab rows
+        Vl = logits.shape[-1]
+        tgt = tgt.long() - sp.im * Vl
+        mx = logits.detach().amax(dim=-1)
+        mx = spmd.all_reduce(mx, mesh, sp.model, op="max", tag="activation")
+        se = spmd.reduce_from(
+            torch.exp(logits - mx[..., None]).sum(dim=-1), mesh, sp.model)
+        t_in = (tgt >= 0) & (tgt < Vl)
+        picked = logits.gather(-1, tgt.clamp(0, Vl - 1)[..., None])[..., 0]
+        picked = spmd.reduce_from(picked * t_in, mesh, sp.model)
+        ce = mx + torch.log(se) - picked
+    if lengths is not None:
+        pos = torch.arange(sp.isq * sp.t, (sp.isq + 1) * sp.t,
+                           device=ce.device)
+        mask = (pos[None, :]
+                < lengths[sp.rows].to(ce.device)[:, None]).float()
+    else:
+        mask = torch.ones_like(ce)
+    count = spmd.all_reduce(mask.sum().detach(), mesh, sp.tok_axes,
+                            tag="count")
+    part = (ce * mask).sum() / count.clamp_min(1.0)
+    # every token-split rank computed the same aux: each carries its
+    # share, so the summed gradient counts it once
+    part = part + aux / (sp.nb * sp.ns)
+    return spmd.reduce_from(part, mesh, sp.tok_axes)
+
+
+# ---------------------------------------------------------------------------
+# the mesh path: DP x SP x TP (x EP) as one SPMD program per rank
+# ---------------------------------------------------------------------------
+
+def _global_shapes(cfg: TransformerConfig) -> Dict:
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    kvd = cfg.kv_heads * cfg.head_dim
+    blocks = {"ln1": (L, D), "ln1_b": (L, D), "ln2": (L, D),
+              "ln2_b": (L, D), "qkv": (L, D, D + 2 * kvd),
+              "attn_out": (L, D, D)}
+    if cfg.moe_experts:
+        E = cfg.moe_experts
+        blocks.update(gate=(L, D, E), moe_w_in=(L, E, D, cfg.d_ff),
+                      moe_w_out=(L, E, cfg.d_ff, D))
+    else:
+        blocks.update(mlp_in=(L, D, cfg.d_ff), mlp_out=(L, cfg.d_ff, D))
+    return {"embed": (V, D), "pos": (cfg.max_len, D), "ln_f": (D,),
+            "ln_f_b": (D,), "blocks": blocks}
+
+
+def param_shardings(cfg: TransformerConfig, mesh) -> Dict:
+    """The TP layout (scaling-book): qkv / mlp_in column-parallel,
+    attn_out / mlp_out row-parallel over ``model``; the embedding
+    vocab-sharded over ``model``; MoE experts over ``expert``. An axis
+    the mesh does not carry degrades to replication. A tree of
+    ``parallel.spmd.Layout``s in the parameter tree's structure."""
+    from paddle_tpu_torch.parallel.spmd import Layout, P
+    names = mesh.mesh_dim_names
+    M = place.AXIS_MODEL if place.AXIS_MODEL in names else None
+
+    def lay(*spec):
+        return Layout(mesh, P(*spec))
+
+    if cfg.moe_experts:
+        E = place.AXIS_EXPERT if place.AXIS_EXPERT in names else None
+        ffn = {"gate": lay(), "moe_w_in": lay(None, E, None, None),
+               "moe_w_out": lay(None, E, None, None)}
+    else:
+        ffn = {"mlp_in": lay(None, None, M), "mlp_out": lay(None, M, None)}
+    return {"embed": lay(M, None), "pos": lay(), "ln_f": lay(),
+            "ln_f_b": lay(),
+            "blocks": {"ln1": lay(), "ln1_b": lay(), "ln2": lay(),
+                       "ln2_b": lay(), "qkv": lay(None, None, M),
+                       "attn_out": lay(None, M, None), **ffn}}
+
+
+def shard_params(params: Dict, cfg: TransformerConfig, mesh,
+                 trainable: bool = False) -> Dict:
+    """This rank's shards of a global parameter tree in the
+    :func:`param_shardings` layout (plain tensors; ``trainable`` makes
+    each an fp32 leaf that requires grad)."""
+    lays = param_shardings(cfg, mesh)
+
+    def leaf(t, lay):
+        out = lay.shard(t.detach()).clone()
+        if trainable:
+            out = out.float().requires_grad_(True)
+        return out
+
+    out = {k: leaf(v, lays[k]) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: leaf(v, lays["blocks"][k])
+                     for k, v in params["blocks"].items()}
+    return out
+
+
+def sync_grads(grads: Dict, cfg: TransformerConfig, mesh) -> Dict:
+    """Sum a rank's parameter gradients of :func:`lm_loss` (``mesh=``)
+    over the axes that split tokens (``dcn``, ``data``, ``seq``): the
+    gradient of the global loss, on every rank, in the stored layout."""
+    from paddle_tpu_torch.parallel import spmd
+    axes = tuple(a for a in ("dcn", place.AXIS_DATA, place.AXIS_SEQ)
+                 if a in mesh.mesh_dim_names)
+    seen: set = set()
+
+    def red(g):
+        return spmd.all_reduce(g, mesh, axes, tag="grad",
+                               inplace=spmd.owned(g, seen))
+
+    out = {k: red(grads[k]) for k in sorted(grads) if k != "blocks"}
+    if "blocks" in grads:
+        out["blocks"] = {k: red(grads["blocks"][k])
+                         for k in sorted(grads["blocks"])}
+    return out
+
+
+def _local_leaf(t, lay, gshape):
+    """A stored leaf as this rank's shard: a DTensor's local tensor, a
+    whole (global-shaped) leaf sliced (its gradient lands on the slice),
+    or a shard as it is."""
+    from paddle_tpu_torch.parallel import spmd
+    if spmd.is_sharded(t):
+        return t.to_local()
+    if lay.is_fully_replicated or tuple(t.shape) != tuple(gshape):
+        return t
+    return t[lay.local_slices(t.shape)]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Split:
+    """This rank's block of a forward over ``mesh``: tokens split over
+    the batch axes ``bax`` (``dcn``, ``data``) and ``seq``, heads, FFN
+    and vocab over ``model`` (``nb``, ``ns``, ``nm`` ranks; this rank at
+    ``ib``, ``isq``, ``im``), ``b`` x ``t`` tokens of the global B x T.
+    An axis the mesh lacks is None; without a mesh the split is the
+    whole step."""
+    mesh: object
+    bax: tuple
+    seq: Optional[str]
+    model: Optional[str]
+    nb: int
+    ns: int
+    nm: int
+    ib: int
+    isq: int
+    im: int
+    b: int
+    t: int
+
+    @classmethod
+    def of(cls, mesh, cfg: TransformerConfig, B: int, T: int) -> "_Split":
+        if mesh is None:
+            return cls(None, (), None, None, 1, 1, 1, 0, 0, 0, B, T)
+        names = mesh.mesh_dim_names
+        bax = tuple(a for a in ("dcn", place.AXIS_DATA) if a in names)
+        seq = place.AXIS_SEQ if place.AXIS_SEQ in names else None
+        mod = place.AXIS_MODEL if place.AXIS_MODEL in names else None
+        nb = spmd.axis_size(mesh, bax)
+        ns = spmd.axis_size(mesh, seq)
+        nm = spmd.axis_size(mesh, mod)
+        if cfg.n_heads % nm or cfg.kv_heads % nm:
+            raise ValueError(f"model axis {nm} must divide n_heads="
+                             f"{cfg.n_heads} and kv_heads={cfg.kv_heads}")
+        if ns > 1 and not cfg.use_ring_attention:
+            raise ValueError("a seq axis > 1 needs cfg.use_ring_attention")
+        if B % nb or T % ns:
+            raise ValueError(
+                f"tokens [{B}, {T}] do not split over the batch axes {bax} "
+                f"({nb} ranks) and {seq} ({ns} ranks): B must be a "
+                f"multiple of {nb} and T of {ns}")
+        return cls(mesh, bax, seq, mod, nb, ns, nm,
+                   spmd.axis_index(mesh, bax), spmd.axis_index(mesh, seq),
+                   spmd.axis_index(mesh, mod), B // nb, T // ns)
+
+    @property
+    def rows(self) -> slice:
+        return slice(self.ib * self.b, (self.ib + 1) * self.b)
+
+    @property
+    def cols(self) -> slice:
+        return slice(self.isq * self.t, (self.isq + 1) * self.t)
+
+    @property
+    def tok_axes(self) -> tuple:
+        return self.bax + ((self.seq,) if self.seq else ())
+
+    def gather_logits(self, logits):
+        """This rank's [b, t, V / model] block -> the global logits on
+        every rank."""
+        out = spmd.gather_replicated(logits, self.mesh, self.model, 2)
+        out = spmd.gather_replicated(out, self.mesh, self.seq, 1)
+        for a in reversed(self.bax):
+            out = spmd.gather_replicated(out, self.mesh, a, 0)
+        return out
+
+
+def _local_params(params: Dict, cfg: TransformerConfig, mesh) -> Dict:
+    """The tree of this rank's shards (:func:`_local_leaf`)."""
+    lays = param_shardings(cfg, mesh)
+    gsh = _global_shapes(cfg)
+    out = {k: _local_leaf(params[k], lays[k], gsh[k])
+           for k in ("embed", "pos", "ln_f", "ln_f_b")}
+    out["blocks"] = {k: _local_leaf(v, lays["blocks"][k], gsh["blocks"][k])
+                     for k, v in params["blocks"].items()}
+    return out
+
+
+def _embed(params, tok: torch.Tensor, cfg, sp: _Split) -> torch.Tensor:
+    """The token embedding of this rank's tokens: :func:`_embed_rows`,
+    or vocab-parallel over ``model`` (each rank gathers the rows it
+    holds, zeros elsewhere, summed over the axis)."""
+    if sp.nm == 1:
+        return _embed_rows(params, tok, cfg)
+    emb = params["embed"]
+    Vl = emb.shape[0]
+    idx = tok.long() - sp.im * Vl
+    inside = (idx >= 0) & (idx < Vl)
+    x = F.embedding(idx.clamp(0, Vl - 1), emb) * inside[..., None]
+    return spmd.reduce_from(x, sp.mesh, sp.model).to(cfg.dtype)
+
+
+def _qkv_columns(w: torch.Tensor, cfg, sp: _Split) -> torch.Tensor:
+    """A layer's qkv weight as this rank multiplies it: whole, or under
+    a ``model`` split the stored column shard gathered on use and this
+    rank's q, k and v head columns taken from it."""
+    if sp.nm == 1:
+        return w
+    D, kvd, Dh = cfg.d_model, cfg.kv_heads * cfg.head_dim, cfg.head_dim
+    Hl, Hkvl = cfg.n_heads // sp.nm, cfg.kv_heads // sp.nm
+    w = spmd.gather_on_use(w.contiguous(), sp.mesh, sp.model, 1)
+    q0, k0 = sp.im * Hl * Dh, sp.im * Hkvl * Dh
+    return torch.cat([w[:, q0:q0 + Hl * Dh],
+                      w[:, D + k0:D + k0 + Hkvl * Dh],
+                      w[:, D + kvd + k0:D + kvd + k0 + Hkvl * Dh]], dim=1)
+
+
+def _attention(q, k, v, cfg, sp: _Split, lengths):
+    """Causal attention of this rank's [b, t, h, Dh] q/k/v: kernel 5/6
+    (:func:`ops.kernels.attention.flash_attention`) or, with
+    ``lengths``, :func:`parallel.ring.full_attention`; over a ``seq``
+    split the ring (flash or plain) or the all-to-all engine."""
+    use_flash = lengths is None
+    if sp.ns > 1:
+        with compat.bind_mesh(sp.mesh):
+            if cfg.cp_mode == "alltoall":
+                return _alltoall_local(q, k, v, sp.mesh, sp.seq, lengths,
+                                       use_flash)
+            if use_flash:
+                return ring.ring_flash_attention(
+                    q.contiguous(), k.contiguous(), v.contiguous(),
+                    axis_name=sp.seq, causal=True)
+            return ring.ring_attention(q, k, v, axis_name=sp.seq,
+                                       causal=True, lengths=lengths)
+    if use_flash:
+        return kattention.flash_attention(q, k, v, causal=True)
+    return ring.full_attention(q, k, v, causal=True, lengths=lengths)
+
+
+def _gathered_tokens(h, mesh, bax, seq_axis):
+    """[b, t, D] activations of every token-split rank -> [B, T, D] on
+    each (all-gather forward, reduce-scatter of the gradient backward)."""
+    if seq_axis:
+        h = spmd.gather_on_use(h.contiguous(), mesh, seq_axis, 1)
+    for a in reversed(bax):
+        h = spmd.gather_on_use(h.contiguous(), mesh, a, 0)
+    return h
+
+
+def _alltoall_local(q, k, v, mesh, seq, lengths, use_flash):
+    """The all-to-all engine on this rank's [b, t, h, D] shards."""
+    P_ = spmd.axis_size(mesh, seq)
+    if q.shape[2] % P_ or k.shape[2] % P_:
+        raise ValueError(
+            f"alltoall attention: seq axis size {P_} must divide both "
+            f"n_heads and kv_heads on this rank ({q.shape[2]}, "
+            f"{k.shape[2]}); use ring attention for head counts that "
+            f"don't split")
+
+    def scatter(x):
+        return spmd.all_to_all_grad(x.contiguous(), mesh, seq, 2, 1)
+
+    qg, kg, vg = scatter(q), scatter(k), scatter(v)
+    if use_flash:
+        out = kattention.flash_attention(qg, kg, vg, causal=True)
+    else:
+        out = ring.full_attention(qg, kg, vg, causal=True, lengths=lengths)
+    return spmd.all_to_all_grad(out.contiguous(), mesh, seq, 1, 2)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,

@@ -42,12 +42,21 @@ def _dequant8(q, scale, dtype):
     return (q.float() * scale).to(dtype)
 
 
-def _conv_bn_fwd(x, w, gamma, beta, stride, padding, eps, save8):
+def _conv_bn_fwd(x, w, gamma, beta, stride, padding, eps, save8,
+                 counts=None):
     """((out, mean, var), residuals) — ``paddle_tpu``'s ``_conv_bn_fwd``:
     the residuals are (x, y, None, None, ...) or, with ``save8``,
-    (None, None, ((qx, sx), x dtype), (qz, sz), ...)."""
+    (None, None, ((qx, sx), x dtype), (qz, sz), ...). ``counts`` (a
+    list) gets the number of rows the statistics are over appended."""
     y, s1, s2 = conv_bn_stats(x, w, stride=stride, padding=padding)
     count = y.numel() // y.shape[-1]
+    if ops_norm._SYNC:
+        # the global batch's statistics (``norm.synced_statistics``)
+        tot = ops_norm._SYNC[-1](torch.stack(
+            [s1, s2, torch.full_like(s1, float(count))]))
+        s1, s2, count = tot[0], tot[1], tot[2]
+    if counts is not None:
+        counts.append(count)
     mean = s1 / count
     var = torch.clamp_min(s2 / count - mean.square(), 0.0)
     inv = torch.rsqrt(var + eps)
@@ -68,8 +77,9 @@ class _ConvBN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, stride, padding, eps, save8):
+        counts = []
         (out, mean, var), res = _conv_bn_fwd(x, w, gamma, beta, stride,
-                                             padding, eps, save8)
+                                             padding, eps, save8, counts)
         x_s, y_s, stash_x, stash_y, _, _, inv, _ = res
         if save8:
             (qx, sx), ctx.x_dtype = stash_x
@@ -78,6 +88,10 @@ class _ConvBN(torch.autograd.Function):
         else:
             ctx.save_for_backward(x_s, y_s, w, mean, inv, gamma)
         ctx.conf = (stride, padding, save8)
+        # under ``norm.synced_statistics`` the backward's sums are the
+        # global batch's too
+        ctx.sync = (ops_norm._SYNC[-1], counts[0]) if ops_norm._SYNC \
+            else None
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -92,8 +106,9 @@ class _ConvBN(torch.autograd.Function):
             x_full, y, w, mean, inv, gamma = ctx.saved_tensors
             centered = y.float() - mean
         axes = tuple(range(centered.dim() - 1))
-        g, sum_dy_yhat, sum_dy = ops_norm.bn_input_grad(dout, centered, inv,
-                                                        gamma, axes)
+        g, sum_dy_yhat, sum_dy = ops_norm.bn_input_grad(
+            dout, centered, inv, gamma, axes,
+            *(ctx.sync if ctx.sync else ()))
         dx, dw = _conv2d_backward(g.to(dout.dtype), x_full, w, stride=stride,
                                  padding=padding)
         return (dx, dw, sum_dy_yhat.to(gamma.dtype), sum_dy.to(gamma.dtype),

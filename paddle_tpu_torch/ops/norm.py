@@ -3,11 +3,53 @@
 ``batch_norm_train`` returns (y, new_running_mean, new_running_var): the
 running statistics come back as new tensors, never updated in place, so
 they thread through a train step as explicit state.
+
+Inside ``synced_statistics(reduce, reduce_max)`` (a data-parallel step
+over several ranks) the statistics are those of the global batch: each
+rank's sums and counts are reduced over the ranks, and so are the
+backward's two sums — the GSPMD step's batch norm over the global batch
+(the q8 blocks of ``ops/q8.py`` read the same reducers).
 """
 
+import contextlib
 from typing import Tuple
 
 import torch
+
+# the active cross-rank reducers: ``reduce(t)`` sums ``t`` over the
+# ranks (``_SYNC[-1]``), ``reduce_max(t)`` takes its maximum
+_SYNC: list = []
+_SYNC_MAX: list = []
+
+
+@contextlib.contextmanager
+def synced_statistics(reduce, reduce_max=None):
+    """Batch statistics (and their backward's sums) over every rank
+    inside the block: ``reduce(t)`` returns the sum of ``t`` over the
+    ranks, ``reduce_max(t)`` the maximum (the q8 stashes' absmax).
+    Every rank must run the same normalisations in the same order."""
+    _SYNC.append(reduce)
+    _SYNC_MAX.append(reduce_max)
+    try:
+        yield
+    finally:
+        _SYNC.pop()
+        _SYNC_MAX.pop()
+
+
+def _global_stats(x, axes, eps, reduce):
+    """(mean, var, inv, n) over the ranks' rows: fp32 sums and counts of
+    this rank's rows reduced in one collective."""
+    n = 1
+    for a in axes:
+        n *= x.shape[a]
+    xf = x.float()
+    s1 = xf.sum(dim=axes)
+    s2 = xf.square().sum(dim=axes)
+    tot = reduce(torch.stack([s1, s2, torch.full_like(s1, float(n))]))
+    mean, mean2 = tot[0] / tot[2], tot[1] / tot[2]
+    var = torch.clamp_min(mean2 - mean.square(), 0.0)
+    return mean, var, torch.rsqrt(var + eps), tot[2]
 
 
 def _bn_stats(x, axes, eps):
@@ -28,13 +70,17 @@ def bn_affine(x, gamma, beta, mean, inv):
     return x * scale + shift
 
 
-def bn_input_grad(dy, x_centered, inv, gamma, axes):
+def bn_input_grad(dy, x_centered, inv, gamma, axes, reduce=None,
+                  n_global=None):
     """(dx in fp32, Σdy·x̂, Σdy) of y = γ·x̂ + β, x̂ = x_centered·inv: the
     two-pass closed form (one fused reduction pass, one elementwise pass)
 
         dx = s/N · (N·dy − Σdy − x̂·Σ(dy·x̂)),  s = γ·inv
 
-    shared by ``batch_norm_train`` and ``conv_bn.conv_bn_train``."""
+    shared by ``batch_norm_train`` and ``conv_bn.conv_bn_train``. With a
+    cross-rank ``reduce`` (``synced_statistics``) the two sums in dx and
+    N are the global batch's (``n_global`` rows); the returned sums (γ's
+    and β's gradients) stay this rank's."""
     n = 1
     for a in axes:
         n *= x_centered.shape[a]
@@ -42,8 +88,12 @@ def bn_input_grad(dy, x_centered, inv, gamma, axes):
     sum_dy = dyf.sum(dim=axes)
     xhat = x_centered * inv
     sum_dy_xhat = (dyf * xhat).sum(dim=axes)
+    g_dy, g_dy_xhat = sum_dy, sum_dy_xhat
+    if reduce is not None:
+        g_dy, g_dy_xhat = reduce(torch.stack([sum_dy, sum_dy_xhat]))
+        n = n_global
     s = gamma.float() * inv / n
-    return s * (n * dyf - sum_dy - xhat * sum_dy_xhat), sum_dy_xhat, sum_dy
+    return s * (n * dyf - g_dy - xhat * g_dy_xhat), sum_dy_xhat, sum_dy
 
 
 class _BNApply(torch.autograd.Function):
@@ -54,7 +104,11 @@ class _BNApply(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, axes, eps):
-        mean, var, inv = _bn_stats(x, axes, eps)
+        ctx.reduce = _SYNC[-1] if _SYNC else None
+        if ctx.reduce is None:
+            mean, var, inv = _bn_stats(x, axes, eps)
+        else:
+            mean, var, inv, ctx.n = _global_stats(x, axes, eps, ctx.reduce)
         ctx.save_for_backward(x, mean, inv, gamma, beta)
         ctx.axes = axes
         ctx.mark_non_differentiable(mean, var)
@@ -63,8 +117,9 @@ class _BNApply(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, mean, inv, gamma, beta = ctx.saved_tensors
-        dx, sum_dy_xhat, sum_dy = bn_input_grad(dy, x.float() - mean, inv,
-                                                gamma, ctx.axes)
+        dx, sum_dy_xhat, sum_dy = bn_input_grad(
+            dy, x.float() - mean, inv, gamma, ctx.axes, ctx.reduce,
+            getattr(ctx, "n", None))
         return (dx.to(x.dtype), sum_dy_xhat.to(gamma.dtype),
                 sum_dy.to(beta.dtype), None, None)
 

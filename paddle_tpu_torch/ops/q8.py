@@ -27,6 +27,12 @@ int8/int4 KV rows. The op chains are the JAX package's, step for step
 clip, int8), so the same fp32 inputs give the same bytes and the same
 fp32 scales. The kernels that read a quantized pool widen each element
 exactly as :func:`dequantize_kv` does.
+
+The wire: ``ppermute_q8_raw`` / ``all_to_all_q8_raw`` (and their
+straight-through autograd forms ``make_ppermute_q8`` /
+``make_all_to_all_q8``) send int8 codes and fp32 scales through the
+parallel tier's collectives (``parallel/spmd.py``): the JAX package's
+codec (``wire_encode``), so the codes and scales are its bytes.
 """
 
 import functools
@@ -36,6 +42,7 @@ from torch.utils import _pytree as pytree
 
 from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.ops import conv as ops_conv
+from paddle_tpu_torch.ops import norm as ops_norm
 from paddle_tpu_torch.ops import prng
 
 QMAX = 112.0  # quantization target for the delayed absmax: ~12% headroom
@@ -113,6 +120,41 @@ def _nhw(t) -> float:
     return float(t.shape[0] * t.shape[1] * t.shape[2])
 
 
+def _sync():
+    """The data-parallel step's reducers (``norm.synced_statistics``):
+    (sum, max) over the ranks, or None outside one."""
+    if not ops_norm._SYNC:
+        return None
+    return ops_norm._SYNC[-1], ops_norm._SYNC_MAX[-1]
+
+
+def _batch_mean(yf, sync):
+    """(per-channel mean over N·H·W, the row count): this rank's, or the
+    global batch's under a sync."""
+    if sync is None:
+        return yf.mean(dim=(0, 1, 2)), _nhw(yf)
+    s1 = yf.sum(dim=(0, 1, 2))
+    tot = sync[0](torch.cat([s1, s1.new_tensor([_nhw(yf)])]))
+    return tot[:-1] / tot[-1], tot[-1]
+
+
+def _batch_var(yf, mu, n, sync):
+    """The per-channel mean square of ``yf - mu`` over the batch."""
+    if sync is None:
+        return (yf - mu).square().mean(dim=(0, 1, 2))
+    return sync[0]((yf - mu).square().sum(dim=(0, 1, 2))) / n
+
+
+def _global_max(amax, sync):
+    return amax if sync is None else sync[1](amax)
+
+
+def _global_sum(g, sync):
+    """A statistic's cotangent: each rank's loss reads the global
+    statistic, so the gradient by it is the ranks' sum."""
+    return g if sync is None or g is None else sync[0](g.float())
+
+
 # ---------------------------------------------------------------------------
 # entry: dense -> (carrier, stash)
 # ---------------------------------------------------------------------------
@@ -123,9 +165,10 @@ class _Entry(torch.autograd.Function):
     def forward(ctx, x, mu_p, s_p, key, stash):
         ctx.set_materialize_grads(False)
         xf = x.float()
+        ctx.sync = _sync()
         q, amax = _stash(xf, mu_p, s_p, stash, key)
-        mu = xf.mean(dim=(0, 1, 2))
-        ctx.nhw = _nhw(x)
+        mu, ctx.nhw = _batch_mean(xf, ctx.sync)
+        amax = _global_max(amax, ctx.sync)
         ctx.x_like = (x.shape, x.device)
         ctx.mark_non_differentiable(q, amax)
         return _carrier(x), q, mu, amax
@@ -139,6 +182,7 @@ class _Entry(torch.autograd.Function):
         shape, device = ctx.x_like
         g = (torch.zeros(shape, device=device) if g_yhat is None
              else g_yhat.float())
+        g_mu = _global_sum(g_mu, ctx.sync)
         if g_mu is not None:
             g = g + g_mu.float() / ctx.nhw
         return g.to(dtypes.compute_dtype()), None, None, None, None
@@ -251,9 +295,11 @@ class _ConvQ8(torch.autograd.Function):
         stride, padding, relu_in, stash = cfg
         xt = _prologue(q_in, M, B, mu_pi, s_pi, relu_in)
         yf = ops_conv.conv2d(xt, w, stride=stride, padding=padding).float()
-        mu = yf.mean(dim=(0, 1, 2))
-        var = (yf - mu).square().mean(dim=(0, 1, 2))
+        ctx.sync = _sync()
+        mu, ctx.n = _batch_mean(yf, ctx.sync)
+        var = _batch_var(yf, mu, ctx.n, ctx.sync)
         q_out, amax = _stash(yf, mu_po, s_po, stash, key)
+        amax = _global_max(amax, ctx.sync)
         ctx.cfg = cfg
         ctx.save_for_backward(q_in, q_out, mu, w, M, B, mu_pi, s_pi, mu_po,
                               s_po)
@@ -268,7 +314,9 @@ class _ConvQ8(torch.autograd.Function):
         cdt = dtypes.compute_dtype()
         # y rebuilt from its own stash (straight-through through the round)
         yf = _dequant(q_out, mu_po, s_po)
-        nhw = _nhw(yf)
+        nhw = ctx.n
+        g_mu = _global_sum(g_mu, ctx.sync)
+        g_var = _global_sum(g_var, ctx.sync)
         dy = _zero_if_none(g_yhat, yf)
         if g_mu is not None:
             dy = dy + g_mu / nhw
@@ -328,10 +376,11 @@ class _AddQ8(torch.autograd.Function):
         relu_a, relu_b, stash = cfg
         z = (_branch(qa, Ma, Ba, mu_pa, s_pa, relu_a)
              + _branch(qb, Mb, Bb, mu_pb, s_pb, relu_b))
-        mu = z.mean(dim=(0, 1, 2))
+        ctx.sync = _sync()
+        mu, ctx.nhw = _batch_mean(z, ctx.sync)
         q_out, amax = _stash(z, mu_po, s_po, stash, key)
+        amax = _global_max(amax, ctx.sync)
         ctx.cfg = cfg
-        ctx.nhw = _nhw(z)
         ctx.save_for_backward(qa, Ma, Ba, mu_pa, s_pa, qb, Mb, Bb, mu_pb,
                               s_pb)
         ctx.mark_non_differentiable(q_out, amax)
@@ -343,6 +392,7 @@ class _AddQ8(torch.autograd.Function):
         relu_a, relu_b, _ = ctx.cfg
         cdt = dtypes.compute_dtype()
         dz = _zero_if_none(g_yhat, qa)
+        g_mu = _global_sum(g_mu, ctx.sync)
         if g_mu is not None:
             dz = dz + g_mu / ctx.nhw
 
@@ -483,6 +533,116 @@ def q8_remat(fn, stash: str = "int8"):
         return pytree.tree_unflatten(list(flat_out), box["spec"])
 
     return wrapped
+
+
+# ---------------------------------------------------------------------------
+# quantized collectives: int8 payloads on the wire
+# ---------------------------------------------------------------------------
+
+def wire_encode(x: torch.Tensor, block_dims: int = 0):
+    """The int8 wire codec of the JAX package's ``ppermute_q8_raw`` /
+    ``all_to_all_q8_raw``: symmetric codes ``round(x / sc)`` (half to
+    even, clipped to [-127, 127]) with ``sc = max(absmax, 1e-8) / 127``
+    in fp32, one scale per shard (``block_dims=0``) or one per index of
+    the leading axis (``block_dims=1``, the all-to-all's destination
+    blocks). Returns (codes int8, scales fp32)."""
+    xf = x.float()
+    if block_dims:
+        amax = xf.abs().amax(dim=tuple(range(1, x.ndim)))
+        sc = torch.clamp_min(amax, 1e-8) / 127.0
+        z = xf / sc.reshape((-1,) + (1,) * (x.ndim - 1))
+    else:
+        sc = torch.clamp_min(xf.abs().amax(), 1e-8) / 127.0
+        z = xf / sc
+    return torch.clamp(torch.round(z), -127.0, 127.0).to(torch.int8), sc
+
+
+def wire_decode(q: torch.Tensor, sc: torch.Tensor, dtype) -> torch.Tensor:
+    if sc.ndim:
+        sc = sc.reshape((-1,) + (1,) * (q.ndim - 1))
+    return (q.float() * sc).to(dtype)
+
+
+def _wire_mesh(mesh):
+    if mesh is not None:
+        return mesh
+    from paddle_tpu_torch.parallel import compat
+    return compat.current_mesh()
+
+
+def ppermute_q8_raw(x: torch.Tensor, axis_name: str, perm,
+                    mesh=None) -> torch.Tensor:
+    """One quantized hop (int8 codes + one fp32 scale) with no autograd:
+    for hand-written backward passes (the flash ring). ``mesh``
+    defaults to the running ``shard_map``'s."""
+    from paddle_tpu_torch.parallel import spmd
+    mesh = _wire_mesh(mesh)
+    q, sc = wire_encode(x)
+    qp = spmd.ppermute(q, mesh, axis_name, perm, tag="wire_int8")
+    sp = spmd.ppermute(sc.reshape(1), mesh, axis_name, perm,
+                       tag="wire_scale")
+    return wire_decode(qp, sp.reshape(()), x.dtype)
+
+
+class _PPermuteQ8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, perm, mesh):
+        ctx.args = (axis_name, perm, mesh)
+        return ppermute_q8_raw(x, axis_name, perm, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, perm, mesh = ctx.args
+        inv = tuple((d, s) for s, d in perm)
+        return ppermute_q8_raw(g, axis_name, inv, mesh), None, None, None
+
+
+def make_ppermute_q8(axis_name: str, perm, mesh=None):
+    """``ppermute`` with the int8 wire codec in BOTH directions: the
+    forward payload and the backward gradient each travel as int8 codes
+    + an fp32 scale (straight-through: the reversed permutation with the
+    same codec). For pipeline sends and ring K/V rotations."""
+    perm = tuple(tuple(p) for p in perm)
+
+    def pq(x):
+        return _PPermuteQ8.apply(x, axis_name, perm, _wire_mesh(mesh))
+    return pq
+
+
+def all_to_all_q8_raw(x: torch.Tensor, axis_name: str,
+                      mesh=None) -> torch.Tensor:
+    """One quantized all-to-all with no autograd: ``x``'s leading axis
+    indexes the DESTINATION rank (size = the axis size), the result's
+    the SOURCE rank; each block has its own scale and the scale vector
+    rides the same all-to-all."""
+    from paddle_tpu_torch.parallel import spmd
+    mesh = _wire_mesh(mesh)
+    q, sc = wire_encode(x, block_dims=1)
+    qp = spmd.all_to_all(q, mesh, axis_name, tag="wire_int8")
+    sp = spmd.all_to_all(sc, mesh, axis_name, tag="wire_scale")
+    return wire_decode(qp, sp, x.dtype)
+
+
+class _AllToAllQ8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh):
+        ctx.args = (axis_name, mesh)
+        return all_to_all_q8_raw(x, axis_name, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, mesh = ctx.args
+        return all_to_all_q8_raw(g.contiguous(), axis_name, mesh), None, \
+            None
+
+
+def make_all_to_all_q8(axis_name: str, mesh=None):
+    """``all_to_all`` (leading axis) with the int8 codec in both
+    directions; the block exchange is its own inverse, so the backward
+    is the same codec on the gradient. For MoE dispatch/combine."""
+    def a2a(x):
+        return _AllToAllQ8.apply(x, axis_name, _wire_mesh(mesh))
+    return a2a
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,14 @@ into a CUDA graph.
 The JAX products promote fp32 x bf16 to fp32: the gate, the dispatch,
 the expert FFN and the combine all run in fp32 here too (the expert
 weights are fp32 leaves), and the output is cast back to the tokens'
-dtype. With a mesh the JAX package shards the experts over its
-``expert`` axis; the port runs one card, and the mesh paths
-(``param_shardings``, ``moe_ffn(mesh=...)``, ``moe_ffn_a2a``) raise
-until ROADMAP A10.
+dtype.
+
+With a mesh carrying an ``expert`` axis the experts shard over it
+(``param_shardings``): ``moe_ffn(mesh=...)`` routes the global tokens
+alike on every rank, runs this rank's experts on their slots and
+all-gathers the expert outputs for the combine; ``moe_ffn_a2a`` is the
+explicit-collective form (tokens split over the axis, dispatch and
+combine by ``all_to_all``, optionally on the int8 wire).
 """
 
 import dataclasses
@@ -60,10 +64,25 @@ def init_params(cfg: MoEConfig, generator: Optional[torch.Generator] = None,
 
 
 def param_shardings(cfg: MoEConfig, mesh):
-    """Experts sharded over a mesh's ``expert`` axis: ROADMAP A10."""
-    raise NotImplementedError(
-        "moe.param_shardings: expert sharding over a mesh is the "
-        "multi-rank parallel tier, not ported yet — ROADMAP A10")
+    """Experts sharded over the ``expert`` axis; gate replicated."""
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.parallel.spmd import Layout, P
+    E = place.AXIS_EXPERT
+    return {"gate": Layout(mesh, P()), "w_in": Layout(mesh, P(E, None, None)),
+            "w_out": Layout(mesh, P(E, None, None))}
+
+
+def _local_experts(w, mesh, axis, E):
+    """This rank's experts of a stored leaf: a DTensor's shard, the
+    rank's slice of a whole [E, ...] tensor, or a shard as it is."""
+    from paddle_tpu_torch.parallel import spmd
+    if spmd.is_sharded(w):
+        return spmd.local(w)
+    if w.shape[0] != E:
+        return w                       # already this rank's experts
+    n = spmd.axis_size(mesh, axis)
+    i = spmd.axis_index(mesh, axis)
+    return w[i * E // n:(i + 1) * E // n]
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -109,12 +128,13 @@ def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig,
     """Top-k MoE feed-forward (k = 1: Switch; k = 2: GShard top-2):
     x [N, D] tokens -> (out [N, D] in x's dtype, aux loss, a 0-d fp32
     tensor). Each expert's FFN is gelu(x w_in) w_out over its ``cap``
-    slots, a batched fp32 product; dropped tokens get 0. A mesh (expert
-    parallelism) raises: ROADMAP A10."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_ffn(mesh=...): expert parallelism over a mesh is the "
-            "multi-rank parallel tier, not ported yet — ROADMAP A10")
+    slots, a batched fp32 product; dropped tokens get 0. With a mesh
+    carrying an ``expert`` axis every rank routes the (global) tokens
+    alike, runs its own experts and all-gathers their outputs."""
+    from paddle_tpu_torch.core import place
+    ax = place.AXIS_EXPERT
+    if mesh is not None and ax in mesh.mesh_dim_names:
+        return _moe_ffn_ep(params, x, cfg, mesh, ax)
     N, _ = x.shape
     E, k = cfg.num_experts, cfg.top_k
     if not 1 <= k <= E:
@@ -130,8 +150,79 @@ def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig,
     return out.to(x.dtype), aux
 
 
+def _moe_ffn_ep(params, x, cfg, mesh, ax):
+    from paddle_tpu_torch.parallel import spmd
+    N, _ = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    if not 1 <= k <= E:
+        raise ValueError(f"top_k={k} must be in [1, num_experts={E}]")
+    cap = max(1, int(cfg.capacity_factor * k * N / E))
+    gate = spmd.local(params["gate"])
+    disp, combine, frac, mean_p = _route({"gate": gate}, x, cfg, cap)
+    n = spmd.axis_size(mesh, ax)
+    i = spmd.axis_index(mesh, ax)
+    # the tokens enter a region split over the experts: their gradient
+    # through the dispatch sums over the ranks (the routing's is whole)
+    xd = spmd.copy_to(x, mesh, ax)
+    xe = torch.einsum("nec,nd->ecd", disp, xd.float())       # [E, cap, D]
+    xe = xe[i * E // n:(i + 1) * E // n]                    # my experts
+    w_in = _local_experts(params["w_in"], mesh, ax, E)
+    w_out = _local_experts(params["w_out"], mesh, ax, E)
+    h = F.gelu(torch.bmm(xe, w_in.float()), approximate="tanh")
+    ye = spmd.gather_replicated(torch.bmm(h, w_out.float()), mesh, ax, 0)
+    out = torch.einsum("nec,ecd->nd", combine, ye)
+    aux = cfg.aux_loss_weight * E * (frac * mean_p).sum()
+    return out.to(x.dtype), aux
+
+
 def moe_ffn_a2a(params, x, cfg: MoEConfig, mesh, wire_int8: bool = False):
-    """The explicit all-to-all form over a mesh: ROADMAP A10."""
-    raise NotImplementedError(
-        "moe_ffn_a2a: the all-to-all dispatch over a mesh is the "
-        "multi-rank parallel tier, not ported yet — ROADMAP A10")
+    """MoE feed-forward in the explicit-collective form over the
+    ``expert`` axis: the global tokens x [N, D] split over the axis
+    (N/P per rank), capacity per (expert, source rank) —
+    ``ceil(cf·k·N_s/E)`` slots, GShard's layout, so a rank cannot borrow
+    another's unused slots — and ``all_to_all`` dispatch and combine.
+    ``wire_int8``: both all-to-alls carry int8 codes + per-destination
+    fp32 scales (``ops/q8.make_all_to_all_q8``), straight-through
+    gradients. Returns the global (out [N, D], aux)."""
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.parallel import spmd
+    ax = place.AXIS_EXPERT
+    if ax not in mesh.mesh_dim_names:
+        raise ValueError(f"mesh must carry an {ax!r} axis")
+    pe = spmd.axis_size(mesh, ax)
+    N, D = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    if not 1 <= k <= E:
+        raise ValueError(f"top_k={k} must be in [1, num_experts={E}]")
+    if E % pe or N % pe:
+        raise ValueError(f"num_experts={E} and N={N} must both be "
+                         f"divisible by the expert axis size {pe}")
+    e_local, n_s = E // pe, N // pe
+    cap_s = max(1, int(math.ceil(cfg.capacity_factor * k * n_s / E)))
+    if wire_int8:
+        from paddle_tpu_torch.ops import q8 as ops_q8
+        a2a = ops_q8.make_all_to_all_q8(ax, mesh=mesh)
+    else:
+        def a2a(v):
+            return spmd.all_to_all_grad(v.contiguous(), mesh, ax, 0, 0)
+    # the replicated gate's gradient sums over the ranks' token shards
+    gate = spmd.copy_to(spmd.local(params["gate"]), mesh, ax)
+    w_in = _local_experts(params["w_in"], mesh, ax, E)
+    w_out = _local_experts(params["w_out"], mesh, ax, E)
+    xs = spmd.slice_local(x, mesh, ax, 0)                    # [n_s, D]
+    disp, combine, frac, mean_p = _route({"gate": gate}, xs, cfg, cap_s)
+    xe = torch.einsum("nec,nd->ecd", disp, xs.float())
+    xe = a2a(xe.reshape(pe, e_local, cap_s, D))      # leading: source
+    xe = xe.transpose(0, 1).reshape(e_local, pe * cap_s, D)
+    h = F.gelu(torch.bmm(xe, w_in.float()), approximate="tanh")
+    ye = torch.bmm(h, w_out.float())
+    ye = ye.reshape(e_local, pe, cap_s, D).transpose(0, 1)
+    ye = a2a(ye).reshape(E, cap_s, D)                # back to the sources
+    out = torch.einsum("nec,ecd->nd", combine, ye)
+    # aux over the global balance statistics (equal token shards, so the
+    # mean of the ranks' means is the full-batch mean)
+    frac_g = spmd.mean_replicated(frac, mesh, ax)
+    mean_p_g = spmd.mean_replicated(mean_p, mesh, ax)
+    aux = cfg.aux_loss_weight * E * (frac_g * mean_p_g).sum()
+    out = spmd.gather_replicated(out.to(x.dtype), mesh, ax, 0)
+    return out, aux

@@ -10,11 +10,11 @@ the PADDLE_* env contract (rank, world size, coordinator address) and
 execs the worker. Local mode spawns N processes on this machine — the
 no-cluster simulation of a multi-host job used by the tests. The
 contract is the JAX package's, key for key: it also writes
-``PADDLE_PLATFORM=cpu`` and ``PADDLE_LOCAL_CPU_DEVICES`` (from
-``devices_per_proc``), which no port code reads yet — they are inert
-until the multi-rank work gives them a reader. The JAX package's
-``multiprocess_cpu_supported`` probe (a JAX script) is not here: it
-comes with that work too.
+``PADDLE_PLATFORM=cpu`` (which ``distributed.init`` reads: gloo on the
+CPU) and ``PADDLE_LOCAL_CPU_DEVICES`` (from ``devices_per_proc``; a port
+rank drives one device, so ``init`` ignores it). The JAX package's
+``multiprocess_cpu_supported`` probe (a JAX script) comes with the gang
+supervisor (ROADMAP A10b).
 
 Usage:
   python -m paddle_tpu_torch.runtime.launch --nprocs=2 \

@@ -24,17 +24,27 @@ splits it with ``ops/prng.split`` (``jax.random.split``).
 ``AsyncCheckpointer`` and resumes from the newest intact one;
 ``prefetch > 0`` or a ``pipeline.Pipeline`` reader feeds through the
 input pipeline, whose device stage (``DeviceTransfer``) copies each
-batch to the card on a stream of its own ahead of the step. Paths of the
-JAX trainer that need the parallel tier raise ``NotImplementedError``
-naming ROADMAP A10: ``parallel=`` and the elastic supervisor contract
-(``PADDLE_ELASTIC_DIR``).
+batch to the card on a stream of its own ahead of the step.
+
+``parallel=`` (a ``parallel.spmd.DistConfig``) trains SPMD over a mesh,
+one process per rank: every rank reads the same global batch and takes
+its rows of the batch axes; parameters, optimizer state and gradients
+take the config's layouts (TP rules, ZeRO stages 0-3) and the gradient
+collectives are explicit (``parallel/spmd.py``). Batch norm layers
+normalize over the global batch, as the JAX package's GSPMD step does
+(``ops/norm.synced_statistics``: the statistics' sums reduced over the
+ranks), and so do ``conv_bn``'s and the q8 blocks' (with the stashes'
+absmax). The elastic supervisor contract (``PADDLE_ELASTIC_DIR``) is
+ROADMAP A10b and raises ``NotImplementedError``.
 """
 
+import contextlib
 import math
 import os
 import time
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch import event as events
@@ -52,6 +62,18 @@ from paddle_tpu_torch.utils.flags import GLOBAL_FLAGS
 from paddle_tpu_torch.utils.rng import global_key_source
 
 logger = get_logger("trainer")
+
+
+def _zeros_like_tree(v, shape):
+    """A stand-in of ``v``'s structure with the parameter's global
+    shape at every non-scalar leaf (what ``state_shardings`` reads)."""
+    if isinstance(v, (tuple, list)):
+        return type(v)(_zeros_like_tree(x, shape) for x in v)
+    if isinstance(v, dict):
+        return {k: _zeros_like_tree(x, shape) for k, x in v.items()}
+    if isinstance(v, torch.Tensor) and v.ndim:
+        return np.empty(shape, dtype=np.uint8)
+    return np.empty((), dtype=np.uint8)
 
 
 def _feed_tensors(feeds) -> List[torch.Tensor]:
@@ -178,6 +200,8 @@ def adopt(feeds) -> None:
 
 def _state_bytes(s) -> int:
     if isinstance(s, torch.Tensor):
+        if type(s).__name__ == "DTensor":      # its local shard
+            s = s.to_local()
         return s.numel() * s.element_size()
     if isinstance(s, dict):
         return sum(_state_bytes(v) for v in s.values())
@@ -360,8 +384,10 @@ class SGD:
                  extra_layers: Optional[List[LayerOutput]] = None,
                  is_local: bool = True, parallel=None,
                  grad_accum_steps: int = 1):
-        """parallel: sharding over a mesh (a JAX ``DistConfig``) needs
-        the parallel tier and raises (ROADMAP A10).
+        """parallel: an optional ``parallel.spmd.DistConfig`` — shards
+        parameters per its rules and zero stage, the batch across its
+        batch axes, and reduces gradients over them (replacing the
+        pserver round-trip, reference: trainer/RemoteParameterUpdater.cpp).
 
         grad_accum_steps: split every batch into this many microbatches:
         activations live for one microbatch at a time while fp32
@@ -374,11 +400,6 @@ class SGD:
         if grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, "
                              f"got {grad_accum_steps}")
-        if parallel is not None:
-            raise NotImplementedError(
-                "SGD(parallel=...): sharded training over a mesh needs "
-                "the parallel tier (parallel/spmd.py), which is not "
-                "ported yet — ROADMAP A10")
         self.grad_accum_steps = int(grad_accum_steps)
         self.cost = cost
         self.parameters = parameters
@@ -391,6 +412,9 @@ class SGD:
         self._feeder_cache: Dict = {}
         self.opt_state = self.optimizer.init_state(parameters.values)
         self._step = 0
+        self.parallel = parallel
+        if parallel is not None:
+            self._init_parallel()
         self._metric_names = [l.name for l in self.topology.layers
                               if hasattr(l, "metric_finalize")]
         self._train_step = (self._accum_train_step
@@ -411,35 +435,203 @@ class SGD:
                 "counted — the metric differs from unaccumulated training")
 
     # -- steps -------------------------------------------------------------
+    def _init_parallel(self):
+        """Place parameters and optimizer state in the config's stored
+        layouts (DTensors where sharded) and log the ZeRO decisions."""
+        from paddle_tpu_torch.parallel import spmd
+        par = self.parallel
+        values = self.parameters.values
+        self._shapes = {k: tuple(v.shape) for k, v in values.items()}
+        self._update_layouts = par.zero_update_shardings(values)
+        self._store_layouts = par.store_shardings(values)
+        self.opt_state = spmd.shard_state(par, self.opt_state)
+        self.parameters.values = par.shard_params(values)
+        if par.zero_stage >= 1:
+            rep = par.zero_report(values)
+            logger.debug(
+                "zero=%d over %s=%d: %d param states sharded, %d "
+                "replicated (%s)", rep["zero_stage"], rep["axis"],
+                rep["axis_size"], len(rep["sharded"]),
+                len(rep["replicated"]),
+                ", ".join(f"{k}: {v}" for k, v in rep["replicated"].items())
+                or "none")
+
     def _leaves(self) -> Dict[str, torch.Tensor]:
         """Leaf tensors sharing storage with ``parameters.values`` for
         autograd to differentiate against (the optimizer then writes the
-        values in place, after the graph is gone)."""
-        return {k: v.detach().requires_grad_()
-                for k, v in self.parameters.values.items()}
+        values in place, after the graph is gone). Under ``parallel=`` a
+        sharded stored leaf is all-gathered to its compute layout first
+        (the ZeRO-3 / TP gather on use)."""
+        if self.parallel is None:
+            return {k: v.detach().requires_grad_()
+                    for k, v in self.parameters.values.items()}
+        from paddle_tpu_torch.parallel import spmd
+        out = {k: spmd.full(self.parameters.values[k], tag="on_use")
+               .detach().requires_grad_()
+               for k in sorted(self.parameters.values)}
+        return {k: out[k] for k in self.parameters.values}
+
+    def _batch_ranks(self, feeds) -> int:
+        """The number of ranks the batch axes split ``feeds`` over; a
+        ValueError when a feed's rows do not divide by it."""
+        from paddle_tpu_torch.parallel import spmd
+        par = self.parallel
+        n = spmd.axis_size(par.mesh, par.batch_axes())
+        bad = sorted({t.shape[0] for t in _feed_tensors(feeds)
+                      if t.shape[0] % n})
+        if bad:
+            raise ValueError(
+                f"a batch of {bad[0]} rows does not divide over the batch "
+                f"axes {par.batch_axes()} of {n} ranks: use a batch size "
+                f"(and, under grad accumulation, a microbatch) that is a "
+                f"multiple of {n}, or drop_last=True")
+        return n
+
+    def _rank_rows(self, feeds):
+        """This rank's rows of a global batch (the batch axes' split).
+        A batch whose rows do not divide over the batch axes raises
+        ValueError on every rank alike, before any collective (the JAX
+        trainer's ``device_put`` refuses it too): each rank's mean is
+        weighted 1/N in the gradient and the cost."""
+        from paddle_tpu_torch.parallel import spmd
+        par = self.parallel
+        axes = par.batch_axes()
+        n = self._batch_ranks(feeds)
+        if n == 1:
+            return feeds
+        i = spmd.axis_index(par.mesh, axes)
+        return {k: _split_value(v, n)[i] for k, v in feeds.items()}
 
     def _loss_and_grads(self, feeds, state, dropout_key):
         """Forward in training mode on ``feeds``: (mean fp32 cost, the
-        outputs, the new state, {name: gradient})."""
+        outputs, the new state, {name: gradient}). Under ``parallel=``
+        the feeds are the global batch: the forward runs on this rank's
+        rows, the returned cost is the global mean, and each gradient is
+        of this rank's share of it (``_reduce`` sums them)."""
         leaves = self._leaves()
-        outs, new_state = self._forward(leaves, state, feeds,
-                                        is_training=True,
-                                        dropout_key=dropout_key)
-        loss = outs[self.cost.name].array.float().mean()
-        got = torch.autograd.grad(loss, list(leaves.values()),
-                                  allow_unused=True)
+        scale, sync = 1.0, contextlib.nullcontext()
+        if self.parallel is not None:
+            from paddle_tpu_torch.ops import norm as ops_norm
+            from paddle_tpu_torch.parallel import spmd
+            par = self.parallel
+            feeds = self._rank_rows(feeds)
+            nb = spmd.axis_size(par.mesh, par.batch_axes())
+            scale = 1.0 / nb
+            if nb > 1:
+                # batch norm over the global batch, as the GSPMD step
+                sync = ops_norm.synced_statistics(
+                    lambda t: spmd.all_reduce(t, par.mesh, par.batch_axes(),
+                                              tag="bn"),
+                    lambda t: spmd.all_reduce(t, par.mesh, par.batch_axes(),
+                                              op="max", tag="bn"))
+        with sync:
+            outs, new_state = self._forward(leaves, state, feeds,
+                                            is_training=True,
+                                            dropout_key=dropout_key)
+            loss = outs[self.cost.name].array.float().mean()
+            got = torch.autograd.grad(loss * scale, list(leaves.values()),
+                                      allow_unused=True)
         grads = {k: (g if g is not None else torch.zeros_like(v))
                  for (k, v), g in zip(leaves.items(), got)}
         new_state = {k: v.detach() for k, v in new_state.items()}
-        return loss.detach(), outs, new_state, grads
+        loss = loss.detach()
+        if self.parallel is not None:
+            from paddle_tpu_torch.parallel import spmd
+            par = self.parallel
+            loss = spmd.all_reduce(loss, par.mesh, par.batch_axes(),
+                                   op="mean", tag="cost")
+            for m in self._metric_names:
+                if m in outs and outs[m].array.is_floating_point():
+                    outs[m] = Value(spmd.all_reduce(
+                        outs[m].array.detach(), par.mesh,
+                        par.batch_axes(), tag="metric"))
+        return loss, outs, new_state, grads
+
+    def _reduce(self, grads, accum: bool = False):
+        """Gradients of the rank's share -> the global batch's, in the
+        update layout: all-reduced whole (stage 0), or reduce-scattered
+        into the ZeRO shard (stage >= 2, and the accumulation carry from
+        stage 1); TP-stored leaves keep their own shard."""
+        from paddle_tpu_torch.parallel import spmd
+        par = self.parallel
+        sharded = par.zero_stage >= 2 or (accum and par.zero_stage >= 1)
+        out = spmd.reduce_grads(par, grads, self._update_layouts, sharded)
+        for k, g in out.items():
+            lay = self._store_layouts[k]
+            if not lay.is_fully_replicated and g.shape == self._shapes[k]:
+                out[k] = lay.shard(g)
+        return out
+
+    def _note_resident(self):
+        """Each stored parameter's resident bytes into the active
+        collective record (``spmd.record_collectives``), as the JAX
+        package's HLO shows the step's parameter arguments."""
+        if self.parallel is not None:
+            from paddle_tpu_torch.parallel import spmd
+            for k in sorted(self.parameters.values):
+                spmd.note_resident(spmd.param_bytes(
+                    self.parameters.values[k]))
+
+    def _update(self, step, grads):
+        """The optimizer step: ``optimizer.update`` in place, or under
+        ``parallel=`` the ZeRO update (``spmd.zero_constrained_update``)
+        with the state re-wrapped in its stored layout."""
+        if self.parallel is None:
+            _, self.opt_state = self.optimizer.update(
+                step, grads, self.parameters.values, self.opt_state)
+            return
+        from paddle_tpu_torch.parallel import spmd
+        par = self.parallel
+        if par.zero_stage >= 1:
+            grads = {k: (g if g.shape != self._shapes[k]
+                         or spmd._zero_dim_of(self._update_layouts[k].spec,
+                                              par.batch_axis) is None
+                         else self._update_layouts[k].shard(g))
+                     for k, g in grads.items()}
+            _, new = spmd.zero_constrained_update(
+                par, self.optimizer, step, grads, self.parameters.values,
+                spmd.local_tree(self.opt_state),
+                update_shardings=self._update_layouts)
+        else:
+            work = {k: spmd.local(v) for k, v in
+                    self.parameters.values.items()}
+            _, new = self.optimizer.update(step, grads, work,
+                                           spmd.local_tree(self.opt_state))
+        self.opt_state = self._wrap_state(new)
+
+    def _wrap_state(self, new):
+        """The optimizer's new (local) state in its stored layout."""
+        from paddle_tpu_torch.parallel import spmd
+
+        def wrap(v, lay, shape):
+            if isinstance(v, (tuple, list)):
+                return type(v)(wrap(x, l, shape) for x, l in zip(v, lay))
+            if isinstance(v, dict):
+                return {kk: wrap(x, lay[kk], shape) for kk, x in v.items()}
+            if not isinstance(v, torch.Tensor) or v.ndim == 0:
+                return v
+            spec = lay.spec
+            if all(spmd.axis_size(lay.mesh, e) == 1 for e in spec) \
+                    or tuple(v.shape) == tuple(shape):
+                return v
+            return spmd.as_dtensor(v, lay, shape)
+
+        # the layouts follow the parameters' GLOBAL shapes
+        glays = self.parallel.state_shardings(
+            {k: _zeros_like_tree(v, self._shapes[k])
+             for k, v in new.items()})
+        return {k: wrap(v, glays[k], self._shapes[k])
+                for k, v in new.items()}
 
     def _plain_train_step(self, feeds, step, dropout_key):
         """One step on the whole batch: returns (loss, outputs); the
         parameters, the optimizer state and the model state advance."""
+        self._note_resident()
         loss, outs, new_state, grads = self._loss_and_grads(
             feeds, self.parameters.state, dropout_key)
-        _, self.opt_state = self.optimizer.update(
-            step, grads, self.parameters.values, self.opt_state)
+        if self.parallel is not None:
+            grads = self._reduce(grads)
+        self._update(step, grads)
         self.parameters.state = new_state
         return loss, outs
 
@@ -450,17 +642,27 @@ class SGD:
         metric accumulables summed (additive by contract,
         evaluator.MetricAccumulator — except the batch-local pnpair
         counts, warned about in __init__). Returns (mean loss, metric
-        outputs)."""
+        outputs). Under ``parallel=`` each slice of the global batch is
+        split over the ranks and reduced into the accumulator in its
+        update layout (the ZeRO shard from stage 1)."""
         n = self.grad_accum_steps
+        if self.parallel is not None:
+            self._batch_ranks(feeds)
+        self._note_resident()
         parts = {k: _split_value(v, n) for k, v in feeds.items()}
         keys = prng.split(dropout_key, n)
         values = self.parameters.values
-        acc = {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-               for k, v in values.items()}
+        acc = None
         state, losses, mets = self.parameters.state, [], {}
         for i in range(n):
             loss, outs, state, g = self._loss_and_grads(
                 {k: p[i] for k, p in parts.items()}, state, keys[i])
+            if self.parallel is not None:
+                g = self._reduce(g, accum=True)
+            if acc is None:
+                acc = {k: torch.zeros(v.shape, dtype=torch.float32,
+                                      device=v.device)
+                       for k, v in g.items()}
             for k in acc:
                 acc[k] += g[k].float()
             for m in self._metric_names:
@@ -468,17 +670,21 @@ class SGD:
                     a = outs[m].array.detach().float()
                     mets[m] = a if m not in mets else mets[m] + a
             losses.append(loss)
-        grads = {k: (acc[k] / n).to(values[k].dtype) for k in acc}
-        _, self.opt_state = self.optimizer.update(step, grads, values,
-                                                  self.opt_state)
+        from paddle_tpu_torch.parallel import spmd
+        grads = {k: (acc[k] / n).to(spmd.local(values[k]).dtype)
+                 for k in acc}
+        self._update(step, grads)
         self.parameters.state = state
         return (torch.stack(losses).mean(),
                 {m: Value(v) for m, v in mets.items()})
 
     @torch.no_grad()
     def _eval_step(self, feeds):
-        outs, _ = self._forward(self.parameters.values,
-                                self.parameters.state, feeds,
+        values = self.parameters.values
+        if self.parallel is not None:
+            from paddle_tpu_torch.parallel import spmd
+            values = {k: spmd.full(values[k]) for k in sorted(values)}
+        outs, _ = self._forward(values, self.parameters.state, feeds,
                                 is_training=False)
         return outs[self.cost.name].array.float().mean(), outs
 
@@ -510,10 +716,22 @@ class SGD:
     def grad_bytes_per_device(self) -> int:
         """Bytes of the longest-lived gradient object: the fp32
         accumulator under grad accumulation, else the gradients at the
-        update point (the parameters' dtype)."""
+        update point (the parameters' dtype) — in the config's gradient
+        layout under ``parallel=`` (1/N shards from ZeRO stage 2, and
+        for the accumulator from stage 1)."""
         accum = self.grad_accum_steps > 1
-        return sum(v.numel() * (4 if accum else v.element_size())
-                   for v in self.parameters.values.values())
+        total = 0
+        for k, v in self.parameters.values.items():
+            n = v.numel()
+            if self.parallel is not None:
+                from paddle_tpu_torch.parallel import spmd
+                par = self.parallel
+                spec = par.grad_spec(k, self._shapes[k], accum)
+                n = int(np.prod(self._shapes[k] or (1,)))
+                for e in spec:
+                    n //= spmd.axis_size(par.mesh, e)
+            total += n * (4 if accum else v.element_size())
+        return total
 
     def _feeder(self, feeding, device=None):
         """The DataFeeder for ``feeding``, placing on ``device`` (default:
@@ -533,8 +751,18 @@ class SGD:
         ``FlopCounterMode`` counts them (``observe.costs.counted_flops``).
         Gradients come from ``torch.autograd.grad`` and are dropped: the
         parameters, their ``.grad``, the optimizer state, the model state
-        and the compile tracker are left as they were."""
-        leaves = self._leaves()
+        and the compile tracker are left as they were. Under
+        ``parallel=`` it counts this rank's share of the step on stand-in
+        parameters of the compute shapes, so it issues no collective
+        (a rank may count where its peers do not)."""
+        if self.parallel is None:
+            leaves = self._leaves()
+        else:
+            leaves = {k: torch.zeros(self._shapes[k],
+                                     dtype=v.dtype, device=v.device)
+                      .requires_grad_()
+                      for k, v in self.parameters.values.items()}
+            feeds = self._rank_rows(feeds)
 
         def run():
             outs, _ = self._forward(leaves, self.parameters.state, feeds,
@@ -584,7 +812,8 @@ class SGD:
         snapshot (counters + gauges; histograms don't aggregate), its
         raw step window for the pooled gang quantiles, and the goodput
         accountant's buckets. All O(registry) dict work, no device
-        sync. (The distributed barrier window joins with ROADMAP A10.)"""
+        sync. (The distributed barrier window joins with the gang
+        supervisor, ROADMAP A10b.)"""
         snap = {name: doc for name, doc in
                 observe.default_registry().snapshot().items()
                 if doc.get("kind") in ("counter", "gauge")}
@@ -629,13 +858,13 @@ class SGD:
 
         The chaos knob (PADDLE_TPU_CHAOS, site ``step``) is honored at
         the top of every batch. The elastic supervisor contract
-        (PADDLE_ELASTIC_DIR) needs the gang supervisor (ROADMAP A10) and
+        (PADDLE_ELASTIC_DIR) needs the gang supervisor (ROADMAP A10b) and
         raises ``NotImplementedError``."""
         if os.environ.get("PADDLE_ELASTIC_DIR"):
             raise NotImplementedError(
                 "PADDLE_ELASTIC_DIR is set: the elastic supervisor "
                 "contract (runtime/supervisor.py heartbeats and fencing) "
-                "is not ported yet — ROADMAP A10")
+                "is not ported yet — ROADMAP A10b")
         event_handler = event_handler or (lambda e: None)
         feeder = self._feeder(feeding)
         from paddle_tpu_torch.pipeline import Pipeline
@@ -700,7 +929,8 @@ class SGD:
                 logger.info("resumed from %s (step %d)", latest, self._step)
                 self._acct.add("restore",
                                time.perf_counter() - t_restore0)
-            ckpt = ckpt_io.AsyncCheckpointer(checkpoint_dir)
+            ckpt = ckpt_io.AsyncCheckpointer(checkpoint_dir,
+                                             **self._ckpt_processes())
         # the run's writer stays readable after it closes (write_seconds)
         self.last_checkpointer = ckpt
         recorder = observe.default_flight_recorder()
@@ -723,11 +953,52 @@ class SGD:
             if ckpt is not None:
                 ckpt.close()
 
+    def _ckpt_processes(self) -> dict:
+        """Each rank of a parallel trainer writes its own shards (the
+        ``@@i`` layout, one file set per process)."""
+        if self.parallel is None:
+            return {}
+        from paddle_tpu_torch import distributed
+        return {"process_index": distributed.process_index(),
+                "process_count": distributed.process_count()}
+
+    def _zero_meta(self):
+        """The opt-state layout this trainer runs under, for checkpoint
+        manifests (None for local / zero=0 training)."""
+        par = self.parallel
+        if par is None or par.zero_stage < 1:
+            return None
+        return {"zero_stage": int(par.zero_stage), "axis": par.batch_axis,
+                "axis_size": par.zero_axis_size()}
+
+    def _ckpt_meta(self):
+        z = self._zero_meta()
+        return {"zero": z} if z is not None else None
+
     def _restore(self, ckpt_io, path):
         """Adopt the checkpoint at ``path``: the step counter, the
         parameters (copied into the existing tensors, in place), the
         optimizer state and the model state, on this trainer's device in
-        its dtypes."""
+        its dtypes. Under ``parallel=`` the checkpoint's shards merge
+        into whole arrays at load, which this trainer's layouts then
+        shard again: a restore onto another mesh size or zero stage IS
+        the reshard."""
+        if self.parallel is not None:
+            from paddle_tpu_torch.parallel import spmd
+            saved = (ckpt_io.checkpoint_meta(path) or {}).get("zero")
+            if saved != self._zero_meta():
+                logger.info("checkpoint opt-state layout %s -> restoring "
+                            "into %s (resharding)", saved,
+                            self._zero_meta())
+            step, values, opt_state, state = ckpt_io.load_checkpoint(
+                path, spmd.full_tree(self.parameters.values),
+                spmd.full_tree(self.opt_state), self.parameters.state)
+            values = {k: values[k] for k in self.parameters.values}
+            self.parameters.values = self.parallel.shard_params(values)
+            self.opt_state = spmd.shard_state(self.parallel, opt_state)
+            self._step = int(step)
+            self.parameters.state = state
+            return
         step, values, opt_state, state = ckpt_io.load_checkpoint(
             path, self.parameters.values, self.opt_state,
             self.parameters.state)
@@ -750,7 +1021,7 @@ class SGD:
         state_s = time.perf_counter() - save_t0
         parts = ckpt.save(self._step, self.parameters.values,
                           self.opt_state, self.parameters.state,
-                          pipeline_state=state)
+                          pipeline_state=state, meta=self._ckpt_meta())
         parts["state_dict_s"] = state_s
         acct.add("checkpoint_save", time.perf_counter() - save_t0)
 
@@ -935,4 +1206,13 @@ class SGD:
                                  cost=total / max(n, 1))
 
     def save_parameter_to_tar(self, f):
-        self.parameters.to_tar(f)
+        if self.parallel is None:
+            self.parameters.to_tar(f)
+            return
+        from paddle_tpu_torch.parallel import spmd
+        stored = self.parameters.values
+        self.parameters.values = {k: spmd.full(stored[k]) for k in stored}
+        try:
+            self.parameters.to_tar(f)
+        finally:
+            self.parameters.values = stored

@@ -204,11 +204,32 @@ class TestMultiProcessLayout:
         np.testing.assert_array_equal(np.asarray(p["w"]), np.arange(6.0))
 
     def test_sharded_tensor_waits_for_a10(self, tmp_path):
+        """Ported (the name is kept): an array exposing its addressable
+        shards is written as ``@@i`` shard entries with their index
+        metadata, replicas once, and both packages reassemble it; a
+        plain tensor under sharded=True is written whole."""
+        from paddle_tpu.io import checkpoint as jck
+        full = np.arange(16.0, dtype=np.float32).reshape(4, 4)
+
+        class Shard:
+            def __init__(self, rows):
+                self.index = (rows, slice(0, 4))
+                self.data = torch.from_numpy(full[rows].copy())
+
         class Sharded:
-            addressable_shards = []
-        with pytest.raises(NotImplementedError, match="A10"):
-            ck.save_checkpoint(str(tmp_path), 1, {"w": Sharded()},
-                               sharded=True)
+            shape = full.shape
+            is_fully_addressable = True
+            addressable_shards = [Shard(slice(0, 2)), Shard(slice(0, 2)),
+                                  Shard(slice(2, 4))]
+
+        path = ck.save_checkpoint(str(tmp_path), 1, {"w": Sharded()},
+                                  sharded=True)
+        names = sorted(np.load(os.path.join(path, "params.npz")).files)
+        assert names == ["w@@0", "w@@1"]
+        _, p, _, _ = ck.load_checkpoint(path, {"w": torch.zeros(4, 4)})
+        np.testing.assert_array_equal(p["w"].numpy(), full)
+        _, jp, _, _ = jck.load_checkpoint(path, {"w": jnp.zeros((4, 4))})
+        np.testing.assert_array_equal(np.asarray(jp["w"]), full)
         # a plain tensor under sharded=True is written whole
         path = ck.save_checkpoint(str(tmp_path), 2, {"w": torch.ones(3)},
                                   sharded=True)

@@ -2364,3 +2364,139 @@ def test_gpu_moe_engine_matches_cpu_engine(cuda):
         assert ids["cpu"] == ids[str(cuda)]
     finally:
         restore()
+
+
+# ---------------------------------------------------------------------------
+# the multi-rank tier on one card (ROADMAP A10a)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_ring_schedule_matches_plain_schedule(cuda, dtype):
+    """The flash ring's schedule over 4 virtual ranks on kernels 5/6
+    against the same schedule on their plain versions and against the
+    whole-sequence kernels (GQA, causal, T_local 64): fp32 within 1e-4,
+    bf16 within 8e-3 (out) and 1e-2 (gradients) of max, lse 1e-4."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.parallel import ring
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, T, H, Hkv, D = 2, 256, 4, 2, 64
+    q, do = (torch.randn(B, T, H, D, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, T, Hkv, D, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kernels.reset_launches()
+    got = ring.ring_flash_schedule(q, k, v, 4, causal=True, do=do)
+    counts = kernels.launch_counts()
+    name = "" if dtype == torch.bfloat16 else ".fp32"
+    assert counts[f"flash_attention_fwd{name}"] == 16
+    assert counts[f"flash_attention_bwd{name}"] == 16
+    plain = ring.ring_flash_schedule(q, k, v, 4, causal=True, do=do,
+                                     engine="plain")
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (8e-3, 1e-2)
+    for i, (a, b) in enumerate(zip(got, plain)):
+        t = tol[0] if i < 2 else tol[1]
+        if i == 1:
+            assert (a - b).abs().max().item() <= 1e-4
+            continue
+        err = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert err.item() <= t, (i, err.item())
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    whole = kattention.flash_attention(qq, kk, vv, causal=True)
+    gw = torch.autograd.grad(whole, (qq, kk, vv), do)
+    for a, b, t in zip((got[0],) + got[2:], (whole,) + gw,
+                       (tol[0],) + (tol[1],) * 3):
+        err = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert err.item() <= t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_masked_block_lse_is_exactly_zero(cuda, dtype):
+    """A block wholly in the future is fed lse = +1e30: kernel 6 gives
+    exactly zero dq, dk, dv, never NaN, even where the block's scores
+    are far above the true logsumexp (which would overflow exp)."""
+    from paddle_tpu_torch.parallel import ring
+    g = torch.Generator(device=cuda).manual_seed(4)
+    BH, T, D = 4, 128, 64
+    q = (torch.ones(BH, T, D, device=cuda) * 3).to(dtype)
+    k = (torch.ones(BH, T, D, device=cuda) * 3).to(dtype)
+    v, out, do = (torch.randn(BH, T, D, generator=g, device=cuda).to(dtype)
+                  for _ in range(3))
+    lse = torch.zeros(BH, T, device=cuda)
+    dq, dk, dv = kattention.flash_attention_bwd(
+        q, k, v, out, ring.masked_lse(lse, 2, 1, True), do, sm_scale=1.0,
+        causal=False)
+    for x in (dq, dk, dv):
+        assert torch.isfinite(x).all()
+        assert (x == 0).all()
+    # the same block against the lse that excludes it overflows: what
+    # zeroing the kernel's output afterwards would have turned into NaN
+    dq2, _, _ = kattention.flash_attention_bwd(q, k, v, out, lse, do,
+                                              sm_scale=1.0, causal=False)
+    assert not torch.isfinite(dq2).all()
+
+
+@pytest.mark.gpu
+def test_gpu_distributed_init_nccl_world_one(cuda):
+    """``distributed.init`` from the env contract at world 1: NCCL on
+    the card (no PADDLE_PLATFORM), a mesh over the one rank, an NCCL
+    all-reduce on cuda:0, the port's collectives over axes of one rank
+    skipped (nothing recorded), a data-parallel trainer step equal to
+    the unsharded one."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.parallel import spmd
+    from paddle_tpu_torch.runtime import launch
+    env = {"PADDLE_COORDINATOR": f"127.0.0.1:{launch.free_port()}",
+           "PADDLE_NUM_PROCESSES": "1", "PADDLE_PROCESS_ID": "0"}
+    old = {k: os.environ.get(k) for k in (*env, "PADDLE_PLATFORM")}
+    os.environ.update(env)
+    os.environ.pop("PADDLE_PLATFORM", None)
+    try:
+        distributed.init()
+        assert distributed.backend() == "nccl"
+        mesh = place.make_mesh((1, 1), ("data", "model"))
+        import torch.distributed as tdist
+        x = torch.full((3,), 2.0, device=cuda)
+        tdist.all_reduce(x, group=mesh.get_group("data"))
+        assert x.device == cuda and x.tolist() == [2.0, 2.0, 2.0]
+        with spmd.record_collectives() as rec:
+            assert spmd.all_reduce(x, mesh, ("data", "model")) is x
+        assert rec == []
+        assert distributed.barrier("gpu") >= 0.0
+
+        def net():
+            L, A = T.layer, T.activation
+            xi = L.data("x", T.data_type.dense_vector(8))
+            lbl = L.data("lbl", T.data_type.integer_value(3))
+            h = L.fc(xi, 16, act=A.Relu(), name="h")
+            o = L.fc(h, 3, act=A.Softmax(), name="o")
+            return L.classification_cost(o, lbl, name="cost")
+        rng = np.random.RandomState(0)
+        rows = [(rng.randn(8).astype(np.float32), int(rng.randint(3)))
+                for _ in range(32)]
+        costs = {}
+        for label, par in (("none", None),
+                           ("zero3", spmd.data_parallel(mesh, zero=3))):
+            cost = net()
+            p = T.parameters.create(cost, device=cuda)
+            torch.manual_seed(0)
+            for k2 in sorted(p.values):
+                p.values[k2].copy_(torch.randn_like(p.values[k2]) * 0.1)
+            tr = T.trainer.SGD(cost, p, T.optimizer.Adam(learning_rate=0.01),
+                               parallel=par)
+            out = []
+            tr.train(T.batch(lambda: iter(rows), 16), num_passes=2,
+                     event_handler=lambda e: out.append(e.cost) if
+                     isinstance(e, T.event.EndIteration) else None)
+            costs[label] = out
+        assert costs["none"] == costs["zero3"]
+    finally:
+        distributed.shutdown()
+        for k2, v2 in old.items():
+            if v2 is None:
+                os.environ.pop(k2, None)
+            else:
+                os.environ[k2] = v2

@@ -417,9 +417,8 @@ def test_lazy_names_and_pending_items():
     assert "paddle_tpu_torch.layer" in sys.modules
     assert T.infer is T.inference.infer
     assert "layer" in dir(T)
-    assert T._PENDING == {"distributed": "A10"}
-    with pytest.raises(AttributeError, match="A10"):
-        T.distributed
+    assert T._PENDING == {}
+    assert T.distributed.__name__ == "paddle_tpu_torch.distributed"
     for name in ("dataset", "image", "plot", "version"):
         assert getattr(T, name).__name__ == f"paddle_tpu_torch.{name}"
         assert name in dir(T)

@@ -7,8 +7,8 @@ gradients) within 1e-4 of max(1, max|JAX value|), the JAX package's
 parameters carried across (``tests/torch_layers_util.py``); the train
 steps of ``tests/test_models.py`` through both trainers; and the
 single-card cases of ``tests/test_seq2seq.py`` and ``tests/test_ctr.py``.
-``test_ctr.py::test_sharded_matches_single_device`` waits for ROADMAP A10
-(``ctr_dist_rules`` raises until then).
+``test_ctr.py::test_sharded_matches_single_device`` runs on gloo ranks
+in ``tests/test_torch_spmd.py``.
 """
 
 import numpy as np
@@ -407,5 +407,12 @@ class TestCtrWideDeep:
         np.testing.assert_array_equal(emb_g[unseen], 0.0)
 
     def test_dist_rules_raise_a10(self):
-        with pytest.raises(NotImplementedError, match="A10"):
-            T.models.ctr.ctr_dist_rules()
+        """Ported (the name is kept): the port's rules are the JAX
+        package's, pattern for pattern and spec for spec (the sharded
+        training is ``tests/test_torch_spmd.py::
+        test_ctr_sharded_matches_single_device``)."""
+        import paddle_tpu as J
+        got = T.models.ctr.ctr_dist_rules("ctr")
+        want = J.models.ctr.ctr_dist_rules("ctr")
+        assert [(p, tuple(s)) for p, s in got] == \
+            [(p, tuple(s)) for p, s in want]

@@ -5,9 +5,9 @@ and the MoE transformer against ``paddle_tpu``'s on the CPU.
   ``tests/test_moe_pipeline.py``'s ``TestMoE`` and ``TestTopKMoE``, each
   held against the JAX function on the same numpy draws (outputs, aux
   and gradients within 1e-5 of max(1, max|JAX value|)); the mesh paths
-  raise naming ROADMAP A10.
+  run on gloo ranks in ``tests/test_torch_parallel_pipeline.py``.
 - The transformer with experts: ``tests/test_ring_transformer.py``'s
-  ``TestMoETransformer`` cases (the sharded train step is A10), the loss
+  ``TestMoETransformer`` cases (less the sharded train step), the loss
   and every gradient against JAX's (1e-4), and every serving step with
   experts (lockstep and slot decode, paged decode, verify, chunk and
   slot prefill) against JAX's (logits and pools within 1e-4). The JAX
@@ -160,15 +160,29 @@ class TestMoE:
         assert hist[-1] < hist[0] * 0.8
 
     def test_mesh_paths_raise_a10(self):
+        """Ported (the name is kept): the experts' layout is the JAX
+        package's, a mesh without an ``expert`` axis leaves ``moe_ffn``
+        dense (the JAX constraints are no-ops there), and the
+        all-to-all form refuses such a mesh as the JAX one does. The
+        sharded paths run on gloo ranks in
+        ``tests/test_torch_parallel_pipeline.py``."""
+        class NoExpertMesh:
+            mesh_dim_names = ("data",)
+            shape = (1,)
+
         jcfg, tcfg = _cfg_pair(**self.CFG)
         _, tp = _params(jcfg, 0)
-        x = torch.zeros(8, 8)
-        with pytest.raises(NotImplementedError, match="A10"):
-            tmoe.moe_ffn(tp, x, tcfg, mesh=object())
-        with pytest.raises(NotImplementedError, match="A10"):
-            tmoe.param_shardings(tcfg, object())
-        with pytest.raises(NotImplementedError, match="A10"):
-            tmoe.moe_ffn_a2a(tp, x, tcfg, object())
+        x = torch.from_numpy(np.random.RandomState(0).randn(8, 8)
+                             .astype(np.float32))
+        got = tmoe.moe_ffn(tp, x, tcfg, mesh=NoExpertMesh())
+        want = tmoe.moe_ffn(tp, x, tcfg)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        lays = tmoe.param_shardings(tcfg, NoExpertMesh())
+        assert {k: tuple(v.spec) for k, v in lays.items()} == {
+            "gate": (), "w_in": ("expert", None, None),
+            "w_out": ("expert", None, None)}
+        with pytest.raises(ValueError, match="expert"):
+            tmoe.moe_ffn_a2a(tp, x, tcfg, NoExpertMesh())
 
     def test_init_params_shapes_and_scales(self):
         """JAX's shapes, fp32, normal draws at JAX's scales (each
@@ -237,7 +251,8 @@ class TestTopKMoE:
 
     def test_top2_utilization_balances_under_training(self, rng):
         """The reference's case without its mesh (its sharded form is
-        racy under load, ROADMAP C5, and the mesh is A10): 60 steps of
+        racy under load, ROADMAP C5; the port's sharded run is in
+        ``tests/test_torch_parallel_pipeline.py``): 60 steps of
         top-2 training with aux weight 0.5 in both packages; no expert
         below half its fair share of first choices in either."""
         jcfg, tcfg = _cfg_pair(d_model=8, d_ff=16, num_experts=4,

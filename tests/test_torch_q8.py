@@ -1,8 +1,9 @@
 """The port's q8 training pipeline (``paddle_tpu_torch/ops/q8.py`` and the
 ``q8_entry`` / ``img_conv_bn_q8`` / ``addto_q8`` / ``q8_exit`` layers)
 against ``paddle_tpu``'s on the CPU: the counterparts of
-``tests/test_q8.py``'s cases (less ``test_dp_sharding_invariance``, a
-mesh case: ROADMAP A10), each held against the JAX function on the same
+``tests/test_q8.py``'s cases (``test_dp_sharding_invariance``, a mesh
+case, is ``tests/test_torch_spmd.py::test_q8_dp_sharding_invariance``),
+each held against the JAX function on the same
 numpy inputs, and the blocks one by one.
 
 Tolerances: block outputs and gradients within 1e-5 of max(1, max|JAX

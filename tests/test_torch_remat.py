@@ -1,7 +1,8 @@
 """The transformer's layer remat (``cfg.remat`` "bf16" / "q8",
 ``paddle_tpu_torch/ops/q8.q8_remat``) against ``paddle_tpu``'s on the
 CPU: the counterparts of ``tests/test_ring_transformer.py``'s
-``TestLayerRemat`` (less the ring-attention case, ROADMAP A10) and of
+``TestLayerRemat`` (less the ring-attention case, which is
+``tests/test_torch_ring.py::test_remat_composes_with_ring_flash``) and of
 ``test_moe_composes_with_layer_remat``.
 
 Tolerances: the remat forward is the plain forward bitwise (the stash

@@ -9,7 +9,8 @@ value|); fp32 compute on both sides, as ``tests/conftest.py`` sets it),
 evaluator results equal; the microbatched step (``grad_accum_steps``)
 against JAX's and against the port's plain step; the ragged tail, the
 one-batch lookahead, the events, ``test``, ``save_parameter_to_tar``
-loaded by the JAX package, and the paths that raise until ROADMAP A10.
+loaded by the JAX package, the path that raises until ROADMAP A10b and
+the ``parallel=`` path that no longer does.
 ``test_checkpoint_roundtrip`` and the checkpoint and pipeline paths are
 in ``tests/test_torch_trainer_resume.py``.
 """
@@ -306,11 +307,22 @@ class TestPendingPaths:
         return _pair(TestGradAccum()._plain_net)[1]
 
     def test_parallel_raises_a9(self):
-        """The parallel tier's multi-rank half is ROADMAP A10 now."""
-        _, cost = TestGradAccum()._plain_net(T)
-        p = T.parameters.create(cost, device="cpu")
-        with pytest.raises(NotImplementedError, match="A10"):
-            T.trainer.SGD(cost, p, T.optimizer.SGD(), parallel=object())
+        """Ported (the name is kept): ``parallel=`` trains over a mesh of
+        gloo ranks; data parallelism over 4 ranks follows the port's
+        single-device trajectory (the parity with the JAX package is
+        ``tests/test_torch_spmd.py``)."""
+        from tests import torch_dist_cases as cases
+        from tests.torch_dist_util import pool
+        jp = J.parameters.create(cases.mlp(J), JKeySource(11))
+        rng = np.random.RandomState(0)
+        x = rng.randn(32, 8).astype(np.float32)
+        y = rng.randint(3, size=32).astype(np.int64)
+        inp = {"x": x, "y": y,
+               **{f"p/{k}": np.asarray(v) for k, v in jp.values.items()}}
+        single, dp = (pool().run("case_train", inputs=inp, net="mlp",
+                                 mesh_shape=shape)[0]["costs"]
+                      for shape in (None, (4,)))
+        np.testing.assert_allclose(dp, single, rtol=1e-5)
 
     def test_checkpoint_dir_raises_a8(self, tmp_path):
         """Ported: an empty pass with a checkpoint dir writes the pass's
@@ -329,9 +341,9 @@ class TestPendingPaths:
         assert events == ["BeginPass", "EndPass"]
 
     def test_elastic_contract_raises_a9(self, monkeypatch, tmp_path):
-        """The elastic supervisor contract is ROADMAP A10 now."""
+        """The elastic supervisor contract is ROADMAP A10b now."""
         monkeypatch.setenv("PADDLE_ELASTIC_DIR", str(tmp_path))
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="A10b"):
             self._trainer().train(lambda: iter([]))
 
 

@@ -115,12 +115,15 @@ def test_dtype_names_round_trip():
 
 
 def test_config_rejects_unported_fields():
-    """Ring attention still raises (ROADMAP A10); experts and remat are
-    ported: their configs build, and the forward and loss match JAX's
-    (the full parity cases are ``tests/test_torch_moe.py`` and
-    ``tests/test_torch_remat.py``)."""
-    with pytest.raises(NotImplementedError, match="A10"):
-        tt.TransformerConfig(vocab=8, use_ring_attention=True)
+    """Every field is ported: ring attention's config builds with its
+    ``cp_mode`` validated as the JAX package's (the mesh parity cases
+    are ``tests/test_torch_ring.py``); experts and remat build, and the
+    forward and loss match JAX's (the full parity cases are
+    ``tests/test_torch_moe.py`` and ``tests/test_torch_remat.py``)."""
+    c = tt.TransformerConfig(vocab=8, use_ring_attention=True)
+    assert c.use_ring_attention and c.cp_mode == "ring"
+    with pytest.raises(ValueError, match="cp_mode"):
+        tt.TransformerConfig(vocab=8, cp_mode="ulysses")
     with pytest.raises(ValueError, match="remat"):
         tt.TransformerConfig(vocab=8, remat="fp8")
     toks = np.random.RandomState(0).randint(0, 64, (2, 8)).astype(np.int32)
