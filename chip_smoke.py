@@ -13,12 +13,15 @@ order it:
    with nvcc (one process per source, in parallel) and prints the build
    time;
 3. prints the ``-Xptxas -v`` registers and spills of the paged
-   attention kernels, the sampler and the span write (``ptxas:`` line),
+   attention kernels, the attention backward, the sampler and the span
+   write (``ptxas:`` line),
    then holds each kernel, the int8
    and int4 branches of kernels 1, 3 and 4, the fp32-query branches of
    kernels 1 and 3, and both branches of kernels 5 and 6 (bf16 on the
-   tensor cores, fp32 on the CUDA cores) against its plain PyTorch
-   version on the card, at its slice's shapes and at one GQA shape, and
+   tensor cores; fp32 on the tensor cores with three-term operands,
+   but for kernel 5's fp32 branch, on the CUDA cores) against its plain
+   PyTorch version on the card, at its slice's shapes and at one GQA
+   shape, and
    times kernel, plain version and a PyTorch library call that computes
    the same function (a yardstick only: the port never calls it; SDPA
    over gathered, dequantized K/V for a quantized pool), beside the
@@ -33,6 +36,9 @@ order it:
    {64, 1000, 50257} (``check sample:`` line); the span write is held
    byte for byte; decode is also checked at G=8, Dh=128 over 16384
    positions and, per slot, alone against its batch of 8 (bitwise);
+   fp32-query prefill over 65 536 context positions and over an int8
+   pool, and kernel 6's fp32 branch on a block fed lse = +1e30 (the
+   flash ring's masked block: exactly 0);
    kernels 1, 3, 5 and 6 are launched twice on the same inputs, which
    must give bitwise the same outputs; kernels 5 and 6 are timed at the
    training slice's shape in both dtypes and at the GQA D=128 shape in
@@ -297,8 +303,12 @@ from pathlib import Path
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rates
-              "float32": 67e12}    # fp32 outside the tensor cores
+# dense tensor-core rates. fp32: an fp32-accurate product runs on the
+# bf16 tensor cores as six passes over operands split into three bf16
+# terms (csrc/flash_tc.cuh), so the least time the card needs for fp32
+# work is its FLOPs at 989 / 6 TFLOP/s, not at the CUDA cores' 67
+PEAK_FLOPS = {"bfloat16": 989e12,
+              "float32": 989e12 / 6}
 REPEATS = 30
 L2_FLUSH_BYTES = 64 << 20          # > the 50 MB L2: every launch cold
 
@@ -465,12 +475,11 @@ def prefill_entry(torch, kp, build, q, kck, vck, k, v, pages, kw):
     P_ctx, M = pages.shape[0], k.shape[1]
     rows, smem = kp.prefill_layout(C, G, Dh, P_ctx * bs, q.dtype,
                                    kv if P_ctx else "none")
-    n_out, part, counters = C * Hkv * G * Dh, 0, None
-    if q.dtype == torch.bfloat16:
-        row_tiles, _, part = kp.prefill_tc_splits(C, G, Dh, P_ctx * bs)
-        part *= Hkv
-        counters = kp.arrival_counters(q.device, build.stream(q.device),
-                                       Hkv * row_tiles)
+    n_out = C * Hkv * G * Dh
+    row_tiles, _, part = kp.prefill_tc_splits(C, G, Dh, P_ctx * bs)
+    part *= Hkv
+    counters = kp.arrival_counters(q.device, build.stream(q.device),
+                                   Hkv * row_tiles)
     buf = torch.empty(n_out + part, dtype=torch.float32, device=q.device)
     out = buf[:n_out].view(C, Hkv, G, Dh)
     ptr = build.ptr
@@ -602,6 +611,25 @@ def decode_long(torch, kd, q8, dev, kvd):
     pos = torch.tensor([P * bs - 1, 9000], dtype=torch.int32, device=dev)
     got = kd.flash_decode_attention(q, k, v, pages, pos, **kw)
     want = kd.flash_decode_attention_plain(q, k, v, pages, pos, **kw)
+    torch.cuda.synchronize()
+    return (got - want).abs().max().item()
+
+
+def prefill_long(torch, kp, dev):
+    """Max abs error of chunk prefill with fp32 queries over an fp32
+    pool at the slice's widths (C=256, Hkv=12, G=1, Dh=64) over
+    S=65536 context positions (4096 pages of 16), against the plain
+    version: the kernel keeps no score row, so its shared memory does
+    not grow with S."""
+    rng = np.random.RandomState(5)
+    C, Hkv, G, Dh, P, bs = 256, 12, 1, 64, 4096, 16
+    q = torch.randn(C, Hkv, G, Dh, device=dev)
+    kck, vck = (torch.randn(C, Hkv, Dh, device=dev) for _ in range(2))
+    k, v = (torch.randn(Hkv, P * bs, Dh, device=dev) for _ in range(2))
+    pages = torch.from_numpy(rng.permutation(P).astype(np.int32)).to(dev)
+    args = (q, kck, vck, k, v, pages)
+    got = kp.flash_chunk_prefill(*args, block_size=bs)
+    want = kp.flash_chunk_prefill_plain(*args, block_size=bs)
     torch.cuda.synchronize()
     return (got - want).abs().max().item()
 
@@ -893,6 +921,22 @@ def check_flash(torch, timer, ka, build, dev, B, T, H, Hkv, D, dtype,
         ulps = {"fwd": ka.bf16_ulps(out, want_out),
                 "bwd": max(ka.bf16_ulps(a, b)
                            for a, b in zip(grads, want))}
+    else:
+        # kernel and plain version against the plain version in float64:
+        # which of the two fp32 results strays from the exact one
+        f64 = [t.double() for t in (q, k, v, out, lse, do)]
+        exact = {"fwd": ka.flash_attention_fwd_plain(*f64[:3], **kw)[:1],
+                 "bwd": ka.flash_attention_bwd_plain(*f64, **kw)}
+        got = {"fwd": (out,), "bwd": grads}
+        plain = {"fwd": (want_out,), "bwd": want}
+
+        def err64(xs, ys):
+            return max((x.double() - y).abs().max().item()
+                       for x, y in zip(xs, ys))
+        for part in ("fwd", "bwd"):
+            errs[part + "_f64"] = (err64(got[part], exact[part]),
+                                   err64(plain[part], exact[part]))
+        del f64, exact
     if not timed:
         return errs, ulps, repeat, None
     e = q.element_size()
@@ -929,6 +973,14 @@ def check_flash(torch, timer, ka, build, dev, B, T, H, Hkv, D, dtype,
                               ("bwd", lib.pk_flash_attn_bwd, bwd_args)):
         build.check(entry(*args, *flags), f"flash_attention_{name}")
         times[name]["entry_ms"] = timer.ms(lambda: entry(*args, *flags))
+    if dtype == torch.float32:
+        # the backward's two kernels on the device, each from the profiler
+        def bwd_entry():
+            return lib.pk_flash_attn_bwd(*bwd_args, *flags)
+        parts = [timer.device_ms(bwd_entry, k)[0] for k in ("dkdv", "bwd_dq")]
+        times["bwd"]["dkdv_device_ms"], times["bwd"]["dq_device_ms"] = parts
+        times["bwd"]["device_ms"] = (None if None in parts
+                                     else parts[0] + parts[1])
     dname = str(dtype).replace("torch.", "")
     # forward: q, k, v read, out written, lse written; q.k and p.v
     times["fwd"]["bound_ms"], times["fwd"]["bound_by"] = bound(
@@ -940,6 +992,22 @@ def check_flash(torch, timer, ka, build, dev, B, T, H, Hkv, D, dtype,
     return errs, ulps, repeat, times
 
 
+def masked_block_fp32(torch, ka, dev) -> bool:
+    """Kernel 6's fp32 branch through ``flash_block_bwd`` on a block
+    wholly in the future as the flash ring feeds it (``ring.masked_lse``:
+    lse = +1e30) at the ring's block shape ([24, 1024, 64], non-causal):
+    dq, dk and dv exactly 0, on the card and in the plain version."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    q, k, v, out, do = (torch.randn(24, 1024, 64, generator=g, device=dev)
+                        for _ in range(5))
+    lse = torch.full((24, 1024), 1e30, device=dev)
+    card = ka.flash_block_bwd(q, k, v, out, lse, do, 0.125, False)
+    plain = ka.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         sm_scale=0.125, causal=False)
+    torch.cuda.synchronize()
+    return all(bool((t == 0).all()) for t in card + plain)
+
+
 FLASH_FP32_TOL = 1e-4        # fp32 out, lse and grads: sums in another order
 FLASH_BF16_ULPS = 2          # bf16 out and grads: one rounding each side
 FLASH_LSE_TOL = 1e-4         # lse is fp32 for either input type
@@ -948,10 +1016,13 @@ FLASH_LSE_TOL = 1e-4         # lse is fp32 for either input type
 def flash_phase(torch, ka, build):
     """Kernels 5 and 6, both branches. bf16 (tensor cores): the training
     slice's shape (B=8, T=1024, H=12, D=64, causal) and a GQA wide-head
-    shape (H=32, Hkv=8, D=128, T=2048, causal), both timed. fp32 (CUDA
-    cores): the slice's shape, timed, and an uneven non-causal shape
-    (B=2, T=1000, H=12, D=64). Every shape also checks that a second
-    launch on the same inputs is bitwise equal. Tolerances: fp32 out,
+    shape (H=32, Hkv=8, D=128, T=2048, causal), both timed. fp32 (the
+    forward on the CUDA cores, the backward on the tensor cores with
+    three-term operands): the slice's shape, timed, and an uneven
+    non-causal shape (B=2, T=1000, H=12, D=64); the fp32 backward also
+    on a block fed lse = +1e30 (``masked_block_fp32``: exactly 0). Every
+    shape also checks that a second launch on the same inputs is
+    bitwise equal. Tolerances: fp32 out,
     lse and gradients within 1e-4 absolute (fp32 sums in another order);
     bf16 out and gradients within 2 bf16 ulps (both versions accumulate
     in fp32 and round once, so a sum near a rounding boundary may round
@@ -967,6 +1038,12 @@ def flash_phase(torch, ka, build):
         torch, timer, ka, build, dev, 8, 1024, 12, 12, 64, f32, True, True)
     odd_err, _, odd_rep, _ = check_flash(torch, timer, ka, build, dev, 2,
                                          1000, 12, 12, 64, f32, False, False)
+    masked_zero = masked_block_fp32(torch, ka, dev)
+    print(f"check flash_attention_bwd.fp32: lse=+1e30 block gradients "
+          f"exactly 0 on the card and in the plain version={masked_zero}")
+    if not masked_zero:
+        fail("flash_attention_bwd.fp32: a block fed lse = +1e30 gave "
+             "nonzero gradients")
     rows = {}
     for part in ("fwd", "bwd"):
         name = f"flash_attention_{part}"
@@ -979,7 +1056,11 @@ def flash_phase(torch, ka, build):
             "bitwise_repeat": sl_rep and gqa_rep}, sl_times[part])
         f32_row = (max(f32_err[part]), {
             "uneven_max_abs_err": max(odd_err[part]),
-            "bitwise_repeat": f32_rep and odd_rep}, f32_times[part])
+            "f64_max_abs_err": f32_err[part + "_f64"][0],
+            "plain_f64_max_abs_err": f32_err[part + "_f64"][1],
+            "bitwise_repeat": f32_rep and odd_rep,
+            **({"masked_block_zero": masked_zero} if part == "bwd"
+               else {})}, f32_times[part])
         lse_ok = part == "bwd" or max(sl_err[part][1], gqa_err[part][1],
                                       f32_err[part][1],
                                       odd_err[part][1]) <= FLASH_LSE_TOL
@@ -1008,8 +1089,9 @@ def kernel_phase(torch, kd, kp, q8, build):
     and int4 pools for kernels 1, 3 and 4) and at a GQA shape (G=4,
     Dh=128), with its tolerance; timed at the slice's shapes. Decode
     and prefill also run with fp32 queries over an fp32 pool (rows 1f
-    and 3f: the fp32 instantiation of the decode kernel, the CUDA-core
-    prefill kernel), and each decode branch at G=8, Dh=128 over 16384
+    and 3f: the fp32 instantiations of the decode and the tensor-core
+    prefill kernels), the prefill also over an int8 pool and over 65536
+    context positions, and each decode branch at G=8, Dh=128 over 16384
     positions and, at the slice, alone against its batch (bitwise). The
     sampler has no head layout, so it has no GQA shape."""
     dev = torch.device("cuda:0")
@@ -1073,8 +1155,17 @@ def kernel_phase(torch, kd, kp, q8, build):
                            0, False, dt=f32)
     e3g, _ = check_prefill(torch, timer, kp, q8, build, dev, rng, 4, 4, 128,
                            32, False, dt=f32)
-    rows["flash_chunk_prefill.fp32"] = (max(e3, e3c), e3g, 1e-4, t3,
-                                        {"bitwise_repeat": True})
+    e3q, _ = check_prefill(torch, timer, kp, q8, build, dev, rng, 12, 1, 64,
+                           32, False, "int8", dt=f32)
+    e3l = prefill_long(torch, kp, dev)
+    print(f"check prefill.fp32: int8 pool max_abs_err={e3q!r}, S=65536 "
+          f"max_abs_err={e3l!r} tol=1e-4")
+    if not (e3q <= 1e-4 and e3l <= 1e-4):
+        fail("flash_chunk_prefill.fp32: the int8 pool or the long context "
+             "disagrees with the plain version")
+    rows["flash_chunk_prefill.fp32"] = (max(e3, e3c), e3g, 1e-4, t3, {
+        "bitwise_repeat": True, "int8_max_abs_err": e3q,
+        "long_context_max_abs_err": e3l})
     for name, (err, gqa_err, tol, times, extra) in rows.items():
         shown = {("kernel_ms" if k == "ms" else k): v
                  for k, v in times.items()}
@@ -7632,18 +7723,19 @@ SOURCES = {
     # where the JAX package samples with sample_tokens and jax.random
     "fused_sample.threefry": ("fused_sample.cu",
                               "paddle_tpu/ops/pallas/decode.py:558"),
-    "flash_chunk_prefill": ("chunk_prefill.cu",
+    "flash_chunk_prefill": ("chunk_prefill.cuh",
                             "paddle_tpu/ops/pallas/prefill.py:314"),
     "paged_span_write": ("span_write.cu",
                          "paddle_tpu/ops/pallas/prefill.py:442"),
     "flash_attention_fwd": ("flash_attn_fwd.cu",
                             "paddle_tpu/ops/pallas/attention.py:351"),
-    "flash_attention_bwd": ("flash_attn_bwd.cu",
+    "flash_attention_bwd": ("flash_attn_bwd.cuh",
                             "paddle_tpu/ops/pallas/attention.py:268"),
-    # the same TPU kernels for fp32 inputs: the CUDA-core branch
+    # the same TPU kernels for fp32 inputs: the forward's CUDA-core
+    # kernel, the backward's fp32 (three-term) instantiation
     "flash_attention_fwd.fp32": ("flash_attn_fwd_f32.cu",
                                  "paddle_tpu/ops/pallas/attention.py:351"),
-    "flash_attention_bwd.fp32": ("flash_attn_bwd_f32.cu",
+    "flash_attention_bwd.fp32": ("flash_attn_bwd.cuh",
                                  "paddle_tpu/ops/pallas/attention.py:268"),
 }
 SERVING_KERNELS = ("flash_decode_attention", "fused_sample",
@@ -7655,13 +7747,12 @@ QUANT_BRANCHES = tuple(f"{k}.{kvd}" for kvd in ("int8", "int4")
 SOURCES.update({b: SOURCES[b.split(".")[0]] for b in QUANT_BRANCHES})
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 FP32_BRANCHES = tuple(f"{k}.fp32" for k in TRAINING_KERNELS)
-# fp32 queries of kernels 1 and 3: the fp32 instantiation of the decode
-# kernel and the CUDA-core prefill kernel, launched by the fp32 step
-# functions (``step_parity``) under the pool storage "none"
+# fp32 queries of kernels 1 and 3: the fp32 instantiations of the decode
+# and prefill kernels, launched by the fp32 step functions
+# (``step_parity``) under the pool storage "none"
 PAGED_FP32 = ("flash_decode_attention", "flash_chunk_prefill")
 SOURCES["flash_decode_attention.fp32"] = SOURCES["flash_decode_attention"]
-SOURCES["flash_chunk_prefill.fp32"] = (
-    "chunk_prefill_f32.cu", SOURCES["flash_chunk_prefill"][1])
+SOURCES["flash_chunk_prefill.fp32"] = SOURCES["flash_chunk_prefill"]
 # kernel 2 at a speculative verify window's rows, through the entry point
 # that reaches it there (its launches: the spec trace's)
 SOURCES["fused_spec_verify"] = ("fused_sample.cu",
@@ -7670,7 +7761,7 @@ SOURCES["fused_spec_verify"] = ("fused_sample.cu",
 # entries the ring drives (their launches: the ring schedule's)
 SOURCES["flash_attention_fwd.ring"] = ("flash_attn_fwd.cu",
                                        "paddle_tpu/ops/pallas/attention.py:330")
-SOURCES["flash_attention_bwd.ring"] = ("flash_attn_bwd.cu",
+SOURCES["flash_attention_bwd.ring"] = ("flash_attn_bwd.cuh",
                                        "paddle_tpu/ops/pallas/attention.py:341")
 
 
@@ -7718,7 +7809,10 @@ def main():
 
     print("ptxas: " + json.dumps(ptxas_summary(
         info["dir"], ("decode_attention", "chunk_prefill",
-                      "chunk_prefill_f32", "fused_sample", "span_write"))))
+                      "chunk_prefill_fp32_d32_128",
+                      "chunk_prefill_fp32_d64_96", "flash_attn_bwd",
+                      "flash_attn_bwd_fp32_inst", "fused_sample",
+                      "span_write"))))
 
     dev = torch.device("cuda:0")
     rows = {**kernel_phase(torch, kd, kp, q8, _build),
@@ -7729,7 +7823,16 @@ def main():
     if not all(fp32_steps[k] > 0 for k in PAGED_FP32):
         fail(f"the fp32 step functions launched no fp32 paged kernel: "
              f"{fp32_steps}")
+    kernels.reset_launches()            # fp32 queries over an int8 pool
     step_parity_quant(torch, tt, tlm, q8)
+    int8_steps = kernels.launch_counts()
+    print("steps launches: " + json.dumps({
+        "fp32": {k: fp32_steps[k] for k in PAGED_FP32},
+        "fp32_int8_pool": {k + ".int8": int8_steps[k + ".int8"]
+                           for k in PAGED_FP32}}))
+    if not all(int8_steps[k + ".int8"] > 0 for k in PAGED_FP32):
+        fail(f"the int8-pool fp32 step functions launched no int8 paged "
+             f"kernel: {int8_steps}")
     parity = train_parity(torch, tt, topt, kernels)
     cfg = gpt2_small(tt)
     params = tt.init_params(cfg, torch.Generator().manual_seed(0), dev)

@@ -7,7 +7,7 @@ counter: an int, or a dict with one count per branch for the wrappers
 that launch more than one kernel instantiation — the three templated on
 the KV pool's storage ({"none", "int8", "int4"}), the sampler's two
 uniform streams ({"hash", "threefry"}) and the two attention wrappers
-({"bf16": tensor-core kernels, "fp32": CUDA-core kernels}).
+({"bf16", "fp32"}: the input dtype's instantiation).
 
 The counters tick in Python, where a wrapper launches its kernel. A
 CUDA graph replay runs no Python: ``core/graphs.py`` records what one

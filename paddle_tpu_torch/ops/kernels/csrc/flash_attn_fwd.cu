@@ -149,16 +149,15 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         o[4 * j + 2 * h + 1] *= alpha[h];
       }
 
-    uint32_t ph[4][4], pl[4][4];
-    split_frags<64>(s, ph, pl);
+    uint32_t pf[2][4][4];                 // hi, lo
+    split_frags<64>(s, pf);
     pin(o);
-    pin(ph);
-    pin(pl);
+    pin(pf);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      Wgmma<DP>::rs(o, ph[kk], desc_mn<kRows>(vs, kk));
-      Wgmma<DP>::rs(o, pl[kk], desc_mn<kRows>(vs, kk));
+      Wgmma<DP>::rs(o, pf[0][kk], desc_mn<kRows>(vs, kk));
+      Wgmma<DP>::rs(o, pf[1][kk], desc_mn<kRows>(vs, kk));
     }
     wg_commit();
     wg_wait();

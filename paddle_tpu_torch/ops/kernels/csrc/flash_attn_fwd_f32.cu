@@ -13,9 +13,10 @@
 //
 // What bounds it on the H100: operations. At BH = 96, T = 1024, D = 64,
 // causal, fp32 it moves ~101 MB against ~1.3e10 FLOPs: ~30 us of bytes,
-// ~190 us at the ~67 TFLOP/s fp32 CUDA-core peak. No tensor-core path
-// computes this function to the fp32 branch's 1e-4: TF32 keeps ten
-// mantissa bits.
+// ~190 us at the ~67 TFLOP/s fp32 CUDA-core peak. One TF32 or bf16
+// rounding of the operands misses the fp32 branch's 1e-4; operands
+// split into three bf16 terms would not (flash_tc.cuh, as the fp32
+// backward and chunk prefill do), which is this kernel's redesign.
 //
 // What the design does about it: one CTA per (64-row query tile, bh);
 // the TPU kernel's sequential loop over key blocks stays a loop inside

@@ -1,6 +1,6 @@
-// Tensor-core building blocks of the bf16 attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu, chunk_prefill.cu) for Hopper
-// (sm_90a); the cp.async helpers also serve decode_attention.cu.
+// Tensor-core building blocks of the attention kernels (flash_attn_fwd.cu,
+// flash_attn_bwd.cu, chunk_prefill.cu) for Hopper (sm_90a); the
+// cp.async helpers also serve decode_attention.cu.
 //
 // A CTA is one warpgroup (128 threads); it issues wgmma.mma_async of
 // shape m64nNk16 (bf16 in, fp32 accumulate), so every tile it owns has
@@ -25,17 +25,34 @@
 // w = t / 32, lane l) holds element 4 j + 2 h + b at row 16 w + l / 4 +
 // 8 h, column 8 j + 2 (l % 4) + b. The A operand of a register-sourced
 // wgmma has the same layout per 16 columns, so a score tile becomes the
-// next product's A operand in registers (FlashAttention-3's structure);
-// p and ds are split into hi = bf16(x) and lo = bf16(x - hi) there, and
-// both halves go through the tensor cores into one fp32 accumulator.
+// next product's A operand in registers (FlashAttention-3's structure).
+//
+// Split operands: the tensor cores take bf16, so an fp32 operand x is
+// split into NT bf16 terms, x_0 = bf16(x), x_1 = bf16(x - x_0), x_2 =
+// bf16(x - x_0 - x_1) (split_terms; the subtractions are exact), and a
+// product a . b becomes the cross terms a_i . b_j with i + j <= 2 (a
+// term of order 2^-24 and below is dropped), all into one fp32
+// accumulator, the smallest first and a_0 . b_0 last (ss_split,
+// rs_split; CUTLASS's split-fp32 order). Three terms hold 24 significand
+// bits, all of fp32's, so six products give fp32-accurate results: the
+// fp32 instantiations of chunk_prefill.cu and flash_attn_bwd.cu split
+// every operand in three (XLA's six-pass Precision.HIGHEST route on the
+// TPU). The bf16 kernels take their bf16 operands as one term and split
+// only the fp32 p and ds, in two (hi and lo), so those products keep
+// fp32 accuracy too. fp32 rows are staged into a plain raw buffer by
+// cp.async (load_raw) and split into their term tiles right after they
+// land (split_rows, which also reads fp32 rows straight from global
+// memory for the tiles a CTA loads once).
 //
 // Paged tiles (chunk_prefill.cu): load_paged_tile stages a tile whose
 // rows come through a page table, each 16-byte copy from pool row
 // pages[t / bs] * bs + t % bs; for an int8 or int4 pool,
 // load_paged_codes stages the codes and row scales through the same
-// ring and widen_tile turns them into bf16 (exact) in this layout, the
-// scales applied outside the products.
+// ring and widen_tile turns them into bf16 (exact: one term) in this
+// layout, the scales applied outside the products.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -159,6 +176,25 @@ __device__ __forceinline__ void load_paged_tile(uint32_t dst, const bf16* pool,
       T - row0, pool);
 }
 
+// Rows [0, n) of a plain [ROWS][RB] byte buffer at ``dst``, row r the RB
+// bytes at ``row(r)`` (16-byte aligned; called only for r < n); rows
+// from n on are zero-filled (the source address is then ``dummy``,
+// never read). fp32 rows (RB = 4 D) land here before split_rows splits
+// them, int8 / int4 codes before widen_tile widens them.
+template <int ROWS, int RB, typename RowFn>
+__device__ __forceinline__ void load_raw(uint32_t dst, RowFn row, int n,
+                                         const void* dummy) {
+  constexpr int kChunks = RB / 16;
+  static_assert(RB % 16 == 0, "16-byte rows");
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool full = r < n;
+    const void* g =
+        full ? reinterpret_cast<const uint8_t*>(row(r)) + 16 * c : dummy;
+    cp_async_16(dst + r * RB + 16 * c, g, full);
+  }
+}
+
 // The quantized variant's first half: logical rows [row0, row0 + ROWS)
 // of a paged code pool of RB-byte rows (int8 codes, or int4 nibble
 // pairs) into a plain [ROWS][RB] byte buffer at ``dst`` and their fp32
@@ -171,15 +207,10 @@ __device__ __forceinline__ void load_paged_codes(uint32_t dst,
                                                  const float* scales,
                                                  const int* pages, int bs,
                                                  int row0, int T) {
-  constexpr int kChunks = RB / 16;
-  static_assert(RB % 16 == 0, "16-byte rows");
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool full = row0 + r < T;
-    const int8_t* g =
-        full ? pool + paged_row(pages, bs, row0 + r) * RB + 16 * c : pool;
-    cp_async_16(dst + r * RB + 16 * c, g, full);
-  }
+  load_raw<ROWS, RB>(
+      dst,
+      [=](int r) { return pool + paged_row(pages, bs, row0 + r) * RB; },
+      T - row0, pool);
   for (int r = threadIdx.x; r < ROWS; r += kThreads) {
     const bool full = row0 + r < T;
     cp_async_4(scale_dst + 4 * r,
@@ -298,22 +329,40 @@ __device__ __forceinline__ void pin(float (&r)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-template <int K>
-__device__ __forceinline__ void pin(uint32_t (&r)[K][4]) {
+template <int NT, int K>
+__device__ __forceinline__ void pin(uint32_t (&r)[NT][K][4]) {
 #pragma unroll
-  for (int k = 0; k < K; ++k)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[k][i])::"memory");
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        asm volatile("" : "+r"(r[n][k][i])::"memory");
 }
 
 // m64nNk16 products, bf16 in, fp32 accumulate (each N only with the
-// forms the kernels use: score tiles of 64 or 32 columns, outputs of 64
-// or 128):
+// forms the kernels use: score tiles of 64, 32 or 16 columns, outputs
+// of 64 or 128):
 //   ss(d, a, b, accumulate): d = a . b (+ d when accumulate != 0), a and
 //     b from shared memory, both K-major;
 //   rs(d, a, b): d += a . b, a from registers, b MN-major (tnspB = 1).
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
 
 template <>
 struct Wgmma<32> {
@@ -414,27 +463,138 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// hi = bf16(x), lo = bf16(x - hi) of a pair (x, y); x in the low half
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+// the NT bf16 terms of a pair (x, y), x in the low halves: term n is
+// bf16 of what the terms before it leave (x_0 = bf16(x), x_1 =
+// bf16(x - x_0), ...); each subtraction is exact
+template <int NT>
+__device__ __forceinline__ void split_terms(float x, float y,
+                                            uint32_t (&t)[NT]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    t[n] = bits(h);
+    const float2 f = __bfloat1622float2(h);
+    x -= f.x;
+    y -= f.y;
+  }
 }
 
-// the A operands (hi and lo halves) of every 16-column k-step of an
+// the NT-term A operands f[term][k-step] of every 16-column k-step of an
 // m64nN fp32 accumulator
-template <int N>
+template <int N, int NT>
 __device__ __forceinline__ void split_frags(const float (&acc)[N / 2],
-                                            uint32_t (&hi)[N / 16][4],
-                                            uint32_t (&lo)[N / 16][4]) {
+                                            uint32_t (&f)[NT][N / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      split_pair(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1], hi[kk][i],
-                 lo[kk][i]);
+    for (int i = 0; i < 4; ++i) {
+      uint32_t t[NT];
+      split_terms<NT>(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1], t);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) f[n][kk][i] = t[n];
+    }
+}
+
+// Rows [0, n) of ROWS fp32 rows of D values, row r at generic address
+// ``row(r)`` (16-byte aligned: a raw buffer in shared memory, or global
+// memory; called only for r < n), split into NT bf16 terms, term t into
+// the tile at dst + t * tile_bytes(ROWS, D); rows from n on and columns
+// D..padded(D) are zero. The caller fences these generic-proxy writes
+// (fence_async_writes) before wgmma reads the tiles.
+template <int ROWS, int D, int NT, typename RowFn>
+__device__ __forceinline__ void split_rows(uint32_t dst, RowFn row, int n) {
+  constexpr int kChunks = padded(D) / 8;
+  static_assert(ROWS * kChunks % kThreads == 0, "whole passes only");
+#pragma unroll
+  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    if (r < n && c * 8 < D) {
+      const float4* src = reinterpret_cast<const float4*>(row(r) + 8 * c);
+      a = src[0];
+      b = src[1];
+    }
+    uint32_t w[4][NT];
+    split_terms<NT>(a.x, a.y, w[0]);
+    split_terms<NT>(a.z, a.w, w[1]);
+    split_terms<NT>(b.x, b.y, w[2]);
+    split_terms<NT>(b.z, b.w, w[3]);
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+      st_shared_v4(dst + t * tile_bytes(ROWS, D) + chunk_offset<ROWS>(r, c),
+                   w[0][t], w[1][t], w[2][t], w[3][t]);
+  }
+}
+
+// d = a . b^T over KS k-steps as the cross terms a_i . b_j (i < NA,
+// j < NB, i + j <= 2) of split operands, both K-major in shared memory:
+// A term i is the RA-row tile at a + i * sa, B term j the RB-row tile at
+// b + j * sb; the smallest terms first, a_0 . b_0 last
+template <int N, int RA, int RB, int KS, int NA, int NB>
+__device__ __forceinline__ void ss_split(float (&d)[N / 2], uint32_t a,
+                                         uint32_t sa, uint32_t b,
+                                         uint32_t sb) {
+  int accumulate = 0;
+#pragma unroll
+  for (int w = 2; w >= 0; --w)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int j = w - i;
+      if (j < 0 || j >= NB) continue;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        Wgmma<N>::ss(d, desc_k<RA>(a + i * sa, kk), desc_k<RB>(b + j * sb, kk),
+                     accumulate);
+        accumulate = 1;
+      }
+    }
+}
+
+// d += a . b over KS k-steps as the cross terms of split operands: A
+// from registers (a[i], the fragments of split_frags), B term j the
+// RB-row tile at b + j * sb, MN-major; the smallest terms first
+template <int N, int RB, int KS, int NA, int NB>
+__device__ __forceinline__ void rs_split(float (&d)[N / 2],
+                                         const uint32_t (&a)[NA][KS][4],
+                                         uint32_t b, uint32_t sb) {
+#pragma unroll
+  for (int w = 2; w >= 0; --w)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int j = w - i;
+      if (j < 0 || j >= NB) continue;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        Wgmma<N>::rs(d, a[i][kk], desc_mn<RB>(b + j * sb, kk));
+    }
+}
+
+// acc += a . b as rs_split computes it, but 64 output columns at a time
+// into a fresh accumulator that is then added to acc on the CUDA cores.
+// The tensor cores' fp32 accumulation does not round to nearest, so a
+// running sum taken through thousands of wgmma steps drifts by ~100 ulps
+// (the fp32 backward's dv at T = 1024, 6x the plain version's error);
+// one rounded add per tile keeps it below the plain version's. Waits
+// for every product before it returns.
+template <int DP, int RB, int KS, int NA, int NB>
+__device__ __forceinline__ void rs_split_add(float (&acc)[DP / 2],
+                                             const uint32_t (&a)[NA][KS][4],
+                                             uint32_t b, uint32_t sb) {
+#pragma unroll
+  for (int n = 0; n < DP / 64; ++n) {
+    float t[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) t[i] = 0.f;
+    pin(t);
+    wg_fence();
+    rs_split<64, RB, KS, NA, NB>(t, a, b + n * RB * 128, sb);
+    wg_commit();
+    wg_wait();
+    pin(t);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[32 * n + i] += t[i];
+  }
 }
 
 // reductions over the four threads (a quad) that share a row
@@ -456,10 +616,10 @@ __device__ __forceinline__ int frag_row() {
 __device__ __forceinline__ int frag_col() { return 2 * (threadIdx.x & 3); }
 
 // rows row0 + frag_row() + 8 h of an m64n(padded D) accumulator, each
-// divided by div[h], into a [T, D] bf16 matrix; rows past T and the
-// padding columns are not written
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* dst,
+// divided by div[h], into a [T, D] bf16 or fp32 matrix; rows past T and
+// the padding columns are not written
+template <int D, typename Elt>
+__device__ __forceinline__ void store_acc(Elt* dst,
                                           const float (&acc)[padded(D) / 2],
                                           int row0, int T,
                                           const float (&div)[2]) {
@@ -469,10 +629,15 @@ __device__ __forceinline__ void store_acc(bf16* dst,
     const int row = row0 + frag_row() + 8 * h;
     if (row >= T) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * D + 8 * j + c0) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h] / div[h],
-                                acc[4 * j + 2 * h + 1] / div[h]);
+    for (int j = 0; j < D / 8; ++j) {
+      const float x = acc[4 * j + 2 * h] / div[h];
+      const float y = acc[4 * j + 2 * h + 1] / div[h];
+      Elt* p = dst + (size_t)row * D + 8 * j + c0;
+      if constexpr (std::is_same<Elt, float>::value)
+        *reinterpret_cast<float2*>(p) = make_float2(x, y);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+    }
   }
 }
 

@@ -2,9 +2,9 @@
 ``paddle_tpu/ops/pallas/prefill.py``).
 
 - :func:`flash_chunk_prefill` — one prompt chunk's attention against
-  its pool-resident context (``csrc/chunk_prefill.cu``: bf16 queries on
-  the tensor cores; fp32 queries on the CUDA cores,
-  ``csrc/chunk_prefill_f32.cu``, from the same C entry);
+  its pool-resident context (``csrc/chunk_prefill.cu``, on the tensor
+  cores: bf16 queries, and fp32 queries with every operand split into
+  three bf16 terms);
 - :func:`paged_span_write` — the chunk's masked span writes into its
   pool pages, in place (``csrc/span_write.cu``).
 
@@ -27,12 +27,7 @@ from paddle_tpu_torch.ops.kernels.decode import (NEG_INF, _softmax_exact,
                                                  check_scales, gather_rows,
                                                  require_pool)
 
-# the fp32 kernel (csrc/chunk_prefill_f32.cu)
-_PREFILL_THREADS = 256         # kThreads
-_PREFILL_TILE = 32             # kTile
-_PREFILL_MAX_OUT = 16          # kMaxOut
-_PREFILL_ROWS = 16             # query rows per CTA, halved to fit smem
-# the bf16 tensor-core kernel (csrc/chunk_prefill.cu, csrc/flash_tc.cuh)
+# the tensor-core kernel (csrc/chunk_prefill.cu, csrc/flash_tc.cuh)
 _TC_ROWS = 64                  # kRows: query rows and columns per tile
 _TC_SPLIT_TILES = 2            # kSplitTiles: column tiles per CTA
 TC_HEAD_DIMS = (32, 64, 96, 128)   # chunk_prefill.cu's head-dim switch
@@ -74,33 +69,14 @@ def flash_chunk_prefill_plain(q, k_chunk, v_chunk, k, v, pages, *,
     return torch.einsum("ckgt,ktd->ckgd", _softmax_exact(s), vall)
 
 
-def prefill_rows_per_cta(C: int, G: int, Dh: int, S: int):
-    """(query rows per CTA, shared-memory bytes) of the fp32 kernel for
-    one chunk: the staged q rows, one key/value tile and the rows' exact
-    score rows over S + C columns. Halves the rows until they fit;
-    raises when even one row's scores exceed the limit."""
-    rows = min(_PREFILL_ROWS, max(1, C * G),
-               _PREFILL_MAX_OUT * _PREFILL_THREADS // Dh)
-    while True:
-        smem = 4 * (rows * Dh + _PREFILL_TILE * (Dh + 1) + rows * (S + C))
-        if smem <= _build.SMEM_LIMIT:
-            return rows, smem
-        if rows == 1:
-            raise ValueError(f"flash_chunk_prefill: one query row's "
-                             f"scores over {S + C} columns need {smem} "
-                             f"bytes of shared memory, over the "
-                             f"{_build.SMEM_LIMIT}-byte limit")
-        rows //= 2
-
-
 def prefill_tc_splits(C: int, G: int, Dh: int, S: int):
-    """(row tiles, splits, partial floats) of the bf16 tensor-core
-    kernel: the grid is (kv-head, 64-row tile of the C * G query rows,
-    split), a split taking 2 consecutive 64-column tiles (context
-    tiles, then the chunk's) of its row tile; a row tile whose columns
-    span more than one split combines fp32 partials, per (kv-head, row
-    tile, split) an unnormalized [64, Dh] output and a (max, sum) per
-    row (the counts here are per kv-head)."""
+    """(row tiles, splits, partial floats) of the tensor-core kernel,
+    either query dtype: the grid is (kv-head, 64-row tile of the C * G
+    query rows, split), a split taking 2 consecutive 64-column tiles
+    (context tiles, then the chunk's) of its row tile; a row tile whose
+    columns span more than one split combines fp32 partials, per
+    (kv-head, row tile, split) an unnormalized [64, Dh] output and a
+    (max, sum) per row (the counts here are per kv-head)."""
     row_tiles = -(-C * G // _TC_ROWS)
     col_tiles = -(-S // _TC_ROWS) + (C - 1) // _TC_ROWS + 1
     splits = -(-col_tiles // _TC_SPLIT_TILES)
@@ -109,24 +85,30 @@ def prefill_tc_splits(C: int, G: int, Dh: int, S: int):
 
 def prefill_layout(C: int, G: int, Dh: int, S: int, dtype,
                    kv_dtype: str = "none"):
-    """(query rows per CTA, shared-memory bytes) of one chunk's launch.
-    bf16 queries run the tensor-core kernel, head dims ``TC_HEAD_DIMS``
-    only (others raise ValueError): 64 rows; the q tile and two-stage K
-    and V rings (head dim padded to whole 64-column blocks), 1024 bytes
-    of alignment slack and, for a quantized context, the two-stage code
-    ring (K and V codes, then their row scales), whatever the chunk or
-    context length. fp32 queries run the CUDA-core kernel, sized by
-    ``prefill_rows_per_cta``."""
-    if dtype != torch.bfloat16:
-        return prefill_rows_per_cta(C, G, Dh, S)
+    """(query rows per CTA, shared-memory bytes) of one chunk's launch
+    (``chunk_prefill.cu``'s ``Plan``), head dims ``TC_HEAD_DIMS`` only
+    (others raise ValueError): 64 rows, and bytes that do not grow with
+    the chunk or the context. bf16 queries: the q tile and two-stage K
+    and V rings (head dim padded to whole 64-column blocks) and, for a
+    quantized context, a two-stage ring of K and V codes. fp32 queries:
+    three bf16 term tiles each of q, K and V (one stage) and one raw
+    buffer of the K and V rows in flight, fp32 rows or codes. Then, for
+    a quantized context, two stages of K and V row scales; and 1024
+    bytes of alignment slack."""
     if Dh not in TC_HEAD_DIMS:
-        raise ValueError(f"flash_chunk_prefill: bf16 head dim {Dh} not in "
+        raise ValueError(f"flash_chunk_prefill: head dim {Dh} not in "
                          f"{TC_HEAD_DIMS}")
     kv = _build.kv_store(kv_dtype, "flash_chunk_prefill")
-    smem = 5 * _TC_ROWS * (-(-Dh // 64) * 64) * 2 + 1024
+    fp32 = dtype == torch.float32
+    tile = _TC_ROWS * (-(-Dh // 64) * 64) * 2
+    terms, stages = (3, 1) if fp32 else (1, 2)
+    smem = (terms + 2 * stages * terms) * tile + 1024
+    if fp32:
+        smem += 2 * _TC_ROWS * 4 * Dh
+    elif kv != "none":
+        smem += 4 * _TC_ROWS * (Dh // 2 if kv == "int4" else Dh)
     if kv != "none":
-        code_bytes = Dh // 2 if kv == "int4" else Dh
-        smem += 4 * _TC_ROWS * code_bytes + 4 * _TC_ROWS * 4
+        smem += 4 * _TC_ROWS * 4
     return _TC_ROWS, smem
 
 
@@ -142,9 +124,10 @@ def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
     ``k_scale``/``v_scale`` [Hkv, M]; pages [P_ctx] int32, the
     context's pages (context length S = P_ctx * block_size; P_ctx = 0
     is a cold chunk) -> fp32 [C, Hkv, G, Dh]. Any other ``kv_dtype``
-    raises ValueError. On the card, bf16 queries run the tensor-core
-    kernel, which takes head dims 32, 64, 96 and 128 (others raise
-    ValueError) and, like decode, shares the arrival counters of
+    raises ValueError. On the card both query dtypes run the
+    tensor-core kernel, which takes head dims 32, 64, 96 and 128 and
+    16-byte aligned operands (others raise ValueError; nothing is
+    copied) and, like decode, shares the arrival counters of
     ``decode.arrival_counters`` between the launches of one stream."""
     kv = _build.kv_store(kv_dtype, "flash_chunk_prefill")
     check_scales(kv, k_scale, v_scale, "flash_chunk_prefill")
@@ -168,16 +151,14 @@ def flash_chunk_prefill(q, k_chunk, v_chunk, k, v, pages, *,
     # a cold chunk reads no pool: the model-dtype instantiation serves it
     branch = kv if P_ctx else "none"
     rows, smem = prefill_layout(C, G, Dh, P_ctx * bs, q.dtype, branch)
+    if any(t.data_ptr() % 16 for t in (q, k_chunk, v_chunk, k, v)):
+        raise ValueError("flash_chunk_prefill: operands must be 16-byte "
+                         "aligned")
     n_out = C * Hkv * G * Dh
     stream = _build.stream(dev)
-    part, counters = 0, None
-    if q.dtype == torch.bfloat16:
-        if any(t.data_ptr() % 16 for t in (q, k_chunk, v_chunk, k, v)):
-            raise ValueError("flash_chunk_prefill: bf16 operands must be "
-                             "16-byte aligned")
-        row_tiles, _, part = prefill_tc_splits(C, G, Dh, P_ctx * bs)
-        part *= Hkv
-        counters = arrival_counters(dev, stream, Hkv * row_tiles)
+    row_tiles, _, part = prefill_tc_splits(C, G, Dh, P_ctx * bs)
+    part *= Hkv
+    counters = arrival_counters(dev, stream, Hkv * row_tiles)
     # the output and the split combine's partials in one allocation
     buf = torch.empty(n_out + part, dtype=torch.float32, device=dev)
     out = buf[:n_out].view(C, Hkv, G, Dh)

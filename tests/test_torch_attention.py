@@ -25,6 +25,10 @@ card in ``tests/test_torch_gpu.py``. ``TestTensorCoreArithmetic``
 records why the bf16 kernels split p and ds into two bf16 halves: it
 emulates their arithmetic (bf16 operands, fp32 sums) on the CPU against
 the plain versions, under the card's 2-ulp gate.
+``TestFp32TensorCoreArithmetic`` does the same for the backward's fp32
+instantiation: every operand, p and ds included, split into three bf16
+terms, each product the six cross terms into fp32, within 1e-4 of the
+Pallas VJP, where one bf16 rounding of each operand misses 1e-4.
 """
 
 import math
@@ -37,6 +41,7 @@ import torch
 
 from paddle_tpu.ops.pallas import attention as ja
 from paddle_tpu_torch.ops.kernels import attention as ka
+from test_torch_paged_tc import split_product, split_terms
 
 # the suite runs several test processes side by side on a few cores:
 # one intra-op thread keeps these tiny-shape tests from crowding the
@@ -282,3 +287,81 @@ class TestTensorCoreArithmetic:
                 assert max(ulps) <= 2, ulps
             else:
                 assert min(ulps) > 2, ulps
+
+
+def _fp32_tensor_core_emulation(q, k, v, do, out, lse, scale, causal,
+                                terms):
+    """(dq, dk, dv) as the backward's fp32 instantiation computes them
+    (``terms=3``): q, k, v, do, p, ds, p^T and ds^T each split into three
+    bf16 terms, every product the cross terms of order 2^-16 and up
+    into fp32; ``terms=1`` rounds each of those operands once to bf16.
+    p and ds come from fp32 scores and the forward's (out, lse), as in
+    the kernels."""
+    T = q.shape[1]
+    valid = torch.ones(T, T, dtype=torch.bool)
+    if causal:
+        valid = valid.tril()
+
+    def terms_of(x):
+        return split_terms(x, terms)
+
+    def by_rows(a, b):
+        return a @ b.transpose(-1, -2)
+
+    def tr(ts):
+        return [t.transpose(-1, -2) for t in ts]
+
+    Q, K, V, DO = (terms_of(t) for t in (q, k, v, do))
+    s = split_product(Q, K, by_rows) * scale
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    delta = (do * out).sum(-1)
+    ds = p * (split_product(DO, V, by_rows) - delta[..., None]) * scale
+    P, DS = terms_of(p), terms_of(ds)
+    return (split_product(DS, K), split_product(tr(DS), Q),
+            split_product(tr(P), DO))
+
+
+class TestFp32TensorCoreArithmetic:
+    """The fp32 backward on the tensor cores: at BH=2, T=512, D=64
+    (seeded numpy inputs, fp32), three bf16 terms per operand keep dq,
+    dk and dv within 1e-4 (the card's fp32 gate) of ``jax.vjp`` of the
+    Pallas path; one bf16 rounding of each operand misses it."""
+
+    @staticmethod
+    def _both(causal):
+        rng = np.random.RandomState(0)
+        q, k, v, do = (rng.randn(1, 512, 2, 64).astype(np.float32)
+                       for _ in range(4))
+
+        def fn(q_, k_, v_):
+            return ja.flash_attention(q_, k_, v_, causal=causal,
+                                      interpret=True, block_q=128,
+                                      block_k=128)
+
+        _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+        want = [np.asarray(g).transpose(0, 2, 1, 3).reshape(2, 512, 64)
+                for g in vjp(jnp.asarray(do))]
+
+        def rows(a):
+            return _t(a.transpose(0, 2, 1, 3).reshape(2, 512, 64))
+
+        tq, tk, tv, tdo = (rows(a) for a in (q, k, v, do))
+        out, lse = ka.flash_attention_fwd_plain(tq, tk, tv, sm_scale=0.125,
+                                                causal=causal)
+
+        def errs(terms):
+            got = _fp32_tensor_core_emulation(tq, tk, tv, tdo, out, lse,
+                                              0.125, causal, terms)
+            return [float(np.abs(g.numpy() - w).max())
+                    for g, w in zip(got, want)]
+        return errs
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_three_terms_match_the_pallas_vjp(self, causal):
+        errs = self._both(causal)(3)
+        assert max(errs) <= 1e-4, errs
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_one_rounding_misses_the_gate(self, causal):
+        errs = self._both(causal)(1)
+        assert min(errs) > 1e-4, errs

@@ -10,7 +10,9 @@ JAX).
 Tolerances: attention outputs agree to 1e-4 absolute (fp32 accumulation
 in both, summed in another order over up to 16384 positions of O(1)
 values; the bf16 chunk prefill's products run on the tensor cores with
-p split into two bf16 halves, ~2^-16 relative); the span write and the sampler's ids are exact (no arithmetic
+p split into two bf16 halves, ~2^-16 relative, the fp32 ones with every
+operand split into three bf16 terms, ~2^-24); the span write and the
+sampler's ids are exact (no arithmetic
 to round; the sampler's hash is integer and its float steps are the
 same IEEE operations in both). Flash attention, forward and backward:
 fp32 outputs, lse and gradients to 1e-4 absolute (fp32 sums in another
@@ -381,6 +383,30 @@ def test_gpu_chunk_prefill_head_dims_and_repeat(cuda, kvd, Dh):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kvd", ["none", "int8", "int4"])
+@pytest.mark.parametrize("Dh", [32, 96, 128])
+def test_gpu_chunk_prefill_fp32_head_dims_and_repeat(cuda, kvd, Dh):
+    """The fp32-query instantiation (three-term operands) at the other
+    head dims, a GQA group of 4 over a 33-page context, within 1e-4;
+    two launches on the same inputs are bitwise equal."""
+    rng = np.random.RandomState(16)
+    C, Hkv, G, bs, nblocks = 100, 2, 4, 16, 40
+    q = _gpu(rng.randn(C, Hkv, G, Dh), cuda, torch.float32)
+    kck = _gpu(rng.randn(C, Hkv, Dh), cuda, torch.float32)
+    vck = _gpu(rng.randn(C, Hkv, Dh), cuda, torch.float32)
+    k, ks = _pool_on(rng, (Hkv, nblocks * bs, Dh), kvd, torch.float32, cuda)
+    v, vs = _pool_on(rng, (Hkv, nblocks * bs, Dh), kvd, torch.float32, cuda)
+    pages = _gpu(rng.permutation(nblocks)[:33].astype(np.int32), cuda)
+    kw = dict(block_size=bs, k_scale=ks, v_scale=vs, kv_dtype=kvd)
+    got = kprefill.flash_chunk_prefill(q, kck, vck, k, v, pages, **kw)
+    again = kprefill.flash_chunk_prefill(q, kck, vck, k, v, pages, **kw)
+    want = kprefill.flash_chunk_prefill_plain(q, kck, vck, k, v, pages, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
 def test_gpu_paged_attention_refuses_what_it_cannot_take(cuda):
     """A CUDA tensor the kernels cannot take raises; it never runs the
     plain version instead."""
@@ -709,8 +735,9 @@ def test_gpu_flash_attention_is_bitwise_repeatable(cuda, dtype, causal):
 
 @pytest.mark.gpu
 def test_gpu_flash_attention_counts_each_branch(cuda):
-    """bf16 inputs launch the tensor-core kernels and fp32 inputs the
-    CUDA-core ones; each moves only its own counter."""
+    """bf16 inputs launch the bf16 kernels and fp32 inputs the fp32
+    ones (the CUDA-core forward, the three-term tensor-core backward);
+    each moves only its own counter."""
     from paddle_tpu_torch.ops import kernels
     rng = np.random.RandomState(7)
     for dtype, name in ((torch.bfloat16, ""), (torch.float32, ".fp32")):

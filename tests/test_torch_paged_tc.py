@@ -19,7 +19,15 @@ interpret mode on the same numpy inputs:
   64-column tiles with an online softmax in the exp2 domain, K's row
   scale after the product, V's into p, and p split into bf16 hi + lo
   before p @ V. Within 1e-4, the card's gate, for each pool storage,
-  cold and with context, across a 64-row tile edge.
+  cold and with context, across a 64-row tile edge;
+- chunk prefill with fp32 queries (the same source's fp32
+  instantiation): q, the chunk's K/V, an fp32 pool's values and p each
+  split into three bf16 terms x0 + x1 + x2, every product the six
+  cross terms x_i . y_j with i + j <= 2 into fp32 (codes stay one
+  term), the same tiles, softmax and ascending split combine. Within
+  1e-4 of the Pallas kernel at the serving slice's shape and at the
+  card's fp32 step-parity shape, over an fp32 and an int8 pool; one
+  bf16 rounding of every operand instead misses 1e-4.
 """
 
 import math
@@ -103,14 +111,43 @@ def decode_split_emulation(q, k, v, pages, pos, *, block_size, k_scale=None,
     return out
 
 
+def split_terms(x, n):
+    """The ``n`` bf16 terms of fp32 ``x`` (as fp32 tensors): term i is
+    bf16 of what the terms before it leave (``flash_tc.cuh``'s
+    ``split_terms``; each subtraction is exact)."""
+    terms = []
+    for _ in range(n):
+        t = x.bfloat16().float()
+        terms.append(t)
+        x = x - t
+    return terms
+
+
+def split_product(a, b, f=torch.matmul):
+    """``f(a, b)`` over split operands (lists of terms) as the kernels
+    take it: the cross terms f(a_i, b_j) with i + j <= 2, each an fp32
+    product of bf16 values, summed into one fp32 result smallest first
+    (``ss_split`` / ``rs_split``)."""
+    out = 0
+    for w in (2, 1, 0):
+        for i, ai in enumerate(a):
+            if 0 <= w - i < len(b):
+                out = out + f(ai, b[w - i])
+    return out
+
+
 def prefill_tc_emulation(q, k_chunk, v_chunk, k, v, pages, *, block_size,
                          k_scale=None, v_scale=None, kv_dtype="none",
-                         split=True):
-    """``csrc/chunk_prefill.cu``'s arithmetic: bf16 operands, fp32
-    products, 64-column tiles (context, then the chunk), online softmax
-    in the exp2 domain over each split of ``SPLIT_TILES`` tiles, the
-    splits combined in ascending order, scales outside the products, p
-    split hi + lo (``split=False``: p rounded once to bf16)."""
+                         split=True, terms=1):
+    """``csrc/chunk_prefill.cu``'s arithmetic: operands as bf16 terms
+    (``terms``: 1, the bf16 instantiation, or 3, the fp32 one; a
+    quantized context's codes are one term either way), fp32 products
+    of the cross terms, 64-column tiles (context, then the chunk),
+    online softmax in the exp2 domain over each split of
+    ``SPLIT_TILES`` tiles, the splits combined in ascending order,
+    scales outside the products, p split into hi + lo for one-term
+    operands and into three terms for three (``split=False``: p
+    rounded once to bf16)."""
     C, Hkv, G, Dh = q.shape
     bs = block_size
     S = pages.shape[0] * bs
@@ -119,38 +156,40 @@ def prefill_tc_emulation(q, k_chunk, v_chunk, k, v, pages, *, block_size,
     c2 = LOG2E / math.sqrt(Dh)
     out = torch.zeros(C, Hkv, G, Dh)
     see = torch.arange(C * G) // G              # last chunk column a row sees
+    p_terms = (3 if terms == 3 else 2) if split else 1
     for h in range(Hkv):
-        Q = q[:, h].reshape(C * G, Dh).bfloat16().float()
-        ctx_k = _codes(k[h, rows], kv_dtype).bfloat16().float()
-        ctx_v = _codes(v[h, rows], kv_dtype).bfloat16().float()
         quant = kv_dtype != "none"
+        ctx_terms = 1 if quant else terms
+        Q = split_terms(q[:, h].reshape(C * G, Dh).float(), terms)
+        ctx_k = split_terms(_codes(k[h, rows], kv_dtype), ctx_terms)
+        ctx_v = split_terms(_codes(v[h, rows], kv_dtype), ctx_terms)
         ks = k_scale[h, rows] if quant else torch.ones(S)
         vs = v_scale[h, rows] if quant else torch.ones(S)
-        tiles = [(ctx_k[i:i + 64], ctx_v[i:i + 64], ks[i:i + 64],
-                  vs[i:i + 64], None) for i in range(0, S, 64)]
-        ck = k_chunk[:, h].bfloat16().float()
-        cv = v_chunk[:, h].bfloat16().float()
+        tiles = [([t[i:i + 64] for t in ctx_k], [t[i:i + 64] for t in ctx_v],
+                  ks[i:i + 64], vs[i:i + 64], None) for i in range(0, S, 64)]
+        ck = split_terms(k_chunk[:, h].float(), terms)
+        cv = split_terms(v_chunk[:, h].float(), terms)
         ones = torch.ones(C)
-        tiles += [(ck[j:j + 64], cv[j:j + 64], ones[j:j + 64],
-                   ones[j:j + 64], j) for j in range(0, C, 64)]
+        tiles += [([t[j:j + 64] for t in ck], [t[j:j + 64] for t in cv],
+                   ones[j:j + 64], ones[j:j + 64], j)
+                  for j in range(0, C, 64)]
         parts = []
         for s0 in range(0, len(tiles), SPLIT_TILES):
             m = torch.full((C * G,), -1e30)
             l = torch.zeros(C * G)
             o = torch.zeros(C * G, Dh)
             for kt, vt, kst, vst, j0 in tiles[s0:s0 + SPLIT_TILES]:
-                s = (Q @ kt.T) * c2 * kst[None, :]
+                s = (split_product(Q, kt, lambda a, b: a @ b.T) * c2
+                     * kst[None, :])
                 if j0 is not None:
-                    col = j0 + torch.arange(kt.shape[0])
+                    col = j0 + torch.arange(kt[0].shape[0])
                     s = torch.where(col[None, :] <= see[:, None], s, -1e30)
                 m_new = torch.maximum(m, s.amax(dim=-1))
                 alpha = torch.exp2(m - m_new)
                 p = torch.exp2(s - m_new[:, None])
                 l = l * alpha + p.sum(dim=-1)
-                pv = p * vst[None, :]
-                hi = pv.bfloat16().float()
-                lo = (pv - hi).bfloat16().float() if split else 0 * hi
-                o = o * alpha[:, None] + hi @ vt + lo @ vt
+                pv = split_terms(p * vst[None, :], p_terms)
+                o = o * alpha[:, None] + split_product(pv, vt)
                 m = m_new
             parts.append((m, l, o))
         if len(parts) == 1:
@@ -246,3 +285,56 @@ def test_prefill_hi_lo_split_is_what_keeps_the_gate(rng):
                                 split=False)
     err_once = (once - want).abs().max().item()
     assert err_split <= 1e-5 < err_once, (err_split, err_once)
+
+
+# the serving slice (GPT-2 small: 12 kv heads of 64, a 256-row chunk over
+# 512 context positions) and the card's fp32 step-parity widths (G = 2,
+# Dh = 32) over a context that ends inside its second 64-column tile
+FP32_SHAPES = {"slice": (256, 12, 1, 64, 32), "step_parity": (40, 2, 2, 32, 5)}
+
+
+def _fp32_inputs(rng, shape, kvd):
+    """fp32 q and chunk K/V and an fp32 (or int8) pool at one of
+    ``FP32_SHAPES`` (C, Hkv, G, Dh, context pages of 16)."""
+    C, Hkv, G, Dh, P_ctx = FP32_SHAPES[shape]
+    bs, nblocks = 16, 40
+
+    def f32(*shape_):
+        return torch.from_numpy(rng.randn(*shape_).astype(np.float32))
+
+    q, kck, vck = f32(C, Hkv, G, Dh), f32(C, Hkv, Dh), f32(C, Hkv, Dh)
+    k, ks = _pool(rng, (Hkv, nblocks * bs, Dh), kvd)
+    v, vs = _pool(rng, (Hkv, nblocks * bs, Dh), kvd)
+    pages = torch.from_numpy(rng.permutation(nblocks)[:P_ctx]
+                             .astype(np.int32))
+    kw = dict(block_size=bs, k_scale=ks, v_scale=vs, kv_dtype=kvd)
+    return (q, kck, vck, k, v, pages), kw
+
+
+@pytest.mark.parametrize("kvd", ["none", "int8"])
+@pytest.mark.parametrize("shape", list(FP32_SHAPES))
+def test_prefill_fp32_three_term_arithmetic_matches_pallas(shape, kvd, rng):
+    """The fp32 instantiation's arithmetic (every fp32 operand and p as
+    three bf16 terms, six cross terms a product) within 1e-4 of the
+    Pallas kernel, fp32 queries over an fp32 and an int8 pool."""
+    args, kw = _fp32_inputs(rng, shape, kvd)
+    q, kck, vck, k, v, pages = args
+    want = np.asarray(jprefill.flash_chunk_prefill(
+        *(_j(t) for t in args), interpret=True,
+        **dict(kw, k_scale=_j(kw["k_scale"]), v_scale=_j(kw["v_scale"]))))
+    got = prefill_tc_emulation(*args, terms=3, **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kvd", ["none", "int8"])
+def test_prefill_fp32_one_rounding_misses_the_gate(kvd, rng):
+    """Why the fp32 queries' operands are split in three: rounded once
+    to bf16 (q, K, V and p, the bf16 kernel's operands with p unsplit)
+    the slice lands more than 1e-4 from the fp32 plain version; three
+    terms stay within 1e-5."""
+    args, kw = _fp32_inputs(rng, "slice", kvd)
+    want = kprefill.flash_chunk_prefill_plain(*args, **kw)
+    err3 = (prefill_tc_emulation(*args, terms=3, **kw) - want).abs().max()
+    err1 = (prefill_tc_emulation(*args, terms=1, split=False, **kw)
+            - want).abs().max()
+    assert err3.item() <= 1e-5 and err1.item() > 1e-4, (err3, err1)
