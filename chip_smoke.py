@@ -13,13 +13,13 @@ order it:
    with nvcc (one process per source, in parallel) and prints the build
    time;
 3. prints the ``-Xptxas -v`` registers and spills of the paged
-   attention kernels, the attention backward, the sampler and the span
-   write (``ptxas:`` line),
+   attention kernels, the attention forward and backward, the sampler
+   and the span write (``ptxas:`` line),
    then holds each kernel, the int8
    and int4 branches of kernels 1, 3 and 4, the fp32-query branches of
    kernels 1 and 3, and both branches of kernels 5 and 6 (bf16 on the
-   tensor cores; fp32 on the tensor cores with three-term operands,
-   but for kernel 5's fp32 branch, on the CUDA cores) against its plain
+   tensor cores; fp32 on the tensor cores with three-term operands)
+   against its plain
    PyTorch version on the card, at its slice's shapes and at one GQA
    shape, and
    times kernel, plain version and a PyTorch library call that computes
@@ -28,17 +28,19 @@ order it:
    least time the card could take (the bytes stored and moved over
    3.35 TB/s or FLOPs over the peak for the input type, whichever is
    larger); every kernel also times its C entry alone (``entry_ms``,
-   outputs allocated beforehand), and kernels 1–4 their execution on
-   the device alone (``device_ms``, from the profiler's device activity,
-   which a slow host's launch work cannot inflate); the sampler runs on
+   outputs allocated beforehand), and kernels 1–4, kernel 5 and kernel
+   6's fp32 branch their execution on the device alone (``device_ms``,
+   from the profiler's device activity, which a slow host's launch work
+   cannot inflate); the sampler runs on
    both its streams (hashed: the decode tail, B=8; threefry: the
    prefill tail, B=1) and is held bitwise over B in {1, 8, 64} and V in
    {64, 1000, 50257} (``check sample:`` line); the span write is held
    byte for byte; decode is also checked at G=8, Dh=128 over 16384
    positions and, per slot, alone against its batch of 8 (bitwise);
    fp32-query prefill over 65 536 context positions and over an int8
-   pool, and kernel 6's fp32 branch on a block fed lse = +1e30 (the
-   flash ring's masked block: exactly 0);
+   pool, kernel 5's fp32 branch at the GQA D=128 shape (its largest
+   shared-memory plan), and kernel 6's fp32 branch on a block fed
+   lse = +1e30 (the flash ring's masked block: exactly 0);
    kernels 1, 3, 5 and 6 are launched twice on the same inputs, which
    must give bitwise the same outputs; kernels 5 and 6 are timed at the
    training slice's shape in both dtypes and at the GQA D=128 shape in
@@ -888,7 +890,9 @@ def check_flash(torch, timer, ka, build, dev, B, T, H, Hkv, D, dtype,
     gave bitwise the same outputs; and, when ``timed``, the times. Beside
     the wrapper's time (``ms``) stands ``entry_ms``: the C entry alone,
     its outputs allocated beforehand, so the difference is the wrapper's
-    host work (checks, allocation, the ctypes call) before the launch."""
+    host work (checks, allocation, the ctypes call) before the launch;
+    the forward's and the fp32 backward's rows also hold ``device_ms``,
+    the profiler's time of their kernels."""
     g = torch.Generator(device=dev).manual_seed(T + H)
 
     def rand(heads):
@@ -973,6 +977,9 @@ def check_flash(torch, timer, ka, build, dev, B, T, H, Hkv, D, dtype,
                               ("bwd", lib.pk_flash_attn_bwd, bwd_args)):
         build.check(entry(*args, *flags), f"flash_attention_{name}")
         times[name]["entry_ms"] = timer.ms(lambda: entry(*args, *flags))
+    # the forward's kernel on the device, from the profiler
+    times["fwd"]["device_ms"], _ = timer.device_ms(
+        lambda: lib.pk_flash_attn_fwd(*fwd_args, *flags), "flash_fwd_tc")
     if dtype == torch.float32:
         # the backward's two kernels on the device, each from the profiler
         def bwd_entry():
@@ -1008,21 +1015,54 @@ def masked_block_fp32(torch, ka, dev) -> bool:
     return all(bool((t == 0).all()) for t in card + plain)
 
 
+def flash_fwd_fp32_gqa(torch, ka, dev):
+    """Kernel 5's fp32 branch, untimed, at the GQA wide-head shape (B=1,
+    H=32, Hkv=8, D=128, T=2048, causal: the largest shared-memory plan,
+    three term tiles each of q, K, V and the raw K/V rows), through the
+    same expansion and layout as ``flash_attention``. Returns the max
+    abs errors of out and lse against the plain version, whether two
+    launches gave bitwise the same outputs, and the kernel's and plain
+    version's max abs errors of out against the plain version in
+    float64."""
+    B, T, H, Hkv, D = 1, 2048, 32, 8, 128
+    g = torch.Generator(device=dev).manual_seed(T + H + 1)
+
+    def rows(heads):
+        x = torch.randn(B, T, heads, D, generator=g, device=dev)
+        return (ka.expand_kv_heads(x, H).transpose(1, 2)
+                .reshape(B * H, T, D).contiguous())
+
+    q, k, v = rows(H), rows(Hkv), rows(Hkv)
+    kw = dict(sm_scale=D ** -0.5, causal=True)
+    out, lse = ka.flash_attention_fwd(q, k, v, **kw)
+    out2, lse2 = ka.flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = ka.flash_attention_fwd_plain(q, k, v, **kw)
+    exact = ka.flash_attention_fwd_plain(q.double(), k.double(),
+                                         v.double(), **kw)[0]
+    torch.cuda.synchronize()
+    repeat = torch.equal(out, out2) and torch.equal(lse, lse2)
+    errs = ((out - want_out).abs().max().item(),
+            (lse - want_lse).abs().max().item())
+    f64 = ((out.double() - exact).abs().max().item(),
+           (want_out.double() - exact).abs().max().item())
+    return errs, repeat, f64
+
+
 FLASH_FP32_TOL = 1e-4        # fp32 out, lse and grads: sums in another order
 FLASH_BF16_ULPS = 2          # bf16 out and grads: one rounding each side
 FLASH_LSE_TOL = 1e-4         # lse is fp32 for either input type
 
 
 def flash_phase(torch, ka, build):
-    """Kernels 5 and 6, both branches. bf16 (tensor cores): the training
-    slice's shape (B=8, T=1024, H=12, D=64, causal) and a GQA wide-head
-    shape (H=32, Hkv=8, D=128, T=2048, causal), both timed. fp32 (the
-    forward on the CUDA cores, the backward on the tensor cores with
-    three-term operands): the slice's shape, timed, and an uneven
-    non-causal shape (B=2, T=1000, H=12, D=64); the fp32 backward also
-    on a block fed lse = +1e30 (``masked_block_fp32``: exactly 0). Every
-    shape also checks that a second launch on the same inputs is
-    bitwise equal. Tolerances: fp32 out,
+    """Kernels 5 and 6, both branches, every product on the tensor
+    cores. bf16: the training slice's shape (B=8, T=1024, H=12, D=64,
+    causal) and a GQA wide-head shape (H=32, Hkv=8, D=128, T=2048,
+    causal), both timed. fp32 (three-term operands): the slice's shape,
+    timed, and an uneven non-causal shape (B=2, T=1000, H=12, D=64); the
+    fp32 forward also at the GQA shape (``flash_fwd_fp32_gqa``), the
+    fp32 backward on a block fed lse = +1e30 (``masked_block_fp32``:
+    exactly 0). Every shape also checks that a second launch on the same
+    inputs is bitwise equal. Tolerances: fp32 out,
     lse and gradients within 1e-4 absolute (fp32 sums in another order);
     bf16 out and gradients within 2 bf16 ulps (both versions accumulate
     in fp32 and round once, so a sum near a rounding boundary may round
@@ -1038,6 +1078,13 @@ def flash_phase(torch, ka, build):
         torch, timer, ka, build, dev, 8, 1024, 12, 12, 64, f32, True, True)
     odd_err, _, odd_rep, _ = check_flash(torch, timer, ka, build, dev, 2,
                                          1000, 12, 12, 64, f32, False, False)
+    wide_err, wide_rep, wide_f64 = flash_fwd_fp32_gqa(torch, ka, dev)
+    print(f"check flash_attention_fwd.fp32: GQA H=32 Hkv=8 D=128 T=2048 "
+          f"causal out, lse max_abs_err={wide_err!r} tol={FLASH_FP32_TOL!r} "
+          f"bitwise_repeat={wide_rep} f64 kernel, plain={wide_f64!r}")
+    if not (max(wide_err) <= FLASH_FP32_TOL and wide_rep):
+        fail("flash_attention_fwd.fp32 at the GQA D=128 shape disagrees "
+             "with its plain version or does not repeat")
     masked_zero = masked_block_fp32(torch, ka, dev)
     print(f"check flash_attention_bwd.fp32: lse=+1e30 block gradients "
           f"exactly 0 on the card and in the plain version={masked_zero}")
@@ -1056,9 +1103,14 @@ def flash_phase(torch, ka, build):
             "bitwise_repeat": sl_rep and gqa_rep}, sl_times[part])
         f32_row = (max(f32_err[part]), {
             "uneven_max_abs_err": max(odd_err[part]),
+            **({"gqa_max_abs_err": max(wide_err),
+                "gqa_f64_max_abs_err": wide_f64[0],
+                "gqa_plain_f64_max_abs_err": wide_f64[1]}
+               if part == "fwd" else {}),
             "f64_max_abs_err": f32_err[part + "_f64"][0],
             "plain_f64_max_abs_err": f32_err[part + "_f64"][1],
-            "bitwise_repeat": f32_rep and odd_rep,
+            "bitwise_repeat": f32_rep and odd_rep and (
+                wide_rep or part == "bwd"),
             **({"masked_block_zero": masked_zero} if part == "bwd"
                else {})}, f32_times[part])
         lse_ok = part == "bwd" or max(sl_err[part][1], gqa_err[part][1],
@@ -7727,13 +7779,13 @@ SOURCES = {
                             "paddle_tpu/ops/pallas/prefill.py:314"),
     "paged_span_write": ("span_write.cu",
                          "paddle_tpu/ops/pallas/prefill.py:442"),
-    "flash_attention_fwd": ("flash_attn_fwd.cu",
+    "flash_attention_fwd": ("flash_attn_fwd.cuh",
                             "paddle_tpu/ops/pallas/attention.py:351"),
     "flash_attention_bwd": ("flash_attn_bwd.cuh",
                             "paddle_tpu/ops/pallas/attention.py:268"),
-    # the same TPU kernels for fp32 inputs: the forward's CUDA-core
-    # kernel, the backward's fp32 (three-term) instantiation
-    "flash_attention_fwd.fp32": ("flash_attn_fwd_f32.cu",
+    # the same TPU kernels for fp32 inputs: the fp32 (three-term)
+    # instantiations of the same kernels
+    "flash_attention_fwd.fp32": ("flash_attn_fwd.cuh",
                                  "paddle_tpu/ops/pallas/attention.py:351"),
     "flash_attention_bwd.fp32": ("flash_attn_bwd.cuh",
                                  "paddle_tpu/ops/pallas/attention.py:268"),
@@ -7759,7 +7811,7 @@ SOURCES["fused_spec_verify"] = ("fused_sample.cu",
                                 "paddle_tpu/ops/pallas/decode.py:589")
 # kernels 5 and 6 at the flash ring's block shapes, through the block
 # entries the ring drives (their launches: the ring schedule's)
-SOURCES["flash_attention_fwd.ring"] = ("flash_attn_fwd.cu",
+SOURCES["flash_attention_fwd.ring"] = ("flash_attn_fwd.cuh",
                                        "paddle_tpu/ops/pallas/attention.py:330")
 SOURCES["flash_attention_bwd.ring"] = ("flash_attn_bwd.cuh",
                                        "paddle_tpu/ops/pallas/attention.py:341")
@@ -7810,7 +7862,8 @@ def main():
     print("ptxas: " + json.dumps(ptxas_summary(
         info["dir"], ("decode_attention", "chunk_prefill",
                       "chunk_prefill_fp32_d32_128",
-                      "chunk_prefill_fp32_d64_96", "flash_attn_bwd",
+                      "chunk_prefill_fp32_d64_96", "flash_attn_fwd",
+                      "flash_attn_fwd_fp32_inst", "flash_attn_bwd",
                       "flash_attn_bwd_fp32_inst", "fused_sample",
                       "span_write"))))
 

@@ -91,18 +91,20 @@ def _world():
 
 def local_devices(platform: Optional[str] = None):
     """The devices this process drives: one per rank, the rank's card
-    under NCCL (``cuda:<local rank>``), else the CPU. ``platform``
-    ("gpu" / "cpu") asks for one kind."""
+    (``cuda:<local rank>`` under NCCL, else the first card).
+    ``platform`` ("gpu" / "cuda" / "cpu") asks for one kind; the CPU
+    only when asked for, as :func:`default_device` raises where there is
+    no card."""
     import torch.distributed as dist
     if platform == "cpu":
         return [torch.device("cpu")]
-    if platform in (None, "gpu", "cuda"):
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_backend() == "nccl":
-            return [torch.device("cuda", torch.cuda.current_device())]
-        if platform is not None or torch.cuda.is_available():
-            return [default_device()]
-    return [torch.device("cpu")]
+    if platform not in (None, "gpu", "cuda"):
+        raise ValueError(f"platform {platform!r}: expected 'gpu', 'cuda' "
+                         f"or 'cpu'")
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_backend() == "nccl":
+        return [torch.device("cuda", torch.cuda.current_device())]
+    return [default_device()]
 
 
 def device_count() -> int:

@@ -33,10 +33,10 @@ from paddle_tpu_torch.utils.buildlock import build_lock
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("decode_attention.cu", "fused_sample.cu", "chunk_prefill.cu",
            "chunk_prefill_fp32_d32_128.cu", "chunk_prefill_fp32_d64_96.cu",
-           "span_write.cu", "flash_attn_fwd.cu", "flash_attn_bwd.cu",
-           "flash_attn_bwd_fp32_inst.cu", "flash_attn_fwd_f32.cu")
-HEADERS = ("common.cuh", "flash_tc.cuh", "flash_tile.cuh",
-           "chunk_prefill.cuh", "flash_attn_bwd.cuh")
+           "span_write.cu", "flash_attn_fwd.cu", "flash_attn_fwd_fp32_inst.cu",
+           "flash_attn_bwd.cu", "flash_attn_bwd_fp32_inst.cu")
+HEADERS = ("common.cuh", "flash_tc.cuh", "chunk_prefill.cuh",
+           "flash_attn_fwd.cuh", "flash_attn_bwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"

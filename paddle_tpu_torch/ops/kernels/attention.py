@@ -2,9 +2,9 @@
 ``paddle_tpu/ops/pallas/attention.py``).
 
 - :func:`flash_attention_fwd` — (out, logsumexp) of causal or full
-  attention with an online softmax (``csrc/flash_attn_fwd.cu``);
+  attention with an online softmax (``csrc/flash_attn_fwd.cuh``);
 - :func:`flash_attention_bwd` — (dq, dk, dv) from the saved state, p
-  rebuilt from the logsumexp (``csrc/flash_attn_bwd.cu``);
+  rebuilt from the logsumexp (``csrc/flash_attn_bwd.cuh``);
 - :class:`FlashAttention` — the ``torch.autograd.Function`` that calls
   the two, and :func:`flash_attention`, the public ``[B, T, H, D]``
   entry with grouped-query expansion;
@@ -13,17 +13,16 @@
 
 Wrappers as in ``ops/kernels/decode.py``: a CUDA tensor launches the
 hand-written kernel or raises, a CPU tensor runs the ``*_plain``
-version. Each C entry dispatches by dtype. bf16 runs on the tensor
-cores (wgmma, p and ds split into bf16 hi and lo halves so the
-products keep fp32 accuracy). fp32: the backward is the same
-tensor-core kernels instantiated with every operand split into three
-bf16 terms (six products in place of each fp32 one, fp32-accurate);
-the forward is the CUDA-core kernel of ``csrc/flash_attn_fwd_f32.cu``.
-``<wrapper>.launches`` counts launches per branch,
+version. Each C entry dispatches by dtype to one instantiation of the
+same tensor-core kernels (wgmma). bf16: q, k, v, do one bf16 term
+each, p and ds split into bf16 hi and lo halves so the products keep
+fp32 accuracy. fp32: every operand, p and ds included, split into
+three bf16 terms (six products in place of each fp32 one,
+fp32-accurate). ``<wrapper>.launches`` counts launches per branch,
 ``{"bf16": n, "fp32": n}``. Both take any ``T >= 1`` and head dims 32,
-64, 96 and 128; the tensor-core kernels stage tiles by 16-byte copies,
-so their operands must be 16-byte aligned (a misaligned one raises; it
-is never copied).
+64, 96 and 128; the kernels stage tiles by 16-byte copies, so their
+operands must be 16-byte aligned (a misaligned one raises; it is never
+copied).
 The JAX package's block-size table (``select_block_sizes``,
 ``MEASURED_BLOCKS``, ``VMEM_BYTES``) sizes TPU VMEM tiles and has no
 counterpart: the CUDA kernels fix their own 64 x 64 tiles.
@@ -37,7 +36,7 @@ import torch
 from paddle_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30
-# must match the head_dim ``switch`` of both csrc/flash_attn_*.cu
+# must match the head_dim ``switch`` of both csrc/flash_attn_*.cuh
 # dispatchers: a size listed here and missing there raises on the card
 HEAD_DIMS = (32, 64, 96, 128)
 
@@ -120,9 +119,9 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, *, sm_scale: float,
 BRANCHES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
 
-def _check(q, named, what: str, tensor_cores: bool):
-    """Validate [BH, T, D] operands for the CUDA kernels; those of the
-    tensor-core kernels must also be 16-byte aligned."""
+def _check(q, named, what: str):
+    """Validate [BH, T, D] operands for the CUDA kernels, 16-byte
+    aligned included."""
     dev = q.device
     _build.require(q, "q", device=dev, dtype=tuple(_build.DTYPE_CODES),
                    ndim=3)
@@ -136,7 +135,7 @@ def _check(q, named, what: str, tensor_cores: bool):
     for name, t in named.items():
         _build.require(t, name, device=dev, dtype=q.dtype, shape=(BH, T, D))
     for name, t in (("q", q), *named.items()):
-        if tensor_cores and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} is not 16-byte aligned (the "
                              f"tensor-core kernels stage tiles in 16-byte "
                              f"copies)")
@@ -149,8 +148,7 @@ def flash_attention_fwd(q, k, v, *, sm_scale: float, causal: bool):
     if _build.on_cpu(q, "flash_attention_fwd"):
         return flash_attention_fwd_plain(q, k, v, sm_scale=sm_scale,
                                          causal=causal)
-    BH, T, D = _check(q, {"k": k, "v": v}, "flash_attention_fwd",
-                      tensor_cores=q.dtype == torch.bfloat16)
+    BH, T, D = _check(q, {"k": k, "v": v}, "flash_attention_fwd")
     dev = q.device
     out = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=dev)
@@ -178,7 +176,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, sm_scale: float,
         return flash_attention_bwd_plain(q, k, v, out, lse, do,
                                          sm_scale=sm_scale, causal=causal)
     BH, T, D = _check(q, {"k": k, "v": v, "out": out, "do": do},
-                      "flash_attention_bwd", tensor_cores=True)
+                      "flash_attention_bwd")
     dev = q.device
     _build.require(lse, "lse", device=dev, dtype=torch.float32,
                    shape=(BH, T))

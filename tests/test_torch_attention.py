@@ -25,10 +25,11 @@ card in ``tests/test_torch_gpu.py``. ``TestTensorCoreArithmetic``
 records why the bf16 kernels split p and ds into two bf16 halves: it
 emulates their arithmetic (bf16 operands, fp32 sums) on the CPU against
 the plain versions, under the card's 2-ulp gate.
-``TestFp32TensorCoreArithmetic`` does the same for the backward's fp32
-instantiation: every operand, p and ds included, split into three bf16
-terms, each product the six cross terms into fp32, within 1e-4 of the
-Pallas VJP, where one bf16 rounding of each operand misses 1e-4.
+``TestFp32TensorCoreArithmetic`` does the same for the fp32
+instantiations of both: every operand, p and ds included, split into
+three bf16 terms, each product the six cross terms into fp32, within
+1e-4 of the Pallas forward and VJP, where one bf16 rounding of each
+operand misses 1e-4.
 """
 
 import math
@@ -41,7 +42,7 @@ import torch
 
 from paddle_tpu.ops.pallas import attention as ja
 from paddle_tpu_torch.ops.kernels import attention as ka
-from test_torch_paged_tc import split_product, split_terms
+from test_torch_paged_tc import LOG2E, split_product, split_terms
 
 # the suite runs several test processes side by side on a few cores:
 # one intra-op thread keeps these tiny-shape tests from crowding the
@@ -321,11 +322,71 @@ def _fp32_tensor_core_emulation(q, k, v, do, out, lse, scale, causal,
             split_product(tr(P), DO))
 
 
+def _fp32_forward_emulation(q, k, v, scale, causal, terms):
+    """(out, lse) as the forward's fp32 instantiation computes them
+    (``terms=3``): q, k, v and p split into three bf16 terms, S and
+    P . V each the cross terms of order 2^-16 and up into fp32, an
+    online softmax over 64-key tiles in the exp2 domain, o rescaled by
+    alpha before each tile's share is added; ``terms=1`` rounds each of
+    those operands once to bf16. A causal row's tiles past its diagonal
+    add exactly nothing (p = 0, alpha = 1), so all tiles are taken."""
+    BH, T, _ = q.shape
+    c = scale * LOG2E
+    Q, K, V = (split_terms(t, terms) for t in (q, k, v))
+    row = torch.arange(T)
+    m = torch.full((BH, T), -1e30)
+    l = torch.zeros(BH, T)
+    o = torch.zeros_like(q)
+    for k0 in range(0, T, 64):
+        kt = [t[:, k0:k0 + 64] for t in K]
+        vt = [t[:, k0:k0 + 64] for t in V]
+        s = split_product(Q, kt, lambda a, b: a @ b.transpose(-1, -2)) * c
+        if causal:
+            col = k0 + torch.arange(kt[0].shape[1])
+            s = torch.where(col[None, :] > row[:, None], -1e30, s)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + split_product(split_terms(p, terms), vt)
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    return o / l_safe[..., None], (m + torch.log2(l_safe)) / LOG2E
+
+
 class TestFp32TensorCoreArithmetic:
-    """The fp32 backward on the tensor cores: at BH=2, T=512, D=64
-    (seeded numpy inputs, fp32), three bf16 terms per operand keep dq,
-    dk and dv within 1e-4 (the card's fp32 gate) of ``jax.vjp`` of the
-    Pallas path; one bf16 rounding of each operand misses it."""
+    """The fp32 forward and backward on the tensor cores: at BH=2,
+    T=512, D=64 (seeded numpy inputs, fp32), three bf16 terms per
+    operand keep out and lse within 1e-4 (the card's fp32 gate) of the
+    Pallas forward (``flash_block_fwd``, the entry that returns lse), and
+    dq, dk and dv within 1e-4 of ``jax.vjp`` of the Pallas path; one
+    bf16 rounding of each operand misses it."""
+
+    @staticmethod
+    def _forward(causal):
+        rng = np.random.RandomState(0)
+        q, k, v = (rng.randn(2, 512, 64).astype(np.float32)
+                   for _ in range(3))
+        want = ja.flash_block_fwd(*(jnp.asarray(a) for a in (q, k, v)),
+                                  0.125, causal, block_q=128, block_k=128,
+                                  interpret=True)
+
+        def errs(terms):
+            got = _fp32_forward_emulation(_t(q), _t(k), _t(v), 0.125,
+                                          causal, terms)
+            return [float(np.abs(g.numpy() - np.asarray(w)).max())
+                    for g, w in zip(got, want)]
+        return errs
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_forward_three_terms_match_pallas(self, causal):
+        errs = self._forward(causal)(3)
+        assert max(errs) <= 1e-4, errs
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_forward_one_rounding_misses_the_gate(self, causal):
+        errs = self._forward(causal)(1)
+        assert min(errs) > 1e-4, errs
 
     @staticmethod
     def _both(causal):

@@ -736,8 +736,8 @@ def test_gpu_flash_attention_is_bitwise_repeatable(cuda, dtype, causal):
 @pytest.mark.gpu
 def test_gpu_flash_attention_counts_each_branch(cuda):
     """bf16 inputs launch the bf16 kernels and fp32 inputs the fp32
-    ones (the CUDA-core forward, the three-term tensor-core backward);
-    each moves only its own counter."""
+    ones (the three-term instantiations of the same tensor-core
+    kernels); each moves only its own counter."""
     from paddle_tpu_torch.ops import kernels
     rng = np.random.RandomState(7)
     for dtype, name in ((torch.bfloat16, ""), (torch.float32, ".fp32")):
@@ -769,6 +769,10 @@ def test_gpu_flash_attention_refuses_what_it_cannot_take(cuda):
     z = z[1:].view(2, 16, 64)                   # contiguous, 2-byte offset
     with pytest.raises(ValueError, match="16-byte aligned"):
         kattention.flash_attention_fwd(z, z, z, sm_scale=1.0, causal=True)
+    w = torch.zeros(2 * 16 * 64 + 1, device=cuda)
+    w = w[1:].view(2, 16, 64)                   # fp32, 4-byte offset
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kattention.flash_attention_fwd(w, w, w, sm_scale=1.0, causal=True)
 
 
 @pytest.mark.gpu

@@ -369,6 +369,17 @@ class TestWrappers:
         assert place.resolve_device("cpu") == torch.device("cpu")
         assert place.peak_flops("cpu") is None
 
+    def test_local_devices_raise_without_a_card(self, monkeypatch):
+        """No platform asked and no card: raises as default_device does,
+        never a quiet [cpu]; the CPU only when asked for."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        for platform in (None, "gpu", "cuda"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                place.local_devices(platform)
+        assert place.local_devices("cpu") == [torch.device("cpu")]
+        with pytest.raises(ValueError, match="platform 'tpu'"):
+            place.local_devices("tpu")
+
     def test_shared_memory_limits_raise(self):
         """Decode splits a slot's positions across CTAs and the prefill
         streams 64-column tiles through an online softmax for either

@@ -5,7 +5,11 @@ a float64 evaluation of the same function, on one CUDA card.
     python3 tools/attention_f64_error.py [TREE]
 
 ``TREE`` is a checkout holding ``paddle_tpu_torch/`` (default: this
-one). Prints one JSON object: for the flash attention backward at
+one). Prints one JSON object: for the flash attention forward at
+B*H = 96, T = 1024 and B*H = 12, T = 4096 (D = 64, causal, fp32), the
+max abs error of out and lse from the kernel and from the plain version
+against ``flash_attention_fwd_plain`` in float64 on the same inputs; for
+the flash attention backward at
 B*H = 96, T = 1024, causal (the training slice), B*H = 24, T = 1000,
 non-causal, and B*H = 12, T = 2048, causal (D = 64, fp32), the max abs
 error of dq, dk and dv from the kernel and from the plain version
@@ -31,6 +35,20 @@ from paddle_tpu_torch.ops.kernels import prefill as kp  # noqa: E402
 
 def err(a, b):
     return (a.double() - b).abs().max().item()
+
+
+def forward(dev, B, T, H, causal) -> dict:
+    g = torch.Generator(device=dev).manual_seed(T + H)
+    q, k, v = (torch.randn(B * H, T, 64, generator=g, device=dev)
+               for _ in range(3))
+    kw = dict(sm_scale=0.125, causal=causal)
+    got = ka.flash_attention_fwd(q, k, v, **kw)
+    plain = ka.flash_attention_fwd_plain(q, k, v, **kw)
+    exact = ka.flash_attention_fwd_plain(
+        *(t.double() for t in (q, k, v)), **kw)
+    return {"kernel": [err(a, r) for a, r in zip(got, exact)],
+            "plain": [err(a, r) for a, r in zip(plain, exact)],
+            "max_exact": [r.abs().max().item() for r in exact]}
 
 
 def backward(dev, B, T, H, causal) -> dict:
@@ -81,6 +99,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
     doc = {"tree": str(TREE), "device": torch.cuda.get_device_name(0)}
+    for B, T, H in ((8, 1024, 12), (1, 4096, 12)):
+        doc[f"fwd T={T} causal=True"] = forward(dev, B, T, H, True)
     for B, T, H, causal in ((8, 1024, 12, True), (2, 1000, 12, False),
                             (1, 2048, 12, True)):
         doc[f"bwd T={T} causal={causal}"] = backward(dev, B, T, H, causal)
