@@ -268,14 +268,33 @@ order it:
    codes against the CPU's, kernels 5/6 at the all-to-all layout, the
    launches (P² of each), and rows 5r / 6r (kernels 5/6 at the ring's
    off-diagonal block, timed beside SDPA);
-17. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
+17. the elastic gang at world 1 (``gang:`` line, ``gang_phase``; ~45 s):
+   ``runtime/supervisor.Supervisor`` runs ``tests/torch_elastic_worker.py``
+   (``cluster=True``, ``PADDLE_PLATFORM`` cleared: NCCL on ``cuda:0``,
+   both asserted) training ResNet-50 as the ``trainer:`` phase builds it
+   (bf16) at batch 32 for 8 steps through ``SGD.train``'s elastic
+   contract (heartbeats, the epoch fence, a checkpoint every 2 steps),
+   one gang uninterrupted and, beside it, one whose rank is SIGKILLed at
+   step 5 of its first incarnation (``kill@step:step=5:epoch=1``): the
+   supervisor judges it (``worker_exit:-9``), tears it down and relaunches
+   it as epoch 2, which restores the latest intact checkpoint; the final
+   parameters and the re-executed losses are held bitwise to the
+   uninterrupted gang's where two uninterrupted gangs are bitwise (a third
+   gang is run to decide only when the resumed one is not), else within
+   ``TRAINER_RESNET_REL``, and the line says which held; it prints the
+   restarts, epochs, the failure reason, the seconds from the killed
+   rank's last step to the detection, ``restart_gap``,
+   ``recovery_seconds``, each epoch's startup, the goodput fraction, each
+   incarnation's wall time, the writer's seconds per save and the
+   script's time so far. No port kernel launches here;
+18. trains the GPT-2-small-width LM (bf16, flash attention, batch 8 x
    1024 tokens, Adam at 1e-4, one seeded batch: the repo's
    ``benchmarks/transformer_bench.py`` recipe) for 2 warm-up and 10
    timed steps, and reads each attention kernel's launch count for the
    timed steps — 12 layers x 10 steps of each bf16 kernel, none of the
    fp32 ones; then profiles one more step (``train_profile:`` line: the
    ten device kernels with the most time, the device's busy share);
-18. prints the card line, a ``{"kernels": [...]}`` line (20 entries: the
+19. prints the card line, a ``{"kernels": [...]}`` line (20 entries: the
    17 kernels and branches, ``fused_spec_verify``, kernel 2 at the
    spec trace's verify rows, and kernels 5/6 at the ring's block shape,
    ``flash_attention_{fwd,bwd}.ring``; kernel 2's two streams and kernel 5's bf16
@@ -286,6 +305,7 @@ TF32 is switched off for matmuls and cuDNN, so fp32 products are full
 fp32 on the card as on the CPU.
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import importlib.util
@@ -7766,6 +7786,159 @@ def parallel_phase(torch, T, tt, topt, ka, kernels, q8, build, cfg,
     return ring_rows, ring_launches
 
 
+# the elastic gang at world 1 (``gang:`` line): ResNet-50 at full width as
+# the ``trainer:`` phase builds it (bf16), batch 32, 8 steps, a checkpoint
+# every 2, each on disk before the next step ends (the worker waits: the
+# writer takes 1.1-1.8 s a ~205 MB save, longer than 3 steps); the killed
+# run loses its one rank at the top of step 5 of its first incarnation,
+# so it resumes from the step-4 checkpoint
+GANG = {"batch": 32, "steps": 8, "period": 2,
+        "chaos": "kill@step:step=5:epoch=1"}
+
+
+def gang_run(label, tmp, chaos=None) -> dict:
+    """One supervised gang of ``tests/torch_elastic_worker.py`` at world 1
+    (``cluster=True``: the worker joins a process group through
+    ``distributed.init``); the supervisor's result, its ledger and the
+    worker's files."""
+    from paddle_tpu_torch.runtime import supervisor as sup
+    c = GANG
+    out = Path(tmp, label)
+    worker = Path(__file__).resolve().parent / "tests" / \
+        "torch_elastic_worker.py"
+    env = {"ELASTIC_MODEL": "resnet50", "ELASTIC_OUT": str(out),
+           "ELASTIC_NB": str(c["steps"]), "ELASTIC_BS": str(c["batch"]),
+           "PADDLE_TPU_CHECKPOINT_PERIOD": str(c["period"]),
+           "ELASTIC_SYNC_SAVES": "1",
+           "PADDLE_TPU_COMPUTE_DTYPE": "bfloat16",
+           "PADDLE_DIST_TIMEOUT_S": "120"}
+    if chaos:
+        env["PADDLE_TPU_CHAOS"] = chaos
+    s = sup.Supervisor([str(worker)], nprocs=1,
+                       state_dir=str(out / "state"), cluster=True,
+                       env_extra=env, heartbeat_window=60.0,
+                       startup_grace=180.0, poll_interval=0.1,
+                       backoff_base=0.1, backoff_cap=0.5, max_restarts=2,
+                       attempt_timeout=240.0)
+    try:
+        res = s.run(total_timeout=400)
+    finally:
+        s.close()
+    t_end = time.time()
+    if not res["ok"]:
+        fail(f"gang: the {label} gang failed: {res}")
+    e = res["epoch"]
+    done = json.loads((out / f"done_rank0_epoch{e}.json").read_text())
+    losses = {}
+    for ln in Path(out, f"losses_rank0_epoch{e}.jsonl").open():
+        rec = json.loads(ln)
+        losses[rec["step"]] = rec
+    final = dict(np.load(out / f"final_rank0_epoch{e}.npz"))
+    att = res["attempts"]
+    walls = [round(a.get("t_detect", t_end) - a["t_launch"], 3) for a in att]
+    ledger = s.ledger.summary()
+    doc = {"ok": res["ok"], "restarts": res["restarts"], "epoch": e,
+           "backend": done["backend"], "device": done["device"],
+           "final_step": done["step"], "incarnation_wall_s": walls,
+           "checkpoint_write_s": done["checkpoint_write_s"],
+           "startup_s": [ledger["epochs"][str(a["epoch"])].get("startup")
+                         for a in att],
+           "goodput_fraction": ledger["goodput_fraction"],
+           "ledger_totals": ledger["totals"]}
+    if len(att) > 1:
+        first = att[0]
+        killed = [json.loads(ln) for ln in
+                  Path(out, "losses_rank0_epoch1.jsonl").open()]
+        doc.update(
+            reason=first["reason"], failed_ranks=first["failed_ranks"],
+            steps_before_kill=len(killed),
+            kill_to_detect_s=round(first["t_detect"] - killed[-1]["t"], 3),
+            restart_gap_s=ledger["epochs"][str(e)].get("restart_gap"),
+            recovery_seconds=att[1].get("recovery_seconds"),
+            resumed_at_step=min(losses))
+    return {"doc": doc, "losses": losses, "final": final}
+
+
+def gang_gap(torch, a, b) -> float:
+    """The ``trainer:`` gate's measure between two runs: max |a - b| over
+    max |b| per parameter, and over the losses of the steps both ran."""
+    worst = max(rel_err(torch, torch.from_numpy(a["final"][k]),
+                        torch.from_numpy(b["final"][k]))
+                for k in b["final"])
+    steps = sorted(a["losses"])
+    la = torch.tensor([a["losses"][i]["loss"] for i in steps])
+    lb = torch.tensor([b["losses"][i]["loss"] for i in steps])
+    return max(worst, rel_err(torch, la, lb))
+
+
+def gang_bitwise(a, b) -> bool:
+    return (sorted(a["final"]) == sorted(b["final"])
+            and all(np.array_equal(a["final"][k], b["final"][k])
+                    for k in b["final"])
+            and all(a["losses"][i]["loss"] == b["losses"][i]["loss"]
+                    for i in a["losses"]))
+
+
+def gang_phase(torch, t_script) -> dict:
+    """The ``gang:`` line (ROADMAP A10b): the elastic supervisor over
+    world-1 gangs on the card (module docstring, item 17). The workers
+    join NCCL on ``cuda:0`` with ``PADDLE_PLATFORM`` cleared: the backend
+    and the device are asserted, never fallen back from."""
+    t_phase = time.perf_counter()
+    os.environ.pop("PADDLE_PLATFORM", None)
+    os.environ.pop("PADDLE_TPU_CHAOS", None)
+    doc = {"model": "resnet50", **GANG}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the two gangs run side by side on the card (their supervisors
+        # in two threads): an incarnation is ~3/4 process startup
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            killed_f = ex.submit(gang_run, "killed", tmp, GANG["chaos"])
+            plain, killed = gang_run("plain", tmp), killed_f.result()
+        doc["plain"], doc["killed"] = plain["doc"], killed["doc"]
+        for label, run in (("plain", plain), ("killed", killed)):
+            d = run["doc"]
+            if (d["backend"], d["device"]) != ("nccl", "cuda:0"):
+                fail(f"gang: the {label} gang ran on {d['backend']} / "
+                     f"{d['device']}, not NCCL on cuda:0")
+            if d["final_step"] != GANG["steps"]:
+                fail(f"gang: the {label} gang ended at step "
+                     f"{d['final_step']}: {d}")
+        k = killed["doc"]
+        if not (k["restarts"] == 1 and k["epoch"] == 2
+                and k.get("reason") == "worker_exit:-9"
+                and k.get("failed_ranks") == [0]
+                and k.get("steps_before_kill") == 5
+                and k.get("resumed_at_step") == 4):
+            fail(f"gang: the killed gang was not judged and resumed as "
+                 f"expected: {k}")
+        if plain["doc"]["restarts"] != 0:
+            fail(f"gang: the plain gang restarted: {plain['doc']}")
+        # the gate: bitwise where two uninterrupted gangs are bitwise
+        # (resume_gate's resnet_repeat_bitwise rule), else the trainer:
+        # gate's bound
+        doc["resumed_bitwise"] = gang_bitwise(killed, plain)
+        doc["gap"] = gang_gap(torch, killed, plain)
+        if doc["resumed_bitwise"]:
+            doc["gate"] = "bitwise"
+        else:
+            repeat = gang_run("repeat", tmp)
+            doc["repeat_bitwise"] = gang_bitwise(repeat, plain)
+            if doc["repeat_bitwise"]:
+                fail(f"gang: two uninterrupted gangs are bitwise but the "
+                     f"resumed one is {doc['gap']!r} from them")
+            if not doc["gap"] <= TRAINER_RESNET_REL:
+                fail(f"gang: the resumed gang is {doc['gap']!r} from the "
+                     f"uninterrupted one > {TRAINER_RESNET_REL!r}")
+            doc["gate"] = f"within {TRAINER_RESNET_REL!r}"
+        steps = [r["wall_s"] for i, r in sorted(plain["losses"].items())
+                 if i > 0]
+        doc["step_ms_p50"] = 1e3 * float(np.median(steps))
+    doc["phase_s"] = time.perf_counter() - t_phase
+    doc["script_s"] = time.perf_counter() - t_script
+    print("gang: " + json.dumps(doc))
+    return doc
+
+
 SOURCES = {
     "flash_decode_attention": ("decode_attention.cu",
                                "paddle_tpu/ops/pallas/decode.py:382"),
@@ -7939,6 +8112,7 @@ def main():
                                               kernels, q8, _build, cfg, dev)
     rows.update(ring_rows)
     torch.cuda.empty_cache()
+    gang_phase(torch, t_script)
     trained = train_phase(torch, tt, topt, kernels, costs, place, cfg, dev)
     launches = {**{k: served[k] for k in SERVING_KERNELS},
                 "fused_sample.threefry": served["fused_sample.threefry"],

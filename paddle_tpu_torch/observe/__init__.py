@@ -5,7 +5,8 @@ request log (``requests``), chrome-trace spans and lifecycle events
 (``chrome_trace``, ``trace``), the health server (``health``), the
 flight recorder (``flight``), the fleet's metrics aggregation
 (``fleet``) and alert rules (``alerts``), the goodput ledger
-(``goodput``) and the step bottleneck attribution (``bottleneck``).
+(``goodput``), the gang's straggler attribution (``straggler``) and the
+step bottleneck attribution (``bottleneck``).
 
 ``report()`` is the one funnel the trainer (and anything else) pushes
 per-step records through: every record goes to the configured JSONL
@@ -33,6 +34,8 @@ from paddle_tpu_torch.observe.fleet import (  # noqa: F401
     FleetAggregator, death_postmortem)
 from paddle_tpu_torch.observe.goodput import (  # noqa: F401
     GoodputLedger, StepAccountant)
+from paddle_tpu_torch.observe.straggler import (  # noqa: F401
+    StragglerDetector, judge_gang)
 from paddle_tpu_torch.observe import bottleneck  # noqa: F401
 from paddle_tpu_torch.observe.bottleneck import attribute_step  # noqa: F401
 from paddle_tpu_torch.observe import costs  # noqa: F401 — observe.costs.*

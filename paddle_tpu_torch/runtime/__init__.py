@@ -1,8 +1,10 @@
 """Host-side runtime (counterpart of ``paddle_tpu/runtime``): record IO
 (``recordio``, with the native codec in ``native``), the data-dispatch
 service and the serving fleet's replica processes (``master``), the
-multi-process launcher (``launch``) and the restart policy the fleet
-controller heals under (``supervisor.RestartBudget``).
+multi-process launcher (``launch``), the elastic training gang's
+supervisor with its heartbeats and coordination epochs
+(``supervisor``; its ``RestartBudget`` is also the policy the fleet
+controller heals under) and fault injection (``chaos``).
 
 Reference: the recordio chunk format consumed by the Go master
 (go/master/service.go) and the task-dispatch service. The recordio

@@ -7,18 +7,21 @@ pserver+trainer processes with --trainer_id etc.) and submit_local.sh.in
 
 Every process is identical (no pserver role); the launcher just sets
 the PADDLE_* env contract (rank, world size, coordinator address) and
-execs the worker. Local mode spawns N processes on this machine — the
-no-cluster simulation of a multi-host job used by the tests. The
-contract is the JAX package's, key for key: it also writes
-``PADDLE_PLATFORM=cpu`` (which ``distributed.init`` reads: gloo on the
-CPU) and ``PADDLE_LOCAL_CPU_DEVICES`` (from ``devices_per_proc``; a port
-rank drives one device, so ``init`` ignores it). The JAX package's
-``multiprocess_cpu_supported`` probe (a JAX script) comes with the gang
-supervisor (ROADMAP A10b).
+execs the worker. Local mode spawns N processes on this machine — one
+rank each, on the card unless the caller asks for the CPU. The contract
+is the JAX package's but for one key: the JAX launcher writes
+``PADDLE_PLATFORM=cpu`` into every worker (its local mode is a CPU
+simulation), and this one writes no platform, so ``distributed.init``
+joins NCCL on the card. A caller that wants gloo on the CPU asks for it
+with ``env_extra={"PADDLE_PLATFORM": "cpu"}`` or the key in its own
+environment (ROADMAP C14). ``PADDLE_LOCAL_CPU_DEVICES`` (from
+``devices_per_proc``) is written as the JAX package writes it; a port
+rank drives one device, so ``init`` ignores it.
 
-Usage:
+Usage (the workers on the card; prefix ``PADDLE_PLATFORM=cpu`` for a
+gloo gang on the CPU):
   python -m paddle_tpu_torch.runtime.launch --nprocs=2 \
-      --devices-per-proc=4 worker.py [worker args...]
+      worker.py [worker args...]
 On a cluster, run one process per host with PADDLE_COORDINATOR pointing
 at host 0 instead.
 """
@@ -48,11 +51,12 @@ def spawn_local_procs(nprocs: int, argv: Sequence[str],
     """Spawn ``nprocs`` local worker processes WITHOUT waiting — the
     restartable-gang primitive the elastic supervisor re-forms on every
     coordination epoch. ``cluster=False`` omits PADDLE_COORDINATOR so
-    workers run independent single-process runtimes (the CPU
-    simulation path without multi-process collectives); a fresh
-    coordinator port per call
-    is the 'fresh coordination epoch' in cluster mode (no TIME_WAIT or
-    zombie can hold the old port hostage)."""
+    workers run independent single-process runtimes; a fresh
+    coordinator port per call is the 'fresh coordination epoch' in
+    cluster mode (no TIME_WAIT or zombie can hold the old port
+    hostage). No platform is written: the workers run on the card
+    unless ``env_extra`` or this process's environment carries
+    ``PADDLE_PLATFORM=cpu``."""
     port = coordinator_port or free_port()
     procs = []
     for rank in range(nprocs):
@@ -62,7 +66,6 @@ def spawn_local_procs(nprocs: int, argv: Sequence[str],
         env = dict(os.environ)
         env.update(PADDLE_NUM_PROCESSES=str(nprocs),
                    PADDLE_PROCESS_ID=str(rank),
-                   PADDLE_PLATFORM="cpu",
                    PADDLE_LOCAL_CPU_DEVICES=str(devices_per_proc))
         env.update(env_extra or {})
         env.update(env_per_rank[rank] if env_per_rank else {})
@@ -244,10 +247,56 @@ def spawn_ssh_procs(hosts: Sequence[str], argv: Sequence[str], *,
     return procs
 
 
+_MP_CPU_PROBE = """
+import torch
+import torch.distributed as tdist
+from paddle_tpu_torch import distributed
+distributed.init()
+assert distributed.backend() == "gloo", distributed.backend()
+assert distributed.process_count() == 2, distributed.process_count()
+x = torch.ones(2)
+tdist.all_reduce(x)
+assert x.tolist() == [2.0, 2.0], x
+distributed.shutdown()
+"""
+
+_mp_cpu_supported: Optional[bool] = None
+
+
+def multiprocess_cpu_supported(timeout: float = 240.0) -> bool:
+    """Whether this torch can run cross-process collectives on the CPU:
+    a 2-rank gloo all-reduce through ``launch_local`` with
+    ``PADDLE_PLATFORM=cpu``, run once per process and cached, so tests
+    that need a CPU gang can skip with a reason instead of failing on an
+    environment limitation. Override with PADDLE_TPU_MULTIPROC_CPU=0/1
+    to skip the probe."""
+    global _mp_cpu_supported
+    forced = os.environ.get("PADDLE_TPU_MULTIPROC_CPU")
+    if forced is not None:
+        return forced not in ("0", "false", "no")
+    if _mp_cpu_supported is None:
+        import tempfile
+        with tempfile.TemporaryDirectory() as td:
+            probe = os.path.join(td, "probe.py")
+            repo = os.path.dirname(os.path.dirname(
+                os.path.dirname(os.path.abspath(__file__))))
+            with open(probe, "w") as f:
+                f.write(f"import sys; sys.path.insert(0, {repo!r})\n"
+                        + _MP_CPU_PROBE)
+            try:
+                rcs = launch_local(2, [probe], devices_per_proc=1,
+                                   env_extra={"PADDLE_PLATFORM": "cpu"},
+                                   timeout=timeout)
+            except Exception:  # noqa: BLE001 — a broken probe = no
+                rcs = [-1]
+            _mp_cpu_supported = all(rc == 0 for rc in rcs)
+    return _mp_cpu_supported
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="paddle_tpu_torch.runtime.launch",
-        description="multi-process launcher: local simulation or ssh "
+        description="multi-process launcher: a local gang or ssh "
         "fan-out across hosts")
     ap.add_argument("--nprocs", type=int, default=2)
     ap.add_argument("--devices-per-proc", type=int, default=1)

@@ -34,8 +34,12 @@ collectives are explicit (``parallel/spmd.py``). Batch norm layers
 normalize over the global batch, as the JAX package's GSPMD step does
 (``ops/norm.synced_statistics``: the statistics' sums reduced over the
 ranks), and so do ``conv_bn``'s and the q8 blocks' (with the stashes'
-absmax). The elastic supervisor contract (``PADDLE_ELASTIC_DIR``) is
-ROADMAP A10b and raises ``NotImplementedError``.
+absmax).
+
+Under a gang supervisor (``runtime/supervisor.py``: ``PADDLE_ELASTIC_DIR``
+and ``PADDLE_ELASTIC_EPOCH`` in the environment) ``train`` beats step
+progress and its telemetry into the rank's heartbeat and fences every
+checkpoint commit on the stamped coordination epoch.
 """
 
 import contextlib
@@ -808,12 +812,13 @@ class SGD:
         return observe.HealthServer(health_fn=health, host=host, port=port)
 
     def _telemetry_doc(self) -> dict:
-        """The per-beat gang telemetry payload: this rank's registry
+        """The per-beat gang telemetry payload (the supervisor's scrape
+        transport — ``Heartbeat.set_telemetry``): this rank's registry
         snapshot (counters + gauges; histograms don't aggregate), its
-        raw step window for the pooled gang quantiles, and the goodput
-        accountant's buckets. All O(registry) dict work, no device
-        sync. (The distributed barrier window joins with the gang
-        supervisor, ROADMAP A10b.)"""
+        raw step/barrier windows for the pooled gang quantiles and the
+        straggler join, and the goodput accountant's buckets. Runs on
+        the beat thread at the heartbeat cadence; all O(registry) dict
+        work, no device sync."""
         snap = {name: doc for name, doc in
                 observe.default_registry().snapshot().items()
                 if doc.get("kind") in ("counter", "gauge")}
@@ -822,6 +827,10 @@ class SGD:
         if mon is not None:
             window["step_time_samples"] = \
                 mon.step_window.export_samples()
+        from paddle_tpu_torch import distributed
+        bw = distributed.barrier_window(create=False)
+        if bw is not None:
+            window["barrier_wait_samples"] = bw.export_samples()
         doc = {"snapshot": snap, "window": window}
         acct = getattr(self, "_acct", None)
         if acct is not None:
@@ -856,15 +865,15 @@ class SGD:
         continues mid-epoch on the exact next batch. 0 keeps the
         synchronous one-batch-lookahead path.
 
-        The chaos knob (PADDLE_TPU_CHAOS, site ``step``) is honored at
-        the top of every batch. The elastic supervisor contract
-        (PADDLE_ELASTIC_DIR) needs the gang supervisor (ROADMAP A10b) and
-        raises ``NotImplementedError``."""
-        if os.environ.get("PADDLE_ELASTIC_DIR"):
-            raise NotImplementedError(
-                "PADDLE_ELASTIC_DIR is set: the elastic supervisor "
-                "contract (runtime/supervisor.py heartbeats and fencing) "
-                "is not ported yet — ROADMAP A10b")
+        Elastic contract: under a supervisor (PADDLE_ELASTIC_DIR set by
+        ``runtime/supervisor.py``) this entry is crash-re-enterable —
+        it resumes from the latest INTACT checkpoint (torn saves are
+        skipped), heartbeats step progress and its telemetry to the
+        supervisor every batch (PADDLE_GANG_TELEMETRY=0 leaves the
+        telemetry out), and fences every checkpoint commit on the
+        stamped coordination epoch so a zombie from a superseded gang
+        can never publish state. The chaos knob (PADDLE_TPU_CHAOS, site
+        ``step``) is honored at the top of every batch."""
         event_handler = event_handler or (lambda e: None)
         feeder = self._feeder(feeding)
         from paddle_tpu_torch.pipeline import Pipeline
@@ -909,9 +918,22 @@ class SGD:
             observe.configure(mpath, _source="flag")
         self._check_finite = (GLOBAL_FLAGS.get("debug_nans") or
                               GLOBAL_FLAGS.get("debug_infs"))
-        # goodput accounting for this run: the accountant's birth is the
-        # "startup ends here" mark
+        # elastic supervision (runtime/supervisor.py env contract):
+        # heartbeat step progress + fence checkpoint commits on the
+        # stamped coordination epoch; both None outside a supervisor
+        hb, fence = None, None
+        if os.environ.get("PADDLE_ELASTIC_DIR"):
+            from paddle_tpu_torch.runtime import supervisor
+            hb = supervisor.Heartbeat.from_env()
+            fence = supervisor.fence_from_env()
+        # goodput accounting for this incarnation: the accountant's
+        # birth is the "startup ends here" mark the supervisor joins
+        # with its launch timestamp, and its buckets ride the heartbeat
+        # telemetry into the run-lifetime ledger
         self._acct = observe.StepAccountant()
+        if hb is not None and os.environ.get(
+                "PADDLE_GANG_TELEMETRY", "1") != "0":
+            hb.set_telemetry(self._telemetry_doc)
         ckpt = None
         if checkpoint_dir is not None:
             from paddle_tpu_torch.io import checkpoint as ckpt_io
@@ -929,17 +951,19 @@ class SGD:
                 logger.info("resumed from %s (step %d)", latest, self._step)
                 self._acct.add("restore",
                                time.perf_counter() - t_restore0)
-            ckpt = ckpt_io.AsyncCheckpointer(checkpoint_dir,
+            ckpt = ckpt_io.AsyncCheckpointer(checkpoint_dir, fence=fence,
                                              **self._ckpt_processes())
         # the run's writer stays readable after it closes (write_seconds)
         self.last_checkpointer = ckpt
         recorder = observe.default_flight_recorder()
         dumps_before = len(recorder.dumped_paths)
+        trained_ok = False
         try:
             self._train_passes(reader, num_passes, event_handler, feeder,
                                ks, log_period, ckpt,
                                GLOBAL_FLAGS.get("checkpoint_period", 0),
-                               pipe=pipe)
+                               pipe=pipe, hb=hb)
+            trained_ok = True
         except Exception as e:
             # post-mortem for any crash escaping the loop — but only
             # when a flight dir is explicitly configured, and not when
@@ -950,6 +974,12 @@ class SGD:
                 recorder.dump(reason="exception in training loop", exc=e)
             raise
         finally:
+            if hb is not None:
+                # only a CLEAN exit is marked done (exempt from the
+                # supervisor's staleness judgments); on a crash the
+                # beacon just stops, so a process that lingers after a
+                # swallowed exception still reads heartbeat_lost
+                hb.done() if trained_ok else hb.stop()
             if ckpt is not None:
                 ckpt.close()
 
@@ -1056,13 +1086,14 @@ class SGD:
             yield prev
 
     def _train_passes(self, reader, num_passes, event_handler, feeder, ks,
-                      log_period, ckpt=None, period=0, pipe=None):
+                      log_period, ckpt=None, period=0, pipe=None, hb=None):
         monitor = _StepMonitor(
             opt_state_bytes=self.opt_state_bytes_per_device(),
             grad_bytes=self.grad_bytes_per_device(),
             param_bytes=self.param_bytes_per_device(),
             device=self.device)
-        # published so a telemetry thread can export the raw step window
+        # published so the heartbeat's telemetry thread can export the
+        # raw step window (gang pooling + straggler attribution)
         self._monitor = monitor
         acct = getattr(self, "_acct", None)
         if acct is None:
@@ -1129,6 +1160,11 @@ class SGD:
                           median_s=monitor.median())
                 self._last_step_wall = time.perf_counter()
                 self._last_cost = cost
+                if hb is not None:
+                    # step-progress lease for the elastic supervisor: a
+                    # wedged worker keeps the liveness thread beating
+                    # but this step counter stalls (wedge_window)
+                    hb.beat(self._step)
                 bs = int(next(iter(feeds.values())).array.shape[0])
                 pass_examples += bs
                 _, eps = monitor.step(

@@ -102,6 +102,7 @@ class TestMultiProcessCluster:
         worker.write_text(CLUSTER_WORKER.format(repo=REPO))
         rcs = launch.launch_local(
             2, [str(worker)], env_extra={"TEST_OUT_DIR": str(tmp_path),
+                                         "PADDLE_PLATFORM": "cpu",
                                          "PADDLE_DIST_TIMEOUT_S": "60"},
             timeout=120)
         assert rcs == [0, 0], rcs

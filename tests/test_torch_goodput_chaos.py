@@ -9,7 +9,7 @@ TestBottleneckAttribution`` and ``TestTrainerBottleneck``,
 ``test_foundation.py``'s memory cases. FlopCounterMode's count of one
 matmul is exactly 2MNK, as ``test_lowered_cost_known_flops`` asserts of
 XLA's cost model. The gang cases (a supervisor over worker processes)
-wait for ROADMAP A9.
+are ``tests/test_torch_elastic.py`` and ``tests/test_torch_gang_observe.py``.
 """
 
 import json

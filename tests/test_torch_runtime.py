@@ -14,7 +14,8 @@ Every case runs through both packages with the same inputs:
   taken over by the other, term continued;
 - ``DecorrelatedBackoff`` and ``RestartBudget`` give equal sequences
   under the same seeded rng; ``terminate_procs`` and the env contract
-  of ``spawn_local_procs`` are equal;
+  of ``spawn_local_procs`` are equal, but for the platform the JAX
+  launcher writes and the port's does not (ROADMAP C14);
 - the native builds (the kernels' and the codec's) compile once when
   two processes meet a cold build directory together: a stand-in
   compiler logs which process wrote which object.
@@ -532,6 +533,48 @@ def test_spawn_local_procs_env_contract_equal(tmp_path, cluster,
     assert first["PADDLE_PLATFORM"] == "gpu"          # env_extra wins
     assert first["PADDLE_RANK_TAG"] == "one"
     assert ("PADDLE_COORDINATOR" in first) == cluster
+
+
+def _spawned_envs(tmp_path, side, env_extra=None):
+    """The PADDLE_* keys each of 2 workers of ``side``'s launcher sees."""
+    script = tmp_path / "dump.py"
+    script.write_text(ENV_DUMP)
+    out = tmp_path / side
+    out.mkdir()
+    procs = LAUNCH[side].spawn_local_procs(
+        2, [str(script), str(out)], coordinator_port=23457,
+        env_extra=env_extra)
+    assert [p.wait(timeout=60) for p in procs] == [0, 0]
+    return [json.loads((out / f"{r}.json").read_text()) for r in range(2)]
+
+
+def test_spawn_local_procs_writes_no_platform(tmp_path, monkeypatch):
+    """ROADMAP C14: with no platform asked, the JAX launcher writes
+    PADDLE_PLATFORM=cpu (its local mode is a CPU simulation) and the
+    port's writes none, so its workers join NCCL on the card."""
+    for k in [k for k in os.environ if k.startswith("PADDLE_")]:
+        monkeypatch.delenv(k)
+    envs = {side: _spawned_envs(tmp_path, side) for side in SIDES}
+    assert [e.get("PADDLE_PLATFORM") for e in envs["jax"]] == ["cpu", "cpu"]
+    assert all("PADDLE_PLATFORM" not in e for e in envs["port"])
+    for j, t in zip(envs["jax"], envs["port"]):
+        assert {k: v for k, v in j.items() if k != "PADDLE_PLATFORM"} == t
+
+
+def test_spawn_local_procs_cpu_contract_equals_the_jax_default(
+        tmp_path, monkeypatch):
+    """A port caller that asks for the CPU gets the JAX launcher's
+    default contract, key for key; a platform in the caller's own
+    environment reaches the workers too."""
+    for k in [k for k in os.environ if k.startswith("PADDLE_")]:
+        monkeypatch.delenv(k)
+    jax_default = _spawned_envs(tmp_path, "jax")
+    (tmp_path / "asked").mkdir()
+    assert _spawned_envs(tmp_path / "asked", "port",
+                         env_extra={"PADDLE_PLATFORM": "cpu"}) == jax_default
+    monkeypatch.setenv("PADDLE_PLATFORM", "cpu")
+    (tmp_path / "inherited").mkdir()
+    assert _spawned_envs(tmp_path / "inherited", "port") == jax_default
 
 
 STUBBORN = ("import signal, sys, time; "

@@ -9,8 +9,8 @@ value|); fp32 compute on both sides, as ``tests/conftest.py`` sets it),
 evaluator results equal; the microbatched step (``grad_accum_steps``)
 against JAX's and against the port's plain step; the ragged tail, the
 one-batch lookahead, the events, ``test``, ``save_parameter_to_tar``
-loaded by the JAX package, the path that raises until ROADMAP A10b and
-the ``parallel=`` path that no longer does.
+loaded by the JAX package, and the paths that raised until their
+modules were ported (``parallel=``, the elastic supervisor's contract).
 ``test_checkpoint_roundtrip`` and the checkpoint and pipeline paths are
 in ``tests/test_torch_trainer_resume.py``.
 """
@@ -341,10 +341,19 @@ class TestPendingPaths:
         assert events == ["BeginPass", "EndPass"]
 
     def test_elastic_contract_raises_a9(self, monkeypatch, tmp_path):
-        """The elastic supervisor contract is ROADMAP A10b now."""
+        """Ported (the name is kept): under the supervisor's env contract
+        ``train`` trains, beats its step into the rank's heartbeat file
+        and marks the clean exit done (the gang cases are
+        ``tests/test_torch_elastic.py``)."""
+        import json
         monkeypatch.setenv("PADDLE_ELASTIC_DIR", str(tmp_path))
-        with pytest.raises(NotImplementedError, match="A10b"):
-            self._trainer().train(lambda: iter([]))
+        monkeypatch.setenv("PADDLE_PROCESS_ID", "0")
+        monkeypatch.setenv("PADDLE_ELASTIC_EPOCH", "3")
+        tr = self._trainer()
+        tr.train(T.batch(lambda: iter(TestGradAccum()._rows(8)), 4))
+        rec = json.loads((tmp_path / "hb" / "worker_0_e3.json").read_text())
+        assert (rec["rank"], rec["epoch"], rec["step"], rec["done"]) == \
+            (0, 3, 2, True)
 
 
 def test_feeds_go_to_the_parameters_device():

@@ -51,8 +51,11 @@ class RankPool:
         self.listener = Listener(("127.0.0.1", 0), authkey=self.key)
         host, port = self.listener.address
         self.tmp = tempfile.mkdtemp(prefix="torch-ranks-")
+        # the launcher writes no platform (the card by default): the
+        # pool asks for gloo on the CPU
         env = {"PYTHONPATH": REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""),
+               "PADDLE_PLATFORM": "cpu",
                "PADDLE_DIST_TIMEOUT_S": str(GROUP_TIMEOUT_S),
                "TORCH_RANK_POOL": f"{host}:{port}:{self.key.hex()}",
                "OMP_NUM_THREADS": "1"}
