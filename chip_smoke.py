@@ -251,7 +251,7 @@ order it:
    and two small fp32 MoE models (top-1, top-2) card vs CPU within 1e-4;
    their launches join the kernel line;
 16. the multi-rank tier at world 1 (``parallel:`` line,
-   ``parallel_phase``; ~30 s): ``distributed.init()`` from the env
+   ``parallel_phase``; ~25 s): ``distributed.init()`` from the env
    contract (NCCL on ``cuda:0``, a (data, seq, model) = (1, 1, 1) mesh,
    barrier times, one NCCL all-reduce); ResNet-50 as the ``trainer:`` phase builds it (batch
    128, bf16) through ``SGD(parallel=data_parallel(mesh, zero=z))`` for
@@ -260,9 +260,21 @@ order it:
    no collective issued over the mesh's axes of one rank, the step
    records' opt-state bytes); GPT-2 small under ``param_shardings`` (the
    ``train:`` recipe, 3 Adam steps) bitwise its unsharded step, with no
-   collective either; the flash ring's schedule at P = 4 and 8 virtual
-   ranks (B = 2, H = 12, D = 64, T = 4096, bf16, causal) against kernels
-   5/6 over the whole sequence and against their plain versions in the
+   collective either; ``mesh_paths`` (``parallel_mesh_paths``, ROADMAP
+   A10c): the transformer's other mesh paths, each bitwise its unsharded
+   call with no collective: ``lm_loss`` with dropout 0.1 at B = 8,
+   T = 1024 (loss and gradients from one generator seed),
+   ``prefill(mesh=)`` at B = 4, Tp = 128 (logits and arena), greedy
+   ``generate(mesh=)`` with 32 new tokens (ids), ``beam_search(mesh=)``
+   at B = 2, K = 4, 16 new (ids and scores) and
+   ``prefill_into_slot(mesh=)`` of a 200-token prompt in the 256 bucket
+   (logits and the whole arena), kernels 5 and 6 counted over the mesh
+   calls into rows 5 and 6; a ``seq`` axis of more than one rank
+   cannot exist on one card, so the seq paths (ring, all-to-all, and
+   the gathered sequence without ring attention) run on the CPU's gloo
+   ranks only (``tests/test_torch_mesh_paths.py``); the flash ring's
+   schedule at P = 4 and 8 virtual ranks (B = 2, H = 12, D = 64,
+   T = 4096, bf16, causal) against kernels 5/6 over the whole sequence and against their plain versions in the
    same schedule, the masked blocks' backward exactly 0 in both, the
    int8 hop's
    codes against the CPU's, kernels 5/6 at the all-to-all layout, the
@@ -7639,6 +7651,153 @@ def parallel_lm(torch, tt, topt, dev, cfg, mesh) -> dict:
     return doc
 
 
+# the transformer's mesh paths at GPT-2 small (ROADMAP A10c): the dropout
+# step at the train: recipe's shape, the lockstep shapes of lockstep:
+PARALLEL_MESH = {"dropout": 0.1, "prefill_B": 4, "prefill_Tp": 128,
+                 "generate_new": 32, "beam_B": 2, "beam_K": 4,
+                 "beam_new": 16, "slot_bucket": 256, "slot_length": 200,
+                 "slot_rows": 4, "slot_cache": 1024}
+
+
+def parallel_mesh_paths(torch, tt, topt, kernels, dev, cfg, mesh) -> tuple:
+    """The ``mesh_paths`` block of the ``parallel:`` line (ROADMAP A10c):
+    the transformer's dropout and lockstep mesh paths on the world-1
+    mesh, each against the same call unsharded. ``lm_loss`` with dropout
+    0.1 at the ``train:`` recipe's B = 8, T = 1024 from one generator
+    seed, forward and backward; ``prefill(mesh=)`` at B = 4, Tp = 128;
+    greedy ``generate(mesh=)``, 32 new; ``beam_search(mesh=)`` at B = 2,
+    K = 4, 16 new; ``prefill_into_slot(mesh=)`` of a 200-token prompt
+    in the 256 bucket into row 1 of a 4-row arena. Every output bitwise,
+    no collective issued; kernels 5 and 6 counted over the mesh calls
+    only. Returns (doc, those launches)."""
+    from paddle_tpu_torch.parallel import spmd
+    c = PARALLEL_MESH
+    t0 = time.perf_counter()
+    launches = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    records = []
+
+    def on_mesh(fn):
+        kernels.reset_launches()
+        with spmd.record_collectives() as rec:
+            out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        records.extend(rec)
+        return out
+
+    def same(a, b):
+        a, b = list(a), list(b)
+        return len(a) == len(b) and all(map(torch.equal, a, b))
+
+    def leaves(t):
+        return [v for _, v in topt.tree_leaves(t)]
+
+    doc = {}
+    # (1) the dropout step
+    dcfg = dataclasses.replace(cfg, dropout=c["dropout"])
+    base = tt.init_train_params(cfg, torch.Generator().manual_seed(0), dev)
+    rng = np.random.RandomState(24)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(dev)
+    targets = tokens.roll(-1, 1)
+
+    def step(sharded):
+        p = {k: v.detach().clone().requires_grad_() for k, v in base.items()
+             if k != "blocks"}
+        p["blocks"] = {k: v.detach().clone().requires_grad_()
+                       for k, v in base["blocks"].items()}
+        if sharded:
+            p = tt.shard_params(p, dcfg, mesh, trainable=True)
+        gen = torch.Generator(device=dev).manual_seed(1024)
+        loss = tt.lm_loss(p, tokens, targets, dcfg,
+                          mesh=mesh if sharded else None, generator=gen)
+        loss.backward()
+        grads = topt.take_grads(p)
+        if sharded:
+            grads = tt.sync_grads(grads, dcfg, mesh)
+        return loss.detach(), leaves(grads)
+
+    l0, g0 = step(False)
+    l1, g1 = on_mesh(lambda: step(True))
+    with torch.no_grad():
+        plain = tt.lm_loss(base, tokens, targets, cfg)
+    doc["dropout"] = {"B": TRAIN_BATCH, "T": TRAIN_SEQ, "rate": c["dropout"],
+                      "loss": l1.item(), "loss_without_dropout": plain.item(),
+                      "loss_bitwise": torch.equal(l0, l1),
+                      "grads_bitwise": same(g0, g1)}
+    del base, g0, g1
+    torch.cuda.empty_cache()
+    # (2)-(5) the serving entry points on the serving dict
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    B, Tp = c["prefill_B"], c["prefill_Tp"]
+    prompt = torch.from_numpy(np.random.RandomState(25).randint(
+        0, cfg.vocab, (B, Tp)).astype(np.int32)).to(dev)
+    cl = Tp + c["generate_new"]
+    with torch.no_grad():
+        a = tt.prefill(params, prompt, cfg, cl)
+        b = on_mesh(lambda: tt.prefill(params, prompt, cfg, cl, mesh=mesh))
+        doc["prefill"] = {"B": B, "Tp": Tp,
+                          "logits_bitwise": torch.equal(a[0], b[0]),
+                          "arena_bitwise": same(a[1].values(),
+                                                b[1].values())}
+        del a, b
+        gk = dict(max_new=c["generate_new"])
+        a = tt.generate(params, prompt, cfg, **gk)
+        b = on_mesh(lambda: tt.generate(params, prompt, cfg, mesh=mesh,
+                                        **gk))
+        doc["generate"] = {"B": B, "new": c["generate_new"],
+                           "ids_equal": torch.equal(a, b)}
+        bp = prompt[:c["beam_B"]]
+        bk = dict(max_new=c["beam_new"], beam_size=c["beam_K"])
+        a = tt.beam_search(params, bp, cfg, **bk)
+        b = on_mesh(lambda: tt.beam_search(params, bp, cfg, mesh=mesh, **bk))
+        doc["beam_search"] = {"B": c["beam_B"], "K": c["beam_K"],
+                              "new": c["beam_new"],
+                              "ids_equal": torch.equal(a[0], b[0]),
+                              "scores_bitwise": torch.equal(a[1], b[1])}
+        Tb, n = c["slot_bucket"], c["slot_length"]
+        slot_toks = torch.from_numpy(np.random.RandomState(26).randint(
+            0, cfg.vocab, (1, Tb)).astype(np.int32)).to(dev)
+        g = torch.Generator(device=dev).manual_seed(26)
+        arena = tt.init_cache(cfg, c["slot_rows"], c["slot_cache"], dev)
+        for t in arena.values():
+            t.copy_(torch.randn(t.shape, generator=g, device=dev))
+        arenas = [{k: t.clone() for k, t in arena.items()}
+                  for _ in range(2)]
+        del arena
+        a = tt.prefill_into_slot(params, arenas[0], slot_toks, n, 1, cfg)
+        b = on_mesh(lambda: tt.prefill_into_slot(
+            params, arenas[1], slot_toks, n, 1, cfg, mesh=mesh))
+        doc["prefill_into_slot"] = {
+            "bucket": Tb, "length": n, "rows": c["slot_rows"],
+            "logits_bitwise": torch.equal(a[0], b[0]),
+            "arena_bitwise": same(arenas[0].values(), arenas[1].values())}
+    del params, arenas
+    torch.cuda.empty_cache()
+    doc.update(collectives=len(records), launches=dict(launches),
+               block_s=time.perf_counter() - t0)
+    gates = [doc["dropout"]["loss_bitwise"], doc["dropout"]["grads_bitwise"],
+             doc["prefill"]["logits_bitwise"],
+             doc["prefill"]["arena_bitwise"], doc["generate"]["ids_equal"],
+             doc["beam_search"]["ids_equal"],
+             doc["beam_search"]["scores_bitwise"],
+             doc["prefill_into_slot"]["logits_bitwise"],
+             doc["prefill_into_slot"]["arena_bitwise"]]
+    if not all(gates):
+        fail(f"parallel mesh_paths: a mesh call is not its unsharded call "
+             f"at world 1: {doc}")
+    if records:
+        fail(f"parallel mesh_paths: {len(records)} collectives over axes "
+             f"of one rank")
+    if not all(launches.values()):
+        fail(f"parallel mesh_paths: kernels 5/6 not launched: {launches}")
+    if doc["dropout"]["loss"] == doc["dropout"]["loss_without_dropout"]:
+        fail("parallel mesh_paths: dropout 0.1 left the loss unchanged")
+    return doc, launches
+
+
 def parallel_ring(torch, ka, kernels, q8, timer, build, dev) -> tuple:
     """The flash ring's schedule at P = 4 and 8 virtual ranks on the
     card (``parallel.ring.ring_flash_schedule``: the loops
@@ -7764,9 +7923,10 @@ def parallel_ring(torch, ka, kernels, q8, timer, build, dev) -> tuple:
 
 def parallel_phase(torch, T, tt, topt, ka, kernels, q8, build, cfg,
                    dev) -> tuple:
-    """The ``parallel:`` line (ROADMAP A10a): ``dist``, ``sgd``, ``lm``
-    and ``ring`` (module docstring, item 16). Returns the ring rows and
-    the ring run's kernel 5/6 launches."""
+    """The ``parallel:`` line (ROADMAP A10a, A10c): ``dist``, ``sgd``,
+    ``lm``, ``mesh_paths`` and ``ring`` (module docstring, item 16).
+    Returns the ring rows, the ring run's kernel 5/6 launches and the
+    mesh paths' kernel 5/6 launches."""
     from paddle_tpu_torch import distributed
     t_phase = time.perf_counter()
     timer = Timer(torch)
@@ -7777,13 +7937,16 @@ def parallel_phase(torch, T, tt, topt, ka, kernels, q8, build, cfg,
         torch.cuda.empty_cache()
         doc["lm"] = parallel_lm(torch, tt, topt, dev, cfg, mesh)
         torch.cuda.empty_cache()
+        doc["mesh_paths"], mesh_launches = parallel_mesh_paths(
+            torch, tt, topt, kernels, dev, cfg, mesh)
+        torch.cuda.empty_cache()
         doc["ring"], ring_rows, ring_launches = parallel_ring(
             torch, ka, kernels, q8, timer, build, dev)
     finally:
         distributed.shutdown()
     doc["phase_s"] = time.perf_counter() - t_phase
     print("parallel: " + json.dumps(doc))
-    return ring_rows, ring_launches
+    return ring_rows, ring_launches, mesh_launches
 
 
 # the elastic gang at world 1 (``gang:`` line): ResNet-50 at full width as
@@ -8108,8 +8271,8 @@ def main():
                   PagedDecodeEngine, cfg, dev)
     torch.cuda.empty_cache()
     import paddle_tpu_torch as T
-    ring_rows, ring_launches = parallel_phase(torch, T, tt, topt, ka,
-                                              kernels, q8, _build, cfg, dev)
+    ring_rows, ring_launches, mesh_launches = parallel_phase(
+        torch, T, tt, topt, ka, kernels, q8, _build, cfg, dev)
     rows.update(ring_rows)
     torch.cuda.empty_cache()
     gang_phase(torch, t_script)
@@ -8132,6 +8295,9 @@ def main():
         launches[k] += fleet_launches[k] + autoscale_launches[k]
     # the MoE engine runs kernels 1-4, remat and MoE training 5 and 6
     for k, n in a9.items():
+        launches[k] += n
+    # the transformer's mesh paths run kernels 5 and 6
+    for k, n in mesh_launches.items():
         launches[k] += n
 
     out = []

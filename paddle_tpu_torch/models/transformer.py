@@ -55,9 +55,13 @@ kernels do not take, in the JAX package either) the plain
 With a ``mesh`` (:func:`forward` / :func:`lm_loss`), every rank runs its
 block of one SPMD step over the :func:`param_shardings` layout: tokens
 split over the batch axes and ``seq`` (ring or all-to-all attention
-under ``use_ring_attention``), heads, FFN and vocab over ``model``,
-experts over ``expert``; :func:`sync_grads` sums the gradients over
-the token axes.
+under ``use_ring_attention``, the gathered global sequence without it),
+heads, FFN and vocab over ``model``, experts over ``expert``;
+:func:`sync_grads` sums the gradients over the token axes. Dropout
+draws each global mask on every rank and keeps the rank's block.
+:func:`prefill` and :func:`prefill_into_slot` take the mesh too and
+return the global logits and arena on every rank; :func:`generate` and
+:func:`beam_search` pass it to the prefill and decode on the whole tree.
 """
 
 import dataclasses
@@ -444,6 +448,11 @@ def _blocks_quantized(params) -> bool:
     return any(q8.is_quantized_weight(n) for n in params["blocks"].values())
 
 
+def _tree_quantized(params) -> bool:
+    """True for any int8-weight tree (embedding or blocks)."""
+    return q8.is_quantized_weight(params["embed"]) or _blocks_quantized(params)
+
+
 def _layer_weights(w: Dict, li: int, dtype) -> Dict[str, torch.Tensor]:
     """Layer ``li`` of the stacked block weights. A {"q8", "scale"}
     node dequantizes here, for this layer alone: ``q8 * scale`` in fp32,
@@ -501,15 +510,25 @@ def _serve_ffn(w, h2, cfg: TransformerConfig):
 
 
 def _dropout(h: torch.Tensor, rate: float,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator: Optional[torch.Generator],
+             sp: Optional["_Split"] = None) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate
     (uniform draws from ``generator``, which must live on ``h``'s
-    device) and scale the kept ones by 1 / (1 - rate)."""
+    device) and scale the kept ones by 1 / (1 - rate). Given the
+    :class:`_Split` of a forward, ``h`` is this rank's [b, t, ...]
+    block: the uniforms are drawn for the GLOBAL [B, T, ...] activation
+    and this rank's block of them is kept, as the JAX forward draws one
+    global mask and shards it. So ranks whose generators are seeded
+    alike draw the unsharded step's masks at any world size, and the
+    ranks of one ``model`` group draw the same block."""
     if rate <= 0.0:
         return h
-    keep = torch.rand(h.shape, generator=generator, device=h.device) \
-        < 1.0 - rate
-    return torch.where(keep, h / (1.0 - rate), 0.0).to(h.dtype)
+    shape = h.shape if sp is None else \
+        (sp.nb * sp.b, sp.ns * sp.t) + tuple(h.shape[2:])
+    u = torch.rand(shape, generator=generator, device=h.device)
+    if sp is not None:
+        u = u[sp.rows, sp.cols]
+    return torch.where(u < 1.0 - rate, h / (1.0 - rate), 0.0).to(h.dtype)
 
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
@@ -531,7 +550,11 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     With a ``mesh`` every rank runs its block of the step (SPMD, see
     :func:`param_shardings`): ``params`` in their stored layout (this
     rank's shards, DTensors, or whole leaves it slices), ``tokens`` and
-    ``lengths`` global; the global logits come back on every rank."""
+    ``lengths`` global; the global logits come back on every rank.
+    Each dropout site draws the mask of the global [B, T, D] activation
+    from ``generator`` and keeps this rank's block, in the unsharded
+    forward's order: if every rank's generator is seeded alike, the
+    masks are the unsharded forward's at any world size."""
     return _forward_impl(params, tokens, cfg, mesh=mesh, lengths=lengths,
                          generator=generator, return_aux=return_aux)
 
@@ -573,11 +596,17 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     (``spmd.copy_to``: identity forward, all-reduce backward;
     ``spmd.reduce_from``: all-reduce forward), the qkv columns gathered
     on use (the [q|k|v] column shards are not head-aligned), ring or
-    all-to-all attention over ``seq``, the embedding and the vocab head
-    vocab-parallel over ``model``, the MoE over the gathered global
-    tokens with experts over ``expert``. Each collective is the identity
-    where its axes span one rank, so a mesh of one rank runs the
-    unsharded operations."""
+    all-to-all attention over ``seq`` (or the gathered global sequence
+    without ``cfg.use_ring_attention``, :func:`_attention`), the
+    embedding and the vocab head vocab-parallel over ``model``, the MoE
+    over the gathered global tokens with experts over ``expert``, the
+    dropout masks drawn globally (:func:`_dropout`). ``return_kv``
+    gathers each layer's k / v whole, and the ``"last"`` / ``"gather"``
+    heads gather the final hidden state over the token axes before they
+    pick positions, so those come back global on every rank. Each
+    collective is the identity where its axes span one rank, so a mesh
+    of one rank runs the unsharded operations. The int8-weight tree is
+    refused under a mesh, as the JAX forward takes none."""
     if head not in HEADS:
         raise ValueError(f"head {head!r}: one of {HEADS}")
     if not 0.0 <= cfg.dropout < 1.0:
@@ -586,15 +615,8 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     B, T = tokens.shape
     sp = _Split.of(mesh, cfg, B, T)
     if mesh is not None:
-        if generator is not None:
-            raise ValueError("dropout under a mesh is not supported: the "
-                             "port's masks are per-device draws")
-        if q8.is_quantized_weight(params["embed"]) or \
-                _blocks_quantized(params):
+        if _tree_quantized(params):
             raise ValueError("the mesh path takes the float parameter tree")
-        if return_kv or head not in ("all", "shard"):
-            raise ValueError("the mesh path has the \"all\" and \"shard\" "
-                             "heads and returns no k/v")
         params = _local_params(params, cfg, mesh)
     b, t = sp.b, sp.t
     H, Dh, Hkv, D = cfg.n_heads, cfg.head_dim, cfg.kv_heads, cfg.d_model
@@ -606,7 +628,7 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     pos0 = sp.isq * t
     if not cfg.use_rope:
         x = x + params["pos"][pos0:pos0 + t].to(dt)[None]
-    x = _dropout(x, rate, generator)
+    x = _dropout(x, rate, generator, sp)
     rope_tabs = (_rope_tables(torch.arange(pos0, pos0 + t,
                                            device=tokens.device), Dh,
                               cfg.rope_theta) if cfg.use_rope else None)
@@ -631,12 +653,13 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
         v = v.reshape(b, t, Hkvl, Dh)
         if cfg.use_rope:
             q, k = _rope(q, rope_tabs), _rope(k, rope_tabs)
-        kv = (k.to(dt), v.to(dt)) if return_kv else None
+        kv = (sp.gather(k.to(dt)), sp.gather(v.to(dt))) if return_kv \
+            else None
         attn = _attention(q, k, v, cfg, sp, len_l)
         attn = attn.reshape(b, t, Hl * Dh)
         y = spmd.reduce_from(attn @ wl["attn_out"].to(attn.dtype), mesh,
                              sp.model)
-        x = x + _dropout(y, rate, generator)
+        x = x + _dropout(y, rate, generator, sp)
         h2 = norm.layer_norm(x, wl["ln2"], wl["ln2_b"])
         if cfg.moe_experts:
             # routing capacity is over the GLOBAL tokens, as in the JAX
@@ -645,12 +668,12 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
             out, aux = moe.moe_ffn(_moe_weights(wl), hg.reshape(B * T, D),
                                    cfg.moe_cfg(), mesh=mesh)
             out = out.reshape(B, T, D)[sp.rows, sp.cols]
-            x = x + _dropout(out.to(x.dtype), rate, generator)
+            x = x + _dropout(out.to(x.dtype), rate, generator, sp)
             return x, kv, aux
         h2 = spmd.copy_to(h2, mesh, sp.model)
         y = spmd.reduce_from(_mlp(h2, wl["mlp_in"], wl["mlp_out"]), mesh,
                              sp.model)
-        return x + _dropout(y, rate, generator), kv, None
+        return x + _dropout(y, rate, generator, sp), kv, None
 
     if cfg.remat != "none" and not return_kv:
         # layer-granular recompute: the backward rebuilds each block,
@@ -676,15 +699,21 @@ def _forward_impl(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
             auxs.append(aux)
     aux_total = (torch.stack(auxs).sum() if auxs else
                  torch.zeros((), dtype=torch.float32, device=x.device))
-    if head == "last":
-        x = x[:, -1:]
-    elif head == "gather":
-        idx = gather_pos.long().clamp(0, T - 1).reshape(B, 1, 1)
-        x = x.gather(1, idx.expand(B, 1, x.shape[-1]))
+    if head in ("last", "gather"):
+        # the positions are global: the [B, T, D] hidden state on every
+        # rank first (it is replicated over ``model`` already)
+        x = sp.gather(x, model=False)
+        if head == "last":
+            x = x[:, -1:]
+        else:
+            idx = gather_pos.long().clamp(0, T - 1).reshape(B, 1, 1)
+            x = x.gather(1, idx.expand(B, 1, x.shape[-1]))
     x = norm.layer_norm(x, params["ln_f"], params["ln_f_b"])
     logits = _vocab_logits(spmd.copy_to(x, mesh, sp.model), params)
     if head == "all":
-        logits = sp.gather_logits(logits)
+        logits = sp.gather(logits)
+    elif head != "shard":
+        logits = spmd.gather_replicated(logits, mesh, sp.model, 2)
     out = (logits,)
     if return_kv:
         out += ((torch.stack(ks), torch.stack(vs)),)
@@ -704,7 +733,9 @@ def lm_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
     With a ``mesh`` (:func:`forward`): the global loss on every rank,
     the vocab head's cross-entropy vocab-parallel over ``model``. Its
     backward leaves each rank the gradient of its own tokens' share:
-    :func:`sync_grads` sums them over the batch and sequence axes."""
+    :func:`sync_grads` sums them over the batch and sequence axes. With
+    a ``generator`` seeded alike on every rank, the dropout masks, and
+    so the loss and the synced gradients, are the unsharded step's."""
     B, T = tokens.shape
     sp = _Split.of(mesh, cfg, B, T)
     logits, aux = _forward_impl(params, tokens, cfg, mesh=mesh,
@@ -874,8 +905,6 @@ class _Split:
         if cfg.n_heads % nm or cfg.kv_heads % nm:
             raise ValueError(f"model axis {nm} must divide n_heads="
                              f"{cfg.n_heads} and kv_heads={cfg.kv_heads}")
-        if ns > 1 and not cfg.use_ring_attention:
-            raise ValueError("a seq axis > 1 needs cfg.use_ring_attention")
         if B % nb or T % ns:
             raise ValueError(
                 f"tokens [{B}, {T}] do not split over the batch axes {bax} "
@@ -897,14 +926,17 @@ class _Split:
     def tok_axes(self) -> tuple:
         return self.bax + ((self.seq,) if self.seq else ())
 
-    def gather_logits(self, logits):
-        """This rank's [b, t, V / model] block -> the global logits on
-        every rank."""
-        out = spmd.gather_replicated(logits, self.mesh, self.model, 2)
-        out = spmd.gather_replicated(out, self.mesh, self.seq, 1)
+    def gather(self, x, model: bool = True):
+        """This rank's [b, t, X / model, ...] block (the logits, a
+        layer's k / v) -> the global [B, T, X, ...] value on every rank;
+        with ``model`` False, a [b, t, ...] block replicated over
+        ``model`` (the hidden state) -> [B, T, ...]."""
+        if model:
+            x = spmd.gather_replicated(x, self.mesh, self.model, 2)
+        x = spmd.gather_replicated(x, self.mesh, self.seq, 1)
         for a in reversed(self.bax):
-            out = spmd.gather_replicated(out, self.mesh, a, 0)
-        return out
+            x = spmd.gather_replicated(x, self.mesh, a, 0)
+        return x
 
 
 def _local_params(params: Dict, cfg: TransformerConfig, mesh) -> Dict:
@@ -914,6 +946,30 @@ def _local_params(params: Dict, cfg: TransformerConfig, mesh) -> Dict:
     out = {k: _local_leaf(params[k], lays[k], gsh[k])
            for k in ("embed", "pos", "ln_f", "ln_f_b")}
     out["blocks"] = {k: _local_leaf(v, lays["blocks"][k], gsh["blocks"][k])
+                     for k, v in params["blocks"].items()}
+    return out
+
+
+def _whole_leaf(t, lay, gshape):
+    """:func:`_local_leaf`'s inverse: a DTensor or a plain shard of the
+    :func:`param_shardings` layout all-gathered whole, a whole leaf as
+    it is."""
+    if spmd.is_sharded(t):
+        return spmd.full(t, tag="param")
+    if lay.is_fully_replicated or tuple(t.shape) == tuple(gshape):
+        return t
+    return spmd.full(spmd.as_dtensor(t.contiguous(), lay, gshape),
+                     tag="param")
+
+
+def _whole_params(params: Dict, cfg: TransformerConfig, mesh) -> Dict:
+    """The whole tree on every rank, from a tree in any stored layout a
+    mesh forward takes (:func:`_whole_leaf`)."""
+    lays = param_shardings(cfg, mesh)
+    gsh = _global_shapes(cfg)
+    out = {k: _whole_leaf(params[k], lays[k], gsh[k])
+           for k in ("embed", "pos", "ln_f", "ln_f_b")}
+    out["blocks"] = {k: _whole_leaf(v, lays["blocks"][k], gsh["blocks"][k])
                      for k, v in params["blocks"].items()}
     return out
 
@@ -951,8 +1007,20 @@ def _attention(q, k, v, cfg, sp: _Split, lengths):
     """Causal attention of this rank's [b, t, h, Dh] q/k/v: kernel 5/6
     (:func:`ops.kernels.attention.flash_attention`) or, with
     ``lengths``, :func:`parallel.ring.full_attention`; over a ``seq``
-    split the ring (flash or plain) or the all-to-all engine."""
+    split with ``cfg.use_ring_attention`` the ring (flash or plain) or
+    the all-to-all engine, without it the global sequence (as the JAX
+    forward lets GSPMD gather it): q, k and v gathered over ``seq``,
+    attention over all T positions, this rank's t rows kept. That
+    compute is ``ns``-fold redundant, as GSPMD's gather is; the gathers'
+    backward reduce-scatters, summing the ranks' k / v gradients."""
     use_flash = lengths is None
+    if sp.ns > 1 and not cfg.use_ring_attention:
+        q, k, v = (spmd.gather_on_use(x.contiguous(), sp.mesh, sp.seq, 1)
+                   for x in (q, k, v))
+        out = (kattention.flash_attention(q, k, v, causal=True) if use_flash
+               else ring.full_attention(q, k, v, causal=True,
+                                        lengths=lengths))
+        return out[:, sp.cols]
     if sp.ns > 1:
         with compat.bind_mesh(sp.mesh):
             if cfg.cp_mode == "alltoall":
@@ -1030,19 +1098,24 @@ def cache_to_numpy(cache: Dict) -> Dict[str, np.ndarray]:
 
 
 def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
-            cache_len: int):
+            cache_len: int, *, mesh=None):
     """Batched prompt ingestion: tokens [B, T] -> (logits at the last
     position [B, vocab] fp32, arena {"k", "v"} [L, B, cache_len, Hkv,
     Dh] holding the prompt's k/v at positions 0..T-1 and zeros after).
     The training forward's block (kernel 5 for attention) with the
     ``"last"`` head. Equal-length prompts only: the lockstep decode
-    shares one position across the batch."""
+    shares one position across the batch.
+
+    With a ``mesh`` the forward runs as :func:`forward`'s mesh path
+    (``params`` in their stored layout, ``tokens`` global on every
+    rank); the k / v and the last hidden state are gathered, so every
+    rank returns the same global logits and arena."""
     T = tokens.shape[1]
     if T > cache_len:
         raise ValueError(f"prefill: {T} prompt tokens exceed cache_len "
                          f"{cache_len}")
-    logits, kv = _forward_impl(params, tokens, cfg, return_kv=True,
-                               head="last")
+    logits, kv = _forward_impl(params, tokens, cfg, mesh=mesh,
+                               return_kv=True, head="last")
     L, B = kv[0].shape[:2]
     cache = {}
     for n, t in zip(("k", "v"), kv):
@@ -1151,7 +1224,7 @@ def decode_step_slots(params, cache, tokens: torch.Tensor,
 
 
 def prefill_into_slot(params, cache, tokens: torch.Tensor, length, slot,
-                      cfg: TransformerConfig):
+                      cfg: TransformerConfig, *, mesh=None):
     """Prefill ONE request into arena row ``slot``.
 
     tokens [1, Tb] is the prompt right-padded to its bucket; ``length``
@@ -1163,7 +1236,12 @@ def prefill_into_slot(params, cache, tokens: torch.Tensor, length, slot,
     real positions), then the [L, 1, Tb, Hkv, Dh] k/v land in row
     ``slot`` at positions 0..Tb-1 with one ``index_copy_`` per array;
     every other row keeps its bytes. The padded positions' k/v are
-    overwritten by decode steps before any mask lets them be read."""
+    overwritten by decode steps before any mask lets them be read.
+
+    With a ``mesh`` the forward is :func:`prefill`'s mesh path: the
+    [1, Tb] prompt splits over the mesh as any batch does (so a batch
+    axis of more than one rank raises, as the JAX function's sharding
+    constraint does), and every rank writes the same row of its arena."""
     if tokens.shape[0] != 1:
         raise ValueError(f"prefill_into_slot takes one request "
                          f"([1, Tb] tokens), got {tuple(tokens.shape)}")
@@ -1171,8 +1249,8 @@ def prefill_into_slot(params, cache, tokens: torch.Tensor, length, slot,
     Tb = tokens.shape[1]
     length = torch.as_tensor(length, dtype=torch.int32, device=dev)
     slot = torch.as_tensor(slot, device=dev).long().reshape(1)
-    logits, kv = _forward_impl(params, tokens, cfg, return_kv=True,
-                               head="gather",
+    logits, kv = _forward_impl(params, tokens, cfg, mesh=mesh,
+                               return_kv=True, head="gather",
                                gather_pos=length.reshape(1) - 1)
     for n, t in zip(("k", "v"), kv):
         cache[n][:, :, :Tb].index_copy_(1, slot, t.to(cache[n].dtype))
@@ -1428,9 +1506,25 @@ def _check_lockstep(what: str, Tp: int, max_new: int,
                          f"cfg.max_len={cfg.max_len}")
 
 
+def _mesh_prefill(params, prompt, cfg, cache_len, mesh):
+    """The lockstep paths' prefill: (logits, arena, the tree the decode
+    steps run on). Without a mesh, :func:`prefill` and ``params``. With
+    one, :func:`prefill` under it (of the whole dequantized tree for an
+    int8 tree, as the JAX function dequantizes it first) and the whole
+    tree: the int8 tree as it is, a float tree gathered."""
+    if mesh is None:
+        return prefill(params, prompt, cfg, cache_len) + (params,)
+    if _tree_quantized(params):
+        live, whole = q8.dequantize_tree(params), params
+    else:
+        live, whole = params, _whole_params(params, cfg, mesh)
+    return prefill(live, prompt, cfg, cache_len, mesh=mesh) + (whole,)
+
+
 def generate(params, prompt: torch.Tensor, cfg: TransformerConfig, *,
              max_new: int, temperature: float = 0.0,
-             key: Optional[torch.Tensor] = None) -> torch.Tensor:
+             key: Optional[torch.Tensor] = None,
+             mesh=None) -> torch.Tensor:
     """Autoregressive generation: prompt [B, Tp] -> [B, Tp + max_new]
     int32, on the prompt's device. :func:`prefill` fills an arena of
     ``Tp + max_new`` positions, then ``max_new - 1`` :func:`decode_step`
@@ -1444,7 +1538,14 @@ def generate(params, prompt: torch.Tensor, cfg: TransformerConfig, *,
     the noise on the prompt's device, and no step reads the device
     until the ids are returned. ``params`` may be the int8-weight tree
     (dequantized a layer at a time; the JAX function dequantizes the
-    whole tree first, to the same bytes)."""
+    whole tree first, to the same bytes).
+
+    ``mesh`` reaches :func:`prefill` only, as in the JAX function (an
+    int8 tree is dequantized whole for it). The decode steps run
+    unsharded on the whole tree, gathered once per call before the loop
+    (:func:`_whole_params`), where the JAX decode runs partitioned under
+    GSPMD: the same ids for more memory a rank. The key chain is the
+    host's, so every rank returns the same ids."""
     B, Tp = prompt.shape
     _check_lockstep("generate", Tp, max_new, cfg)
     if temperature > 0 and key is None:
@@ -1463,7 +1564,8 @@ def generate(params, prompt: torch.Tensor, cfg: TransformerConfig, *,
             return torch.argmax(logits, dim=-1).to(torch.int32)
         return prng.categorical(k, logits / temp).to(torch.int32)
 
-    logits, cache = prefill(params, prompt, cfg, Tp + max_new)
+    logits, cache, params = _mesh_prefill(params, prompt, cfg,
+                                          Tp + max_new, mesh)
     toks = [sample(logits, keys[0])]
     for i in range(max_new - 1):
         logits, cache = decode_step(params, cache, toks[-1], Tp + i, cfg)
@@ -1473,7 +1575,7 @@ def generate(params, prompt: torch.Tensor, cfg: TransformerConfig, *,
 
 
 def beam_search(params, prompt: torch.Tensor, cfg: TransformerConfig, *,
-                max_new: int, beam_size: int = 4):
+                max_new: int, beam_size: int = 4, mesh=None):
     """Beam search over the arena: prompt [B, Tp] -> (tokens [B, K,
     Tp + max_new] int32, scores [B, K] fp32), best first, K =
     ``beam_size``. The prefill's log-softmax seeds K hypotheses per row;
@@ -1481,7 +1583,8 @@ def beam_search(params, prompt: torch.Tensor, cfg: TransformerConfig, *,
     lower index, as ``lax.top_k``), and gathers the arena rows of the
     surviving hypotheses; the tokens are recovered by walking the
     survivors' back-pointers. No length penalty: every hypothesis has
-    ``max_new`` tokens. Scores are sums of fp32 log-probabilities."""
+    ``max_new`` tokens. Scores are sums of fp32 log-probabilities.
+    ``mesh`` reaches :func:`prefill` only, as in :func:`generate`."""
     B, Tp = prompt.shape
     _check_lockstep("beam_search", Tp, max_new, cfg)
     if beam_size < 1 or beam_size > cfg.vocab:
@@ -1489,7 +1592,8 @@ def beam_search(params, prompt: torch.Tensor, cfg: TransformerConfig, *,
                          f"[1, vocab={cfg.vocab}]")
     K, V = int(beam_size), cfg.vocab
     dev = prompt.device
-    logits, cache = prefill(params, prompt, cfg, Tp + max_new)
+    logits, cache, params = _mesh_prefill(params, prompt, cfg,
+                                          Tp + max_new, mesh)
     scores, toks = _top_k(torch.log_softmax(logits, dim=-1), K)
     cache = {n: c.repeat_interleave(K, dim=1) for n, c in cache.items()}
     toks = toks.to(torch.int32)

@@ -423,17 +423,6 @@ def case_lm(ctx, cfg, mesh_shape, mesh_axes, use_lengths=False,
     loc = tt.shard_params(full, c, mesh, trainable=True)
     toks, tgt = ctx.t("toks"), ctx.t("tgt")
     lens = ctx.t("lens") if use_lengths else None
-    lays = tt.param_shardings(c, mesh)
-
-    def leaves(tree):
-        out = [(k, v) for k, v in tree.items() if k != "blocks"]
-        return out + [("blocks/" + k, v) for k, v in tree["blocks"].items()]
-
-    def lay_of(name):
-        if name.startswith("blocks/"):
-            return lays["blocks"][name[7:]]
-        return lays[name]
-
     if want == "logits":
         logits = tt.forward(loc, toks, c, mesh=mesh, lengths=lens)
         return {"logits": _np(logits)}
@@ -446,8 +435,8 @@ def case_lm(ctx, cfg, mesh_shape, mesh_axes, use_lengths=False,
         losses = []
         for _ in range(steps):
             loss = tt.lm_loss(loc, toks, tgt, c, mesh=mesh, lengths=lens)
-            g = torch.autograd.grad(loss, [v for _, v in leaves(loc)])
-            names = [n for n, _ in leaves(loc)]
+            g = torch.autograd.grad(loss, [v for _, v in _leaves(loc)])
+            names = [n for n, _ in _leaves(loc)]
             gt = {"blocks": {}}
             for n, gg in zip(names, g):
                 if n.startswith("blocks/"):
@@ -456,15 +445,29 @@ def case_lm(ctx, cfg, mesh_shape, mesh_axes, use_lengths=False,
                     gt[n] = gg
             gt = tt.sync_grads(gt, c, mesh)
             with torch.no_grad():
-                for n, v in leaves(loc):
+                for n, v in _leaves(loc):
                     gg = gt["blocks"][n[7:]] if n.startswith("blocks/") \
                         else gt[n]
                     v -= lr * gg
             losses.append(float(loss))
         from paddle_tpu_torch.core import place
         return {"losses": losses, "mesh": place.mesh_shape(mesh)}
-    names = [n for n, _ in leaves(loc)]
-    g = torch.autograd.grad(loss, [v for _, v in leaves(loc)])
+    return {"loss": float(loss), "grads": _synced_grads(loss, loc, c, mesh),
+            "kinds": sorted({(r["kind"], r["axis"]) for r in rec})}
+
+
+def _leaves(tree):
+    out = [(k, v) for k, v in tree.items() if k != "blocks"]
+    return out + [("blocks/" + k, v) for k, v in tree["blocks"].items()]
+
+
+def _synced_grads(loss, loc, c, mesh):
+    """{leaf name: (this rank's synced gradient, its slices of the
+    global leaf)} of a mesh loss over the stored shards ``loc``."""
+    import paddle_tpu_torch.models.transformer as tt
+    lays, gsh = tt.param_shardings(c, mesh), tt._global_shapes(c)
+    names = [n for n, _ in _leaves(loc)]
+    g = torch.autograd.grad(loss, [v for _, v in _leaves(loc)])
     gt = {"blocks": {}}
     for n, gg in zip(names, g):
         if n.startswith("blocks/"):
@@ -474,13 +477,12 @@ def case_lm(ctx, cfg, mesh_shape, mesh_axes, use_lengths=False,
     gt = tt.sync_grads(gt, c, mesh)
     grads = {}
     for n in names:
-        gg = gt["blocks"][n[7:]] if n.startswith("blocks/") else gt[n]
-        sl = lay_of(n).local_slices(full["blocks"][n[7:]].shape
-                                    if n.startswith("blocks/")
-                                    else full[n].shape)
+        blk = n.startswith("blocks/")
+        gg = gt["blocks"][n[7:]] if blk else gt[n]
+        lay = lays["blocks"][n[7:]] if blk else lays[n]
+        sl = lay.local_slices(gsh["blocks"][n[7:]] if blk else gsh[n])
         grads[n] = (_np(gg), [(s.start, s.stop) for s in sl])
-    return {"loss": float(loss), "grads": grads,
-            "kinds": sorted({(r["kind"], r["axis"]) for r in rec})}
+    return grads
 
 
 def case_wire(ctx):
@@ -637,4 +639,124 @@ def case_pipe(ctx, S, M, v=1, mode="gpipe", mesh_shape=None,
         loss = ((out - y) ** 2).mean()
         gw, gb = torch.autograd.grad(loss, [w, b])
         res.update(loss=float(loss), gw=_np(gw), gb=_np(gb))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the transformer's mesh paths (tests/test_torch_mesh_paths.py)
+# ---------------------------------------------------------------------------
+
+def _np_nested(ctx, prefix="p/"):
+    """The inputs under ``prefix`` as a nested tree ("blocks/qkv/q8" ->
+    tree["blocks"]["qkv"]["q8"]): an int8 tree keeps its nodes."""
+    tree: dict = {}
+    for name, arr in ctx.inputs.items():
+        if name.startswith(prefix):
+            *path, leaf = name[len(prefix):].split("/")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = arr
+    return tree
+
+
+def case_mesh_loss(ctx, cfg, mesh_shape, mesh_axes, use_lengths=False,
+                   seed=None):
+    """``lm_loss`` under the mesh from the JAX parameters with the synced
+    gradient slices, with dropout drawn from a generator seeded ``seed``
+    on every rank (none when ``seed`` is None); with a seed, also the
+    port's unsharded loss and gradients from the same seed."""
+    import paddle_tpu_torch.models.transformer as tt
+    c = _lm_cfg(cfg)
+    mesh = _mesh(mesh_shape, mesh_axes)
+    full = tt.train_params_from_numpy(_np_tree(ctx), device="cpu")
+    loc = tt.shard_params(full, c, mesh, trainable=True)
+    toks, tgt = ctx.t("toks"), ctx.t("tgt")
+    lens = ctx.t("lens") if use_lengths else None
+
+    def gen():
+        return None if seed is None else torch.Generator().manual_seed(seed)
+
+    try:
+        loss = tt.lm_loss(loc, toks, tgt, c, mesh=mesh, lengths=lens,
+                          generator=gen())
+    except ValueError as e:
+        return {"error": str(e)}
+    out = {"loss": float(loss), "grads": _synced_grads(loss, loc, c, mesh)}
+    if seed is not None:
+        ref = tt.lm_loss(full, toks, tgt, c, lengths=lens, generator=gen())
+        g = torch.autograd.grad(ref, [v for _, v in _leaves(full)])
+        out["ref_loss"] = float(ref)
+        out["ref_grads"] = {n: _np(gg) for (n, _), gg
+                            in zip(_leaves(full), g)}
+    return out
+
+
+def _serving_tree(ctx, c, mesh, store):
+    """The serving dict from the JAX tree in a stored layout: "shard"
+    (this rank's plain shards), "dtensor", "whole" (the mesh forward
+    slices it) or "int8" (the JAX int8 tree, whole)."""
+    import paddle_tpu_torch.models.transformer as tt
+    from paddle_tpu_torch.parallel import spmd
+    full = tt.params_from_numpy(_np_nested(ctx), c, device="cpu")
+    if store in ("whole", "int8"):
+        return full
+    loc = tt.shard_params(full, c, mesh)
+    if store == "shard":
+        return loc
+    lays, gsh = tt.param_shardings(c, mesh), tt._global_shapes(c)
+
+    def dt(t, lay, shape):
+        return t if lay.is_fully_replicated else \
+            spmd.as_dtensor(t, lay, shape)
+
+    out = {k: dt(loc[k], lays[k], gsh[k]) for k in loc if k != "blocks"}
+    out["blocks"] = {k: dt(v, lays["blocks"][k], gsh["blocks"][k])
+                     for k, v in loc["blocks"].items()}
+    return out
+
+
+def case_mesh_serve(ctx, cfg, mesh_shape, mesh_axes, what, store="shard",
+                    cache_len=24, length=None, slot=None, max_new=4,
+                    temperature=0.0, key=None, beam=4):
+    """One serving entry point with ``mesh=`` on every rank, the tree in
+    the ``store`` layout (:func:`_serving_tree`): "prefill", "slot"
+    (into row ``slot`` of the arena input ``k`` / ``v``), "generate",
+    "beam" or "forward"; with the collective record of the call."""
+    import paddle_tpu_torch.models.transformer as tt
+    from paddle_tpu_torch.ops import prng
+    from paddle_tpu_torch.parallel import spmd
+    c = _lm_cfg(cfg)
+    mesh = _mesh(mesh_shape, mesh_axes)
+    params = _serving_tree(ctx, c, mesh, store)
+    toks = ctx.t("toks")
+    try:
+        with torch.no_grad(), spmd.record_collectives() as rec:
+            if what == "prefill":
+                logits, cache = tt.prefill(params, toks, c, cache_len,
+                                           mesh=mesh)
+                res = {"logits": _np(logits), "k": _np(cache["k"]),
+                       "v": _np(cache["v"])}
+            elif what == "slot":
+                cache = {n: ctx.t(n) for n in ("k", "v")}
+                logits, cache = tt.prefill_into_slot(
+                    params, cache, toks, length, slot, c, mesh=mesh)
+                res = {"logits": _np(logits), "k": _np(cache["k"]),
+                       "v": _np(cache["v"])}
+            elif what == "generate":
+                kw = {} if key is None else {"key": prng.prng_key(key)}
+                ids = tt.generate(params, toks, c, max_new=max_new,
+                                  temperature=temperature, mesh=mesh, **kw)
+                res = {"ids": _np(ids)}
+            elif what == "beam":
+                seq, scores = tt.beam_search(params, toks, c,
+                                             max_new=max_new,
+                                             beam_size=beam, mesh=mesh)
+                res = {"ids": _np(seq), "scores": _np(scores)}
+            else:
+                res = {"logits": _np(tt.forward(params, toks, c,
+                                                mesh=mesh))}
+    except ValueError as e:
+        return {"error": str(e)}
+    res["collectives"] = [(r["kind"], r["axis"], r["tag"]) for r in rec]
     return res
